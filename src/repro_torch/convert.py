@@ -1,0 +1,82 @@
+"""State and weights across the two packages, as numpy.
+
+``state_from_numpy`` takes the reference's one-shard ``DFAState`` with
+its leaves as numpy arrays (``uint32`` / ``bool``; scalar counters tiled
+to shape (1,), as the reference's ``init_state`` lays them out) — any
+object with ``reporter`` / ``translator`` / ``collector`` attributes that
+carry the reference's field names — and builds the port's state on a
+device. ``state_to_numpy`` is the inverse, in the reference's dtypes and
+shapes, so the two can be compared leaf by leaf. ``head_params_from_numpy``
+loads the reference head's ``{"w", "b"}`` / ``{"w1", "b1", "w2", "b2"}``
+into a :class:`~repro_torch.models.flow_head.FlowHead`.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import u32 as U
+from repro_torch.core.collector import CollectorState
+from repro_torch.core.pipeline import DFAState
+from repro_torch.core.reporter import ReporterState
+from repro_torch.core.translator import TranslatorState
+
+_GROUPS = (("reporter", ReporterState), ("translator", TranslatorState),
+           ("collector", CollectorState))
+
+
+def _leaf_in(a, name: str, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(a.copy()).to(device)
+    t = U.from_numpy(a, device)
+    # reference scalars are per-shard (1,) slices; the port's are ()
+    return t.reshape(()) if name in _SCALARS else t
+
+
+def _leaf_out(t: torch.Tensor, name: str) -> np.ndarray:
+    if t.dtype == torch.bool:
+        return t.detach().cpu().numpy()
+    a = U.to_numpy(t)
+    return a.reshape(1) if name in _SCALARS else a
+
+
+_SCALARS = ("seq", "collisions", "bad_checksum", "seq_anomalies",
+            "received", "lost_reports")
+
+
+def state_from_numpy(state, device="cpu") -> DFAState:
+    """Reference one-shard state (numpy leaves) -> the port's DFAState."""
+    parts = []
+    for group, cls in _GROUPS:
+        src = getattr(state, group)
+        parts.append(cls(*(_leaf_in(getattr(src, f), f, device)
+                           for f in cls._fields)))
+    return DFAState(*parts)
+
+
+def state_to_numpy(state: DFAState) -> DFAState:
+    """The port's state -> the same NamedTuples holding numpy leaves in the
+    reference's dtypes and shapes."""
+    return DFAState(*(cls(*(_leaf_out(getattr(getattr(state, group), f), f)
+                            for f in cls._fields))
+                      for group, cls in _GROUPS))
+
+
+def head_params_from_numpy(head: torch.nn.Module,
+                           params: Mapping[str, np.ndarray]) -> None:
+    """Copy reference head parameters (numpy, (in, out) layout) into
+    ``head`` in place; the names must match the head's kind exactly."""
+    own = dict(head.named_parameters())
+    if set(own) != set(params):
+        raise ValueError(f"head parameters {sorted(own)} do not match the "
+                         f"given {sorted(params)}")
+    with torch.no_grad():
+        for name, p in own.items():
+            src = torch.from_numpy(np.array(params[name], np.float32))
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(src)

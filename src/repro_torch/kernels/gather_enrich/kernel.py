@@ -1,0 +1,45 @@
+"""Binding of the CUDA kernel ``gather_enrich`` (csrc/gather_enrich.cu,
+whose body is the shared ``csrc/derive_block.cuh``)."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import wire as WIRE
+from repro_torch.kernels.build import CudaKernel, ptr, stream_ptr
+
+WORDS = 16
+
+KERNEL = CudaKernel(
+    "gather_enrich",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    replaces="src/repro/kernels/gather_enrich/kernel.py:66")
+
+
+def gather_enrich_cuda(memory, entry_valid, local_flow, derived_dim: int,
+                       wire: WIRE.WireFormat) -> torch.Tensor:
+    """(F, H, 16) ring + (F, H) validity + (R,) local flows -> (R, D) f32;
+    same contract as ``ref.gather_enrich_ref``."""
+    F, H, W = memory.shape
+    R = local_flow.shape[0]
+    dev = memory.device
+    checks = (("memory", memory, torch.int32, (F, H, WORDS)),
+              ("entry_valid", entry_valid, torch.bool, (F, H)),
+              ("local_flow", local_flow, torch.int32, (R,)))
+    for name, t, dtype, shape in checks:
+        if (t.device != dev or not t.is_cuda or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: need a contiguous {shape} {dtype} tensor on the "
+                f"card ({dev}), got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if (wire.payload_stats != (1, 8) or wire.payload_hist.word not in (13, 15)
+            or wire.payload_words != WORDS):
+        raise ValueError(f"wire format {wire.name!r}: the kernel reads stats "
+                         "from words 1-7 and hist_idx from word 13 or 15")
+    out = torch.empty(R, derived_dim, dtype=torch.float32, device=dev)
+    hf = wire.payload_hist
+    KERNEL.launch(ptr(memory), ptr(entry_valid), ptr(local_flow), ptr(out),
+                  R, F, H, derived_dim, hf.word, hf.shift, hf.mask,
+                  stream_ptr(dev))
+    return out

@@ -1,0 +1,119 @@
+"""Each CUDA kernel of the port against its plain version, on the card.
+
+Marked ``gpu``: whether a card is present is decided inside the
+``cuda`` fixture, so every worker collects the same tests; on a host
+without one they skip. Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Integers must match bit for bit; features within 1e-5 of each row's
+feature scale (``tests/test_gather_enrich_equiv.py``).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import REDUCED
+from repro_torch.convert import state_to_numpy
+from repro_torch.core import reporter as TR
+from repro_torch.core.pipeline import DFASystem
+from repro_torch.data import packets as PK
+from repro_torch.kernels.gather_enrich import kernel as GK
+from repro_torch.kernels.gather_enrich import ops as GE
+from repro_torch.kernels.ingest_update import kernel as IK
+from repro_torch.kernels.ingest_update import ops as IO
+from repro_torch.kernels.ring_scatter import kernel as RK
+from repro_torch.kernels.ring_scatter import ops as RS
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def row_scaled_err(got, ref):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    scale = ref.abs().amax(-1, keepdim=True).clamp(min=1.0)
+    return float(((got - ref).abs() / scale).max())
+
+
+@pytest.mark.parametrize("E,tile", [(4096, 256), (1000, 64), (300, 7)])
+def test_ingest_segment_sums_bitwise(cuda, E, tile):
+    flows = PK.gen_flows(512, seed=1)
+    ev = PK.events_to_torch(PK.gen_events(flows, (1 << 32) - 5000, 20_000,
+                                          E, seed=2), cuda)
+    st = TR.init_state(dataclasses.replace(REDUCED, flows_per_shard=512),
+                       cuda)
+    slots = TR.hash_slot(ev["five_tuple"], 512)
+    s = IK.stream_prep(st.last_ts, st.keys, st.active, slots, ev["ts"],
+                       ev["size"], ev["five_tuple"], ev["valid"], tile)
+    args = (s.s_slot, s.s_ts, s.s_ps, s.base_ts, s.first.to(torch.int32))
+    before = IK.KERNEL.launches
+    got = IO.segment_sums(*args, bits=7, tile=s.tile)
+    assert IK.KERNEL.launches == before + 1
+    want = IO.segment_sums(*args, bits=7, tile=s.tile, backend="ref")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_cells", [0, 5])
+def test_ring_scatter_bitwise_with_duplicate_cells(cuda, n_cells):
+    g = torch.Generator().manual_seed(n_cells)
+    F, H, R = 1024, 10, 512
+    mem = torch.randint(-(1 << 31), (1 << 31) - 1, (F, H, 16), generator=g,
+                        dtype=torch.int32).to(cuda)
+    ev = (torch.rand(F, H, generator=g) < 0.3).to(cuda)
+    pays = torch.randint(-(1 << 31), (1 << 31) - 1, (R, 16), generator=g,
+                         dtype=torch.int32).to(cuda)
+    if n_cells:
+        cell = torch.randint(0, n_cells, (R,), generator=g)
+        flow, hist = (cell * 37) % F, cell % H
+    else:
+        flow = torch.randint(0, F, (R,), generator=g)
+        hist = torch.randint(0, H, (R,), generator=g)
+    flow, hist = flow.to(cuda), hist.to(cuda)
+    mask = (torch.rand(R, generator=g) < 0.8).to(cuda)
+    mk, vk = mem.clone(), ev.clone()
+    RS.ring_scatter(mk, vk, pays, flow, hist, mask)
+    RS.ring_scatter(mem, ev, pays, flow, hist, mask, backend="ref")
+    assert torch.equal(mk, mem) and torch.equal(vk, ev)
+
+
+@pytest.mark.parametrize("R,H", [(4096, 10), (100, 8), (1, 1)])
+def test_gather_enrich_row_scaled(cuda, R, H):
+    g = torch.Generator().manual_seed(R)
+    F = 4096
+    mem, valid = PK.synthetic_ring(F, H, g)
+    lf = torch.randint(-3, F + 3, (R,), generator=g)
+    cfg = dataclasses.replace(REDUCED, flows_per_shard=F, history=H)
+    got = GE.gather_enrich(mem.to(cuda), valid.to(cuda), lf.to(cuda), cfg)
+    want = GE.gather_enrich(mem, valid, lf, cfg)        # plain, on the CPU
+    ref_card = GE.gather_enrich(mem.to(cuda), valid.to(cuda), lf.to(cuda),
+                                cfg, backend="ref")
+    assert bool(torch.isfinite(got).all())
+    assert row_scaled_err(got, want) <= 1e-5
+    assert row_scaled_err(got, ref_card) <= 1e-5
+
+
+def test_pipeline_kernels_equal_plain_on_card(cuda):
+    system = DFASystem(dataclasses.replace(REDUCED, inference_head="mlp"),
+                       device=cuda)
+    events, nows = PK.period_batches(1, 4, 512, n_flows=200, flow_seed=1,
+                                     device=cuda)
+    launches = [k.launches for k in (IK.KERNEL, RK.KERNEL, GK.KERNEL)]
+    a = system.run_periods(system.init_state(), events, nows)
+    assert all(k.launches >= n + 4 for k, n in
+               zip((IK.KERNEL, RK.KERNEL, GK.KERNEL), launches))
+    b = system.run_periods(system.init_state(), events, nows, backend="ref")
+    for x, y in zip(state_to_numpy(a.state), state_to_numpy(b.state)):
+        for f in type(x)._fields:
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+    for k in a.metrics:
+        assert torch.equal(a.metrics[k], b.metrics[k])
+    assert row_scaled_err(a.enriched.reshape(-1, 96),
+                          b.enriched.reshape(-1, 96)) <= 1e-5

@@ -1,0 +1,104 @@
+"""Import and device rules of the PyTorch port.
+
+* Importing every ``repro_torch`` module (and ``chip_smoke``) loads
+  neither JAX nor any module of the reference package.
+* ``DFASystem`` runs on the card by default: without a card it raises
+  unless the caller asks for ``device="cpu"``.
+* A kernel wrapper handed a CPU tensor runs the plain version, because
+  the tensor lies on the CPU; its launch counter stays 0, and
+  ``backend="cuda"`` on a CPU tensor raises instead of falling back.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import REDUCED
+from repro_torch.core.pipeline import DFASystem
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.gather_enrich import kernel as GK
+from repro_torch.kernels.gather_enrich import ops as GE
+from repro_torch.kernels.ingest_update import kernel as IK
+from repro_torch.kernels.ingest_update import ops as IO
+from repro_torch.kernels.ring_scatter import kernel as RK
+from repro_torch.kernels.ring_scatter import ops as RS
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_PROBE = """
+import importlib, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    src = os.path.abspath(os.path.join(ROOT, "src"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(src=src,
+                                             root=os.path.abspath(ROOT))],
+        capture_output=True, text=True, env=env, timeout=120, check=True)
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, out.stdout
+    assert bad == "[]", f"port pulled in {bad}"
+
+
+def test_system_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default is legitimate")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DFASystem(REDUCED)
+    assert DFASystem(REDUCED, device="cpu").device.type == "cpu"
+
+
+def test_cpu_tensors_run_the_plain_versions(rng):
+    for k in (IK.KERNEL, RK.KERNEL, GK.KERNEL):
+        k.launches = 0
+    F, H = 16, 4
+    mem = torch.zeros(F, H, 16, dtype=torch.int32)
+    ev = torch.zeros(F, H, dtype=torch.bool)
+    pays = torch.from_numpy(rng.integers(0, 1 << 30, (5, 16)).astype(
+        np.int32))
+    flow = torch.tensor([1, 2, 3, 1, 2])
+    hist = torch.tensor([0, 1, 2, 0, 1])
+    RS.ring_scatter(mem, ev, pays, flow, hist, torch.ones(5, dtype=bool))
+    assert torch.equal(mem[1, 0], pays[3]) and int(ev.sum()) == 3
+    cfg = REDUCED
+    feats = GE.gather_enrich(mem, ev, flow, cfg)
+    assert feats.shape == (5, cfg.derived_dim)
+    sl = torch.tensor([0, 0, 1, 16, 16, 16, 16, 16], dtype=torch.int32)
+    z = torch.zeros(8, dtype=torch.int32)
+    out = IO.segment_sums(sl, z + 5, z + 100, z, z, bits=7, tile=4)
+    assert out.shape == (8, 8) and int(out[1, 0]) == 2
+    assert (IK.KERNEL.launches, RK.KERNEL.launches, GK.KERNEL.launches) \
+        == (0, 0, 0)
+    with pytest.raises(RuntimeError, match="backend 'cuda'"):
+        RS.ring_scatter(mem, ev, pays, flow, hist, torch.ones(5, dtype=bool),
+                        backend="cuda")
+    with pytest.raises(ValueError, match="TPU backend"):
+        dispatch.check_backend("interpret")
+
+
+def test_build_is_lazy_and_named_by_source_hash():
+    """No library is built or loaded by importing or by CPU use; the
+    library name changes with the sources it is built from."""
+    from repro_torch.kernels import build
+    for k in (IK.KERNEL, RK.KERNEL, GK.KERNEL):
+        assert k._fn is None
+        assert os.path.exists(os.path.join(ROOT, k.source))
+    p = build._library_path("ring_scatter", build.BUILD_DIR)
+    assert p.name.startswith("ring_scatter-") and p.suffix == ".so"
+    assert p != build._library_path("gather_enrich", build.BUILD_DIR)
