@@ -6,20 +6,27 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device — the card's name, count, power limit; TF32 off;
-2. build — the three CUDA kernels from src/repro_torch/csrc, one nvcc per
+2. build — the five CUDA kernels from src/repro_torch/csrc, one nvcc per
    source in parallel, into build/repro_torch_kernels/ (ptxas report:
    registers and spills);
 3. per-kernel check at PAPER shapes — each kernel against its plain
    PyTorch version on the same inputs on the card (integers bit for bit,
    features within 1e-5 of each row's feature scale), timed with CUDA
-   events in turns (plain, kernel, kernel, plain) beside its bound;
+   events in turns (plain, kernel, kernel, plain) beside its bound, and
+   its device time per call from torch.profiler's device events;
+   flow_moments also against one ``index_add_`` call;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
    warm-up and 8 timed periods with every kernel launch counted, then
    the same periods on the plain versions (backend="ref"), which must
    give the same integer state bit for bit and the same features;
-5. golden — the REDUCED T=4 run reproduces tests/goldens/run_periods_t4.json.
+5. unfused path at PAPER — :func:`unfused_step` (multipass ingest
+   through flow_moments, staged placement, history gather +
+   derived_features) over the main path's first periods: one warm-up
+   and 4 timed, launch counts from 0, every period's integer state,
+   metrics, features and preds held against the fused main path;
+6. golden — the REDUCED T=4 run reproduces tests/goldens/run_periods_t4.json.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -42,6 +49,7 @@ GOLDEN = ROOT / "tests" / "goldens" / "run_periods_t4.json"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (guide table)
 F32_OPS_PER_S = 67e12        # H100 SXM CUDA-core float32 rate (guide table)
 T_MAIN = 8                   # timed main-path periods (after one warm-up)
+T_UNFUSED = 4                # timed unfused-path periods (after one warm-up)
 EVENTS = 1 << 20             # packet events per period on the main path
 FEATURE_TOL = 1e-5           # row-scaled feature tolerance
 PRED_TOL = 1e-5              # head outputs, kernel run vs plain run
@@ -59,7 +67,8 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls (CUDA events;
+    includes the host side of each call when it is the slower side)."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -83,6 +92,34 @@ def in_turns(plain, kernel, iters: int):
     k2 = time_ms(kernel, iters)
     p2 = time_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def dev_us(e) -> float:
+    """Device time of a profiler ``key_averages()`` row, in µs."""
+    return float(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
+
+
+def device_us(kernel, fn, iters: int = 20) -> float:
+    """Device time per call of ``fn`` spent in ``kernel``'s own
+    ``__global__`` functions (``kernel.device_fns``), summed from
+    torch.profiler's device events over ``iters`` calls — the kernel's
+    time without the Python wrapper around it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(dev_us(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(n in e.key for n in kernel.device_fns))
+    require(total > 0, f"the profiler saw no device time in {kernel.name}'s "
+                       f"functions {kernel.device_fns}")
+    return total / iters
 
 
 def feature_err(got, ref) -> float:
@@ -133,6 +170,8 @@ def check_ingest(cfg, dev, flows):
     n_ops = Ep * (4 * 30 + 7 * max(1, s.tile.bit_length() - 1))
     return {"kernel": K.KERNEL, "max_abs_err": float(err), "ms": ms,
             "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": n_ops,
+            "device_us": device_us(K.KERNEL,
+                                   lambda: ops.segment_sums(*args, **kw)),
             "shape": f"E={EVENTS} (Ep={Ep}, tile={s.tile}), F=2^17",
             "check": "bitwise"}
 
@@ -186,6 +225,8 @@ def check_ring_scatter(cfg, dev, gen, mem0, ev0):
     n_bytes = R * (64 + 4 + 4 + 1) + winners * (64 + 1)
     return {"kernel": K.KERNEL, "max_abs_err": float(err), "ms": ms,
             "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": 0,
+            "device_us": device_us(K.KERNEL, lambda: ops.ring_scatter(
+                mk, vk, pays, flow, hist, mask)),
             "shape": f"R={R} into ({F}, {H}, 16), distinct cells "
                      "(duplicate-cell batch checked too)",
             "check": "bitwise"}
@@ -219,16 +260,223 @@ def check_gather_enrich(cfg, dev, gen, mem, valid):
             "max_abs_err": float((got - want).abs().max()),
             "row_scaled_err": scaled, "ms": ms, "plain_ms": plain_ms,
             "n_bytes": n_bytes, "n_ops": n_ops,
+            "device_us": device_us(K.KERNEL, lambda: ops.gather_enrich(
+                mem, valid, lf, cfg)),
             "shape": f"R={R} from ({F}, {H}, 16), D={D}",
             "check": f"row-scaled {FEATURE_TOL:g}"}
 
 
+def check_flow_moments(cfg, dev, flows, gen):
+    """K4 on the deltas of the 2^20-event PAPER trace (the unfused path's
+    shape), bit for bit against its plain version and one ``index_add_``
+    call; plus a wrap-around case and an all-invalid case."""
+    import torch
+    from repro_torch import u32 as U
+    from repro_torch.core import reporter as REP
+    from repro_torch.data import packets as PK
+    from repro_torch.kernels.flow_moments import kernel as K
+    from repro_torch.kernels.flow_moments import ops
+
+    F = cfg.flows_per_shard
+    ev = PK.events_to_torch(PK.gen_events(flows, 0, 20_000, EVENTS, seed=1),
+                            dev)
+    st = REP.init_state(cfg, dev)
+    slots = REP.hash_slot(ev["five_tuple"], F)
+    _, valid = REP.admit(st, slots, ev["five_tuple"], ev["valid"])
+    iat, first, _ = REP.resolve_iat(slots, ev["ts"], valid, st.last_ts,
+                                    st.active)
+    deltas = U.narrow(REP.event_deltas(iat, ev["size"], first, valid,
+                                       cfg.logstar_bits))
+    regs = torch.randint(-(1 << 31), (1 << 31) - 1, (F, 7), generator=gen,
+                         dtype=torch.int32).to(dev)
+    some = valid & (torch.rand(EVENTS, generator=gen) < 0.9).to(dev)
+    n_wrap = 256
+    cases = {
+        "trace": (regs, slots, deltas, valid),
+        "trace, 10% invalid": (regs, slots, deltas, some),
+        # registers at 0xFFFFFF00 (int32 -256), 256 adds of 0x10 to slot 0
+        "wrap-around": (torch.full((F, 7), -256, dtype=torch.int32,
+                                   device=dev),
+            torch.zeros(n_wrap, dtype=torch.int64, device=dev),
+            torch.full((n_wrap, 7), 0x10, dtype=torch.int32, device=dev),
+            torch.ones(n_wrap, dtype=torch.bool, device=dev)),
+        "all invalid": (regs, slots, deltas, torch.zeros_like(valid)),
+    }
+
+    def library(r, s, d, v, buf=None):
+        """One index_add_ on an (F+1, 7) int32 buffer; invalid rows go to
+        the spare row F."""
+        if buf is None:
+            buf = torch.cat([r, r.new_zeros(1, 7)])
+        idx = torch.where(v, s, torch.full_like(s, F))
+        buf.index_add_(0, idx, d)
+        return buf
+
+    for name, (r, s, d, v) in cases.items():
+        got = ops.flow_moments(r, s, d, v)
+        want = ops.flow_moments(r, s, d, v, backend="ref")
+        lib = library(r, s, d, v)[:F]
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"flow_moments ({name}) differs "
+                                        "from its plain version")
+        require(torch.equal(got, lib), f"flow_moments ({name}) differs from "
+                                       "index_add_")
+        if name == "all invalid":
+            require(torch.equal(got, r), "flow_moments changed registers "
+                                         "with no valid event")
+        if name == "wrap-around":
+            # 0xFFFFFF00 + 256 * 0x10 = 2^32 + 0xF00
+            require(bool((got[0] == 0xF00).all())
+                    and torch.equal(got[1:], r[1:]),
+                    "flow_moments did not wrap mod 2^32")
+    ms, plain_ms = in_turns(
+        lambda: ops.flow_moments(regs, slots, deltas, valid, backend="ref"),
+        lambda: ops.flow_moments(regs, slots, deltas, valid), 20)
+    # the library call alone, on a prepared buffer and index (it
+    # accumulates into the buffer call after call)
+    buf = torch.cat([regs, regs.new_zeros(1, 7)])
+    idx = torch.where(valid, slots, torch.full_like(slots, F))
+    buf.index_add_(0, idx, deltas)
+    library_ms = time_ms(lambda: buf.index_add_(0, idx, deltas), 20)
+    n_valid = int(valid.sum())
+    # (E, 7) u32 deltas, (E,) int64 slots and (E,) validity bytes read
+    # once; the (F, 7) registers read and written once; one add per valid
+    # (event, register)
+    n_bytes = EVENTS * (7 * 4 + 8 + 1) + 2 * F * 7 * 4
+    return {"kernel": K.KERNEL, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": n_valid * 7,
+            "library_ms": library_ms,
+            "library_note": "one index_add_ on an (F+1, 7) int32 buffer "
+                            "(invalid rows to the spare row), bitwise equal",
+            "device_us": device_us(K.KERNEL, lambda: ops.flow_moments(
+                regs, slots, deltas, valid)),
+            "shape": f"E={EVENTS} trace deltas into ({F}, 7) "
+                     "(10%-invalid, wrap-around and all-invalid checked "
+                     "too)",
+            "check": "bitwise (plain and index_add_)"}
+
+
+def check_derived_features(cfg, dev, gen, mem, valid):
+    """K5 on the history the unfused path gathers (R rows of the PAPER
+    ring, the main row) and on the whole ring, row-scaled against its
+    plain version."""
+    import torch
+    from repro_torch.kernels.derived_features import kernel as K
+    from repro_torch.kernels.derived_features import ops
+
+    F, H, R, D = (cfg.flows_per_shard, cfg.history, cfg.report_capacity,
+                  cfg.derived_dim)
+    lf = torch.randint(0, F, (R,), generator=gen).to(dev)
+    res = {}
+    for label, (e, v, iters) in {"gathered": (mem[lf], valid[lf], 50),
+                                 "whole ring": (mem, valid, 10)}.items():
+        got = ops.derived_features(e, v, cfg)
+        want = ops.derived_features(e, v, cfg, backend="ref")
+        torch.cuda.synchronize()
+        scaled = feature_err(got, want)
+        require(bool(torch.isfinite(got).all()),
+                f"derived_features ({label}): non-finite")
+        require(scaled <= FEATURE_TOL,
+                f"derived_features ({label}) differs from its plain "
+                f"version: row-scaled err {scaled:.3e}")
+        ms, plain_ms = in_turns(
+            lambda: ops.derived_features(e, v, cfg, backend="ref"),
+            lambda: ops.derived_features(e, v, cfg), iters)
+        N = e.shape[0]
+        # entries + validity read once, (N, D) f32 written; ~100 flops per
+        # entry plus ~100 per row (as for gather_enrich)
+        res[label] = {"max_abs_err": float((got - want).abs().max()),
+                      "row_scaled_err": scaled, "ms": ms,
+                      "plain_ms": plain_ms,
+                      "n_bytes": N * H * (64 + 1) + N * D * 4,
+                      "n_ops": N * (H * 100 + 100),
+                      "device_us": device_us(K.KERNEL, lambda: (
+                          ops.derived_features(e, v, cfg))),
+                      "shape": f"({N}, {H}, 16) -> ({N}, {D})"}
+    ring = res["whole ring"]
+    b_ms, b_by = bound(ring["n_bytes"], ring["n_ops"])
+    return {"kernel": K.KERNEL, **res["gathered"],
+            "shape": res["gathered"]["shape"] + " (R routed flows "
+                     "gathered from the PAPER ring; whole ring checked "
+                     "too)",
+            "check": f"row-scaled {FEATURE_TOL:g}",
+            "whole_ring": {k: ring[k] for k in ("ms", "plain_ms",
+                                                "device_us",
+                                                "row_scaled_err", "shape")}
+            | {"bound_ms": b_ms, "bound_by": b_by}}
+
+
+# -- the unfused path ----------------------------------------------------------
+
+def unfused_step(system, state, events, now, backend=None):
+    """One monitoring period on the unfused, staged path — the paper's
+    pre-fusion shape (Fig 3 red, Fig 9) — composed from module entry
+    points. It repeats ``DFASystem.ingest_half`` + ``enrich_half``
+    (src/repro_torch/core/pipeline.py) stage for stage with three
+    substitutions: multipass reporter ingest whose accumulator is the
+    flow_moments family; placement through a staging copy
+    (``collector.staged_ingest``); the explicit history gather followed by
+    the standalone derived_features family in place of the fused gather +
+    enrichment. One shard (reporter id 0, flow base 0). Returns a
+    ``StepOutputs``."""
+    import torch
+    from repro_torch import u32 as U
+    from repro_torch.core import collector as COLL
+    from repro_torch.core import reporter as REP
+    from repro_torch.core import translator as TRANS
+    from repro_torch.core import wire as WIRE
+    from repro_torch.core.pipeline import (DFAState, StepOutputs, _delta,
+                                           _global_seq_gap)
+    from repro_torch.kernels.derived_features.ops import derived_features
+    from repro_torch.kernels.flow_moments.ops import flow_moments
+
+    cfg, wf = system.cfg, system.wire
+    b = backend or system.backend
+    rep_st, tr_st, coll_st = state
+    coll0, bad0 = rep_st.collisions, coll_st.bad_checksum
+    anom0, lost0 = coll_st.seq_anomalies, coll_st.lost_reports
+    rep_st = REP.ingest(rep_st, events, cfg, accumulate_fn=lambda r, s, d, v:
+                        flow_moments(r, s, d, v, backend=b))
+    slots, mask = REP.due_flows(rep_st, now, cfg, cfg.report_capacity)
+    rep_st, reports = REP.make_reports(rep_st, slots, mask, now, 0, 0, cfg)
+    mw = wf.report_meta_word
+    meta = wf.set_report_reporter(reports[:, mw],
+                                  torch.zeros_like(reports[:, mw]))
+    reports[:, mw] = U.narrow(torch.where(mask, meta, 0))
+    buckets, bmask, mis = TRANS.route_reports(
+        reports, mask, 1, cfg.flows_per_shard, cfg.report_capacity)
+    routed = buckets.reshape(-1, wf.report_words)
+    rmask = bmask.reshape(-1)
+    tr_st, payloads, coords = TRANS.translate(tr_st, routed, rmask, 0, cfg)
+    lseq0, recv0 = coll_st.last_seq, coll_st.received
+    coll_st = COLL.staged_ingest(coll_st, payloads, rmask, 0, cfg, backend=b)
+    coll_st, lost_delta = _global_seq_gap(coll_st, lseq0, recv0, lost0)
+    metrics = {"reports_sent": mask.sum(), "reports_recv": rmask.sum(),
+               "bucket_drops": mask.sum() - bmask.sum() - mis,
+               "misroutes": mis,
+               "collisions": _delta(rep_st.collisions, coll0),
+               "bad_checksum": _delta(coll_st.bad_checksum, bad0),
+               "seq_anomalies": _delta(coll_st.seq_anomalies, anom0),
+               "lost_reports": lost_delta}
+    entries, ev = COLL.gather_flow_history(coll_st, coords["local_flow"])
+    enriched = derived_features(entries, ev, cfg, backend=b)
+    enriched = torch.where(rmask[:, None], enriched, torch.zeros_like(enriched))
+    flow_ids = torch.where(rmask, U.wide(routed[:, 0]), WIRE.PAD_FLOW_ID)
+    preds = None
+    if system.head is not None:
+        preds = system.head(enriched)
+        preds = torch.where(rmask[:, None], preds, torch.zeros_like(preds))
+    return StepOutputs(DFAState(rep_st, tr_st, coll_st), enriched, flow_ids,
+                       rmask, metrics, preds)
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
-def main_path(dev):
+def paper_system(dev):
+    """The PAPER config with an mlp head of seeded random weights, and the
+    main path's traffic: T_MAIN + 1 periods of 2^20 events."""
     import torch
     from repro_torch.configs import PAPER
-    from repro_torch.convert import state_to_numpy
     from repro_torch.core.pipeline import DFASystem
     from repro_torch.data import packets as PK
 
@@ -249,6 +497,51 @@ def main_path(dev):
     log(f"[main] traffic: {T_MAIN + 1} periods x {EVENTS} events from "
         f"{cfg.flows_per_shard} flows, made in "
         f"{time.perf_counter() - t0:.3f} s")
+    return system, events, nows
+
+
+def check_outputs(outs, cfg, tag):
+    """Every period: sent == received, no bad checksum, finite features
+    and preds of the expected shapes."""
+    import torch
+    D, C = cfg.derived_dim, cfg.inference_classes
+    for t, out in enumerate(outs):
+        m = {k: int(v) for k, v in out.metrics.items()}
+        require(m["reports_sent"] == m["reports_recv"],
+                f"[{tag}] period {t}: sent {m['reports_sent']} != recv "
+                f"{m['reports_recv']}")
+        require(m["bad_checksum"] == 0, f"[{tag}] period {t}: bad checksums")
+        require(out.enriched.shape == (cfg.report_capacity, D)
+                and bool(torch.isfinite(out.enriched).all()),
+                f"[{tag}] period {t}: features not finite / wrong shape")
+        require(out.preds.shape == (cfg.report_capacity, C)
+                and bool(torch.isfinite(out.preds).all()),
+                f"[{tag}] period {t}: preds not finite / wrong shape")
+
+
+def compare_outputs(o, r, t, tag):
+    """One period's outputs against the reference run's: routed flows
+    and metrics exact; returns (row-scaled feature err, preds max abs
+    err) after checking both against their tolerances."""
+    import torch
+    require(torch.equal(o.flow_ids, r.flow_ids) and torch.equal(o.mask, r.mask),
+            f"[{tag}] period {t}: routed flows differ")
+    for k in o.metrics:
+        require(int(o.metrics[k]) == int(r.metrics[k]),
+                f"[{tag}] period {t}: metric {k} differs")
+    err = feature_err(o.enriched, r.enriched)
+    require(err <= FEATURE_TOL,
+            f"[{tag}] period {t}: features differ, row-scaled {err:.3e}")
+    require(torch.allclose(o.preds, r.preds, rtol=PRED_TOL, atol=PRED_TOL),
+            f"[{tag}] period {t}: preds differ")
+    return err, float((o.preds - r.preds).abs().max())
+
+
+def main_path(system, events, nows):
+    import torch
+    from repro_torch.convert import state_to_numpy
+
+    cfg = system.cfg
 
     def run(backend):
         state = system.init_state()
@@ -278,18 +571,7 @@ def main_path(dev):
         require(launches[k.name] >= T_MAIN,
                 f"{k.name} launched {launches[k.name]} times on the main "
                 f"path, expected >= {T_MAIN}")
-    for t, out in enumerate(outs):
-        m = {k: int(v) for k, v in out.metrics.items()}
-        require(m["reports_sent"] == m["reports_recv"],
-                f"period {t}: sent {m['reports_sent']} != recv "
-                f"{m['reports_recv']}")
-        require(m["bad_checksum"] == 0, f"period {t}: bad checksums")
-        require(out.enriched.shape == (cfg.report_capacity, D)
-                and bool(torch.isfinite(out.enriched).all()),
-                f"period {t}: features not finite / wrong shape")
-        require(out.preds.shape == (cfg.report_capacity, C)
-                and bool(torch.isfinite(out.preds).all()),
-                f"period {t}: preds not finite / wrong shape")
+    check_outputs(outs, cfg, "main")
     timed = period_ms[1:]
     vectors = sum(int(o.mask.sum()) for o in outs[1:])
     log(f"[main] metrics per period: "
@@ -301,7 +583,8 @@ def main_path(dev):
         f"{vectors / (sum(timed) / 1e3):.1f}; max_memory_allocated "
         f"{peak} B; launches {launches}")
 
-    profile_periods(system, events, nows)
+    profile_periods(system.dfa_step, system.init_state(), events, nows,
+                    "main")
 
     ref_state, ref_outs, ref_ms = run("ref")
     log(f"[main] per-period ms (plain versions, backend='ref'): "
@@ -313,51 +596,32 @@ def main_path(dev):
         for f in ga._fields:
             require(np.array_equal(getattr(ga, f), getattr(gb, f)),
                     f"kernel run and plain run differ on {group}.{f}")
-    worst, worst_pred = 0.0, 0.0
-    for t, (o, r) in enumerate(zip(outs, ref_outs)):
-        require(torch.equal(o.flow_ids, r.flow_ids)
-                and torch.equal(o.mask, r.mask),
-                f"period {t}: routed flows differ from the plain run")
-        for k in o.metrics:
-            require(int(o.metrics[k]) == int(r.metrics[k]),
-                    f"period {t}: metric {k} differs from the plain run")
-        worst = max(worst, feature_err(o.enriched, r.enriched))
-        worst_pred = max(worst_pred, float((o.preds - r.preds).abs().max()))
-        require(torch.allclose(o.preds, r.preds, rtol=PRED_TOL,
-                               atol=PRED_TOL),
-                f"period {t}: preds differ from the plain run")
-    require(worst <= FEATURE_TOL,
-            f"features differ from the plain run: row-scaled {worst:.3e}")
+    errs = [compare_outputs(o, r, t, "main vs plain")
+            for t, (o, r) in enumerate(zip(outs, ref_outs))]
     log(f"[main] kernel run == plain run: integer state bitwise, features "
-        f"row-scaled err {worst:.3e}, preds max abs err {worst_pred:.3e} "
-        f"(tolerance rtol=atol={PRED_TOL:g})")
+        f"row-scaled err {max(e for e, _ in errs):.3e}, preds max abs err "
+        f"{max(p for _, p in errs):.3e} (tolerance rtol=atol={PRED_TOL:g})")
     return launches
 
 
-def profile_periods(system, events, nows, periods: int = 2):
-    """torch.profiler over ``periods`` steady main-path periods: device
-    time by kernel name (top 15) and the device's busy share of the wall
-    time. Runs after the launch counts were read."""
+def profile_periods(step, state, events, nows, tag, periods: int = 2):
+    """torch.profiler over ``periods`` steady periods of ``step(state,
+    events_t, now_t)``: device time by kernel name (top 15) and the
+    device's busy share of the wall time. Runs after the launch counts
+    were read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state = system.init_state()
-    out = system.dfa_step(state, {k: v[0] for k, v in events.items()},
-                          nows[0])
+    state = step(state, {k: v[0] for k, v in events.items()}, nows[0]).state
     torch.cuda.synchronize()
-    state = out.state
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(1, periods + 1):
-            state = system.dfa_step(state, {k: v[t] for k, v in
-                                            events.items()}, nows[t]).state
+            state = step(state, {k: v[t] for k, v in events.items()},
+                         nows[t]).state
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
 
     # device-side events only: an aten op's own entry repeats the time
     # of the kernels it launched
@@ -365,26 +629,100 @@ def profile_periods(system, events, nows, periods: int = 2):
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=dev_us, reverse=True)
     busy_us = sum(dev_us(e) for e in rows)
-    log(f"[profile] {periods} periods: wall {wall_us:.1f} us, device busy "
-        f"{busy_us:.1f} us ({100 * busy_us / wall_us:.1f} %), idle "
+    log(f"[profile {tag}] {periods} periods: wall {wall_us:.1f} us, device "
+        f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f} %), idle "
         f"{100 - 100 * busy_us / wall_us:.1f} %")
     launches = sum(e.count for e in rows) / periods
-    log(f"[profile] device kernels per period: {launches:.0f}")
+    log(f"[profile {tag}] device kernels per period: {launches:.0f}")
     for e in rows[:15]:
-        log(f"[profile]   {dev_us(e) / periods:10.1f} us/period  "
+        log(f"[profile {tag}]   {dev_us(e) / periods:10.1f} us/period  "
             f"{e.count // periods:5d} calls/period  {e.key[:90]}")
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     host_us = sum(e.self_cpu_time_total for e in host)
-    log(f"[profile] host self time per period {host_us / periods:.1f} us "
-        "(profiler overhead included); top ops:")
+    log(f"[profile {tag}] host self time per period "
+        f"{host_us / periods:.1f} us (profiler overhead included); top ops:")
     for e in host[:10]:
-        log(f"[profile]   {e.self_cpu_time_total / periods:10.1f} us/period"
-            f"  {e.count // periods:5d} calls/period  {e.key[:60]}")
+        log(f"[profile {tag}]   {e.self_cpu_time_total / periods:10.1f} "
+            f"us/period  {e.count // periods:5d} calls/period  {e.key[:60]}")
 
 
-# -- phase 5: golden ------------------------------------------------------------
+# -- phase 5: the unfused path --------------------------------------------------
+
+def unfused_path(system, events, nows):
+    """The unfused path over the main path's first T_UNFUSED + 1 periods
+    (launch counts from 0, per-period wall times), then the fused main
+    path over the same periods: every period's integer state bit for bit,
+    metrics exact, features row-scaled, preds 1e-5."""
+    import torch
+    from repro_torch.kernels.derived_features.kernel import KERNEL as K5
+    from repro_torch.kernels.flow_moments.kernel import KERNEL as K4
+    from repro_torch.kernels.ring_scatter.kernel import KERNEL as K2
+
+    periods = T_UNFUSED + 1
+    kernels = (K4, K5, K2)
+
+    def snapshot(state):
+        return [t.clone() for group in state for t in group]
+
+    state, outs, snaps, period_ms, per_period = (system.init_state(), [],
+                                                 [], [], [])
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    for t in range(periods):
+        before = [k.launches for k in kernels]
+        t0 = time.perf_counter()
+        out = unfused_step(system, state, {k: v[t] for k, v in
+                                           events.items()}, nows[t])
+        torch.cuda.synchronize()
+        period_ms.append((time.perf_counter() - t0) * 1e3)
+        per_period.append({k.name: k.launches - n
+                           for k, n in zip(kernels, before)})
+        state = out.state
+        outs.append(out)
+        snaps.append(snapshot(state))
+    launches = {k.name: k.launches for k in kernels}
+    for t, counts in enumerate(per_period):
+        for name, n in counts.items():
+            require(n >= 1, f"[unfused] period {t}: {name} was not launched")
+    check_outputs(outs, system.cfg, "unfused")
+    timed = period_ms[1:]
+    log(f"[unfused] per-period ms (warm-up {period_ms[0]:.3f}): "
+        f"{[round(x, 3) for x in timed]}; mean {np.mean(timed):.4f}, median "
+        f"{np.median(timed):.4f}; launches {launches} "
+        f"(per period {per_period[-1]})")
+
+    profile_periods(lambda st, ev, now: unfused_step(system, st, ev, now),
+                    system.init_state(), events, nows, "unfused")
+
+    state, fused_ms, errs = system.init_state(), [], []
+    torch.cuda.synchronize()
+    for t in range(periods):
+        t0 = time.perf_counter()
+        ref = system.dfa_step(state, {k: v[t] for k, v in events.items()},
+                              nows[t])
+        torch.cuda.synchronize()
+        fused_ms.append((time.perf_counter() - t0) * 1e3)
+        state = ref.state
+        names = [f"{g}.{f}" for g, group in zip(state._fields, state)
+                 for f in group._fields]
+        for name, a, b in zip(names, snaps[t], snapshot(state)):
+            require(torch.equal(a, b), f"[unfused] period {t}: {name} "
+                                       "differs from the fused main path")
+        errs.append(compare_outputs(outs[t], ref, t, "unfused vs fused"))
+    log(f"[unfused] == fused main path over {periods} periods: integer "
+        f"state bitwise, metrics equal, features row-scaled err "
+        f"{max(e for e, _ in errs):.3e}, preds max abs err "
+        f"{max(p for _, p in errs):.3e}")
+    log(f"[unfused] fused per-period ms in the same phase (warm-up "
+        f"{fused_ms[0]:.3f}): {[round(x, 3) for x in fused_ms[1:]]}; mean "
+        f"{np.mean(fused_ms[1:]):.4f} vs unfused {np.mean(timed):.4f}")
+    return launches
+
+
+# -- phase 6: golden ------------------------------------------------------------
 
 def golden(dev):
     from repro_torch.configs import REDUCED
@@ -444,11 +782,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 2. build
+    from repro_torch.kernels.derived_features.kernel import KERNEL as K5
+    from repro_torch.kernels.flow_moments.kernel import KERNEL as K4
     from repro_torch.kernels.gather_enrich.kernel import KERNEL as K3
     from repro_torch.kernels.ingest_update.kernel import KERNEL as K1
     from repro_torch.kernels.ring_scatter.kernel import KERNEL as K2
     t0 = time.perf_counter()
-    built = build.build([k.name for k in (K1, K2, K3)])
+    built = build.build([k.name for k in (K1, K2, K3, K4, K5)])
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
         f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for kname, (path, report) in built.items():
@@ -464,41 +804,70 @@ def main() -> int:
     mem, valid = make_ring(PAPER, dev, gen)
     checks = [check_ingest(PAPER, dev, flows),
               check_ring_scatter(PAPER, dev, gen, mem, valid),
-              check_gather_enrich(PAPER, dev, gen, mem, valid)]
+              check_gather_enrich(PAPER, dev, gen, mem, valid),
+              check_flow_moments(PAPER, dev, flows, gen),
+              check_derived_features(PAPER, dev, gen, mem, valid)]
+    del mem, valid
     for c in checks:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
-            f"kernel {c['ms']:.5f} ms, plain {c['plain_ms']:.5f} ms")
+            f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
+            f"plain {c['plain_ms']:.5f} ms")
+        if "whole_ring" in c:
+            w = c["whole_ring"]
+            log(f"[kernel] {c['kernel'].name} at {w['shape']}: kernel "
+                f"{w['ms']:.5f} ms, device {w['device_us']:.3f} us, plain "
+                f"{w['plain_ms']:.5f} ms, bound {w['bound_ms']:.5f} ms")
 
     # 4. main path (launch counts start at 0 here)
-    launches = main_path(dev)
+    system, events, nows = paper_system(dev)
+    main_launches = main_path(system, events, nows)
 
-    # 5. golden
+    # 5. unfused path (launch counts start at 0 again)
+    unfused_launches = unfused_path(system, events, nows)
+
+    # 6. golden
     golden(dev)
 
-    rows = []
-    for c in checks:
-        k = c["kernel"]
-        b_ms, b_by = bound(c["n_bytes"], c["n_ops"])
-        rows.append({"name": k.name, "route": "cuda", "source": k.source,
-                     "replaces": k.replaces, "launches": launches[k.name],
-                     "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                     "plain_ms": c["plain_ms"], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None,
-                     "library_note": "no single PyTorch call computes this "
-                                     "function",
-                     # the same numbers in µs, under the names PERF.md uses
-                     "kernel_us": c["ms"] * 1e3,
-                     "plain_us": c["plain_ms"] * 1e3,
-                     "bound_us": b_ms * 1e3, "library_us": None,
-                     "max_err": c["max_abs_err"],
-                     "shape": c["shape"], "check": c["check"],
-                     **({"row_scaled_err": c["row_scaled_err"]}
-                        if "row_scaled_err" in c else {})})
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": kernel_rows(
+        checks, {"main": main_launches, "unfused": unfused_launches})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0
+
+
+def kernel_rows(checks, by_path):
+    """One row of the ``{"kernels": [...]}`` line per checked kernel;
+    ``launches`` comes from the first path in ``by_path`` (path name ->
+    {kernel name: launches}) that counted the kernel."""
+    rows = []
+    for c in checks:
+        k = c["kernel"]
+        b_ms, b_by = bound(c["n_bytes"], c["n_ops"])
+        counted = {p: n[k.name] for p, n in by_path.items() if k.name in n}
+        path = next(iter(counted))
+        rows.append({"name": k.name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces, "launches": counted[path],
+                     "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                     "plain_ms": c["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "library_ms": c.get("library_ms"),
+                     "library_note": c.get(
+                         "library_note", "no single PyTorch call computes "
+                                         "this function"),
+                     "launches_path": path, "launches_by_path": counted,
+                     "device_us": c["device_us"],
+                     # the same numbers in µs, under the names PERF.md uses
+                     "kernel_us": c["ms"] * 1e3,
+                     "plain_us": c["plain_ms"] * 1e3,
+                     "bound_us": b_ms * 1e3,
+                     "library_us": (None if c.get("library_ms") is None
+                                    else c["library_ms"] * 1e3),
+                     "max_err": c["max_abs_err"],
+                     "shape": c["shape"], "check": c["check"],
+                     **{key: c[key] for key in ("row_scaled_err",
+                                                "whole_ring") if key in c}})
+    return rows
 
 
 if __name__ == "__main__":

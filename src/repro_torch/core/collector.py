@@ -9,6 +9,11 @@ Integrity on ingest: the per-entry checksum (Fig 4) and per-reporter
 sequence continuity (§VI-B) — duplicates inside the window and inside
 the batch are rejected before placement (first arrival wins), and seq
 gaps count as lost reports. Layout facts come from the wire schema.
+
+The unfused comparison path has its own two entry points:
+:func:`staged_ingest` (placement through a staging copy) and
+:func:`gather_flow_history` (the explicit (R, H, 16) gather that the
+fused :func:`enrich_flow_history` avoids).
 """
 from __future__ import annotations
 
@@ -101,6 +106,28 @@ def ingest(state: CollectorState, payloads, mask, shard_flow_base: int,
         seq_anomalies=U.narrow(U.wide(state.seq_anomalies) + dup.sum()),
         received=U.narrow(U.wide(state.received) + mask_ok.sum()),
         lost_reports=U.narrow(U.wide(state.lost_reports) + gap))
+
+
+def staged_ingest(state: CollectorState, payloads, mask, shard_flow_base: int,
+                  cfg: DFAConfig, backend=None) -> CollectorState:
+    """The DTA-style comparison path (Fig 3 red): payloads first land in
+    a separate staging tensor, then :func:`ingest` places them from
+    there. The staging copy is a device-to-device ``clone()`` on the
+    payloads' own device — the analogue of the reference's extra copy,
+    not a PCIe round trip through host memory. Same result as
+    :func:`ingest`, one more pass over the payloads."""
+    staging = payloads.clone()
+    return ingest(state, staging, mask, shard_flow_base, cfg,
+                  backend=backend)
+
+
+def gather_flow_history(state: CollectorState, local_flow):
+    """(R,) local flows -> ((R, H, 16) ring entries, (R, H) validity),
+    the input of the standalone derived_features stage. Ids are clamped
+    to [0, F), as the reference's gather clamps them."""
+    lf = torch.clamp(local_flow.to(torch.int64), 0,
+                     state.memory.shape[0] - 1)
+    return state.memory[lf], state.entry_valid[lf]
 
 
 def enrich_flow_history(state: CollectorState, local_flow, cfg: DFAConfig,

@@ -9,7 +9,9 @@ u32 tensor is an int32 bit pattern at rest (``repro_torch.u32``).
 keeps the multipass shape (hash -> admit -> resolve_iat -> event_deltas
 -> scatter-accumulate) as the oracle; otherwise the fused sort-once path
 runs, whose segment sums are the CUDA kernel on the card and its plain
-version on the CPU. Both are bitwise equal.
+version on the CPU. An explicit ``accumulate_fn`` (the flow_moments
+family) runs the multipass shape with that accumulator. All are bitwise
+equal.
 """
 from __future__ import annotations
 
@@ -154,30 +156,68 @@ def admit_arrays(keys, active, collisions, slots, five_tuple, valid
     return new_keys, new_active, new_coll
 
 
+def admit(state: ReporterState, slots, five_tuple, valid
+          ) -> Tuple[ReporterState, torch.Tensor]:
+    """State-level wrapper over :func:`admit_arrays` (semantics there)."""
+    keys, active, collisions = admit_arrays(
+        state.keys, state.active, state.collisions, slots, five_tuple,
+        valid)
+    return state._replace(keys=keys, active=active,
+                          collisions=collisions), valid
+
+
 def accumulate_ref(regs, slots, deltas, valid) -> torch.Tensor:
-    """Oracle scatter-accumulate (u32 wraparound)."""
+    """Oracle scatter-accumulate (u32 wraparound): (F, 7) registers plus
+    each valid event's (7,) deltas at its slot; deltas as int32 bit
+    patterns or widened values, slots outside [0, F) dropped."""
     F = regs.shape[0]
-    idx = torch.where(valid, slots, torch.full_like(slots, F))
+    keep = valid & (slots >= 0) & (slots < F)
+    idx = torch.where(keep, slots, torch.full_like(slots, F))
     acc = torch.cat([U.wide(regs), regs.new_zeros(1, regs.shape[1],
                                                   dtype=torch.int64)])
-    acc.index_add_(0, idx, deltas)
+    acc.index_add_(0, idx, U.wide(deltas))
     return U.narrow(acc[:F])
 
 
 def ingest(state: ReporterState, events: Dict[str, torch.Tensor],
-           cfg: DFAConfig, backend=None) -> ReporterState:
+           cfg: DFAConfig, accumulate_fn=None,
+           backend=None) -> ReporterState:
     """Process one block of packet events.
 
     events: ts (E,) u32 | size (E,) u32 | five_tuple (E, 5) u32 |
-            valid (E,) bool (u32 words as int32 bit patterns)."""
-    from repro_torch.kernels.ingest_update.ops import ingest_update
+            valid (E,) bool (u32 words as int32 bit patterns).
+
+    Routes through the ingest_update family. An explicit
+    ``accumulate_fn(regs, slots, deltas, valid) -> regs`` runs the
+    multipass path with that accumulator instead (how the flow_moments
+    kernel is driven in place)."""
     slots = hash_slot(events["five_tuple"], cfg.flows_per_shard)
+    if accumulate_fn is not None:
+        return _ingest_multipass(state, slots, events, cfg, accumulate_fn)
+    from repro_torch.kernels.ingest_update.ops import ingest_update
     regs, last_ts, keys, active, collisions = ingest_update(
         state.regs, state.last_ts, state.keys, state.active,
         state.collisions, slots, events["ts"], events["size"],
         events["five_tuple"], events["valid"], cfg, backend=backend)
     return state._replace(regs=regs, last_ts=last_ts, keys=keys,
                           active=active, collisions=collisions)
+
+
+def _ingest_multipass(state: ReporterState, slots, events, cfg: DFAConfig,
+                      accumulate_fn) -> ReporterState:
+    """The pre-fusion multipass ingest with a caller-chosen accumulator
+    (admit -> resolve_iat -> event_deltas -> accumulate). The deltas are
+    narrowed once to int32 bit patterns, the at-rest form every
+    accumulator takes."""
+    pre_active = state.active      # admissions see themselves as new
+    state, valid = admit(state, slots, events["five_tuple"],
+                         events["valid"])
+    iat, first, new_last = resolve_iat(slots, events["ts"], valid,
+                                       state.last_ts, pre_active)
+    deltas = U.narrow(event_deltas(iat, events["size"], first, valid,
+                                   cfg.logstar_bits))
+    regs = accumulate_fn(state.regs, slots, deltas, valid)
+    return state._replace(regs=regs, last_ts=new_last)
 
 
 def due_flows(state: ReporterState, now, cfg: DFAConfig,

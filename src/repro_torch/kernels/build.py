@@ -99,12 +99,16 @@ class CudaKernel:
     ``argtypes`` are the ctypes of its arguments (``c_void_p`` for each
     pointer and the stream, ``c_int`` for an int); it returns the
     ``cudaError_t`` of its launches as an int. ``replaces`` names the TPU
-    kernel it ports (file:line of the Pallas entry)."""
+    kernel it ports (file:line of the Pallas entry); ``device_fns`` the
+    ``__global__`` functions one call launches, which is how a profiler
+    trace tells this kernel's device time apart."""
 
-    def __init__(self, name: str, argtypes: List, replaces: str):
+    def __init__(self, name: str, argtypes: List, replaces: str,
+                 device_fns: Tuple[str, ...]):
         self.name = name
         self.argtypes = argtypes
         self.replaces = replaces
+        self.device_fns = device_fns
         self.source = f"src/repro_torch/csrc/{name}.cu"
         self.launches = 0
         self._fn = None
@@ -125,6 +129,18 @@ class CudaKernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError_t {rc}")
         self.launches += 1
+
+
+def check_args(dev, checks) -> None:
+    """Raise unless every ``(name, tensor, dtype, shape)`` in ``checks``
+    is a contiguous tensor of that dtype and shape on the card ``dev``."""
+    for name, t, dtype, shape in checks:
+        if (t.device != dev or not t.is_cuda or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: need a contiguous {tuple(shape)} {dtype} tensor on "
+                f"the card ({dev}), got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
 
 
 def ptr(t) -> ctypes.c_void_p:

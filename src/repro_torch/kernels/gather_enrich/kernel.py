@@ -7,14 +7,16 @@ import ctypes
 import torch
 
 from repro_torch.core import wire as WIRE
-from repro_torch.kernels.build import CudaKernel, ptr, stream_ptr
+from repro_torch.kernels.build import (CudaKernel, check_args, ptr,
+                                      stream_ptr)
 
 WORDS = 16
 
 KERNEL = CudaKernel(
     "gather_enrich",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    replaces="src/repro/kernels/gather_enrich/kernel.py:66")
+    replaces="src/repro/kernels/gather_enrich/kernel.py:66",
+    device_fns=("gather_enrich_kernel",))
 
 
 def gather_enrich_cuda(memory, entry_valid, local_flow, derived_dim: int,
@@ -27,12 +29,7 @@ def gather_enrich_cuda(memory, entry_valid, local_flow, derived_dim: int,
     checks = (("memory", memory, torch.int32, (F, H, WORDS)),
               ("entry_valid", entry_valid, torch.bool, (F, H)),
               ("local_flow", local_flow, torch.int32, (R,)))
-    for name, t, dtype, shape in checks:
-        if (t.device != dev or not t.is_cuda or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: need a contiguous {shape} {dtype} tensor on the "
-                f"card ({dev}), got {tuple(t.shape)} {t.dtype} on {t.device}")
+    check_args(dev, checks)
     if (wire.payload_stats != (1, 8) or wire.payload_hist.word not in (13, 15)
             or wire.payload_words != WORDS):
         raise ValueError(f"wire format {wire.name!r}: the kernel reads stats "

@@ -34,7 +34,8 @@ MAX_EVENT_TILE = 256     # tile cuts stay those of the TPU kernels
 KERNEL = CudaKernel(
     "ingest_segment_sums",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    replaces="src/repro/kernels/ingest_update/kernel.py:207")
+    replaces="src/repro/kernels/ingest_update/kernel.py:207",
+    device_fns=("segment_sums_kernel",))
 
 
 def clamp_tile(event_tile: int, events: int) -> int:

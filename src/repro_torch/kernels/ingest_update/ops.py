@@ -59,7 +59,7 @@ def ingest_update(regs, last_ts, keys, active, collisions, slots, ts, ps,
     if b == "ref":
         return REF.ingest_update_ref(regs, last_ts, keys, active,
                                      collisions, slots, ts, ps, five_tuple,
-                                     valid, logstar_bits=cfg.logstar_bits)
+                                     valid, cfg)
     return ingest_update_fused(regs, last_ts, keys, active, collisions,
                                slots, ts, ps, five_tuple, valid, cfg,
                                backend=b)

@@ -13,21 +13,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch import u32 as U
-from repro_torch.core.reporter import (accumulate_ref, admit_arrays,
-                                       event_deltas, resolve_iat)
+from repro_torch.core import reporter as REP
 from repro_torch.kernels.ingest_update.kernel import REG_PAD, delta_cols
 
 
 def ingest_update_ref(regs, last_ts, keys, active, collisions, slots, ts,
-                      ps, five_tuple, valid, *, logstar_bits: int):
-    """-> (regs, last_ts, keys, active, collisions), the multipass way."""
-    pre_active = active                  # admissions see themselves as new
-    keys, active, collisions = admit_arrays(keys, active, collisions, slots,
-                                            five_tuple, valid)
-    iat, first, last_ts = resolve_iat(slots, ts, valid, last_ts, pre_active)
-    deltas = event_deltas(iat, ps, first, valid, logstar_bits)
-    regs = accumulate_ref(regs, slots, deltas, valid)
-    return regs, last_ts, keys, active, collisions
+                      ps, five_tuple, valid, cfg):
+    """-> (regs, last_ts, keys, active, collisions): the reporter's
+    multipass ingest with the scatter-accumulate oracle."""
+    st = REP.ReporterState(regs, last_ts, None, keys, active, None,
+                           collisions)      # report fields are not touched
+    st = REP._ingest_multipass(st, slots, {"ts": ts, "size": ps,
+                                           "five_tuple": five_tuple,
+                                           "valid": valid}, cfg,
+                               REP.accumulate_ref)
+    return st.regs, st.last_ts, st.keys, st.active, st.collisions
 
 
 def segment_sums_ref(s_slot, s_ts, s_ps, base_ts, first_i32, log_lut,

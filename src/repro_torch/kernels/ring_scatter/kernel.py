@@ -5,14 +5,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, ptr, stream_ptr
+from repro_torch.kernels.build import (CudaKernel, check_args, ptr,
+                                      stream_ptr)
 
 WORDS = 16
 
 KERNEL = CudaKernel(
     "ring_scatter",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    replaces="src/repro/kernels/ring_scatter/kernel.py:49")
+    replaces="src/repro/kernels/ring_scatter/kernel.py:49",
+    device_fns=("reset_kernel", "claim_kernel", "write_kernel"))
 
 
 def ring_scatter_cuda(memory, entry_valid, payloads, flow, hist, mask):
@@ -27,12 +29,7 @@ def ring_scatter_cuda(memory, entry_valid, payloads, flow, hist, mask):
               ("flow", flow, torch.int32, (R,)),
               ("hist", hist, torch.int32, (R,)),
               ("mask", mask, torch.bool, (R,)))
-    for name, t, dtype, shape in checks:
-        if (t.device != dev or not t.is_cuda or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: need a contiguous {shape} {dtype} tensor on the "
-                f"card ({dev}), got {tuple(t.shape)} {t.dtype} on {t.device}")
+    check_args(dev, checks)
     # per-cell winner scratch; the kernel resets only the cells it
     # touches, so it starts uninitialised
     winner = torch.empty(F * H, dtype=torch.int32, device=dev)

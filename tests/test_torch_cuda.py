@@ -10,6 +10,8 @@ Integers must match bit for bit; features within 1e-5 of each row's
 feature scale (``tests/test_gather_enrich_equiv.py``).
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -20,12 +22,18 @@ from repro_torch.convert import state_to_numpy
 from repro_torch.core import reporter as TR
 from repro_torch.core.pipeline import DFASystem
 from repro_torch.data import packets as PK
+from repro_torch.kernels.derived_features import kernel as DK
+from repro_torch.kernels.derived_features import ops as DF
+from repro_torch.kernels.flow_moments import kernel as FK
+from repro_torch.kernels.flow_moments import ops as FM
 from repro_torch.kernels.gather_enrich import kernel as GK
 from repro_torch.kernels.gather_enrich import ops as GE
 from repro_torch.kernels.ingest_update import kernel as IK
 from repro_torch.kernels.ingest_update import ops as IO
 from repro_torch.kernels.ring_scatter import kernel as RK
 from repro_torch.kernels.ring_scatter import ops as RS
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 pytestmark = pytest.mark.gpu
 
@@ -117,3 +125,69 @@ def test_pipeline_kernels_equal_plain_on_card(cuda):
         assert torch.equal(a.metrics[k], b.metrics[k])
     assert row_scaled_err(a.enriched.reshape(-1, 96),
                           b.enriched.reshape(-1, 96)) <= 1e-5
+
+
+@pytest.mark.parametrize("E,one_slot", [(4096, False), (1000, False),
+                                        (300, False), (4096, True)])
+def test_flow_moments_bitwise(cuda, E, one_slot):
+    """K4 == its plain version bit for bit, heavy contention included
+    (every event on one slot); registers wrap mod 2^32."""
+    g = torch.Generator().manual_seed(E + one_slot)
+    F = 512
+    regs = torch.randint(-(1 << 31), (1 << 31) - 1, (F, 7), generator=g,
+                         dtype=torch.int32)
+    slots = (torch.zeros(E, dtype=torch.int64) if one_slot
+             else torch.randint(0, F, (E,), generator=g))
+    deltas = torch.randint(-(1 << 31), (1 << 31) - 1, (E, 7), generator=g,
+                           dtype=torch.int32)
+    valid = torch.rand(E, generator=g) < 0.85
+    before = FK.KERNEL.launches
+    got = FM.flow_moments(*(t.to(cuda) for t in (regs, slots, deltas,
+                                                 valid)))
+    assert FK.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), FM.flow_moments(regs, slots, deltas, valid))
+
+
+@pytest.mark.parametrize("N,H", [(4096, 10), (100, 8), (1, 1)])
+@pytest.mark.parametrize("wire", ["v1", "v2"])
+def test_derived_features_row_scaled(cuda, N, H, wire):
+    g = torch.Generator().manual_seed(N * H)
+    mem, valid = PK.synthetic_ring(N, H, g)
+    if wire == "v2":                       # hist_idx lives in word 15
+        mem[..., 15] = mem[..., 13]
+    cfg = dataclasses.replace(REDUCED, history=H, wire_format=wire)
+    before = DK.KERNEL.launches
+    got = DF.derived_features(mem.to(cuda), valid.to(cuda), cfg)
+    assert DK.KERNEL.launches == before + 1
+    assert got.shape == (N, cfg.derived_dim)
+    assert bool(torch.isfinite(got).all())
+    assert row_scaled_err(got, DF.derived_features(mem, valid, cfg)) <= 1e-5
+
+
+def test_unfused_step_on_card_equals_fused(cuda):
+    """chip_smoke.unfused_step on the card launches K4, K5 and K2 every
+    period and matches the fused path: state bitwise, features
+    row-scaled."""
+    sys.path.insert(0, os.path.abspath(ROOT))
+    from chip_smoke import unfused_step
+    system = DFASystem(dataclasses.replace(REDUCED, inference_head="mlp"),
+                       device=cuda)
+    events, nows = PK.period_batches(1, 4, 512, n_flows=200, flow_seed=1,
+                                     device=cuda)
+    kernels = (FK.KERNEL, DK.KERNEL, RK.KERNEL)
+    su, sf = system.init_state(), system.init_state()
+    for t in range(4):
+        ev = {k: v[t] for k, v in events.items()}
+        before = [k.launches for k in kernels]
+        u = unfused_step(system, su, ev, nows[t])
+        assert all(k.launches > n for k, n in zip(kernels, before))
+        f = system.dfa_step(sf, ev, nows[t])
+        su, sf = u.state, f.state
+        for x, y in zip(state_to_numpy(su), state_to_numpy(sf)):
+            for name in type(x)._fields:
+                np.testing.assert_array_equal(getattr(x, name),
+                                              getattr(y, name))
+        for k in f.metrics:
+            assert int(u.metrics[k]) == int(f.metrics[k])
+        assert row_scaled_err(u.enriched, f.enriched) <= 1e-5
+        assert torch.allclose(u.preds, f.preds, rtol=1e-5, atol=1e-5)

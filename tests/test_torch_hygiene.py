@@ -19,6 +19,10 @@ import torch
 from repro_torch.configs import REDUCED
 from repro_torch.core.pipeline import DFASystem
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.derived_features import kernel as DK
+from repro_torch.kernels.derived_features import ops as DF
+from repro_torch.kernels.flow_moments import kernel as FK
+from repro_torch.kernels.flow_moments import ops as FM
 from repro_torch.kernels.gather_enrich import kernel as GK
 from repro_torch.kernels.gather_enrich import ops as GE
 from repro_torch.kernels.ingest_update import kernel as IK
@@ -27,6 +31,7 @@ from repro_torch.kernels.ring_scatter import kernel as RK
 from repro_torch.kernels.ring_scatter import ops as RS
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+KERNELS = (IK.KERNEL, RK.KERNEL, GK.KERNEL, FK.KERNEL, DK.KERNEL)
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -65,7 +70,7 @@ def test_system_defaults_to_the_card():
 
 
 def test_cpu_tensors_run_the_plain_versions(rng):
-    for k in (IK.KERNEL, RK.KERNEL, GK.KERNEL):
+    for k in KERNELS:
         k.launches = 0
     F, H = 16, 4
     mem = torch.zeros(F, H, 16, dtype=torch.int32)
@@ -83,11 +88,22 @@ def test_cpu_tensors_run_the_plain_versions(rng):
     z = torch.zeros(8, dtype=torch.int32)
     out = IO.segment_sums(sl, z + 5, z + 100, z, z, bits=7, tile=4)
     assert out.shape == (8, 8) and int(out[1, 0]) == 2
-    assert (IK.KERNEL.launches, RK.KERNEL.launches, GK.KERNEL.launches) \
-        == (0, 0, 0)
+    regs = torch.zeros(F, 7, dtype=torch.int32)
+    slots = torch.tensor([3, 3, 15, 2, 0])
+    deltas = torch.ones(5, 7, dtype=torch.int32)
+    valid = torch.tensor([True, True, True, False, True])
+    acc = FM.flow_moments(regs, slots, deltas, valid)
+    assert int(acc[3, 0]) == 2 and int(acc.sum()) == 4 * 7
+    derived = DF.derived_features(mem[flow], ev[flow], cfg)
+    assert torch.equal(derived, feats)
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
     with pytest.raises(RuntimeError, match="backend 'cuda'"):
         RS.ring_scatter(mem, ev, pays, flow, hist, torch.ones(5, dtype=bool),
                         backend="cuda")
+    with pytest.raises(RuntimeError, match="backend 'cuda'"):
+        FM.flow_moments(regs, slots, deltas, valid, backend="cuda")
+    with pytest.raises(RuntimeError, match="backend 'cuda'"):
+        DF.derived_features(mem[flow], ev[flow], cfg, backend="cuda")
     with pytest.raises(ValueError, match="TPU backend"):
         dispatch.check_backend("interpret")
 
@@ -96,7 +112,7 @@ def test_build_is_lazy_and_named_by_source_hash():
     """No library is built or loaded by importing or by CPU use; the
     library name changes with the sources it is built from."""
     from repro_torch.kernels import build
-    for k in (IK.KERNEL, RK.KERNEL, GK.KERNEL):
+    for k in KERNELS:
         assert k._fn is None
         assert os.path.exists(os.path.join(ROOT, k.source))
     p = build._library_path("ring_scatter", build.BUILD_DIR)
