@@ -6,15 +6,17 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device — the card's name, count, power limit; TF32 off;
-2. build — the five CUDA kernels from src/repro_torch/csrc, one nvcc per
+2. build — the six CUDA kernels from src/repro_torch/csrc, one nvcc per
    source in parallel, into build/repro_torch_kernels/ (ptxas report:
    registers and spills);
-3. per-kernel check at PAPER shapes — each kernel against its plain
-   PyTorch version on the same inputs on the card (integers bit for bit,
-   features within 1e-5 of each row's feature scale), timed with CUDA
-   events in turns (plain, kernel, kernel, plain) beside its bound, and
-   its device time per call from torch.profiler's device events;
-   flow_moments also against one ``index_add_`` call;
+3. per-kernel check at the shapes each path gives it — each kernel
+   against its plain PyTorch version on the same inputs on the card
+   (integers bit for bit, features within 1e-5 of each row's feature
+   scale, attention 2e-2 in bf16 and 2e-5 in f32), timed with CUDA events
+   in turns (plain, kernel, kernel, plain) beside its bound, and its
+   device time per call from torch.profiler's device events;
+   flow_moments also against one ``index_add_`` call, flash_attention
+   against one ``scaled_dot_product_attention`` call;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -26,7 +28,17 @@ Phases (any failure exits non-zero; nothing is caught):
    derived_features) over the main path's first periods: one warm-up
    and 4 timed, launch counts from 0, every period's integer state,
    metrics, features and preds held against the fused main path;
-6. golden — the REDUCED T=4 run reproduces tests/goldens/run_periods_t4.json.
+6. golden — the REDUCED T=4 run reproduces tests/goldens/run_periods_t4.json;
+7. serving at full width — granite-3-2b (40 layers, d 2048, 32/8 heads,
+   bf16, seeded random weights): 4 requests of 1024-token prompts, 32
+   greedy tokens each, one warm-up request and 3 timed, every prefill
+   launching flash_attention once per layer; then the plain run, and the
+   checks, on the f32 kernel run's tokens: (a) the same model in f32,
+   kernel run against plain run, prefill and teacher-forced decode
+   logits within 1e-3 of the largest logit; (b) bf16, the kernel run no
+   further from the f32 run than the plain run is (x1.5), with the
+   kernel-vs-plain gap printed; (c) the decode step at position P against
+   a full forward over P + 1 tokens.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -48,6 +60,7 @@ GOLDEN = ROOT / "tests" / "goldens" / "run_periods_t4.json"
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (guide table)
 F32_OPS_PER_S = 67e12        # H100 SXM CUDA-core float32 rate (guide table)
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate (datasheet)
 T_MAIN = 8                   # timed main-path periods (after one warm-up)
 T_UNFUSED = 4                # timed unfused-path periods (after one warm-up)
 EVENTS = 1 << 20             # packet events per period on the main path
@@ -59,10 +72,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the byte and operation times."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -406,6 +419,102 @@ def check_derived_features(cfg, dev, gen, mem, valid):
             | {"bound_ms": b_ms, "bound_by": b_by}}
 
 
+ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_flash_kernel.py
+SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 1024, 32, 1056
+A_TOL = 1e-3       # f32 logits, kernel run vs plain run, of max |logit|
+# bf16: the kernel run's logits may be no further from the f32 run's than
+# the plain bf16 run's are, within this factor (both differ from f32 by
+# bf16 rounding everywhere; the two differ only in attention rounding)
+B_RATIO = 1.5
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs the softmax covers (top-left causal mask)."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + max(0, Sq - Sk) * Sk
+
+
+def check_flash_attention(dev):
+    """K6 at the serving path's shape (B = 4 requests x 32 heads, 1024
+    tokens, head_dim 64, 8 kv heads, causal, bf16) against its plain
+    version, and one scaled_dot_product_attention call as the library
+    yardstick; plus an f32 run at the same shape, a ragged length, Sq !=
+    Sk with Dv != D, and the non-causal softmax."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    H, KH, D = 32, 8, 64
+    BH, G, S = SERVE_B * H, H // KH, SERVE_PROMPT
+
+    def inputs(BH, Sq, Sk, D, Dv, group, dtype):
+        return (torch.randn(BH, Sq, D, generator=gen, device=dev).to(dtype),
+                torch.randn(BH // group, Sk, D, generator=gen,
+                            device=dev).to(dtype),
+                torch.randn(BH // group, Sk, Dv, generator=gen,
+                            device=dev).to(dtype))
+
+    R = S - 24                                   # not a tile multiple
+    cases = {
+        "serve bf16": (BH, S, S, D, D, G, "bfloat16", True),
+        "serve f32": (BH, S, S, D, D, G, "float32", True),
+        f"ragged S={R} bf16": (BH, R, R, D, D, G, "bfloat16", True),
+        "Sq=200 Sk=330 D=64 Dv=128 f32": (24, 200, 330, 64, 128, 3,
+                                          "float32", True),
+        f"non-causal S={R} bf16": (BH, R, R, D, D, G, "bfloat16", False),
+    }
+    errs = {}
+    for name, (bh, sq, sk, d, dv, g, dt, causal) in cases.items():
+        q, k, v = inputs(bh, sq, sk, d, dv, g, getattr(torch, dt))
+        got = ops.flash_attention(q, k, v, group=g, causal=causal)
+        want = ops.flash_attention(q, k, v, group=g, causal=causal,
+                                   backend="ref")
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        tol = ATT_TOL[dt]
+        excess = float((diff - tol * want.float().abs()).max())
+        require(bool(torch.isfinite(got).all()) and excess <= tol,
+                f"flash_attention ({name}) differs from its plain version: "
+                f"max abs err {float(diff.max()):.3e}, tolerance "
+                f"{tol:g} abs + rel")
+        errs[name] = float(diff.max())
+    log(f"[kernel] flash_attention max abs err vs plain: "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} }")
+
+    q, k, v = inputs(BH, S, S, D, D, G, torch.bfloat16)
+    call = lambda: ops.flash_attention(q, k, v, group=G)
+    ms, plain_ms = in_turns(
+        lambda: ops.flash_attention(q, k, v, group=G, backend="ref"), call,
+        20)
+    # the library yardstick on the same inputs, in the (B, H, S, D) layout
+    q4, k4, v4 = (t.view(SERVE_B, -1, S, D) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                 enable_gqa=True)
+    lib_err = float((lib().reshape(BH, S, D).float()
+                     - call().float()).abs().max())
+    library_ms = time_ms(lib, 20)
+    n_ops = 2 * (D + D) * attention_pairs(S, S, True) * BH
+    n_bytes = (q.numel() + k.numel() + v.numel() + BH * S * D) * 2
+    return {"kernel": K.KERNEL, "max_abs_err": errs["serve bf16"],
+            "ms": ms, "plain_ms": plain_ms, "n_bytes": n_bytes,
+            "n_ops": n_ops, "ops_per_s": BF16_OPS_PER_S,
+            "library_ms": library_ms,
+            "library_note": "one scaled_dot_product_attention(is_causal, "
+                            f"enable_gqa) call; max abs diff to K6 "
+                            f"{lib_err:.3e}",
+            "device_us": device_us(K.KERNEL, call),
+            "shape": f"q ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), group "
+                     f"{G}, causal, bf16 (f32, ragged, Sq != Sk with Dv != "
+                     "D and non-causal checked too)",
+            "check": f"bf16 {ATT_TOL['bfloat16']:g}, f32 "
+                     f"{ATT_TOL['float32']:g} (abs + rel)",
+            "errs": errs}
+
+
 # -- the unfused path ----------------------------------------------------------
 
 def unfused_step(system, state, events, now, backend=None):
@@ -606,20 +715,32 @@ def main_path(system, events, nows):
 
 def profile_periods(step, state, events, nows, tag, periods: int = 2):
     """torch.profiler over ``periods`` steady periods of ``step(state,
-    events_t, now_t)``: device time by kernel name (top 15) and the
-    device's busy share of the wall time. Runs after the launch counts
-    were read."""
+    events_t, now_t)`` (after one period outside the window). Runs after
+    the launch counts were read."""
+    import torch
+    box = [step(state, {k: v[0] for k, v in events.items()}, nows[0]).state]
+    torch.cuda.synchronize()
+    t = iter(range(1, periods + 1))
+
+    def one():
+        i = next(t)
+        box[0] = step(box[0], {k: v[i] for k, v in events.items()},
+                      nows[i]).state
+    profile_window(tag, one, periods, "period")
+
+
+def profile_window(tag, fn, n: int, unit: str = "request"):
+    """torch.profiler over ``n`` calls of ``fn``: device time by kernel
+    name (top 15), the device's busy share of the wall time, and the host
+    ops with the most self time, each per ``unit``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state = step(state, {k: v[0] for k, v in events.items()}, nows[0]).state
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(1, periods + 1):
-            state = step(state, {k: v[t] for k, v in events.items()},
-                         nows[t]).state
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -629,23 +750,23 @@ def profile_periods(step, state, events, nows, tag, periods: int = 2):
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=dev_us, reverse=True)
     busy_us = sum(dev_us(e) for e in rows)
-    log(f"[profile {tag}] {periods} periods: wall {wall_us:.1f} us, device "
+    log(f"[profile {tag}] {n} {unit}s: wall {wall_us:.1f} us, device "
         f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f} %), idle "
         f"{100 - 100 * busy_us / wall_us:.1f} %")
-    launches = sum(e.count for e in rows) / periods
-    log(f"[profile {tag}] device kernels per period: {launches:.0f}")
+    launches = sum(e.count for e in rows) / n
+    log(f"[profile {tag}] device kernels per {unit}: {launches:.0f}")
     for e in rows[:15]:
-        log(f"[profile {tag}]   {dev_us(e) / periods:10.1f} us/period  "
-            f"{e.count // periods:5d} calls/period  {e.key[:90]}")
+        log(f"[profile {tag}]   {dev_us(e) / n:10.1f} us/{unit}  "
+            f"{e.count // n:5d} calls/{unit}  {e.key[:90]}")
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     host_us = sum(e.self_cpu_time_total for e in host)
-    log(f"[profile {tag}] host self time per period "
-        f"{host_us / periods:.1f} us (profiler overhead included); top ops:")
+    log(f"[profile {tag}] host self time per {unit} "
+        f"{host_us / n:.1f} us (profiler overhead included); top ops:")
     for e in host[:10]:
-        log(f"[profile {tag}]   {e.self_cpu_time_total / periods:10.1f} "
-            f"us/period  {e.count // periods:5d} calls/period  {e.key[:60]}")
+        log(f"[profile {tag}]   {e.self_cpu_time_total / n:10.1f} "
+            f"us/{unit}  {e.count // n:5d} calls/{unit}  {e.key[:60]}")
 
 
 # -- phase 5: the unfused path --------------------------------------------------
@@ -761,6 +882,204 @@ def golden(dev):
     log(f"[golden] REDUCED T={T} reproduces {GOLDEN.relative_to(ROOT)}")
 
 
+# -- phase 7: serving at full width ---------------------------------------------
+
+def generate(model, params, tokens, gen_steps, forced=None):
+    """Prefill ``tokens`` (B, P), then ``gen_steps - 1`` decode steps into a
+    SERVE_CACHE-row cache: greedy, or fed the tokens of ``forced`` (B,
+    gen_steps). Returns (tokens (B, gen_steps), [prefill logits, then each
+    decode step's logits] in f32)."""
+    import torch
+    from repro_torch.launch.serve import build_cache
+
+    B, P = tokens.shape
+    logits, pcache = model.prefill(params, {"tokens": tokens})
+    cache = build_cache(model, pcache, B, SERVE_CACHE)
+    del pcache
+    pos = torch.full((B,), P, dtype=torch.int64, device=tokens.device)
+    out, seen = [], [logits.float()]
+    for i in range(gen_steps):
+        tok = (logits.argmax(-1)[:, None] if forced is None
+               else forced[:, i:i + 1])
+        out.append(tok)
+        if i == gen_steps - 1:
+            break
+        logits, cache = model.decode(params, tok, pos, cache)
+        seen.append(logits.float())
+        pos = pos + 1
+    return torch.cat(out, 1), seen
+
+
+def divergence(model, plain, m32, params, params32, tokens):
+    """Where bf16 runs part: the residual stream after each layer of the
+    prefill, bf16 kernel run and bf16 plain run each against the f32
+    kernel run, as max |dx| over max |x| (printed, not held)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+
+    runs = [(model, params), (plain, params), (m32, params32)]
+    xs = [L.embed(p["embed"], tokens) for _, p in runs]
+    rows = []
+    for layer in range(model.cfg.num_layers):
+        for i, (m, p) in enumerate(runs):
+            xs[i], _ = LM.block_prefill(LM.layer_params(p[LM.STACK], layer),
+                                        xs[i], m.cfg, backend=m.backend)
+        ref = xs[2].float()
+        scale = float(ref.abs().max())
+        rows.append((float((xs[0].float() - ref).abs().max()) / scale,
+                     float((xs[1].float() - ref).abs().max()) / scale))
+    pick = sorted({i for i in (0, 1, 2, 4, 9, 19) if i < len(rows)}
+                  | {len(rows) - 1})
+    log("[serve] residual stream vs f32 after layer (bf16 kernel, bf16 "
+        "plain): " + ", ".join(f"{i}: ({rows[i][0]:.2e}, {rows[i][1]:.2e})"
+                               for i in pick))
+    del xs
+    torch.cuda.empty_cache()
+
+
+def logit_ratio(got, want) -> float:
+    """max |got - want| over max |want|, the worst over matching lists."""
+    return max(float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(got, want))
+
+
+def serve_phase(dev):
+    """granite-3-2b serving at full width (see the module docstring);
+    returns the kernels' launch counts over the 3 timed requests."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models.param import count_params
+    from repro_torch.models.registry import Model
+
+    cfg = get_config("granite-3-2b")
+    model = Model(cfg, device=dev)
+    plain = Model(cfg, device=dev, backend="ref")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {count_params(model.param_descs())} parameters "
+        f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, {cfg.dtype}) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                             generator=gen, device=dev) for _ in range(4)]
+    args = (SERVE_PROMPT, SERVE_GEN, SERVE_CACHE)
+
+    serve(model, params, {"tokens": prompts[0]}, *args)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    runs = []
+    for prompt in prompts[1:]:
+        before, stats = K6.launches, {}
+        toks, tps = serve(model, params, {"tokens": prompt}, *args,
+                          stats=stats)
+        runs.append((toks, tps, stats, K6.launches - before))
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    for _, _, _, n in runs:
+        require(n == cfg.num_layers, f"[serve] a request launched "
+                                     f"flash_attention {n} times, expected "
+                                     f"{cfg.num_layers} (one per layer)")
+    prefill_ms = [r[2]["prefill_s"] * 1e3 for r in runs]
+    step_ms = [r[2]["decode_s"] * 1e3 / (SERVE_GEN - 1) for r in runs]
+    total_s = [r[2]["prefill_s"] + r[2]["decode_s"] for r in runs]
+    log(f"[serve] {len(runs)} timed requests of B={SERVE_B} x "
+        f"{SERVE_PROMPT}-token prompts, {SERVE_GEN} greedy tokens, cache "
+        f"{SERVE_CACHE}: prefill ms {[round(x, 3) for x in prefill_ms]}, "
+        f"decode ms/step {[round(x, 4) for x in step_ms]}")
+    log(f"[serve] mean prefill {np.mean(prefill_ms):.3f} ms "
+        f"({SERVE_B * SERVE_PROMPT / np.mean(prefill_ms) * 1e3:.1f} prefill "
+        f"tok/s), decode {np.mean(step_ms):.4f} ms/step, generated "
+        f"{np.mean([r[1] for r in runs]):.2f} tok/s "
+        f"({SERVE_B * SERVE_GEN / np.mean(total_s):.2f} from the mean "
+        f"request); max_memory_allocated {peak} B; flash_attention launches "
+        f"per request {[r[3] for r in runs]}; launches {launches}")
+    for toks, *_ in runs:
+        require(toks.shape == (SERVE_B, SERVE_GEN)
+                and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+                "[serve] generated tokens out of range")
+
+    profile_window("serve", lambda: serve(model, params,
+                                          {"tokens": prompts[1]}, *args), 1)
+
+    before, stats = K6.launches, {}
+    plain_toks, _ = serve(plain, params, {"tokens": prompts[1]}, *args,
+                          stats=stats)
+    require(K6.launches == before, "[serve] the plain run launched "
+                                   "flash_attention")
+    log(f"[serve] plain run (backend='ref'): prefill "
+        f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{stats['decode_s'] * 1e3 / (SERVE_GEN - 1):.4f} ms/step, 0 "
+        f"flash_attention launches")
+
+    # (a)-(c) on one token stream, the f32 kernel run's greedy tokens; all
+    # measured and printed, then held
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = {}
+
+    def upcast(node, out):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                upcast(val, out.setdefault(key, {}))
+            else:
+                out[key] = val.float()
+    upcast(params, params32)
+    m32, p32 = Model(cfg32, device=dev), Model(cfg32, device=dev,
+                                               backend="ref")
+    prompt = prompts[1]
+    toks32, lg32 = generate(m32, params32, prompt, SERVE_GEN)
+    _, lg32_ref = generate(p32, params32, prompt, SERVE_GEN, forced=toks32)
+    _, lgb = generate(model, params, prompt, SERVE_GEN, forced=toks32)
+    _, lgb_ref = generate(plain, params, prompt, SERVE_GEN, forced=toks32)
+    full = torch.cat([prompt, toks32[:, :1]], 1)
+    h = LM.lm_hidden(params32, {"tokens": full}, cfg32)
+    fwd = L.logits_fn(params32["embed"], h[:, -1:], True)[:, 0].float()
+    a = (logit_ratio(lg32[:1], lg32_ref[:1]), logit_ratio(lg32[1:],
+                                                           lg32_ref[1:]))
+    b = (logit_ratio(lgb[:1], lgb_ref[:1]), logit_ratio(lgb[1:], lgb_ref[1:]))
+    err_k, err_p = logit_ratio(lgb, lg32), logit_ratio(lgb_ref, lg32)
+    r_c = logit_ratio(lg32[1:2], [fwd])
+    agree = int((plain_toks == runs[0][0]).sum())
+    log(f"[serve] (a) f32 kernel vs plain: max |dlogit| / max |logit| "
+        f"prefill {a[0]:.3e}, teacher-forced decode over {SERVE_GEN - 1} "
+        f"steps {a[1]:.3e} (tolerance {A_TOL:g})")
+    log(f"[serve] (b) bf16 kernel vs plain: prefill {b[0]:.3e}, decode "
+        f"{b[1]:.3e}; each bf16 run against the f32 run: kernel "
+        f"{err_k:.3e}, plain {err_p:.3e} (held: kernel <= {B_RATIO:g} x "
+        f"plain); greedy tokens of the two free bf16 runs that agree "
+        f"{agree} of {plain_toks.numel()}")
+    log(f"[serve] (c) decode logits at position {SERVE_PROMPT} vs a full "
+        f"forward over {SERVE_PROMPT + 1} tokens (f32): {r_c:.3e} "
+        f"(tolerance {A_TOL:g})")
+    divergence(model, plain, m32, params, params32, prompt)
+    require(max(a) <= A_TOL, "[serve] (a) f32 kernel run and plain run "
+                             "disagree")
+    require(err_k <= B_RATIO * err_p, "[serve] (b) the bf16 kernel run is "
+                                      "further from the f32 run than the "
+                                      "bf16 plain run is")
+    require(r_c <= A_TOL, "[serve] (c) decode disagrees with the forward")
+    return launches
+
+
+def all_kernels():
+    from repro_torch.kernels.derived_features.kernel import KERNEL as K5
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.kernels.flow_moments.kernel import KERNEL as K4
+    from repro_torch.kernels.gather_enrich.kernel import KERNEL as K3
+    from repro_torch.kernels.ingest_update.kernel import KERNEL as K1
+    from repro_torch.kernels.ring_scatter.kernel import KERNEL as K2
+    return (K1, K2, K3, K4, K5, K6)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -782,13 +1101,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 2. build
-    from repro_torch.kernels.derived_features.kernel import KERNEL as K5
-    from repro_torch.kernels.flow_moments.kernel import KERNEL as K4
-    from repro_torch.kernels.gather_enrich.kernel import KERNEL as K3
-    from repro_torch.kernels.ingest_update.kernel import KERNEL as K1
-    from repro_torch.kernels.ring_scatter.kernel import KERNEL as K2
     t0 = time.perf_counter()
-    built = build.build([k.name for k in (K1, K2, K3, K4, K5)])
+    built = build.build([k.name for k in all_kernels()])
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
         f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for kname, (path, report) in built.items():
@@ -796,7 +1110,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {kname}: {line.strip()}")
 
-    # 3. per-kernel checks at PAPER shapes
+    # 3. per-kernel checks at the paths' shapes
     from repro_torch.configs import PAPER
     from repro_torch.data import packets as PK
     gen = torch.Generator().manual_seed(0)
@@ -808,6 +1122,7 @@ def main() -> int:
               check_flow_moments(PAPER, dev, flows, gen),
               check_derived_features(PAPER, dev, gen, mem, valid)]
     del mem, valid
+    checks.append(check_flash_attention(dev))
     for c in checks:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
@@ -828,8 +1143,12 @@ def main() -> int:
     # 6. golden
     golden(dev)
 
+    # 7. serving at full width (launch counts start at 0 again)
+    serve_launches = serve_phase(dev)
+
     print(json.dumps({"kernels": kernel_rows(
-        checks, {"main": main_launches, "unfused": unfused_launches})}))
+        checks, {"main": main_launches, "unfused": unfused_launches,
+                 "serve": serve_launches})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
@@ -843,7 +1162,8 @@ def kernel_rows(checks, by_path):
     rows = []
     for c in checks:
         k = c["kernel"]
-        b_ms, b_by = bound(c["n_bytes"], c["n_ops"])
+        b_ms, b_by = bound(c["n_bytes"], c["n_ops"],
+                           c.get("ops_per_s", F32_OPS_PER_S))
         counted = {p: n[k.name] for p, n in by_path.items() if k.name in n}
         path = next(iter(counted))
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
@@ -866,7 +1186,8 @@ def kernel_rows(checks, by_path):
                      "max_err": c["max_abs_err"],
                      "shape": c["shape"], "check": c["check"],
                      **{key: c[key] for key in ("row_scaled_err",
-                                                "whole_ring") if key in c}})
+                                                "whole_ring", "errs")
+                        if key in c}})
     return rows
 
 

@@ -1,4 +1,31 @@
-from repro_torch.configs.base import DFAConfig
+"""Configurations: the DFA system's (``PAPER``, ``REDUCED``) and the model
+architectures the port runs (``--arch <id>`` resolves here)."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import DFAConfig, ModelConfig
 from repro_torch.configs.dfa import PAPER, REDUCED
 
-__all__ = ["DFAConfig", "PAPER", "REDUCED"]
+# arch id -> module name; the reference's other architectures (qwen,
+# deepseek, zamba2, whisper, rwkv, ...) are ROADMAP §1 item 14
+_ARCH_MODULES: Dict[str, str] = {
+    "granite-3-2b": "granite_3_2b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP §1 item "
+                       f"14); ported: {list_archs()}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    return mod.REDUCED if reduced else mod.CONFIG
+
+
+__all__ = ["DFAConfig", "ModelConfig", "PAPER", "REDUCED", "get_config",
+           "list_archs"]

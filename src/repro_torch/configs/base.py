@@ -1,13 +1,15 @@
-"""The DFA system configuration (the port's own copy).
+"""The DFA system and model configurations (the port's own copies).
 
 Field names, defaults and meanings are those of the reference
-``DFAConfig`` so a configuration reads the same in both packages. Only
+``DFAConfig`` and ``ModelConfig`` so a configuration reads the same in
+both packages. Only
 the fields this slice of the port reads (or refuses) are carried; the
 mesh, serving, elastic and tuning knobs arrive with the slices that
 implement them (ROADMAP §1).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -47,3 +49,45 @@ class DFAConfig:
     flow_home: str = "ingest"
     # transport fault injection (not in this slice; None = off)
     fault_spec: Optional[Any] = None
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One model architecture (the port's own copy of the reference's
+    ``ModelConfig``, dense-family fields only).
+
+    Families: only ``"dense"`` (decoder-only GQA/MQA/MHA transformer) is
+    ported; the reference's moe / hybrid / ssm / encdec / vlm families and
+    their sub-configs are ROADMAP §1 item 14.
+    """
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 => d_model // num_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    act: str = "silu"                 # FFN activation (gated)
+    # numerics: activation/compute and parameter dtypes
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    # KV chunk of the reference's online-softmax attention (the port's
+    # flash kernel tiles itself; kept so configurations read the same)
+    attn_chunk: int = 1024
+    # provenance
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

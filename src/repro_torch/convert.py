@@ -9,10 +9,12 @@ device. ``state_to_numpy`` is the inverse, in the reference's dtypes and
 shapes, so the two can be compared leaf by leaf. ``head_params_from_numpy``
 loads the reference head's ``{"w", "b"}`` / ``{"w1", "b1", "w2", "b2"}``
 into a :class:`~repro_torch.models.flow_head.FlowHead`.
+``lm_params_from_numpy`` builds the port's language-model parameters from
+the reference's materialised ones (``Model.init``), as numpy.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -22,6 +24,8 @@ from repro_torch.core.collector import CollectorState
 from repro_torch.core.pipeline import DFAState
 from repro_torch.core.reporter import ReporterState
 from repro_torch.core.translator import TranslatorState
+from repro_torch.models import lm as LM
+from repro_torch.models.param import ParamDesc, torch_dtype
 
 _GROUPS = (("reporter", ReporterState), ("translator", TranslatorState),
            ("collector", CollectorState))
@@ -80,3 +84,25 @@ def head_params_from_numpy(head: torch.nn.Module,
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                                  f"{tuple(p.shape)}")
             p.copy_(src)
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device="cpu"):
+    """The reference's dense-LM parameters (nested dicts of numpy arrays,
+    bf16 as ml_dtypes ``bfloat16``) -> the port's, in the dtypes of
+    ``models.lm.lm_descs(cfg)``. bf16 crosses through f32, which holds it
+    exactly. Raises on a missing or extra leaf or a shape that differs."""
+    def rec(descs, node, path):
+        if isinstance(descs, ParamDesc):
+            a = np.asarray(node)
+            if tuple(a.shape) != tuple(descs.shape):
+                raise ValueError(f"{path}: shape {tuple(a.shape)} != "
+                                 f"{tuple(descs.shape)}")
+            t = torch.from_numpy(np.array(a, np.float32))
+            return t.to(device=device, dtype=torch_dtype(descs.dtype))
+        if not isinstance(node, Mapping):
+            raise ValueError(f"{path}: expected a dict, got {type(node)}")
+        if set(node) != set(descs):
+            raise ValueError(f"{path}: leaves {sorted(node)} != "
+                             f"{sorted(descs)}")
+        return {k: rec(descs[k], node[k], f"{path}/{k}") for k in descs}
+    return rec(LM.lm_descs(cfg), tree, "params")

@@ -1,0 +1,86 @@
+"""Parameter descriptors: one tree of ``ParamDesc`` gives each parameter's
+shape, dtype and initializer, and :func:`materialize` turns it into
+tensors on a device.
+
+The init rules are the reference's (``repro.models.param._init_leaf``):
+"normal" is N(0, 1) times ``min(scale, 1/sqrt(fan_in))`` with ``fan_in``
+the leaf's first dimension; "embed" is N(0, 1) times ``scale``; "ones"
+and "zeros" are what they say. The random bits come from the
+caller's ``torch.Generator`` and do not reproduce JAX's (the reference
+folds a per-process salted ``hash`` of the path into its key); weights
+cross from the reference as numpy (``repro_torch.convert``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Tuple
+
+import numpy as np
+import torch
+
+Tree = Any
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"dtype {name!r} is not supported; expected one of "
+                         f"{list(DTYPES)}")
+    return DTYPES[name]
+
+
+@dataclass(frozen=True)
+class ParamDesc:
+    shape: Tuple[int, ...]
+    dtype: str = "bfloat16"
+    init: str = "normal"      # normal | zeros | ones | embed
+    scale: float = 0.02
+
+
+def tree_map_descs(fn: Callable[[Tuple[str, ...], ParamDesc], Any],
+                   tree: Tree) -> Tree:
+    """Map over ParamDesc leaves preserving structure (dicts/lists/None)."""
+    def rec(node, prefix):
+        if isinstance(node, ParamDesc):
+            return fn(prefix, node)
+        if isinstance(node, dict):
+            return {k: rec(v, prefix + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v, prefix + (str(i),))
+                              for i, v in enumerate(node))
+        if node is None:
+            return None
+        raise TypeError(f"bad desc tree node {type(node)}")
+    return rec(tree, ())
+
+
+def _init_leaf(d: ParamDesc, generator: torch.Generator,
+               device) -> torch.Tensor:
+    dtype = torch_dtype(d.dtype)
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    w = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    if d.init == "embed":
+        return (w * d.scale).to(dtype)
+    if d.init == "normal":
+        fan_in = d.shape[0] if len(d.shape) >= 2 else 1
+        scale = d.scale if d.scale else 1.0
+        return (w * min(scale, 1.0 / np.sqrt(max(fan_in, 1)))).to(dtype)
+    raise ValueError(f"unknown init {d.init}")
+
+
+def materialize(descs: Tree, generator: torch.Generator, device) -> Tree:
+    """Random parameters for ``descs`` on ``device``, drawn in the tree's
+    order from ``generator`` (which must live on ``device``)."""
+    return tree_map_descs(lambda p, d: _init_leaf(d, generator, device),
+                          descs)
+
+
+def count_params(descs: Tree) -> int:
+    n = []
+    tree_map_descs(lambda p, d: n.append(int(np.prod(d.shape))), descs)
+    return sum(n)

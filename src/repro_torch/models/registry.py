@@ -1,0 +1,63 @@
+"""Model registry: the public ``Model`` facade of the serving path (the
+port of ``repro.models.registry``, dense family).
+
+``Model(cfg)`` runs on the CUDA card unless the caller passes
+``device="cpu"``; on the card the prefill attention launches the
+flash_attention kernel (K6), on the CPU its plain version runs.
+``backend="ref"`` forces the plain version on any device
+(``repro_torch.kernels.dispatch``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import dispatch
+from repro_torch.models import lm as LM
+from repro_torch.models import param as PM
+
+Tree = Any
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+    device: Union[str, torch.device] = "cuda"
+    backend: Optional[str] = None
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Model runs on the CUDA card by default and this host has "
+                "none; pass device='cpu' to run the plain PyTorch versions "
+                "of the kernels")
+        self.backend = dispatch.check_backend(self.backend)
+        LM.check_dense(self.cfg)
+
+    # ---- parameters -----------------------------------------------------
+    def param_descs(self) -> Tree:
+        return LM.lm_descs(self.cfg)
+
+    def init(self, seed: Union[int, torch.Generator] = 0) -> Tree:
+        """Random parameters on the model's device, from a seed or a
+        ``torch.Generator`` on that device."""
+        gen = seed
+        if not isinstance(seed, torch.Generator):
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return PM.materialize(self.param_descs(), gen, self.device)
+
+    # ---- serving --------------------------------------------------------
+    def cache_descs(self, batch: int, seq: int) -> List[Tree]:
+        return LM.cache_descs(self.cfg, batch, seq)
+
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, List[Tree]]:
+        return LM.lm_prefill(params, batch, self.cfg, backend=self.backend)
+
+    def decode(self, params, token, pos, cache
+               ) -> Tuple[torch.Tensor, List[Tree]]:
+        """One decode step; the cache's tensors are updated in place."""
+        return LM.lm_decode(params, token, pos, cache, self.cfg)

@@ -7,7 +7,8 @@ without one they skip. Run them on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Integers must match bit for bit; features within 1e-5 of each row's
-feature scale (``tests/test_gather_enrich_equiv.py``).
+feature scale (``tests/test_gather_enrich_equiv.py``); attention within
+2e-5 in f32 and 2e-2 in bf16 (``tests/test_flash_kernel.py``).
 """
 import dataclasses
 import os
@@ -17,13 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import REDUCED
+from repro_torch.configs import REDUCED, get_config
 from repro_torch.convert import state_to_numpy
 from repro_torch.core import reporter as TR
 from repro_torch.core.pipeline import DFASystem
 from repro_torch.data import packets as PK
 from repro_torch.kernels.derived_features import kernel as DK
 from repro_torch.kernels.derived_features import ops as DF
+from repro_torch.kernels.flash_attention import kernel as AK
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.flow_moments import kernel as FK
 from repro_torch.kernels.flow_moments import ops as FM
 from repro_torch.kernels.gather_enrich import kernel as GK
@@ -32,6 +35,7 @@ from repro_torch.kernels.ingest_update import kernel as IK
 from repro_torch.kernels.ingest_update import ops as IO
 from repro_torch.kernels.ring_scatter import kernel as RK
 from repro_torch.kernels.ring_scatter import ops as RS
+from repro_torch.models.registry import Model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -191,3 +195,70 @@ def test_unfused_step_on_card_equals_fused(cuda):
             assert int(u.metrics[k]) == int(f.metrics[k])
         assert row_scaled_err(u.enriched, f.enriched) <= 1e-5
         assert torch.allclose(u.preds, f.preds, rtol=1e-5, atol=1e-5)
+
+
+ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attention_case(cuda, BH, Sq, Sk, D, Dv, group, dtype, causal, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(BH, Sq, D, generator=g).to(cuda, dtype)
+    k = torch.randn(BH // group, Sk, D, generator=g).to(cuda, dtype)
+    v = torch.randn(BH // group, Sk, Dv, generator=g).to(cuda, dtype)
+    before = AK.KERNEL.launches
+    got = FA.flash_attention(q, k, v, group=group, causal=causal)
+    assert AK.KERNEL.launches == before + 1
+    want = FA.flash_attention(q, k, v, group=group, causal=causal,
+                              backend="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (BH, Sq, Dv)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,D,group", [(128, 512, 64, 4), (8, 1000, 64, 2),
+                                          (4, 64, 16, 1)])
+def test_flash_attention_matches_plain(cuda, dtype, BH, S, D, group):
+    _attention_case(cuda, BH, S, S, D, D, group, dtype, True, S + D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,D,Dv,causal", [(48, 96, 8, 12, True),
+                                               (200, 130, 64, 128, True),
+                                               (100, 300, 128, 32, False),
+                                               (64, 64, 64, 64, False)])
+def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
+                                              causal):
+    """Sq != Sk, Dv != D, head dims up to 128, and the full (non-causal)
+    softmax."""
+    _attention_case(cuda, 6, Sq, Sk, D, Dv, 3, dtype, causal, Sq * Sk)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+def test_reduced_prefill_kernel_equals_plain(cuda, dtype, tol):
+    """The REDUCED granite model's prefill through K6 (one launch per
+    layer) against the same model on the plain version, on the card;
+    tolerances relative to the largest logit."""
+    cfg = get_config("granite-3-2b", reduced=True).replace(dtype=dtype,
+                                                          param_dtype=dtype)
+    model = Model(cfg, device=cuda)
+    params = model.init(0)
+    plain = Model(cfg, device=cuda, backend="ref")
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 100),
+                                     generator=g).to(cuda)}
+    before = AK.KERNEL.launches
+    got, cache = model.prefill(params, batch)
+    assert AK.KERNEL.launches == before + cfg.num_layers
+    want, cache_ref = plain.prefill(params, batch)
+    assert AK.KERNEL.launches == before + cfg.num_layers
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    for layer, (a, b) in enumerate(zip(cache, cache_ref)):
+        for n in ("k", "v"):
+            if layer == 0:                      # computed before attention
+                assert torch.equal(a[n], b[n])
+            err = float((a[n].float() - b[n].float()).abs().max())
+            assert err <= tol * float(b[n].float().abs().max())

@@ -1,0 +1,128 @@
+"""The port's flash_attention family (K6's plain version and the model's
+``chunked_attention``) against the JAX package on the CPU.
+
+Inputs are drawn with numpy and handed to both packages. The Pallas
+kernel runs in interpret mode, as ``tests/test_flash_kernel.py`` runs
+it. Tolerances are that file's: 2e-5 in f32, 2e-2 in bf16 (the two
+frameworks round p to bf16 at the same point but sum in another order).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import flash_attention_ref
+from repro.models import attention as JA
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.models import attention as TA
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _both(a, dtype):
+    """One numpy array as a JAX array and a torch tensor of ``dtype``
+    (bf16 rounded once, by JAX, and carried across exactly through f32)."""
+    j = jnp.asarray(a, JDT[dtype])
+    t = torch.from_numpy(np.array(j, np.float32)).to(TDT[dtype])
+    return j, t
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# the five cases of tests/test_flash_kernel.py
+CASES = [
+    # BH, Sq, Sk, D, Dv, group, bq, bk, dtype, causal
+    (4, 64, 64, 16, 16, 1, 16, 16, "float32", True),      # MHA
+    (8, 64, 64, 16, 16, 4, 32, 16, "float32", True),      # GQA group=4
+    (6, 48, 96, 8, 12, 3, 16, 32, "float32", True),       # Dv != D, Sq != Sk
+    (4, 64, 64, 16, 16, 2, 16, 16, "bfloat16", True),     # bf16 io
+    (2, 32, 32, 8, 8, 1, 16, 16, "float32", False),       # non-causal
+]
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,D,Dv,group,bq,bk,dtype,causal", CASES)
+def test_plain_version_matches_pallas_and_ref(rng, BH, Sq, Sk, D, Dv, group,
+                                              bq, bk, dtype, causal):
+    qj, qt = _both(rng.standard_normal((BH, Sq, D)), dtype)
+    kj, kt = _both(rng.standard_normal((BH // group, Sk, D)), dtype)
+    vj, vt = _both(rng.standard_normal((BH // group, Sk, Dv)), dtype)
+    FK.KERNEL.launches = 0
+    got = FA.flash_attention(qt, kt, vt, group=group, causal=causal)
+    assert FK.KERNEL.launches == 0          # a CPU tensor runs the plain one
+    assert got.dtype == TDT[dtype] and got.shape == (BH, Sq, Dv)
+    pallas = flash_attention_pallas(qj, kj, vj, group=group, causal=causal,
+                                    bq=bq, bk=bk)
+    ref = flash_attention_ref(qj, kj, vj, group=group, causal=causal)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for want in (pallas, ref):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KH", [(2, 64, 8, 4), (2, 64, 8, 2),
+                                      (1, 40, 8, 2), (3, 40, 4, 2)])
+def test_chunked_attention_matches_jax(rng, B, S, H, KH):
+    """The model-side wrapper (B,S,H,D) -> kernel layout -> back against
+    the reference's pure-JAX flash path, at group 2 and 4; S = 40 is not
+    a multiple of any tile."""
+    D = 16
+    qj, qt = _both(rng.standard_normal((B, S, H, D)), "float32")
+    kj, kt = _both(rng.standard_normal((B, S, KH, D)), "float32")
+    vj, vt = _both(rng.standard_normal((B, S, KH, D)), "float32")
+    want = JA.chunked_attention(qj, kj, vj, q_chunk=16, kv_chunk=32)
+    got = TA.chunked_attention(qt, kt, vt)
+    assert got.shape == (B, S, H, D)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_chunked_attention_refuses_a_query_offset(rng):
+    q = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(NotImplementedError, match="top-left"):
+        TA.chunked_attention(q, q, q, q_offset=3)
+
+
+def test_flash_decode_matches_jax(rng, mesh):
+    """One decode step against a partly filled cache, on the (1, 1) mesh
+    (the reference's pmax/psum combine over one shard)."""
+    B, S, H, KH, D = 3, 24, 4, 2, 16
+    pos = np.array([0, 7, 23])
+    qj, qt = _both(rng.standard_normal((B, H, D)), "float32")
+    kcj, kct = _both(rng.standard_normal((B, S, KH, D)), "float32")
+    vcj, vct = _both(rng.standard_normal((B, S, KH, D)), "float32")
+    knj, knt = _both(rng.standard_normal((B, KH, D)), "float32")
+    vnj, vnt = _both(rng.standard_normal((B, KH, D)), "float32")
+    with mesh:
+        oj, kj, vj = JA.flash_decode(qj, kcj, vcj, knj, vnj,
+                                     jnp.asarray(pos, jnp.int32), mesh=mesh,
+                                     seq_axes=("model",),
+                                     batch_axes=("data",))
+    ot, kt, vt = TA.flash_decode(qt, kct, vct, knt, vnt,
+                                 torch.from_numpy(pos))
+    np.testing.assert_allclose(_np(ot), _np(oj), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(_np(kt), _np(kj))
+    np.testing.assert_array_equal(_np(vt), _np(vj))
+
+
+def test_kernel_wrapper_refuses_what_k6_does_not_take():
+    """The binding's checks run before anything is built or launched."""
+    q = torch.zeros(4, 8, 16)
+    kv = torch.zeros(2, 8, 16)
+    bad = [
+        (dict(q=q.double(), k=kv.double(), v=kv.double(), group=2), "float32"),
+        (dict(q=q, k=kv, v=kv, group=3), "heads"),
+        (dict(q=torch.zeros(4, 8, 160), k=torch.zeros(2, 8, 160), v=kv,
+              group=2), "head dims"),
+        (dict(q=q, k=kv, v=kv, group=2), "contiguous"),      # CPU tensors
+    ]
+    for kw, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            FK.flash_attention_cuda(**kw)
+    assert FK.KERNEL._fn is None and FK.KERNEL.launches == 0
+    with pytest.raises(RuntimeError, match="backend 'cuda'"):
+        FA.flash_attention(q, kv, kv, group=2, backend="cuda")

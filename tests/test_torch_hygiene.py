@@ -2,8 +2,9 @@
 
 * Importing every ``repro_torch`` module (and ``chip_smoke``) loads
   neither JAX nor any module of the reference package.
-* ``DFASystem`` runs on the card by default: without a card it raises
-  unless the caller asks for ``device="cpu"``.
+* ``DFASystem``, the LM ``Model`` and the serving launcher run on the
+  card by default: without a card they raise unless the caller asks for
+  ``device="cpu"``.
 * A kernel wrapper handed a CPU tensor runs the plain version, because
   the tensor lies on the CPU; its launch counter stays 0, and
   ``backend="cuda"`` on a CPU tensor raises instead of falling back.
@@ -16,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import REDUCED
+from repro_torch.configs import REDUCED, get_config
 from repro_torch.core.pipeline import DFASystem
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.derived_features import kernel as DK
 from repro_torch.kernels.derived_features import ops as DF
+from repro_torch.kernels.flash_attention import kernel as AK
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.flow_moments import kernel as FK
 from repro_torch.kernels.flow_moments import ops as FM
 from repro_torch.kernels.gather_enrich import kernel as GK
@@ -29,9 +32,11 @@ from repro_torch.kernels.ingest_update import kernel as IK
 from repro_torch.kernels.ingest_update import ops as IO
 from repro_torch.kernels.ring_scatter import kernel as RK
 from repro_torch.kernels.ring_scatter import ops as RS
+from repro_torch.launch import serve as SERVE
+from repro_torch.models.registry import Model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-KERNELS = (IK.KERNEL, RK.KERNEL, GK.KERNEL, FK.KERNEL, DK.KERNEL)
+KERNELS = (IK.KERNEL, RK.KERNEL, GK.KERNEL, FK.KERNEL, DK.KERNEL, AK.KERNEL)
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -67,6 +72,12 @@ def test_system_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DFASystem(REDUCED)
     assert DFASystem(REDUCED, device="cpu").device.type == "cpu"
+    cfg = get_config("granite-3-2b", reduced=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg)
+    assert Model(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SERVE.main(["--reduced", "--gen", "2"])
 
 
 def test_cpu_tensors_run_the_plain_versions(rng):
@@ -96,6 +107,10 @@ def test_cpu_tensors_run_the_plain_versions(rng):
     assert int(acc[3, 0]) == 2 and int(acc.sum()) == 4 * 7
     derived = DF.derived_features(mem[flow], ev[flow], cfg)
     assert torch.equal(derived, feats)
+    q = torch.from_numpy(rng.standard_normal((4, 9, 8)).astype(np.float32))
+    kv = q[::2].contiguous()
+    att = FA.flash_attention(q, kv, kv, group=2)
+    assert att.shape == (4, 9, 8) and bool(torch.isfinite(att).all())
     assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
     with pytest.raises(RuntimeError, match="backend 'cuda'"):
         RS.ring_scatter(mem, ev, pays, flow, hist, torch.ones(5, dtype=bool),
@@ -104,6 +119,8 @@ def test_cpu_tensors_run_the_plain_versions(rng):
         FM.flow_moments(regs, slots, deltas, valid, backend="cuda")
     with pytest.raises(RuntimeError, match="backend 'cuda'"):
         DF.derived_features(mem[flow], ev[flow], cfg, backend="cuda")
+    with pytest.raises(RuntimeError, match="backend 'cuda'"):
+        FA.flash_attention(q, kv, kv, group=2, backend="cuda")
     with pytest.raises(ValueError, match="TPU backend"):
         dispatch.check_backend("interpret")
 
