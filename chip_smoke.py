@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught):
    in turns (plain, kernel, kernel, plain) beside its bound, and its
    device time per call from torch.profiler's device events;
    flow_moments also against one ``index_add_`` call, flash_attention
-   against one ``scaled_dot_product_attention`` call;
+   against one ``scaled_dot_product_attention`` call, each library call
+   timed by CUDA events and by its device time; flash_attention's cases
+   each run the variant ``kernel.variant`` names (``wgmma`` for bf16 with
+   D == Dv in {64, 128}, ``simt`` otherwise), and the SIMT kernel is timed
+   at the serving shape beside the tensor-core one;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -32,7 +36,8 @@ Phases (any failure exits non-zero; nothing is caught):
 7. serving at full width — granite-3-2b (40 layers, d 2048, 32/8 heads,
    bf16, seeded random weights): 4 requests of 1024-token prompts, 32
    greedy tokens each, one warm-up request and 3 timed, every prefill
-   launching flash_attention once per layer; then the plain run, and the
+   launching flash_attention once per layer, all on the wgmma variant (the
+   f32 runs below on the simt variant); then the plain run, and the
    checks, on the f32 kernel run's tokens: (a) the same model in f32,
    kernel run against plain run, prefill and teacher-forced decode
    logits within 1e-3 of the largest logit; (b) bf16, the kernel run no
@@ -117,7 +122,8 @@ def device_us(kernel, fn, iters: int = 20) -> float:
     """Device time per call of ``fn`` spent in ``kernel``'s own
     ``__global__`` functions (``kernel.device_fns``), summed from
     torch.profiler's device events over ``iters`` calls — the kernel's
-    time without the Python wrapper around it."""
+    time without the Python wrapper around it. ``kernel=None`` sums every
+    device event (a library call's device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -127,11 +133,13 @@ def device_us(kernel, fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    names = kernel.device_fns if kernel else ("",)
     total = sum(dev_us(e) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and any(n in e.key for n in kernel.device_fns))
-    require(total > 0, f"the profiler saw no device time in {kernel.name}'s "
-                       f"functions {kernel.device_fns}")
+                and any(n in e.key for n in names))
+    require(total > 0, f"the profiler saw no device time in "
+                       f"{kernel.name if kernel else 'a library call'}'s "
+                       f"functions {names}")
     return total / iters
 
 
@@ -351,6 +359,7 @@ def check_flow_moments(cfg, dev, flows, gen):
     idx = torch.where(valid, slots, torch.full_like(slots, F))
     buf.index_add_(0, idx, deltas)
     library_ms = time_ms(lambda: buf.index_add_(0, idx, deltas), 20)
+    library_dev = device_us(None, lambda: buf.index_add_(0, idx, deltas))
     n_valid = int(valid.sum())
     # (E, 7) u32 deltas, (E,) int64 slots and (E,) validity bytes read
     # once; the (F, 7) registers read and written once; one add per valid
@@ -358,7 +367,7 @@ def check_flow_moments(cfg, dev, flows, gen):
     n_bytes = EVENTS * (7 * 4 + 8 + 1) + 2 * F * 7 * 4
     return {"kernel": K.KERNEL, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": n_valid * 7,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "library_device_us": library_dev,
             "library_note": "one index_add_ on an (F+1, 7) int32 buffer "
                             "(invalid rows to the spare row), bitwise equal",
             "device_us": device_us(K.KERNEL, lambda: ops.flow_moments(
@@ -438,10 +447,12 @@ def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
 
 def check_flash_attention(dev):
     """K6 at the serving path's shape (B = 4 requests x 32 heads, 1024
-    tokens, head_dim 64, 8 kv heads, causal, bf16) against its plain
-    version, and one scaled_dot_product_attention call as the library
-    yardstick; plus an f32 run at the same shape, a ragged length, Sq !=
-    Sk with Dv != D, and the non-causal softmax."""
+    tokens, head_dim 64, 8 kv heads, causal, bf16: the wgmma variant)
+    against its plain version, the SIMT variant at the same shape, and one
+    scaled_dot_product_attention call as the library yardstick; plus an
+    f32 run at the same shape, ragged lengths, Sq != Sk both ways, D = 128,
+    groups 1 and 8, Dv != D, D = 16 and the non-causal softmax, each on the
+    variant ``kernel.variant`` names."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -466,14 +477,32 @@ def check_flash_attention(dev):
         "Sq=200 Sk=330 D=64 Dv=128 f32": (24, 200, 330, 64, 128, 3,
                                           "float32", True),
         f"non-causal S={R} bf16": (BH, R, R, D, D, G, "bfloat16", False),
+        "Sq=200 Sk=330 D=128 group 3 bf16": (24, 200, 330, 128, 128, 3,
+                                             "bfloat16", True),
+        "Sq=330 Sk=200 D=128 group 3 bf16": (24, 330, 200, 128, 128, 3,
+                                             "bfloat16", True),
+        "Sq=1000 Sk=700 group 1 bf16": (32, 1000, 700, D, D, 1, "bfloat16",
+                                        True),
+        "S=1000 group 8 bf16": (64, 1000, 1000, D, D, 8, "bfloat16", True),
+        "non-causal Sq=300 Sk=500 D=128 bf16": (24, 300, 500, 128, 128, 3,
+                                                "bfloat16", False),
+        "S=300 D=16 bf16": (32, 300, 300, 16, 16, 4, "bfloat16", True),
     }
-    errs = {}
+    errs, ran = {}, {}
     for name, (bh, sq, sk, d, dv, g, dt, causal) in cases.items():
-        q, k, v = inputs(bh, sq, sk, d, dv, g, getattr(torch, dt))
+        dtype = getattr(torch, dt)
+        q, k, v = inputs(bh, sq, sk, d, dv, g, dtype)
+        before = dict(K.KERNEL.launches_by_variant)
         got = ops.flash_attention(q, k, v, group=g, causal=causal)
         want = ops.flash_attention(q, k, v, group=g, causal=causal,
                                    backend="ref")
         torch.cuda.synchronize()
+        expect = K.variant(dtype, d, dv)
+        delta = {n: K.KERNEL.launches_by_variant[n] - before[n]
+                 for n in before}
+        require(delta == {n: int(n == expect) for n in delta},
+                f"flash_attention ({name}) launched {delta}, expected one "
+                f"{expect} launch")
         diff = (got.float() - want.float()).abs()
         tol = ATT_TOL[dt]
         excess = float((diff - tol * want.float().abs()).max())
@@ -482,11 +511,16 @@ def check_flash_attention(dev):
                 f"max abs err {float(diff.max()):.3e}, tolerance "
                 f"{tol:g} abs + rel")
         errs[name] = float(diff.max())
-    log(f"[kernel] flash_attention max abs err vs plain: "
-        f"{ {k: f'{v:.3e}' for k, v in errs.items()} }")
+        ran[name] = expect
+    log(f"[kernel] flash_attention max abs err vs plain (variant): "
+        f"{ {k: f'{v:.3e} ({ran[k]})' for k, v in errs.items()} }")
 
     q, k, v = inputs(BH, S, S, D, D, G, torch.bfloat16)
+    require(K.variant(q.dtype, D, D) == "wgmma",
+            "the serving shape does not reach the wgmma variant")
     call = lambda: ops.flash_attention(q, k, v, group=G)
+    simt = lambda: K.flash_attention_cuda(q, k, v, group=G,
+                                          force_variant="simt")
     ms, plain_ms = in_turns(
         lambda: ops.flash_attention(q, k, v, group=G, backend="ref"), call,
         20)
@@ -496,6 +530,7 @@ def check_flash_attention(dev):
                                                  enable_gqa=True)
     lib_err = float((lib().reshape(BH, S, D).float()
                      - call().float()).abs().max())
+    simt_err = float((simt().float() - call().float()).abs().max())
     library_ms = time_ms(lib, 20)
     n_ops = 2 * (D + D) * attention_pairs(S, S, True) * BH
     n_bytes = (q.numel() + k.numel() + v.numel() + BH * S * D) * 2
@@ -503,16 +538,24 @@ def check_flash_attention(dev):
             "ms": ms, "plain_ms": plain_ms, "n_bytes": n_bytes,
             "n_ops": n_ops, "ops_per_s": BF16_OPS_PER_S,
             "library_ms": library_ms,
+            "library_device_us": device_us(None, lib),
             "library_note": "one scaled_dot_product_attention(is_causal, "
                             f"enable_gqa) call; max abs diff to K6 "
                             f"{lib_err:.3e}",
             "device_us": device_us(K.KERNEL, call),
+            "variant": "wgmma",
+            "simt_device_us": device_us(K.KERNEL, simt),
+            "simt_ms": time_ms(simt, 5),
+            "simt_note": f"the SIMT variant on the same inputs; max abs diff "
+                         f"to the wgmma variant {simt_err:.3e}",
             "shape": f"q ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), group "
-                     f"{G}, causal, bf16 (f32, ragged, Sq != Sk with Dv != "
-                     "D and non-causal checked too)",
+                     f"{G}, causal, bf16 (f32, ragged, Sq != Sk both ways, "
+                     "D = 128, groups 1 and 8, Dv != D, D = 16 and "
+                     "non-causal checked too)",
             "check": f"bf16 {ATT_TOL['bfloat16']:g}, f32 "
-                     f"{ATT_TOL['float32']:g} (abs + rel)",
-            "errs": errs}
+                     f"{ATT_TOL['float32']:g} (abs + rel); every case on "
+                     "the variant kernel.variant names",
+            "errs": errs, "variants": ran}
 
 
 # -- the unfused path ----------------------------------------------------------
@@ -672,7 +715,7 @@ def main_path(system, events, nows):
     kernels = (K1, K2, K3)
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
     state, outs, period_ms = run(None)
     launches = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
@@ -791,7 +834,7 @@ def unfused_path(system, events, nows):
                                                  [], [], [])
     torch.cuda.synchronize()
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
     for t in range(periods):
         before = [k.launches for k in kernels]
         t0 = time.perf_counter()
@@ -946,7 +989,8 @@ def logit_ratio(got, want) -> float:
 
 def serve_phase(dev):
     """granite-3-2b serving at full width (see the module docstring);
-    returns the kernels' launch counts over the 3 timed requests."""
+    returns the kernels' launch counts over the 3 timed requests, and
+    flash_attention's by variant."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
@@ -976,19 +1020,25 @@ def serve_phase(dev):
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
     for k in kernels:
-        k.launches = 0
+        k.reset_counts()
     runs = []
     for prompt in prompts[1:]:
         before, stats = K6.launches, {}
+        wgmma = K6.launches_by_variant["wgmma"]
         toks, tps = serve(model, params, {"tokens": prompt}, *args,
                           stats=stats)
-        runs.append((toks, tps, stats, K6.launches - before))
+        runs.append((toks, tps, stats, K6.launches - before,
+                     K6.launches_by_variant["wgmma"] - wgmma))
     launches = {k.name: k.launches for k in kernels}
+    variants = dict(K6.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
-    for _, _, _, n in runs:
+    for _, _, _, n, n_wgmma in runs:
         require(n == cfg.num_layers, f"[serve] a request launched "
                                      f"flash_attention {n} times, expected "
                                      f"{cfg.num_layers} (one per layer)")
+        require(n_wgmma == n, f"[serve] {n - n_wgmma} of a bf16 prefill's "
+                              f"{n} flash_attention launches were not on "
+                              "the wgmma variant")
     prefill_ms = [r[2]["prefill_s"] * 1e3 for r in runs]
     step_ms = [r[2]["decode_s"] * 1e3 / (SERVE_GEN - 1) for r in runs]
     total_s = [r[2]["prefill_s"] + r[2]["decode_s"] for r in runs]
@@ -1002,7 +1052,8 @@ def serve_phase(dev):
         f"{np.mean([r[1] for r in runs]):.2f} tok/s "
         f"({SERVE_B * SERVE_GEN / np.mean(total_s):.2f} from the mean "
         f"request); max_memory_allocated {peak} B; flash_attention launches "
-        f"per request {[r[3] for r in runs]}; launches {launches}")
+        f"per request {[r[3] for r in runs]} (wgmma {[r[4] for r in runs]}); "
+        f"launches {launches}")
     for toks, *_ in runs:
         require(toks.shape == (SERVE_B, SERVE_GEN)
                 and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
@@ -1036,7 +1087,12 @@ def serve_phase(dev):
     m32, p32 = Model(cfg32, device=dev), Model(cfg32, device=dev,
                                                backend="ref")
     prompt = prompts[1]
+    counts = dict(K6.launches_by_variant)
     toks32, lg32 = generate(m32, params32, prompt, SERVE_GEN)
+    require(K6.launches_by_variant == {**counts, "simt": counts["simt"]
+                                       + cfg.num_layers},
+            "[serve] the f32 prefill did not run flash_attention's simt "
+            "variant once per layer")
     _, lg32_ref = generate(p32, params32, prompt, SERVE_GEN, forced=toks32)
     _, lgb = generate(model, params, prompt, SERVE_GEN, forced=toks32)
     _, lgb_ref = generate(plain, params, prompt, SERVE_GEN, forced=toks32)
@@ -1067,7 +1123,7 @@ def serve_phase(dev):
                                       "further from the f32 run than the "
                                       "bf16 plain run is")
     require(r_c <= A_TOL, "[serve] (c) decode disagrees with the forward")
-    return launches
+    return launches, variants
 
 
 def all_kernels():
@@ -1127,6 +1183,14 @@ def main() -> int:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
             f"plain {c['plain_ms']:.5f} ms")
+        if "library_ms" in c:
+            log(f"[kernel] {c['kernel'].name} library call: "
+                f"{c['library_ms']:.5f} ms, device "
+                f"{c['library_device_us']:.3f} us")
+        if "simt_device_us" in c:
+            log(f"[kernel] {c['kernel'].name} simt variant at the same "
+                f"shape: {c['simt_ms']:.5f} ms, device "
+                f"{c['simt_device_us']:.3f} us ({c['simt_note']})")
         if "whole_ring" in c:
             w = c["whole_ring"]
             log(f"[kernel] {c['kernel'].name} at {w['shape']}: kernel "
@@ -1144,21 +1208,24 @@ def main() -> int:
     golden(dev)
 
     # 7. serving at full width (launch counts start at 0 again)
-    serve_launches = serve_phase(dev)
+    serve_launches, serve_variants = serve_phase(dev)
 
     print(json.dumps({"kernels": kernel_rows(
         checks, {"main": main_launches, "unfused": unfused_launches,
-                 "serve": serve_launches})}))
+                 "serve": serve_launches},
+        {"flash_attention": serve_variants})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0
 
 
-def kernel_rows(checks, by_path):
+def kernel_rows(checks, by_path, by_variant):
     """One row of the ``{"kernels": [...]}`` line per checked kernel;
     ``launches`` comes from the first path in ``by_path`` (path name ->
-    {kernel name: launches}) that counted the kernel."""
+    {kernel name: launches}) that counted the kernel; ``by_variant``
+    holds the per-variant counts of that run for kernels that have
+    variants."""
     rows = []
     for c in checks:
         k = c["kernel"]
@@ -1172,6 +1239,7 @@ def kernel_rows(checks, by_path):
                      "plain_ms": c["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by,
                      "library_ms": c.get("library_ms"),
+                     "library_device_us": c.get("library_device_us"),
                      "library_note": c.get(
                          "library_note", "no single PyTorch call computes "
                                          "this function"),
@@ -1185,8 +1253,12 @@ def kernel_rows(checks, by_path):
                                     else c["library_ms"] * 1e3),
                      "max_err": c["max_abs_err"],
                      "shape": c["shape"], "check": c["check"],
-                     **{key: c[key] for key in ("row_scaled_err",
-                                                "whole_ring", "errs")
+                     **({"launches_by_variant": by_variant[k.name]}
+                        if k.name in by_variant else {}),
+                     **{key: c[key] for key in (
+                         "row_scaled_err", "whole_ring", "errs", "variant",
+                         "variants", "simt_device_us", "simt_ms",
+                         "simt_note")
                         if key in c}})
     return rows
 

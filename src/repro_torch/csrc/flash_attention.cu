@@ -11,25 +11,88 @@
 // Bound on this card: operations. Causal attention at the serving shape
 // (BH = 128, Sq = Sk = 1024, D = 64) is 4*BH*Sq*Sk*D/2 = 17.2 GFLOP against
 // 42 MB of q/k/v/o: 17.4 us at the bf16 tensor-core rate, 12.5 us for the
-// bytes. Only wgmma reaches that rate; this kernel is the simple SIMT
-// version (f32 FMAs on the CUDA cores, 67 TFLOP/s at best), so it stays
-// well above the bound.
+// bytes. Only wgmma reaches that rate.
 //
-// Design: one block of 256 threads per (bh, 64-row query tile). The query
-// tile and each 64-row K and V tile are staged in shared memory as f32
-// (rows padded by one word so column walks hit distinct banks); the
-// scores of a tile never leave the SM. Each thread owns 4 query rows x 4
-// score columns and 4 rows x Dv/16 output columns, so the online-softmax
-// state (m, l, acc) stays in registers; a row's max and sum are reduced
-// across the 16 lanes that share it with shuffles. p is rounded to the
-// value type before p·v and l sums the unrounded p, as the TPU kernel
-// does. Query head bh reads kv row bh / group. Under the causal mask
+// Two kernels, one C entry. The caller names the variant; the entry
+// checks it against the same rule as kernels/flash_attention/kernel.py
+// variant(): "wgmma" for bf16 with D == Dv in {64, 128}, "simt" for
+// everything else (f32, whose 2e-5 contract TF32 tensor cores would
+// break, and bf16 at other head dims).
+//
+// wgmma (flash_attention_wgmma_kernel): persistent blocks of three
+// warpgroups, one block per SM (its 384 threads x 168 registers fill the
+// register file), each walking (bh, 128-row query tile) work items,
+// heaviest query tiles first, blockIdx.x + k * gridDim.x.
+//   * Warpgroup 0 is the producer: it lowers its registers with
+//     setmaxnreg, and one thread issues TMA loads of each item's Q tile
+//     into one of two Q buffers and of each 128-row K and V tile into a
+//     2-stage shared-memory ring, guarded by full (TMA bytes) and empty
+//     (consumer release) mbarriers. Ring and Q buffers run on across
+//     items, so the next item's loads overlap this one's last tiles and
+//     its epilogue. The consumers keep the launch allocation (168
+//     registers under __launch_bounds__(384, 1), no spills); asking for
+//     more with setmaxnreg.inc would hang if ptxas allocated fewer.
+//   * Warpgroups 1 and 2 each own 64 query rows. S = Q K^T is
+//     wgmma m64n128k16 with Q and K both read from shared memory, K-major
+//     with the 128-byte swizzle (a row of 64 bf16 is exactly 128 bytes;
+//     D = 128 is two such column blocks). The tensor maps and the wgmma
+//     descriptors name the same swizzle.
+//   * The online softmax runs on the f32 accumulator fragment in
+//     registers: each thread holds 2 rows x 32 scores, and a row's max is
+//     reduced over the 4 threads that share it with __shfl_xor_sync.
+//   * P is converted in registers into the bf16 A fragment of
+//     wgmma m64nDvk16 (the accumulator's layout maps onto the A operand's
+//     pairwise), and V is read from shared memory as a transposed
+//     (MN-major) B operand.
+//   * Rounding points of the TPU kernel (kernel.py:40-60): S from bf16
+//     inputs accumulated in f32, scaled in f32; masked scores -1e30; m
+//     and l in f32; p = exp(s - m) in f32, l sums the unrounded p; p is
+//     rounded to bf16 only as the A operand of P V; acc in f32, the
+//     output acc / max(l, 1e-30) rounded to bf16. log2(e) is folded into
+//     the scale: the row max is taken over the raw scores (scale > 0 keeps
+//     their order) and p = 2^(s * scale * log2 e - m * scale * log2 e),
+//     one fmaf and one ex2.approx.ftz (what exp2f compiles to, without
+//     its denormal fix-up: a p below 2^-126 is 0).
+//   * Causal: KV tiles past the query tile's last row are not loaded; a
+//     warpgroup skips a tile that lies wholly above its own rows (it only
+//     releases it); only tiles that cross the diagonal or the end of Sk
+//     are masked. Ragged Sq and Sk: the 3-D tensor maps (D, S, BH)
+//     zero-fill rows past S, keys >= Sk are masked and rows >= Sq are not
+//     stored.
+//   * Tensor maps are encoded on the host per call with
+//     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
+//     -lcuda), and passed as __grid_constant__ kernel parameters. The
+//     entry returns -CUresult when the encoder is missing or refuses.
+//   * A barrier wait that exceeds ~2^34 cycles traps instead of hanging
+//     the card.
+//   * Against a first version with 64-row K/V tiles, m64n64k16, expf-style
+//     softmax and one block per work item, the largest gains came, in
+//     order, from the fmaf + ex2 softmax, the 128-row tiles and the
+//     persistent blocks. A third consumer warpgroup (192-row tiles at 128
+//     registers), a deeper ring, and issuing the next tile's S before this
+//     tile's P V (FA3's intra-warpgroup overlap, which needs a second
+//     score fragment) gained little or lost time.
+//
+// simt (flash_attention_kernel): one block of 256 threads per (bh,
+// 64-row query tile). The query tile and each 64-row K and V tile are
+// staged in shared memory as f32 (rows padded by one word so column walks
+// hit distinct banks); the scores of a tile never leave the SM. Each
+// thread owns 4 query rows x 4 score columns and 4 rows x Dv/16 output
+// columns, so the online-softmax state (m, l, acc) stays in registers; a
+// row's max and sum are reduced across the 16 lanes that share it with
+// shuffles. p is rounded to the value type before p·v and l sums the
+// unrounded p, as the TPU kernel does. It runs f32 FMAs on the CUDA
+// cores (67 TFLOP/s at best), far above the bound. Under the causal mask
 // (top-left: query i sees keys 0..i) key tiles past the tile's last query
 // row are skipped, which is exact: their terms are exp(-1e30 - m) = 0.
 // Ragged Sq and Sk are masked here, so any length is taken. Blocks run
 // the heaviest query tiles first.
+//
+// Both: query head bh reads kv row bh / group; the causal mask is
+// top-left.
 #include <climits>
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -205,9 +268,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DVC>
-int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int group, int Sq, int Sk, int D, int Dv, float scale, int causal,
-           cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                int BH, int group, int Sq, int Sk, int D, int Dv, float scale,
+                int causal, cudaStream_t stream) {
   const int nq = (Sq + kBQ - 1) / kBQ;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBQ + kBK) * (D + 1) +
@@ -223,26 +286,646 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core variant (bf16, D == Dv in {64, 128})
+
+constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16
+constexpr long long kWaitLimit = 1LL << 34;   // cycles before a wait traps
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// arrive once and expect `bytes` of TMA traffic on this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > kWaitLimit) {
+      __trap();
+    }
+  }
+}
+
+// one TMA box of a 3-D tensor map (coordinates innermost first) into
+// shared memory, completing `bytes` on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands:
+// `sbo` = 1024 (eight 128-byte rows), `lbo` unused. MN-major operands:
+// `sbo` = 1024 (eight K rows), `lbo` = the stride between 64-column blocks.
+// The tile must sit on a 1024-byte boundary (base offset 0).
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers an asynchronous wgmma reads or writes: keep the compiler from
+// moving or reusing them across the issue / wait pair.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// d (64 x 128, f32) += A (64 x 16, smem) * B (16 x 128, smem), both K-major;
+// d is overwritten instead when scale_d is 0
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// P V for Dv = 64 or 128, chosen by the accumulator's size
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_m64n64(d, a, db);
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_m64n128(d, a, db);
+}
+
+// One block: kConsumers warpgroups of 64 query rows (kBQ), a kStages-deep
+// ring of kWgBK-row K and V tiles, two Q buffers.
+constexpr int kWgBK = 128;
+constexpr int kConsumers = 2;
+constexpr int kStages = 2;
+constexpr int kWgThreads = 128 * (kConsumers + 1);
+
+template <int D>
+struct WgLayout {
+  static constexpr int kBQ = 64 * kConsumers;         // query rows
+  static constexpr int kBlocks = D / 64;              // 64-column blocks
+  static constexpr int kQBlock = kBQ * kRowBytes;     // one block of Q
+  static constexpr int kKBlock = kWgBK * kRowBytes;   // one of K or V
+  static constexpr int kQBytes = kQBlock * kBlocks;   // one Q buffer
+  static constexpr int kKBytes = kKBlock * kBlocks;   // one stage of K or V
+  // two Q buffers, the K ring, the V ring, then the mbarriers: full_q[2],
+  // empty_q[2], full_k[], full_v[], empty[]; plus 1024 bytes to align the
+  // tiles for the 128-byte swizzle
+  static constexpr int kBarOffset = 2 * kQBytes + 2 * kStages * kKBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (4 + 3 * kStages);
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile's raw scores, in registers. sc[4j + e] is
+// row r0 (e < 2) or r1, key k0 + 8j + 2t + (e & 1); N = keys / 2.
+// Masks keys >= Sk and (causal) keys past the row to -1e30 when `edge`,
+// updates the row max m (of the raw scores: scale > 0 keeps the order)
+// and the row sum l (of the unrounded p, partial: this thread's columns),
+// returns the factors c that rescale the accumulator, and rounds
+// p = 2^(s * scale * log2 e - m * scale * log2 e) to bf16 into the A
+// fragment: k16 step kk takes keys 16kk..16kk+15, which are the
+// accumulator's n-blocks 2kk and 2kk+1, register for register.
+template <int N>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[N], uint32_t (&pa)[N / 8][4], float& m0, float& m1,
+    float& l0, float& l1, float& c0, float& c1, bool edge, int k0, int Sk,
+    int causal, int r0, int r1, int t, float scale_log2) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        if (kp >= Sk || (causal && kp > (e < 2 ? r0 : r1)))
+          sc[4 * j + e] = kNegInf;
+      }
+  }
+  // four independent max chains
+  float a0 = sc[0], b0 = sc[1], a1 = sc[2], b1 = sc[3];
+#pragma unroll
+  for (int j = 1; j < N / 4; ++j) {
+    a0 = fmaxf(a0, sc[4 * j]);
+    b0 = fmaxf(b0, sc[4 * j + 1]);
+    a1 = fmaxf(a1, sc[4 * j + 2]);
+    b1 = fmaxf(b1, sc[4 * j + 3]);
+  }
+  const float mx0 = fmaxf(m0, quad_max(fmaxf(a0, b0)));
+  const float mx1 = fmaxf(m1, quad_max(fmaxf(a1, b1)));
+  c0 = ex2((m0 - mx0) * scale_log2);
+  c1 = ex2((m1 - mx1) * scale_log2);
+  m0 = mx0;
+  m1 = mx1;
+  // m is finite from the first tile on: every row's first tile holds key
+  // 0, which no mask hides
+  const float n0 = -mx0 * scale_log2, n1 = -mx1 * scale_log2;
+  float s0a = 0.f, s0b = 0.f, s1a = 0.f, s1b = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float p0 = ex2(fmaf(sc[4 * j], scale_log2, n0));
+    const float p1 = ex2(fmaf(sc[4 * j + 1], scale_log2, n0));
+    const float p2 = ex2(fmaf(sc[4 * j + 2], scale_log2, n1));
+    const float p3 = ex2(fmaf(sc[4 * j + 3], scale_log2, n1));
+    s0a += p0;
+    s0b += p1;
+    s1a += p2;
+    s1b += p3;
+    pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+  }
+  l0 = l0 * c0 + (s0a + s0b);
+  l1 = l1 * c1 + (s1a + s1b);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float c0, float c1) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= c0;
+    o[4 * j + 1] *= c0;
+    o[4 * j + 2] *= c1;
+    o[4 * j + 3] *= c1;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ out, int BH,
+                             int group, int Sq, int Sk, float scale_log2,
+                             int causal, int nq) {
+  using L = WgLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sq =                               // [2][kQBytes]
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const sk = sq + 2 * L::kQBytes;          // [kStages][kKBytes]
+  uint8_t* const sv = sk + kStages * L::kKBytes;    // [kStages][kKBytes]
+  uint64_t* const full_q = reinterpret_cast<uint64_t*>(sq + L::kBarOffset);
+  uint64_t* const empty_q = full_q + 2;
+  uint64_t* const full_k = empty_q + 2;
+  uint64_t* const full_v = full_k + kStages;
+  uint64_t* const empty = full_v + kStages;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(full_q + b, 1);
+      mbar_init(empty_q + b, 4 * kConsumers);
+    }
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 4 * kConsumers);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Work items are (bh, query tile) pairs, heaviest query tiles first; the
+  // block takes items blockIdx.x, + gridDim.x, ... The K/V ring and the two
+  // Q buffers run on across items, so the next item's loads overlap this
+  // one's last tiles and its epilogue.
+  const int n_items = nq * BH;
+  auto item_q0 = [&](int item) {
+    return (nq - 1 - item / BH) * L::kBQ;
+  };
+  auto item_tiles = [&](int q0) {
+    const int nk = (Sk + kWgBK - 1) / kWgBK;
+    return causal ? min(nk, (min(q0 + L::kBQ, Sq) - 1) / kWgBK + 1) : nk;
+  };
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;                       // ring tiles issued so far
+      int n = 0;                        // items taken so far
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
+        const int bh = item % BH, q0 = item_q0(item), kvh = bh / group;
+        const int nk = item_tiles(q0);
+        const int qb = n & 1;
+        // the buffer's item before last released (passes at once at first)
+        mbar_wait(empty_q + qb, ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(full_q + qb, L::kQBytes);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b)
+          tma_load(sq + qb * L::kQBytes + b * L::kQBlock, &tq, full_q + qb,
+                   64 * b, q0, bh);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kStages;
+          mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full_k + s, L::kKBytes);
+#pragma unroll
+          for (int b = 0; b < L::kBlocks; ++b)
+            tma_load(sk + s * L::kKBytes + b * L::kKBlock, &tk, full_k + s,
+                     64 * b, kt * kWgBK, kvh);
+          mbar_expect_tx(full_v + s, L::kKBytes);
+#pragma unroll
+          for (int b = 0; b < L::kBlocks; ++b)
+            tma_load(sv + s * L::kKBytes + b * L::kKBlock, &tv, full_v + s,
+                     64 * b, kt * kWgBK, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: cw owns query rows q0 + 64*cw .. + 63 of an item
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t dq = make_desc(sq + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t dk = make_desc(sk, 16, 1024);
+  const uint64_t dv = make_desc(sv, L::kKBlock, 1024);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  int it = 0;                           // ring tiles consumed so far
+  int n = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
+    const int bh = item % BH, q0 = item_q0(item);
+    const int nk = item_tiles(q0);
+    const int qb = n & 1;
+    const int row_a = q0 + 64 * cw;
+    const int r0 = row_a + 16 * warp + g, r1 = r0 + 8;  // this thread's rows
+    // tiles past nk_wg lie wholly above this warpgroup's rows (causal):
+    // exp(-1e30 - m) = 0 for all their keys, so they are only released
+    const int nk_wg = causal ? min(nk, (row_a + 63) / kWgBK + 1) : nk;
+    const uint64_t dqb = dq + ((qb * L::kQBytes) >> 4);
+
+    float o[D / 2], sc[kWgBK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWgBK / 2; ++i) sc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0, c1;
+    uint32_t pa[kWgBK / 16][4];
+
+    mbar_wait(full_q + qb, (n >> 1) & 1);
+    for (int kt = 0; kt < nk_wg; ++kt) {
+      const int s = (it + kt) % kStages;
+      const uint32_t ph = ((it + kt) / kStages) & 1;
+      const int k0 = kt * kWgBK;
+      mbar_wait(full_k + s, ph);
+
+      // S = Q K^T: D/16 steps of k16; a step advances 32 bytes inside a
+      // 128-byte swizzled row, or moves to the next 64-column block
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_row = (kk % 4) * 32;
+        const uint32_t oq = (kk / 4) * L::kQBlock + in_row;
+        const uint32_t ok = s * L::kKBytes + (kk / 4) * L::kKBlock + in_row;
+        wgmma_ss_m64n128(sc, dqb + (oq >> 4), dk + (ok >> 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(sc);
+
+      const bool edge =
+          k0 + kWgBK > Sk || (causal && k0 + kWgBK - 1 > row_a);
+      softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, edge, k0, Sk, causal, r0,
+                   r1, t, scale_log2);
+      rescale(o, c0, c1);
+
+      // O += P V: V is the MN-major B operand; a k16 step is 16 key rows
+      mbar_wait(full_v + s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_pv(o, pa[kk],
+                 dv + ((s * L::kKBytes + kk * 16 * kRowBytes) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(o);
+      keep(pa);
+      release(empty + s);
+    }
+    release(empty_q + qb);
+    for (int kt = nk_wg; kt < nk; ++kt) {
+      mbar_wait(full_k + (it + kt) % kStages, ((it + kt) / kStages) & 1);
+      release(empty + (it + kt) % kStages);
+    }
+    it += nk;
+
+    // each thread summed its own columns of a row
+    const float den0 = fmaxf(quad_sum(l0), 1e-30f);
+    const float den1 = fmaxf(quad_sum(l1), 1e-30f);
+    __nv_bfloat16* const ob = out + static_cast<long long>(bh) * Sq * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (r0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            ob + static_cast<long long>(r0) * D + col) =
+            __floats2bfloat162_rn(o[4 * j] / den0, o[4 * j + 1] / den0);
+      if (r1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            ob + static_cast<long long>(r1) * D + col) =
+            __floats2bfloat162_rn(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled's signature (cuda.h), called through a pointer
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's encoder, looked up once. Returns 0, a cudaError_t, or
+// -CUDA_ERROR_NOT_FOUND when the driver does not export it.
+int get_encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A (n, S, D) bf16 tensor as a 3-D map (D, S, n), boxes of 64 columns x
+// `rows` rows x 1, 128-byte swizzle; rows past S read as zeros.
+CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int n,
+                int S, int D, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// SMs of the current device, looked up once
+cudaError_t num_sms(int* n) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *n = cached;
+  return cudaSuccess;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int BH, int group, int Sq, int Sk, float scale, int causal,
+                 cudaStream_t stream) {
+  using L = WgLayout<D>;
+  EncodeTiled enc;
+  const int rc = get_encoder(&enc);
+  if (rc != 0) return rc;
+  CUtensorMap tq, tk, tv;
+  CUresult r = encode(enc, &tq, q, BH, Sq, D, L::kBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &tk, k, BH / group, Sk, D, kWgBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &tv, v, BH / group, Sk, D, kWgBK);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  const int nq = (Sq + L::kBQ - 1) / L::kBQ;
+  int sms = 0;
+  cudaError_t e = num_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // one block per SM (registers allow no more), each walking its items
+  kernel<<<min(nq * BH, sms), kWgThreads, L::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), BH, group, Sq, Sk,
+      scale * kLog2e, causal, nq);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). variant: 0 =
+// simt (any dtype and head dims up to 128), 1 = wgmma (bf16, D == Dv in
+// {64, 128} only: the rule of kernel.py variant(), which names the
+// variant). Returns 0, a cudaError_t, or -CUresult when a tensor map
+// cannot be made.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int BH, int group, int Sq, int Sk,
                                int D, int Dv, float scale, int causal,
-                               int dtype, void* stream) {
+                               int dtype, int variant, void* stream) {
   if (BH < 1 || group < 1 || BH % group || Sq < 1 || Sk < 1 || D < 1 ||
       D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim ||
       (dtype != 0 && dtype != 1) ||
       static_cast<long long>((Sq + kBQ - 1) / kBQ) * BH > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return Dv <= 64 ? launch<float, 4>(q, k, v, out, BH, group, Sq, Sk, D, Dv,
-                                       scale, causal, s)
-                    : launch<float, 8>(q, k, v, out, BH, group, Sq, Sk, D, Dv,
+  const bool tensor_cores = dtype == 1 && D == Dv && (D == 64 || D == 128);
+  if (variant == 1) {
+    if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64 ? launch_wgmma<64>(q, k, v, out, BH, group, Sq, Sk, scale,
+                                      causal, s)
+                   : launch_wgmma<128>(q, k, v, out, BH, group, Sq, Sk,
                                        scale, causal, s);
-  return Dv <= 64 ? launch<__nv_bfloat16, 4>(q, k, v, out, BH, group, Sq, Sk,
-                                             D, Dv, scale, causal, s)
-                  : launch<__nv_bfloat16, 8>(q, k, v, out, BH, group, Sq, Sk,
-                                             D, Dv, scale, causal, s);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return Dv <= 64 ? launch_simt<float, 4>(q, k, v, out, BH, group, Sq, Sk,
+                                            D, Dv, scale, causal, s)
+                    : launch_simt<float, 8>(q, k, v, out, BH, group, Sq, Sk,
+                                            D, Dv, scale, causal, s);
+  return Dv <= 64 ? launch_simt<__nv_bfloat16, 4>(q, k, v, out, BH, group, Sq,
+                                                  Sk, D, Dv, scale, causal, s)
+                  : launch_simt<__nv_bfloat16, 8>(q, k, v, out, BH, group, Sq,
+                                                  Sk, D, Dv, scale, causal, s);
 }
+

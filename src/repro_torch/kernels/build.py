@@ -101,17 +101,26 @@ class CudaKernel:
     ``cudaError_t`` of its launches as an int. ``replaces`` names the TPU
     kernel it ports (file:line of the Pallas entry); ``device_fns`` the
     ``__global__`` functions one call launches, which is how a profiler
-    trace tells this kernel's device time apart."""
+    trace tells this kernel's device time apart. An entry that chooses
+    between kernels names them in ``variants``; ``launches_by_variant``
+    then counts each launch under the variant it ran."""
 
     def __init__(self, name: str, argtypes: List, replaces: str,
-                 device_fns: Tuple[str, ...]):
+                 device_fns: Tuple[str, ...],
+                 variants: Tuple[str, ...] = ()):
         self.name = name
         self.argtypes = argtypes
         self.replaces = replaces
         self.device_fns = device_fns
         self.source = f"src/repro_torch/csrc/{name}.cu"
         self.launches = 0
+        self.launches_by_variant = {v: 0 for v in variants}
         self._fn = None
+
+    def reset_counts(self) -> None:
+        """Set every launch count to 0."""
+        self.launches = 0
+        self.launches_by_variant = dict.fromkeys(self.launches_by_variant, 0)
 
     def load(self, build_dir: Optional[Path] = None):
         if self._fn is None:
@@ -122,13 +131,20 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the C entry; raise if it reports a CUDA error."""
+    def launch(self, *args, variant: Optional[str] = None) -> None:
+        """Call the C entry; raise if it reports an error: a positive
+        return is a ``cudaError_t``, a negative one a driver ``CUresult``
+        (negated). Counts the launch, under ``variant`` too if given."""
         rc = self.load()(*args)
-        if rc != 0:
+        if rc > 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError_t {rc}")
+        if rc < 0:
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"driver CUresult {-rc}")
         self.launches += 1
+        if variant is not None:
+            self.launches_by_variant[variant] += 1
 
 
 def check_args(dev, checks) -> None:

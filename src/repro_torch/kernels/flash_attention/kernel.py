@@ -1,4 +1,9 @@
-"""Binding of the CUDA kernel ``flash_attention`` (csrc/flash_attention.cu)."""
+"""Binding of the CUDA kernel ``flash_attention`` (csrc/flash_attention.cu).
+
+The C entry holds two kernels. :func:`variant` chooses between them from
+the dtype and head dims alone, before anything is built or launched, and
+the entry refuses a ``"wgmma"`` launch that breaks the same rule.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -9,30 +14,56 @@ from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
 
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {"simt": 0, "wgmma": 1}
+WGMMA_HEAD_DIMS = (64, 128)
 
 KERNEL = CudaKernel(
     "flash_attention",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     replaces="src/repro/kernels/flash_attention/kernel.py:65",
-    device_fns=("flash_attention_kernel",))
+    device_fns=("flash_attention_kernel", "flash_attention_wgmma_kernel"),
+    variants=tuple(VARIANTS))
 
 
-def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
-                         scale=None) -> torch.Tensor:
-    """Same contract as ``ref.flash_attention_ref``; f32 or bf16, head
-    dims up to 128, any Sq and Sk."""
-    BH, Sq, D = q.shape
-    BHkv, Sk, Dv = k.shape[0], k.shape[1], v.shape[2]
-    if q.dtype not in DTYPES:
+def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """The kernel that runs for these inputs: ``"wgmma"`` (tensor cores)
+    for bf16 with D == Dv in {64, 128}; ``"simt"`` for every other bf16
+    head dim and for f32, whose 2e-5 contract TF32 would break. Raises
+    ValueError for another dtype or a head dim outside 1..128."""
+    if dtype not in DTYPES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
-                         f"{q.dtype}")
-    if group < 1 or BH != BHkv * group:
-        raise ValueError(f"q has {BH} heads; k/v have {BHkv} with group "
-                         f"{group}")
+                         f"{dtype}")
     if not (0 < D <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM):
         raise ValueError(f"head dims D={D}, Dv={Dv}: the kernel takes 1.."
                          f"{MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and D == Dv and D in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
+                         scale=None, force_variant=None) -> torch.Tensor:
+    """Same contract as ``ref.flash_attention_ref``; f32 or bf16, head
+    dims up to 128, any Sq and Sk. The kernel is :func:`variant`'s;
+    ``force_variant="simt"`` runs the SIMT kernel on any inputs (to time
+    it beside the tensor-core one), and a ``"wgmma"`` the inputs do not
+    qualify for raises."""
+    BH, Sq, D = q.shape
+    BHkv, Sk, Dv = k.shape[0], k.shape[1], v.shape[2]
+    chosen = variant(q.dtype, D, Dv)
+    if force_variant is not None:
+        if force_variant not in VARIANTS:
+            raise ValueError(f"unknown variant {force_variant!r}; expected "
+                             f"one of {list(VARIANTS)}")
+        if force_variant == "wgmma" and chosen != "wgmma":
+            raise ValueError(f"the wgmma kernel takes bf16 with D == Dv in "
+                             f"{WGMMA_HEAD_DIMS}, got {q.dtype} D={D} "
+                             f"Dv={Dv}")
+        chosen = force_variant
+    if group < 1 or BH != BHkv * group:
+        raise ValueError(f"q has {BH} heads; k/v have {BHkv} with group "
+                         f"{group}")
     if Sq < 1 or Sk < 1:
         raise ValueError(f"empty sequence: Sq={Sq}, Sk={Sk}")
     dev = q.device
@@ -42,5 +73,6 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty(BH, Sq, Dv, dtype=q.dtype, device=dev)
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), BH, group, Sq, Sk, D,
-                  Dv, scale, int(causal), DTYPES[q.dtype], stream_ptr(dev))
+                  Dv, scale, int(causal), DTYPES[q.dtype], VARIANTS[chosen],
+                  stream_ptr(dev), variant=chosen)
     return out

@@ -4,9 +4,13 @@ serving path).
 K6 (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``flash_attention_pallas`` (src/repro/kernels/flash_attention/kernel.py).
 It is bound by operations: 4·BH·Sq·Sk·D/2 multiply-adds for causal
-attention against a few tens of MB of q/k/v/o, so a fast version lives on
-the tensor cores; this one is a plain SIMT kernel (f32 FMAs) that keeps
-the (Sq, Sk) scores out of device memory, and is far above that bound.
+attention against a few tens of MB of q/k/v/o, so it belongs on the
+tensor cores. bf16 with D == Dv in {64, 128} runs the ``wgmma`` kernel
+(TMA-fed K/V ring, both products on the tensor cores, the online softmax
+in registers); f32 and other head dims run the SIMT kernel (f32 FMAs),
+far above the bound. ``kernel.variant`` names the one that runs, and
+``kernel.KERNEL.launches_by_variant`` counts them. Both keep the (Sq, Sk)
+scores out of device memory.
 """
 from __future__ import annotations
 

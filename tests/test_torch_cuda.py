@@ -4,7 +4,10 @@ Marked ``gpu``: whether a card is present is decided inside the
 ``cuda`` fixture, so every worker collects the same tests; on a host
 without one they skip. Run them on the card with
 
-    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports JAX, which the card's host
+need not have).
 
 Integers must match bit for bit; features within 1e-5 of each row's
 feature scale (``tests/test_gather_enrich_equiv.py``); attention within
@@ -233,6 +236,57 @@ def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
     """Sq != Sk, Dv != D, head dims up to 128, and the full (non-causal)
     softmax."""
     _attention_case(cuda, 6, Sq, Sk, D, Dv, 3, dtype, causal, Sq * Sk)
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,D,group,causal", [
+    (128, 1024, 1024, 64, 4, True),     # the serving shape
+    (8, 1000, 1000, 64, 4, True),
+    (8, 1000, 1000, 128, 4, True),
+    (8, 1000, 1000, 64, 1, False),
+    (24, 200, 330, 128, 3, True),       # Sq < Sk, ragged
+    (24, 330, 200, 64, 3, True),        # Sq > Sk, ragged
+    (16, 200, 330, 64, 8, False),
+    (64, 700, 500, 128, 8, True),
+    (8, 1, 77, 64, 1, True),
+])
+def test_flash_attention_wgmma_matches_plain(cuda, BH, Sq, Sk, D, group,
+                                             causal):
+    """K6's tensor-core variant (bf16, D == Dv in {64, 128}) against the
+    plain version at 2e-2; the launch is counted under "wgmma" and no
+    other variant runs."""
+    g = torch.Generator().manual_seed(BH * Sq + Sk + D)
+    q = torch.randn(BH, Sq, D, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(BH // group, Sk, D, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(BH // group, Sk, D, generator=g).to(cuda, torch.bfloat16)
+    assert AK.variant(q.dtype, D, D) == "wgmma"
+    before = dict(AK.KERNEL.launches_by_variant)
+    got = FA.flash_attention(q, k, v, group=group, causal=causal)
+    assert AK.KERNEL.launches_by_variant == {**before,
+                                             "wgmma": before["wgmma"] + 1}
+    want = FA.flash_attention(q, k, v, group=group, causal=causal,
+                              backend="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (BH, Sq, D)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_attention_simt_variant_forced(cuda):
+    """The SIMT kernel, forced onto the serving shape's bf16 inputs,
+    agrees with the wgmma kernel and the plain version at 2e-2."""
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(16, 300, 64, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(4, 300, 64, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(4, 300, 64, generator=g).to(cuda, torch.bfloat16)
+    before = dict(AK.KERNEL.launches_by_variant)
+    simt = AK.flash_attention_cuda(q, k, v, group=4, force_variant="simt")
+    wgmma = AK.flash_attention_cuda(q, k, v, group=4)
+    assert AK.KERNEL.launches_by_variant == {
+        "simt": before["simt"] + 1, "wgmma": before["wgmma"] + 1}
+    want = FA.flash_attention(q, k, v, group=4, backend="ref")
+    for got in (simt, wgmma):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),

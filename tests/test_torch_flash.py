@@ -126,3 +126,76 @@ def test_kernel_wrapper_refuses_what_k6_does_not_take():
     assert FK.KERNEL._fn is None and FK.KERNEL.launches == 0
     with pytest.raises(RuntimeError, match="backend 'cuda'"):
         FA.flash_attention(q, kv, kv, group=2, backend="cuda")
+
+
+# kernel.variant: which of K6's two kernels a launch runs
+VARIANT_CASES = [
+    # dtype, D, Dv, variant
+    (torch.bfloat16, 64, 64, "wgmma"),       # granite-3-2b's head dim
+    (torch.bfloat16, 128, 128, "wgmma"),     # the larger families'
+    (torch.bfloat16, 64, 128, "simt"),       # Dv != D
+    (torch.bfloat16, 128, 64, "simt"),
+    (torch.bfloat16, 16, 16, "simt"),        # the REDUCED config
+    (torch.bfloat16, 8, 12, "simt"),         # the tests' small dims
+    (torch.bfloat16, 32, 32, "simt"),
+    (torch.bfloat16, 96, 96, "simt"),
+    (torch.float32, 64, 64, "simt"),         # f32 keeps its 2e-5 contract
+    (torch.float32, 128, 128, "simt"),
+    (torch.float32, 16, 16, "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,D,Dv,want", VARIANT_CASES)
+def test_variant_rule(dtype, D, Dv, want):
+    assert FK.variant(dtype, D, Dv) == want
+
+
+@pytest.mark.parametrize("dtype,D,Dv,msg", [
+    (torch.bfloat16, 129, 129, "head dims"),
+    (torch.bfloat16, 256, 256, "head dims"),
+    (torch.bfloat16, 64, 160, "head dims"),
+    (torch.float32, 192, 64, "head dims"),
+    (torch.bfloat16, 0, 64, "head dims"),
+    (torch.float16, 64, 64, "float32 or bfloat16"),
+])
+def test_variant_refuses_before_any_launch(dtype, D, Dv, msg):
+    """A head dim past 128 (or a dtype K6 lacks) is refused by variant()
+    and by the wrapper, before anything is built or launched."""
+    with pytest.raises(ValueError, match=msg):
+        FK.variant(dtype, D, Dv)
+    counts = dict(FK.KERNEL.launches_by_variant)
+    q = torch.zeros(2, 4, D, dtype=dtype)
+    v = torch.zeros(2, 4, Dv, dtype=dtype)
+    with pytest.raises(ValueError, match=msg):
+        FK.flash_attention_cuda(q, q, v)
+    assert FK.KERNEL._fn is None
+    assert FK.KERNEL.launches_by_variant == counts
+
+
+@pytest.mark.parametrize("D,force,msg", [(16, "wgmma", "wgmma kernel takes"),
+                                         (64, "tensor", "unknown variant")])
+def test_forced_variant_is_checked_before_any_launch(D, force, msg):
+    """The SIMT kernel may be forced onto any inputs; the wgmma kernel only
+    onto inputs that qualify (the C entry holds the same rule)."""
+    q = torch.zeros(4, 8, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=msg):
+        FK.flash_attention_cuda(q, q, q, force_variant=force)
+    assert FK.KERNEL._fn is None
+
+
+def test_k6_names_both_kernels_and_counts_each():
+    """device_fns names both __global__ functions of the source, and
+    launches_by_variant has a count for each variant; reset_counts zeroes
+    all of them."""
+    src = open(FK.__file__.replace("kernels/flash_attention/kernel.py",
+                                   "csrc/flash_attention.cu")).read()
+    for fn in FK.KERNEL.device_fns:
+        assert f"\n{fn}(" in src
+    assert set(FK.KERNEL.launches_by_variant) == {"simt", "wgmma"}
+    saved = (FK.KERNEL.launches, dict(FK.KERNEL.launches_by_variant))
+    FK.KERNEL.launches_by_variant["wgmma"] = 3
+    FK.KERNEL.launches = 3
+    FK.KERNEL.reset_counts()
+    assert FK.KERNEL.launches == 0
+    assert FK.KERNEL.launches_by_variant == {"simt": 0, "wgmma": 0}
+    FK.KERNEL.launches, FK.KERNEL.launches_by_variant = saved
