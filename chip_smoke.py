@@ -20,7 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
    timed by CUDA events and by its device time; flash_attention's cases
    each run the variant ``kernel.variant`` names (``wgmma`` for bf16 with
    D == Dv in {64, 128}, ``simt`` otherwise), and the SIMT kernel is timed
-   at the serving shape beside the tensor-core one;
+   at the serving shape beside the tensor-core one; gather_enrich (on
+   random and on distinct flow ids) and derived_features (on the
+   gathered history and the whole ring) also give their achieved GB/s
+   and the bound's share of their device time;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -70,6 +73,8 @@ T_MAIN = 8                   # timed main-path periods (after one warm-up)
 T_UNFUSED = 4                # timed unfused-path periods (after one warm-up)
 EVENTS = 1 << 20             # packet events per period on the main path
 FEATURE_TOL = 1e-5           # row-scaled feature tolerance
+# K3 / K5 design, in their kernel rows (thread-per-flow before it)
+REDESIGNED = "warp-cooperative: lanes per entry, then per feature column"
 PRED_TOL = 1e-5              # head outputs, kernel run vs plain run
 
 
@@ -141,6 +146,14 @@ def device_us(kernel, fn, iters: int = 20) -> float:
                        f"{kernel.name if kernel else 'a library call'}'s "
                        f"functions {names}")
     return total / iters
+
+
+def achieved(n_bytes: float, n_ops: float, dev_us: float) -> dict:
+    """Achieved GB/s over the device time per call, and the bound's share
+    of that time (1.0 = at the bound)."""
+    b_ms, _ = bound(n_bytes, n_ops)
+    return {"gbps": n_bytes / (dev_us * 1e-6) / 1e9,
+            "bound_share": b_ms * 1e3 / dev_us}
 
 
 def feature_err(got, ref) -> float:
@@ -254,20 +267,31 @@ def check_ring_scatter(cfg, dev, gen, mem0, ev0):
 
 
 def check_gather_enrich(cfg, dev, gen, mem, valid):
+    """K3 at the main path's R from the PAPER ring, row-scaled against its
+    plain version, on random ids (duplicates among them; timed) and on
+    distinct ids (the main path's shape: due flows are unique)."""
     import torch
     from repro_torch.kernels.gather_enrich import kernel as K
     from repro_torch.kernels.gather_enrich import ops
 
     F, H, R, D = (cfg.flows_per_shard, cfg.history, cfg.report_capacity,
                   cfg.derived_dim)
-    lf = torch.randint(0, F, (R,), generator=gen).to(dev)
-    got = ops.gather_enrich(mem, valid, lf, cfg)
-    want = ops.gather_enrich(mem, valid, lf, cfg, backend="ref")
-    torch.cuda.synchronize()
-    scaled = feature_err(got, want)
-    require(bool(torch.isfinite(got).all()), "gather_enrich: non-finite")
-    require(scaled <= FEATURE_TOL, f"gather_enrich differs from its plain "
-                                   f"version: row-scaled err {scaled:.3e}")
+    cases = {"random ids": torch.randint(0, F, (R,), generator=gen),
+             "distinct ids": torch.randperm(F, generator=gen)[:R]}
+    cases = {label: ids.to(dev) for label, ids in cases.items()}
+    errs = {}
+    for label, lf in cases.items():
+        got = ops.gather_enrich(mem, valid, lf, cfg)
+        want = ops.gather_enrich(mem, valid, lf, cfg, backend="ref")
+        torch.cuda.synchronize()
+        scaled = feature_err(got, want)
+        require(bool(torch.isfinite(got).all()),
+                f"gather_enrich ({label}): non-finite")
+        require(scaled <= FEATURE_TOL, f"gather_enrich ({label}) differs "
+                                       f"from its plain version: row-scaled "
+                                       f"err {scaled:.3e}")
+        errs[label] = (scaled, float((got - want).abs().max()))
+    lf = cases["random ids"]
     ms, plain_ms = in_turns(
         lambda: ops.gather_enrich(mem, valid, lf, cfg, backend="ref"),
         lambda: ops.gather_enrich(mem, valid, lf, cfg), 50)
@@ -277,13 +301,19 @@ def check_gather_enrich(cfg, dev, gen, mem, valid):
     # window sums, the two-pass variance) plus ~100 per row
     n_bytes = rows * H * (64 + 1) + R * 4 + R * D * 4
     n_ops = R * (H * 100 + 100)
-    return {"kernel": K.KERNEL,
-            "max_abs_err": float((got - want).abs().max()),
-            "row_scaled_err": scaled, "ms": ms, "plain_ms": plain_ms,
-            "n_bytes": n_bytes, "n_ops": n_ops,
-            "device_us": device_us(K.KERNEL, lambda: ops.gather_enrich(
-                mem, valid, lf, cfg)),
-            "shape": f"R={R} from ({F}, {H}, 16), D={D}",
+    dev_us = device_us(K.KERNEL, lambda: ops.gather_enrich(mem, valid, lf,
+                                                            cfg))
+    distinct = cases["distinct ids"]
+    return {"kernel": K.KERNEL, "max_abs_err": errs["random ids"][1],
+            "row_scaled_err": errs["random ids"][0], "ms": ms,
+            "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": n_ops,
+            "device_us": dev_us, **achieved(n_bytes, n_ops, dev_us),
+            "distinct_device_us": device_us(K.KERNEL, lambda: (
+                ops.gather_enrich(mem, valid, distinct, cfg))),
+            "distinct_row_scaled_err": errs["distinct ids"][0],
+            "redesigned": REDESIGNED,
+            "shape": f"R={R} from ({F}, {H}, 16), D={D}, random ids "
+                     "(distinct ids checked and timed too)",
             "check": f"row-scaled {FEATURE_TOL:g}"}
 
 
@@ -407,23 +437,24 @@ def check_derived_features(cfg, dev, gen, mem, valid):
         N = e.shape[0]
         # entries + validity read once, (N, D) f32 written; ~100 flops per
         # entry plus ~100 per row (as for gather_enrich)
+        n_bytes, n_ops = N * H * (64 + 1) + N * D * 4, N * (H * 100 + 100)
+        dev_us = device_us(K.KERNEL, lambda: ops.derived_features(e, v, cfg))
         res[label] = {"max_abs_err": float((got - want).abs().max()),
                       "row_scaled_err": scaled, "ms": ms,
-                      "plain_ms": plain_ms,
-                      "n_bytes": N * H * (64 + 1) + N * D * 4,
-                      "n_ops": N * (H * 100 + 100),
-                      "device_us": device_us(K.KERNEL, lambda: (
-                          ops.derived_features(e, v, cfg))),
+                      "plain_ms": plain_ms, "n_bytes": n_bytes,
+                      "n_ops": n_ops, "device_us": dev_us,
+                      **achieved(n_bytes, n_ops, dev_us),
                       "shape": f"({N}, {H}, 16) -> ({N}, {D})"}
     ring = res["whole ring"]
     b_ms, b_by = bound(ring["n_bytes"], ring["n_ops"])
-    return {"kernel": K.KERNEL, **res["gathered"],
+    return {"kernel": K.KERNEL, **res["gathered"], "redesigned": REDESIGNED,
             "shape": res["gathered"]["shape"] + " (R routed flows "
                      "gathered from the PAPER ring; whole ring checked "
                      "too)",
             "check": f"row-scaled {FEATURE_TOL:g}",
             "whole_ring": {k: ring[k] for k in ("ms", "plain_ms",
-                                                "device_us",
+                                                "device_us", "gbps",
+                                                "bound_share",
                                                 "row_scaled_err", "shape")}
             | {"bound_ms": b_ms, "bound_by": b_by}}
 
@@ -1183,6 +1214,14 @@ def main() -> int:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
             f"plain {c['plain_ms']:.5f} ms")
+        if "gbps" in c:
+            log(f"[kernel] {c['kernel'].name}: {c['gbps']:.1f} GB/s over "
+                f"the device time, {100 * c['bound_share']:.1f} % of the "
+                f"bound")
+        if "distinct_device_us" in c:
+            log(f"[kernel] {c['kernel'].name} on distinct ids: device "
+                f"{c['distinct_device_us']:.3f} us, row-scaled err "
+                f"{c['distinct_row_scaled_err']:.3e}")
         if "library_ms" in c:
             log(f"[kernel] {c['kernel'].name} library call: "
                 f"{c['library_ms']:.5f} ms, device "
@@ -1195,7 +1234,9 @@ def main() -> int:
             w = c["whole_ring"]
             log(f"[kernel] {c['kernel'].name} at {w['shape']}: kernel "
                 f"{w['ms']:.5f} ms, device {w['device_us']:.3f} us, plain "
-                f"{w['plain_ms']:.5f} ms, bound {w['bound_ms']:.5f} ms")
+                f"{w['plain_ms']:.5f} ms, bound {w['bound_ms']:.5f} ms, "
+                f"{w['gbps']:.1f} GB/s, {100 * w['bound_share']:.1f} % of "
+                f"the bound")
 
     # 4. main path (launch counts start at 0 here)
     system, events, nows = paper_system(dev)
@@ -1257,6 +1298,8 @@ def kernel_rows(checks, by_path, by_variant):
                         if k.name in by_variant else {}),
                      **{key: c[key] for key in (
                          "row_scaled_err", "whole_ring", "errs", "variant",
+                         "gbps", "bound_share", "redesigned",
+                         "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms",
                          "simt_note")
                         if key in c}})

@@ -10,8 +10,7 @@ import torch
 from repro_torch.core import wire as WIRE
 from repro_torch.kernels.build import (CudaKernel, check_args, ptr,
                                       stream_ptr)
-
-WORDS = 16
+from repro_torch.kernels.gather_enrich.kernel import WORDS, check_ring
 
 KERNEL = CudaKernel(
     "derived_features",
@@ -29,10 +28,7 @@ def derived_features_cuda(entries, valid, derived_dim: int,
     checks = (("entries", entries, torch.int32, (N, H, WORDS)),
               ("valid", valid, torch.bool, (N, H)))
     check_args(dev, checks)
-    if (wire.payload_stats != (1, 8) or wire.payload_hist.word not in (13, 15)
-            or wire.payload_words != WORDS):
-        raise ValueError(f"wire format {wire.name!r}: the kernel reads stats "
-                         "from words 1-7 and hist_idx from word 13 or 15")
+    check_ring(entries, wire)
     out = torch.empty(N, derived_dim, dtype=torch.float32, device=dev)
     hf = wire.payload_hist
     KERNEL.launch(ptr(entries), ptr(valid), ptr(out), N, H, derived_dim,

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import u32 as U
 from repro_torch.configs import REDUCED, get_config
 from repro_torch.convert import state_to_numpy
 from repro_torch.core import reporter as TR
@@ -39,6 +40,7 @@ from repro_torch.kernels.ingest_update import ops as IO
 from repro_torch.kernels.ring_scatter import kernel as RK
 from repro_torch.kernels.ring_scatter import ops as RS
 from repro_torch.models.registry import Model
+from torch_corners import corner_ids, corner_ring
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -169,6 +171,85 @@ def test_derived_features_row_scaled(cuda, N, H, wire):
     assert got.shape == (N, cfg.derived_dim)
     assert bool(torch.isfinite(got).all())
     assert row_scaled_err(got, DF.derived_features(mem, valid, cfg)) <= 1e-5
+
+
+def _corners(H, D, rows, wire, seed):
+    """A corner ring (``tests/torch_corners.py``) as port tensors, and
+    the config that reads it."""
+    mem, valid = corner_ring(np.random.default_rng(seed), rows, H, wire)
+    cfg = dataclasses.replace(REDUCED, history=H, derived_dim=D,
+                              wire_format=wire)
+    return U.from_numpy(mem), torch.from_numpy(valid), cfg
+
+
+@pytest.mark.parametrize("N", [1, 4095, 4096])
+@pytest.mark.parametrize("D", [40, 96, 128])
+@pytest.mark.parametrize("H", [1, 10, 16, 17, 33])
+def test_derived_features_corners(cuda, H, D, N):
+    """K5 at the selection corners (ties, all-zero counts with entry 0
+    invalid, counts >= 2^31, all-invalid rows), H from one entry to more
+    entries than a warp has lanes, truncated / PAPER / padded D, under
+    both wire formats."""
+    for wire in ("v1", "v2"):
+        mem, valid, cfg = _corners(H, D, N, wire, H * 7919 + D * 31 + N)
+        before = DK.KERNEL.launches
+        got = DF.derived_features(mem.to(cuda), valid.to(cuda), cfg)
+        assert DK.KERNEL.launches == before + 1
+        assert got.shape == (N, D) and bool(torch.isfinite(got).all())
+        assert row_scaled_err(got, DF.derived_features(mem, valid, cfg)) \
+            <= 1e-5
+
+
+@pytest.mark.parametrize("R", [1, 4095, 4096])
+@pytest.mark.parametrize("D", [40, 96, 128])
+@pytest.mark.parametrize("H", [1, 10, 16, 17, 33])
+def test_gather_enrich_corners(cuda, H, D, R):
+    """K3 at the same corners, with ids below 0 and at or above F
+    (clamped) and duplicate ids."""
+    F = 4096
+    for wire in ("v1", "v2"):
+        mem, valid, cfg = _corners(H, D, F, wire, H * 7919 + D * 31 + R)
+        cfg = dataclasses.replace(cfg, flows_per_shard=F)
+        lf = torch.from_numpy(corner_ids(np.random.default_rng(R), R, F))
+        before = GK.KERNEL.launches
+        got = GE.gather_enrich(mem.to(cuda), valid.to(cuda), lf.to(cuda),
+                               cfg)
+        assert GK.KERNEL.launches == before + 1
+        assert got.shape == (R, D) and bool(torch.isfinite(got).all())
+        assert row_scaled_err(got, GE.gather_enrich(mem, valid, lf, cfg)) \
+            <= 1e-5
+
+
+@pytest.mark.parametrize("H", [147, 300, 800])
+def test_derive_kernels_long_history(cuda, H):
+    """Histories whose shared copy needs the >48 KB opt-in (H > 146) and
+    fewer warps per block (H > 691), both kernels."""
+    mem, valid, cfg = _corners(H, 96, 64, "v2", H)
+    before = (GK.KERNEL.launches, DK.KERNEL.launches)
+    lf = torch.from_numpy(corner_ids(np.random.default_rng(H), 70, 64))
+    got_g = GE.gather_enrich(mem.to(cuda), valid.to(cuda), lf.to(cuda),
+                             dataclasses.replace(cfg, flows_per_shard=64))
+    got_d = DF.derived_features(mem.to(cuda), valid.to(cuda), cfg)
+    assert (GK.KERNEL.launches, DK.KERNEL.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert row_scaled_err(got_g, GE.gather_enrich(mem, valid, lf, cfg)) \
+        <= 1e-5
+    assert row_scaled_err(got_d, DF.derived_features(mem, valid, cfg)) \
+        <= 1e-5
+
+
+def test_derive_kernels_take_zero_rows(cuda):
+    """R = 0 and N = 0 give an empty (0, D)."""
+    mem, valid, cfg = _corners(10, 96, 64, "v1", 0)
+    before = (GK.KERNEL.launches, DK.KERNEL.launches)
+    got = GE.gather_enrich(mem.to(cuda), valid.to(cuda),
+                           torch.zeros(0, dtype=torch.int64, device=cuda),
+                           cfg)
+    empty = DF.derived_features(mem[:0].to(cuda), valid[:0].to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert (GK.KERNEL.launches, DK.KERNEL.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert got.shape == (0, 96) and empty.shape == (0, 96)
 
 
 def test_unfused_step_on_card_equals_fused(cuda):
