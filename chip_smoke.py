@@ -23,7 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
    at the serving shape beside the tensor-core one; gather_enrich (on
    random and on distinct flow ids) and derived_features (on the
    gathered history and the whole ring) also give their achieved GB/s
-   and the bound's share of their device time;
+   and the bound's share of their device time; flow_moments is also
+   checked with registers at 0xFFFFFFF0, and a log line gives its
+   atomics per call as counted from the inputs; ring_scatter also on a
+   duplicate-heavy batch over several of its rounds, its device launches
+   per call (must be 1) and the device time of an empty kernel of the
+   same launch shape (its floor);
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -75,6 +80,12 @@ EVENTS = 1 << 20             # packet events per period on the main path
 FEATURE_TOL = 1e-5           # row-scaled feature tolerance
 # K3 / K5 design, in their kernel rows (thread-per-flow before it)
 REDESIGNED = "warp-cooperative: lanes per entry, then per feature column"
+# K4 design, in its row (a thread per (event, register) before it)
+K4_DESIGN = ("whole events per warp (4 x 7 lanes), loads issued together, "
+             "one 32-bit RED per non-zero delta")
+# K2 design, in its row (three launches and an F*H winner scratch before)
+K2_DESIGN = ("one launch: cells hashed to blocks, rows in rounds, last "
+             "write elected in a shared table")
 PRED_TOL = 1e-5              # head outputs, kernel run vs plain run
 
 
@@ -123,8 +134,8 @@ def dev_us(e) -> float:
                          getattr(e, "self_cuda_time_total", 0.0)))
 
 
-def device_us(kernel, fn, iters: int = 20) -> float:
-    """Device time per call of ``fn`` spent in ``kernel``'s own
+def device_profile(kernel, fn, iters: int = 20):
+    """(device µs, device launches) per call of ``fn`` in ``kernel``'s own
     ``__global__`` functions (``kernel.device_fns``), summed from
     torch.profiler's device events over ``iters`` calls — the kernel's
     time without the Python wrapper around it. ``kernel=None`` sums every
@@ -139,13 +150,20 @@ def device_us(kernel, fn, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     names = kernel.device_fns if kernel else ("",)
-    total = sum(dev_us(e) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and any(n in e.key for n in names))
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(n in e.key for n in names)]
+    total = sum(dev_us(e) for e in rows)
     require(total > 0, f"the profiler saw no device time in "
                        f"{kernel.name if kernel else 'a library call'}'s "
                        f"functions {names}")
-    return total / iters
+    return total / iters, sum(e.count for e in rows) / iters
+
+
+def device_us(kernel, fn, iters: int = 20) -> float:
+    """Device µs per call of ``fn`` in ``kernel``'s functions (see
+    :func:`device_profile`)."""
+    return device_profile(kernel, fn, iters)[0]
 
 
 def achieved(n_bytes: float, n_ops: float, dev_us: float) -> dict:
@@ -223,8 +241,12 @@ def check_ring_scatter(cfg, dev, gen, mem0, ev0):
     from repro_torch.kernels.ring_scatter import ops
 
     F, H, R = cfg.flows_per_shard, cfg.history, cfg.report_capacity
-    pays = torch.randint(-(1 << 31), (1 << 31) - 1, (R, 16), generator=gen,
+    rounds = K.round_rows()             # rows per round of the kernel
+    Rm = 4 * rounds + 17                # five rounds
+    pays = torch.randint(-(1 << 31), (1 << 31) - 1, (Rm, 16), generator=gen,
                          dtype=torch.int32).to(dev)
+    masks = (torch.rand(Rm, generator=gen) < 0.95).to(dev)
+    cells = torch.randint(0, 300, (Rm,), generator=gen)
     cases = {
         # the main path's shape: distinct flows (due flows are unique)
         "distinct": (torch.randperm(F, generator=gen)[:R],
@@ -232,21 +254,27 @@ def check_ring_scatter(cfg, dev, gen, mem0, ev0):
         # many rows per (flow, hist) cell: last write must win
         "duplicates": (torch.randint(0, 256, (R,), generator=gen),
                        torch.randint(0, 2, (R,), generator=gen)),
+        # 300 cells written in every round: the last write of each lies in
+        # a later round than its first; some rows outside the ring
+        "multi-round duplicates": ((cells * 37) % F + (cells == 7) * F,
+                                   cells % H - 2 * (cells == 11)),
     }
-    mask = (torch.rand(R, generator=gen) < 0.95).to(dev)
     err = 0
     for flow, hist in cases.values():
+        n = flow.shape[0]
         flow, hist = flow.to(dev), hist.to(dev)
         mk, vk = mem0.clone(), ev0.clone()
         mr, vr = mem0.clone(), ev0.clone()
-        ops.ring_scatter(mk, vk, pays, flow, hist, mask)
-        ops.ring_scatter(mr, vr, pays, flow, hist, mask, backend="ref")
+        ops.ring_scatter(mk, vk, pays[:n], flow, hist, masks[:n])
+        ops.ring_scatter(mr, vr, pays[:n], flow, hist, masks[:n],
+                         backend="ref")
         torch.cuda.synchronize()
         require(torch.equal(mk, mr) and torch.equal(vk, vr),
                 "ring_scatter differs from its plain version")
         require(not torch.equal(mk, mem0), "ring_scatter wrote nothing")
         err = max(err, int((mk.long() - mr.long()).abs().max()))
     flow, hist = (t.to(dev) for t in cases["distinct"])
+    pays, mask = pays[:R], masks[:R]
     mk, vk = mem0.clone(), ev0.clone()
     ms, plain_ms = in_turns(
         lambda: ops.ring_scatter(mk, vk, pays, flow, hist, mask,
@@ -256,13 +284,20 @@ def check_ring_scatter(cfg, dev, gen, mem0, ev0):
     winners = int(torch.unique(cells[mask]).numel())
     # each row's payload + coords + mask read once; each winning cell's
     # 64 B entry and validity byte written once
-    n_bytes = R * (64 + 4 + 4 + 1) + winners * (64 + 1)
+    n_bytes = (R * (64 + flow.element_size() + hist.element_size() + 1)
+               + winners * (64 + 1))
+    dev_us, launches = device_profile(K.KERNEL, lambda: ops.ring_scatter(
+        mk, vk, pays, flow, hist, mask))
+    require(launches == 1, f"ring_scatter made {launches} device launches "
+                           "per call, expected 1")
+    floor_us, _ = device_profile(K.FLOOR, lambda: K.launch_floor(R, dev))
     return {"kernel": K.KERNEL, "max_abs_err": float(err), "ms": ms,
             "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": 0,
-            "device_us": device_us(K.KERNEL, lambda: ops.ring_scatter(
-                mk, vk, pays, flow, hist, mask)),
+            "device_us": dev_us, "device_launches_per_call": launches,
+            "floor_us": floor_us, "redesigned": K2_DESIGN,
             "shape": f"R={R} into ({F}, {H}, 16), distinct cells "
-                     "(duplicate-cell batch checked too)",
+                     f"(duplicate-cell batches of R={R} and R={Rm} over "
+                     f"{Rm // rounds + 1} rounds checked too)",
             "check": "bitwise"}
 
 
@@ -345,6 +380,11 @@ def check_flow_moments(cfg, dev, flows, gen):
     cases = {
         "trace": (regs, slots, deltas, valid),
         "trace, 10% invalid": (regs, slots, deltas, some),
+        # registers at 0xFFFFFFF0: most of them wrap past 2^32
+        "registers at 0xFFFFFFF0": (torch.full((F, 7), -16,
+                                               dtype=torch.int32,
+                                               device=dev),
+                                    slots, deltas, valid),
         # registers at 0xFFFFFF00 (int32 -256), 256 adds of 0x10 to slot 0
         "wrap-around": (torch.full((F, 7), -256, dtype=torch.int32,
                                    device=dev),
@@ -395,17 +435,29 @@ def check_flow_moments(cfg, dev, flows, gen):
     # once; the (F, 7) registers read and written once; one add per valid
     # (event, register)
     n_bytes = EVENTS * (7 * 4 + 8 + 1) + 2 * F * 7 * 4
+    n_ops = n_valid * 7
+    dev_us = device_us(K.KERNEL, lambda: ops.flow_moments(regs, slots,
+                                                          deltas, valid))
     return {"kernel": K.KERNEL, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": n_valid * 7,
+            "plain_ms": plain_ms, "n_bytes": n_bytes, "n_ops": n_ops,
             "library_ms": library_ms, "library_device_us": library_dev,
             "library_note": "one index_add_ on an (F+1, 7) int32 buffer "
                             "(invalid rows to the spare row), bitwise equal",
-            "device_us": device_us(K.KERNEL, lambda: ops.flow_moments(
-                regs, slots, deltas, valid)),
+            "device_us": dev_us, **achieved(n_bytes, n_ops, dev_us),
+            "atomics_counted": moments_atomics(slots, deltas, valid, F),
+            "redesigned": K4_DESIGN,
             "shape": f"E={EVENTS} trace deltas into ({F}, 7) "
-                     "(10%-invalid, wrap-around and all-invalid checked "
-                     "too)",
+                     "(10%-invalid, registers at 0xFFFFFFF0, wrap-around "
+                     "and all-invalid checked too)",
             "check": "bitwise (plain and index_add_)"}
+
+
+def moments_atomics(slots, deltas, valid, F) -> int:
+    """The 32-bit atomics one flow_moments call issues, counted from its
+    inputs (not measured): one per non-zero delta of a valid event with
+    its slot in [0, F)."""
+    live = valid & (slots >= 0) & (slots < F)
+    return int(((deltas != 0) & live[:, None]).sum())
 
 
 def check_derived_features(cfg, dev, gen, mem, valid):
@@ -1218,6 +1270,17 @@ def main() -> int:
             log(f"[kernel] {c['kernel'].name}: {c['gbps']:.1f} GB/s over "
                 f"the device time, {100 * c['bound_share']:.1f} % of the "
                 f"bound")
+        if "atomics_counted" in c:
+            n = c["atomics_counted"]
+            log(f"[kernel] {c['kernel'].name}: {n} atomics per call, counted "
+                f"from the inputs (not measured); "
+                f"{n / (c['device_us'] * 1e3):.1f} G/s over the measured "
+                f"device time")
+        if "floor_us" in c:
+            log(f"[kernel] {c['kernel'].name}: "
+                f"{c['device_launches_per_call']:g} device launch(es) per "
+                f"call; an empty kernel of the same launch shape takes "
+                f"{c['floor_us']:.3f} us")
         if "distinct_device_us" in c:
             log(f"[kernel] {c['kernel'].name} on distinct ids: device "
                 f"{c['distinct_device_us']:.3f} us, row-scaled err "
@@ -1299,6 +1362,8 @@ def kernel_rows(checks, by_path, by_variant):
                      **{key: c[key] for key in (
                          "row_scaled_err", "whole_ring", "errs", "variant",
                          "gbps", "bound_share", "redesigned",
+                         "device_launches_per_call",
+                         "floor_us",
                          "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms",
                          "simt_note")

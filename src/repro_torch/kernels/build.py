@@ -103,12 +103,15 @@ class CudaKernel:
     ``__global__`` functions one call launches, which is how a profiler
     trace tells this kernel's device time apart. An entry that chooses
     between kernels names them in ``variants``; ``launches_by_variant``
-    then counts each launch under the variant it ran."""
+    then counts each launch under the variant it ran. ``symbol`` names
+    another C entry of the same library (default: ``name``); only
+    ring_scatter's empty-kernel floor and its round size use it."""
 
     def __init__(self, name: str, argtypes: List, replaces: str,
                  device_fns: Tuple[str, ...],
-                 variants: Tuple[str, ...] = ()):
+                 variants: Tuple[str, ...] = (), symbol: str = ""):
         self.name = name
+        self.symbol = symbol or name
         self.argtypes = argtypes
         self.replaces = replaces
         self.device_fns = device_fns
@@ -125,7 +128,7 @@ class CudaKernel:
     def load(self, build_dir: Optional[Path] = None):
         if self._fn is None:
             path, _ = build([self.name], build_dir)[self.name]
-            fn = getattr(ctypes.CDLL(str(path)), self.name)
+            fn = getattr(ctypes.CDLL(str(path)), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

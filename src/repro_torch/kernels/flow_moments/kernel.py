@@ -31,6 +31,8 @@ def flow_moments_cuda(regs, slots, deltas, valid) -> torch.Tensor:
               ("valid", valid, torch.bool, (E,)))
     check_args(dev, checks)
     out = regs.clone()                  # the kernel accumulates in place
+    if E == 0:                          # nothing to add, nothing launched
+        return out
     KERNEL.launch(ptr(out), ptr(slots), ptr(deltas), ptr(valid), E, F,
                   stream_ptr(dev))
     return out

@@ -16,7 +16,7 @@ def ring_scatter(memory, entry_valid, payloads, flow, hist, mask,
     on CPU tensors or under ``backend="ref"``."""
     if dispatch.use_kernel(memory, backend):
         return K.ring_scatter_cuda(memory, entry_valid, payloads,
-                                   flow.to(torch.int32),
-                                   hist.to(torch.int32), mask)
+                                   flow.to(torch.int64).contiguous(),
+                                   hist.to(torch.int64).contiguous(), mask)
     return REF.ring_scatter_ref(memory, entry_valid, payloads, flow, hist,
                                 mask)

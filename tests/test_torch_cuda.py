@@ -157,6 +157,112 @@ def test_flow_moments_bitwise(cuda, E, one_slot):
     assert torch.equal(got.cpu(), FM.flow_moments(regs, slots, deltas, valid))
 
 
+def moments_case(case, g):
+    """(regs, slots, deltas, valid) on the CPU for one K4 corner."""
+    F, E = {"even and odd slots, F odd": (511, 5000), "one slot": (64, 4096),
+            "wrapping registers": (33, 20000), "one delta per row": (101, 3000),
+            "all deltas zero": (101, 3000), "E=0": (17, 0),
+            "E=1": (17, 1)}[case]
+    regs = torch.randint(-(1 << 31), (1 << 31) - 1, (F, 7), generator=g,
+                         dtype=torch.int32)
+    slots = torch.randint(0, F + 3, (E,), generator=g)   # some past F
+    deltas = torch.randint(-(1 << 31), (1 << 31) - 1, (E, 7), generator=g,
+                           dtype=torch.int32)
+    deltas[torch.rand(E, 7, generator=g) < 0.2] = 0
+    valid = torch.rand(E, generator=g) < 0.9
+    if case == "one slot":
+        slots[:] = 7
+    if case == "wrapping registers":    # every register wraps often
+        regs[:] = -16                   # 0xFFFFFFF0
+        deltas[:, :] = torch.randint(0x10, 1 << 30, (E, 7), generator=g,
+                                     dtype=torch.int32)
+    if case == "one delta per row":     # register 0 (odd), 6 (even) only
+        odd = (slots & 1).bool()
+        keep = torch.zeros(E, 7, dtype=torch.bool)
+        keep[:, 0], keep[:, 6] = odd, ~odd
+        deltas = torch.where(keep, deltas, torch.zeros_like(deltas))
+    if case == "all deltas zero":
+        deltas.zero_()
+    return regs, slots, deltas, valid
+
+
+@pytest.mark.parametrize("case", ["even and odd slots, F odd", "one slot",
+                                  "wrapping registers", "one delta per row",
+                                  "all deltas zero", "E=0", "E=1"])
+def test_flow_moments_corners(cuda, case):
+    """K4 on rows of both parities (28-byte rows straddle 32-byte
+    sectors), one hot slot, registers that wrap many times, sparse and
+    all-zero deltas, E = 0 and 1 (E not a multiple of a warp's 4 events):
+    bit for bit against the plain version, one launch per non-empty
+    call."""
+    g = torch.Generator().manual_seed(len(case))
+    regs, slots, deltas, valid = moments_case(case, g)
+    before = FK.KERNEL.launches
+    got = FM.flow_moments(*(t.to(cuda) for t in (regs, slots, deltas,
+                                                 valid)))
+    torch.cuda.synchronize()
+    assert FK.KERNEL.launches == before + int(slots.shape[0] > 0)
+    want = FM.flow_moments(regs, slots, deltas, valid)
+    assert torch.equal(got.cpu(), want)
+    if case == "all deltas zero":
+        assert torch.equal(got.cpu(), regs)
+
+
+def scatter_case(case, g):
+    """(F, H, flow, hist, mask) on the CPU for one K2 corner."""
+    F, H, C = 1024, 10, RK.round_rows()
+    R = {"multi-round duplicates": 4 * C + 17, "one cell": 3000,
+         "outside the ring": 3000, "R=0": 0, "R=1": 1,
+         "distinct R=4096": 4096}[case]
+    flow = torch.randint(0, F, (R,), generator=g)
+    hist = torch.randint(0, H, (R,), generator=g)
+    if case == "multi-round duplicates":      # 40 cells, in every round
+        cell = torch.randint(0, 40, (R,), generator=g)
+        flow, hist = (cell * 37) % F, cell % H
+    if case == "one cell":
+        flow[:], hist[:] = 5, 3
+    if case == "outside the ring":
+        flow = torch.randint(-3, F + 3, (R,), generator=g)
+        hist = torch.randint(-2, H + 2, (R,), generator=g)
+    if case == "distinct R=4096":
+        cells = torch.randperm(F * H, generator=g)[:R]
+        flow, hist = cells // H, cells % H
+    mask = torch.rand(R, generator=g) < 0.9
+    return F, H, flow, hist, mask
+
+
+@pytest.mark.parametrize("case", ["multi-round duplicates", "one cell",
+                                  "outside the ring", "R=0", "R=1",
+                                  "distinct R=4096"])
+def test_ring_scatter_one_launch_corners(cuda, case):
+    """K2's partitions and rounds: duplicates whose last write lies in a
+    later round, one cell for every row, rows outside the ring, R = 0, 1
+    and 4096 distinct cells: bit for bit against the plain version, one
+    launch per non-empty call."""
+    g = torch.Generator().manual_seed(len(case))
+    F, H, flow, hist, mask = scatter_case(case, g)
+    R = flow.shape[0]
+    mem = torch.randint(-(1 << 31), (1 << 31) - 1, (F, H, 16), generator=g,
+                        dtype=torch.int32)
+    ev = torch.rand(F, H, generator=g) < 0.3
+    pays = torch.randint(-(1 << 31), (1 << 31) - 1, (R, 16), generator=g,
+                         dtype=torch.int32)
+    if case == "multi-round duplicates":      # a winner past round 0 that
+        cells = flow * H + hist                # also had a writer in it
+        C = RK.round_rows()
+        first = cells[:C][mask[:C]]
+        last = cells[C * 4:][mask[C * 4:]]
+        assert bool(torch.isin(last, first).any())
+    mk, vk = mem.to(cuda), ev.to(cuda)
+    before = RK.KERNEL.launches
+    RS.ring_scatter(mk, vk, pays.to(cuda), flow.to(cuda), hist.to(cuda),
+                    mask.to(cuda))
+    torch.cuda.synchronize()
+    assert RK.KERNEL.launches == before + int(R > 0)
+    RS.ring_scatter(mem, ev, pays, flow, hist, mask)    # plain, on the CPU
+    assert torch.equal(mk.cpu(), mem) and torch.equal(vk.cpu(), ev)
+
+
 @pytest.mark.parametrize("N,H", [(4096, 10), (100, 8), (1, 1)])
 @pytest.mark.parametrize("wire", ["v1", "v2"])
 def test_derived_features_row_scaled(cuda, N, H, wire):
