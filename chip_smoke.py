@@ -40,8 +40,30 @@ Phases (any failure exits non-zero; nothing is caught):
    derived_features) over the main path's first periods: one warm-up
    and 4 timed, launch counts from 0, every period's integer state,
    metrics, features and preds held against the fused main path;
-6. golden — the REDUCED T=4 run reproduces tests/goldens/run_periods_t4.json;
-7. serving at full width — granite-3-2b (40 layers, d 2048, 32/8 heads,
+6. [v2] — the main path's traffic under the V2 wire (16-bit seq): kernel
+   run == plain run as in 4, every period with no seq anomaly and every
+   report received (V1's per-period anomalies logged beside);
+7. [overlap] — ``run_periods_overlapped`` == ``run_periods`` bit for bit at
+   PAPER V2 (state, features, preds, metrics), both timed in turns;
+8. [faults] — PAPER V2 under the reference tests' MIXED fault spec over 5
+   periods: Δbad_checksum == flips, Δseq_anomalies == dups + replays,
+   Δlost_reports == drops + flips exactly in every period, kernel run ==
+   plain run under the same draws; ring_scatter takes 2R rows;
+9. [serving] — ``ServingLoop`` at PAPER V2 with the mlp head: 1000
+   periods of 2^20 events offered at line rate (52,428,800 events/s)
+   against a 20,000 us budget, launch counts from 0, p50/p99/p999, SLO
+   violations, sustained events/s, the host's time per period by part
+   (replay assembly, staging, dispatch, wait), per-period seq anomalies
+   and losses (V2's seq wraps every 16 periods) — the full series in
+   build/serving_periods.json — and a snapshot every 250 periods,
+   the newest restored to the card and held bit for bit against the end
+   state; then 40 periods with the kernels against 40 with the plain
+   versions (metrics and end state equal), 1.5x line rate into a
+   2^21-event queue for 50 periods plus the drain (balanced, with drops),
+   and a profile of 2 periods with the host -> device copies of the LUTs
+   and checksum positions cached and, for comparison, made on every call;
+10. golden — the REDUCED T=4 run reproduces tests/goldens/run_periods_t4.json;
+11. serving at full width — granite-3-2b (40 layers, d 2048, 32/8 heads,
    bf16, seeded random weights): 4 requests of 1024-token prompts, 32
    greedy tokens each, one warm-up request and 3 timed, every prefill
    launching flash_attention once per layer, all on the wgmma variant (the
@@ -707,22 +729,30 @@ def unfused_step(system, state, events, now, backend=None):
 
 # -- phase 4: the main path ---------------------------------------------------
 
-def paper_system(dev):
-    """The PAPER config with an mlp head of seeded random weights, and the
-    main path's traffic: T_MAIN + 1 periods of 2^20 events."""
-    import torch
+def paper_dfa(dev, **changes):
+    """DFASystem on the PAPER config (with ``changes``) and an mlp head of
+    seeded random weights, the same in every phase."""
     from repro_torch.configs import PAPER
     from repro_torch.core.pipeline import DFASystem
-    from repro_torch.data import packets as PK
 
-    cfg = dataclasses.replace(PAPER, inference_head="mlp")
+    cfg = dataclasses.replace(PAPER, inference_head="mlp", **changes)
     rng = np.random.default_rng(0)
     D, Hd, C = cfg.derived_dim, cfg.inference_hidden, cfg.inference_classes
     params = {"w1": 0.1 * rng.standard_normal((D, Hd), np.float32),
               "b1": np.zeros(Hd, np.float32),
               "w2": 0.1 * rng.standard_normal((Hd, C), np.float32),
               "b2": np.zeros(C, np.float32)}
-    system = DFASystem(cfg, device=dev, infer_params=params)
+    return DFASystem(cfg, device=dev, infer_params=params)
+
+
+def paper_system(dev):
+    """The PAPER system (V1 wire) and the main path's traffic: T_MAIN + 1
+    periods of 2^20 events."""
+    import torch
+    from repro_torch.data import packets as PK
+
+    system = paper_dfa(dev)
+    cfg = system.cfg
     t0 = time.perf_counter()
     events, nows = PK.period_batches(
         1, T_MAIN + 1, EVENTS, n_flows=cfg.flows_per_shard, flow_seed=0,
@@ -772,25 +802,42 @@ def compare_outputs(o, r, t, tag):
     return err, float((o.preds - r.preds).abs().max())
 
 
+def timed_periods(system, events, nows, backend=None, periods=None):
+    """``dfa_step`` period by period from a fresh state, each timed on the
+    host clock to ``synchronize()``. Returns (state, outputs, ms)."""
+    import torch
+    state = system.init_state()
+    outs, period_ms = [], []
+    torch.cuda.synchronize()
+    for t in range(periods or len(nows)):
+        t0 = time.perf_counter()
+        out = system.dfa_step(state, {k: v[t] for k, v in events.items()},
+                              nows[t], backend=backend)
+        torch.cuda.synchronize()
+        period_ms.append((time.perf_counter() - t0) * 1e3)
+        state = out.state
+        outs.append(out)
+    return state, outs, period_ms
+
+
+def require_states_equal(a, b, tag):
+    """Two port states, every leaf bit for bit."""
+    import torch
+    for group, ga, gb in zip(a._fields, a, b):
+        for f, x, y in zip(ga._fields, ga, gb):
+            require(torch.equal(x, y), f"[{tag}] {group}.{f} differs")
+
+
 def main_path(system, events, nows):
+    """The PAPER main path (V1 wire) with every launch counted, then the
+    plain run; returns (launches, per-period seq_anomalies)."""
     import torch
     from repro_torch.convert import state_to_numpy
 
     cfg = system.cfg
 
     def run(backend):
-        state = system.init_state()
-        outs, period_ms = [], []
-        torch.cuda.synchronize()
-        for t in range(T_MAIN + 1):
-            t0 = time.perf_counter()
-            out = system.dfa_step(state, {k: v[t] for k, v in events.items()},
-                                  nows[t], backend=backend)
-            torch.cuda.synchronize()
-            period_ms.append((time.perf_counter() - t0) * 1e3)
-            state = out.state
-            outs.append(out)
-        return state, outs, period_ms
+        return timed_periods(system, events, nows, backend, T_MAIN + 1)
 
     from repro_torch.kernels.gather_enrich.kernel import KERNEL as K3
     from repro_torch.kernels.ingest_update.kernel import KERNEL as K1
@@ -836,7 +883,7 @@ def main_path(system, events, nows):
     log(f"[main] kernel run == plain run: integer state bitwise, features "
         f"row-scaled err {max(e for e, _ in errs):.3e}, preds max abs err "
         f"{max(p for _, p in errs):.3e} (tolerance rtol=atol={PRED_TOL:g})")
-    return launches
+    return launches, [int(o.metrics["seq_anomalies"]) for o in outs]
 
 
 def profile_periods(step, state, events, nows, tag, periods: int = 2):
@@ -969,7 +1016,303 @@ def unfused_path(system, events, nows):
     return launches
 
 
-# -- phase 6: golden ------------------------------------------------------------
+# -- phases 6-9: the online serving slice at PAPER under the V2 wire -----------
+
+LINE_RATE_EPS = EVENTS / 0.02        # 2^20 events per 20 ms period
+SERVE_PERIODS = 1000                 # [serving] main run
+SERVE_SNAPSHOT_EVERY = 250
+SERVE_COMPARE = 40                   # kernels vs plain serving periods
+SERVE_OVERRUN = 50                   # 1.5x line rate, then the drain
+FAULT_PERIODS = 5
+# tests/test_fault_injection.py's MIXED spec
+MIXED = dict(seed=7, drop_rate=0.15, dup_rate=0.1, flip_rate=0.1,
+             replay_rate=0.05, reorder_rate=0.3, reorder_window=4)
+
+
+def v2_phase(dev, events, nows, v1_anomalies):
+    """The PAPER main path under the V2 wire: kernel run == plain run,
+    and no report rejected (V1 rejects 3840 of 4096 per period)."""
+    system = paper_dfa(dev, wire_format="v2")
+    state, outs, ms = timed_periods(system, events, nows)
+    ref_state, ref_outs, ref_ms = timed_periods(system, events, nows, "ref")
+    check_outputs(outs, system.cfg, "v2")
+    for t, o in enumerate(outs):
+        m = {k: int(v) for k, v in o.metrics.items()}
+        require(m["seq_anomalies"] == 0,
+                f"[v2] period {t}: {m['seq_anomalies']} seq anomalies")
+        require(m["reports_recv"] == m["reports_sent"],
+                f"[v2] period {t}: recv {m['reports_recv']} != sent "
+                f"{m['reports_sent']}")
+    require_states_equal(state, ref_state, "v2 kernels vs plain")
+    errs = [compare_outputs(o, r, t, "v2 vs plain")
+            for t, (o, r) in enumerate(zip(outs, ref_outs))]
+    log(f"[v2] PAPER V2, {len(outs)} periods: seq_anomalies "
+        f"{[int(o.metrics['seq_anomalies']) for o in outs]} (V1 main path: "
+        f"{v1_anomalies}); reports recv/sent "
+        f"{[int(o.metrics['reports_recv']) for o in outs]}")
+    log(f"[v2] per-period ms (kernels; warm-up {ms[0]:.3f}): "
+        f"{[round(x, 3) for x in ms[1:]]}, mean {np.mean(ms[1:]):.4f}; "
+        f"plain mean {np.mean(ref_ms[1:]):.4f}")
+    log(f"[v2] kernel run == plain run: integer state bitwise, features "
+        f"row-scaled err {max(e for e, _ in errs):.3e}, preds max abs err "
+        f"{max(p for _, p in errs):.3e}")
+
+
+def overlap_phase(dev, events, nows):
+    """Overlapped driver == sequential driver, bit for bit, at PAPER V2."""
+    import torch
+    system = paper_dfa(dev, wire_format="v2")
+    walls = {}
+    runs = {}
+    for name in ("sequential", "overlapped", "sequential ", "overlapped "):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name.strip()] = system.stream(system.init_state(), events, nows,
+                                           overlapped=name.startswith("o"))
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+    a, b = runs["sequential"], runs["overlapped"]
+    require_states_equal(a.state, b.state, "overlap")
+    for f in ("enriched", "flow_ids", "mask", "preds"):
+        require(torch.equal(getattr(a, f), getattr(b, f)),
+                f"[overlap] {f} differs from the sequential driver")
+    require(sorted(a.metrics) == sorted(b.metrics), "[overlap] metric keys")
+    for k in a.metrics:
+        require(torch.equal(a.metrics[k], b.metrics[k]), f"[overlap] {k}")
+    T = len(nows)
+    log(f"[overlap] PAPER V2, {T} periods: overlapped == sequential bit for "
+        f"bit (state, features, preds, metrics); wall ms for {T} periods, "
+        f"in turns: " + ", ".join(f"{k.strip()} {v:.3f}"
+                                  for k, v in walls.items()))
+
+
+def faults_phase(dev, events, nows):
+    """PAPER V2 with the MIXED fault spec over FAULT_PERIODS periods: the
+    three accounting identities exactly, every period, and the kernel run
+    == the plain run under the same draws."""
+    from repro_torch.data.faults import FaultSpec
+    system = paper_dfa(dev, wire_format="v2", fault_spec=FaultSpec(**MIXED))
+    state, outs, ms = timed_periods(system, events, nows,
+                                    periods=FAULT_PERIODS)
+    ref_state, ref_outs, _ = timed_periods(system, events, nows, "ref",
+                                           periods=FAULT_PERIODS)
+    rows = []
+    for t, o in enumerate(outs):
+        m = {k: int(v) for k, v in o.metrics.items() if v.dim() == 0}
+        ident = (m["bad_checksum"] == m["injected_flips"],
+                 m["seq_anomalies"] == m["injected_dups"]
+                 + m["injected_replays"],
+                 m["lost_reports"] == m["injected_drops"]
+                 + m["injected_flips"])
+        require(all(ident), f"[faults] period {t}: identities {ident} "
+                            f"fail on {m}")
+        rows.append({k: m[k] for k in (
+            "injected_drops", "injected_dups", "injected_flips",
+            "injected_replays", "injected_reorders", "bad_checksum",
+            "seq_anomalies", "lost_reports")})
+    require_states_equal(state, ref_state, "faults kernels vs plain")
+    import torch
+    for t, (o, r) in enumerate(zip(outs, ref_outs)):
+        for k in o.metrics:
+            require(torch.equal(o.metrics[k], r.metrics[k]),
+                    f"[faults] period {t}: {k} differs from the plain run")
+        require(feature_err(o.enriched, r.enriched) <= FEATURE_TOL,
+                f"[faults] period {t}: features differ")
+    log(f"[faults] PAPER V2, MIXED {MIXED}, {FAULT_PERIODS} periods: "
+        f"identities exact every period: {rows}")
+    log(f"[faults] ring_scatter rows per period "
+        f"{int(outs[0].metrics['fault_kind'].shape[-1])} (2R, R = "
+        f"{system.cfg.report_capacity}); kernel run == plain run (state "
+        f"bitwise, metrics and ledger equal); per-period ms "
+        f"{[round(x, 3) for x in ms]}")
+
+
+def runs_of(values):
+    """Run-length encoding [[value, count], ...] of a sequence."""
+    out = []
+    for v in values:
+        if out and out[-1][0] == v:
+            out[-1][1] += 1
+        else:
+            out.append([v, 1])
+    return out
+
+
+def serving_profile(run, periods: int):
+    """torch.profiler over ``run(periods)`` (a serving run whose loop and
+    state were made outside the window): device busy and idle share,
+    device kernels, and the CUDA runtime calls the host made, per
+    period."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(periods)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = prof.key_averages()
+    dev_rows = [e for e in ev
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in dev_rows)
+    require(busy > 0, "[serving profile] the profiler saw no device time")
+    runtime = {e.key: e.count / periods for e in ev
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("cuda")}
+
+    def calls(name):
+        return sum(n for k, n in runtime.items() if k.startswith(name))
+
+    return {"wall_us": wall_us / periods, "busy_us": busy / periods,
+            "idle_share": 1 - busy / wall_us,
+            "kernels": sum(e.count for e in dev_rows) / periods,
+            "cudaLaunchKernel": calls("cudaLaunchKernel"),
+            "cudaStreamSynchronize": calls("cudaStreamSynchronize"),
+            "cudaMemcpyAsync": calls("cudaMemcpyAsync"),
+            "runtime": runtime}
+
+
+def serving_phase(dev, events, nows):
+    """ServingLoop at PAPER V2 with the mlp head at line rate for
+    SERVE_PERIODS periods (launch counts from 0), snapshots every
+    SERVE_SNAPSHOT_EVERY periods; the newest snapshot restored to the
+    card equals the end state; a kernel run and a plain run of
+    SERVE_COMPARE periods give the same metrics and state; 1.5x line rate
+    with a 2^21-event queue balances after the drain with drops; a
+    profile of 2 periods with the host -> device copies cached and with
+    them made per call (the code before this slice)."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import checkpoint as CKPT
+    from repro_torch.core import logstar as LS
+    from repro_torch.core import protocol as PROTO
+    from repro_torch.launch.serving import ServingLoop, build_source
+
+    knobs = dict(wire_format="v2", serve_offered_eps=LINE_RATE_EPS,
+                 serve_budget_us=20_000, serve_queue_events=0)
+    host_ev = {k: v.cpu() for k, v in events.items()}
+
+    def loop(system, snapshot_dir=None):
+        return ServingLoop(system, build_source(system, host_ev, nows,
+                                                batch_events=EVENTS),
+                           snapshot_dir=snapshot_dir)
+
+    system = paper_dfa(dev, snapshot_every_periods=SERVE_SNAPSHOT_EVERY,
+                       snapshot_keep=3, **knobs)
+    loop(system).run(2)                       # warm-up, outside the counts
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.reset_peak_memory_stats()
+        for k in all_kernels():
+            k.reset_counts()
+        t0 = time.perf_counter()
+        rep = loop(system, d).run(SERVE_PERIODS)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in all_kernels()[:3]}
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in launches.items():
+            require(n >= SERVE_PERIODS, f"[serving] {name} launched {n} "
+                                        f"times in {SERVE_PERIODS} periods")
+        require(rep.balanced and rep.dropped == 0,
+                f"[serving] accounting: offered {rep.offered}, processed "
+                f"{rep.processed}, dropped {rep.dropped}")
+        steps = CKPT.list_steps(d)
+        restored, step = CKPT.restore(d, device=dev)
+        require(step == SERVE_PERIODS and rep.snapshots == SERVE_PERIODS
+                // SERVE_SNAPSHOT_EVERY, f"[serving] snapshots {steps}, "
+                                         f"{rep.snapshots} written")
+        require_states_equal(restored, rep.last.state,
+                             "serving: restored snapshot vs end state")
+    lat = rep.latency
+    m = {k: v.cpu().numpy() for k, v in rep.metrics.items()}
+    split = {k: (float(np.mean(v)), float(np.percentile(v, 50)),
+                 float(np.percentile(v, 99)))
+             for k, v in rep.host_us.items()}
+    log(f"[serving] PAPER V2 + mlp head, {SERVE_PERIODS} periods of "
+        f"{EVENTS} events offered at {LINE_RATE_EPS:.0f} events/s, budget "
+        f"{rep.budget_us} us: p50 {lat['p50']:.1f} us, p99 "
+        f"{lat['p99']:.1f} us, p999 {lat['p999']:.1f} us "
+        f"(count {lat['count']}); SLO violations {rep.violations}; "
+        f"sustained {rep.sustained_eps:.0f} events/s; balanced "
+        f"{rep.balanced}; wall {wall:.3f} s; snapshots {rep.snapshots} "
+        f"(kept {steps}), restored step {step} == end state bitwise; "
+        f"max_memory_allocated {peak} B; launches {launches}")
+    log("[serving] host us per period (mean, p50, p99): " + ", ".join(
+        f"{k} {a:.1f} / {b:.1f} / {c:.1f}" for k, (a, b, c) in split.items()))
+    log(f"[serving] reports sent/recv per period (runs): "
+        f"{runs_of(m['reports_sent'].tolist())} / "
+        f"{runs_of(m['reports_recv'].tolist())}")
+    log(f"[serving] seq_anomalies per period (runs of [value, periods]): "
+        f"{runs_of(m['seq_anomalies'].tolist())}")
+    log(f"[serving] lost_reports per period (runs): "
+        f"{runs_of(m['lost_reports'].tolist())}")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "serving_periods.json").write_text(json.dumps({
+        "latency_us": rep.latency_us, "host_us": rep.host_us,
+        "metrics": {k: v.tolist() for k, v in m.items()}}))
+
+    # kernels vs plain over SERVE_COMPARE periods
+    reports = {}
+    for backend in ("auto", "ref"):
+        s = paper_dfa(dev, kernel_backend=backend, **knobs)
+        reports[backend] = loop(s).run(SERVE_COMPARE)
+    a, b = reports["auto"], reports["ref"]
+    for k in a.metrics:
+        require(torch.equal(a.metrics[k], b.metrics[k]),
+                f"[serving] {k} differs between the kernel and plain runs")
+    require_states_equal(a.last.state, b.last.state,
+                         "serving kernels vs plain")
+    log(f"[serving] {SERVE_COMPARE} periods, kernels vs plain: per-period "
+        f"metrics equal, end state bitwise; p50 {a.latency['p50']:.1f} vs "
+        f"{b.latency['p50']:.1f} us")
+
+    # 1.5x line rate into a queue of 2 batches (2^21 events), then the
+    # drain
+    s = paper_dfa(dev, **dict(knobs, serve_offered_eps=1.5 * LINE_RATE_EPS,
+                              serve_queue_events=2 * EVENTS))
+    over = loop(s).run(SERVE_OVERRUN)
+    require(over.balanced and over.dropped > 0 and over.drained_periods > 0,
+            f"[serving] overrun: offered {over.offered}, processed "
+            f"{over.processed}, dropped {over.dropped}, drained "
+            f"{over.drained_periods}")
+    log(f"[serving] 1.5x line rate, queue {2 * EVENTS}, {SERVE_OVERRUN} "
+        f"periods + "
+        f"{over.drained_periods} drained: offered {over.offered}, processed "
+        f"{over.processed}, dropped {over.dropped}, balanced "
+        f"{over.balanced}; p50 {over.latency['p50']:.1f} us, p99 "
+        f"{over.latency['p99']:.1f} us, violations {over.violations}")
+
+    # 2 profiled periods (after 2 outside the window): host -> device
+    # copies cached (this code), then made on every call as before this
+    # slice
+    def prof_run():
+        lp, st = loop(system), system.init_state()
+        lp.run(2, drain=False, state=st)
+        return lambda n: lp.run(n, drain=False, state=st)
+
+    after = serving_profile(prof_run(), 2)
+    cached = (LS._lut_tensors, PROTO._covered_positions)
+    LS._lut_tensors = LS._lut_tensors.__wrapped__
+    PROTO._covered_positions = PROTO._covered_positions.__wrapped__
+    try:
+        before = serving_profile(prof_run(), 2)
+    finally:
+        LS._lut_tensors, PROTO._covered_positions = cached
+    for tag, p in (("copies cached", after), ("copies per call", before)):
+        log(f"[serving profile] {tag}, per period of 2: wall "
+            f"{p['wall_us']:.1f} us, device busy {p['busy_us']:.1f} us, idle "
+            f"{100 * p['idle_share']:.1f} %, {p['kernels']:.1f} device "
+            f"kernels, cudaLaunchKernel {p['cudaLaunchKernel']:.1f}, "
+            f"cudaStreamSynchronize {p['cudaStreamSynchronize']:.1f}, "
+            f"cudaMemcpyAsync {p['cudaMemcpyAsync']:.1f}; runtime calls "
+            f"{ {k: round(v, 1) for k, v in p['runtime'].items()} }")
+    return launches
+
+
+# -- phase 10: golden ------------------------------------------------------------
 
 def golden(dev):
     from repro_torch.configs import REDUCED
@@ -1008,7 +1351,7 @@ def golden(dev):
     log(f"[golden] REDUCED T={T} reproduces {GOLDEN.relative_to(ROOT)}")
 
 
-# -- phase 7: serving at full width ---------------------------------------------
+# -- phase 11: serving at full width ---------------------------------------------
 
 def generate(model, params, tokens, gen_steps, forced=None):
     """Prefill ``tokens`` (B, P), then ``gen_steps - 1`` decode steps into a
@@ -1303,20 +1646,29 @@ def main() -> int:
 
     # 4. main path (launch counts start at 0 here)
     system, events, nows = paper_system(dev)
-    main_launches = main_path(system, events, nows)
+    main_launches, v1_anomalies = main_path(system, events, nows)
 
     # 5. unfused path (launch counts start at 0 again)
     unfused_launches = unfused_path(system, events, nows)
 
-    # 6. golden
+    # 6.-9. the online serving slice at PAPER under V2: the V2 main path,
+    # the overlapped driver, fault injection, the serving loop (launch
+    # counts start at 0 again for the serving loop)
+    v2_phase(dev, events, nows, v1_anomalies)
+    overlap_phase(dev, events, nows)
+    faults_phase(dev, events, nows)
+    serving_launches = serving_phase(dev, events, nows)
+    del system, events, nows
+
+    # 10. golden
     golden(dev)
 
-    # 7. serving at full width (launch counts start at 0 again)
+    # 11. serving at full width (launch counts start at 0 again)
     serve_launches, serve_variants = serve_phase(dev)
 
     print(json.dumps({"kernels": kernel_rows(
         checks, {"main": main_launches, "unfused": unfused_launches,
-                 "serve": serve_launches},
+                 "serving": serving_launches, "serve": serve_launches},
         {"flash_attention": serve_variants})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,14 @@
-"""Configurations: the DFA system's (``PAPER``, ``REDUCED``) and the model
-architectures the port runs (``--arch <id>`` resolves here)."""
+"""Configurations: the DFA system's (``PAPER``, ``REDUCED`` and its
+variants) and the model architectures the port runs (``--arch <id>``
+resolves here)."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import DFAConfig, ModelConfig
-from repro_torch.configs.dfa import PAPER, REDUCED
+from repro_torch.configs.dfa import (PAPER, REDUCED, REDUCED_INFER,
+                                     REDUCED_OVERLAP, REDUCED_V2_WIDE)
 
 # arch id -> module name; the reference's other architectures (qwen,
 # deepseek, zamba2, whisper, rwkv, ...) are ROADMAP §1 item 14
@@ -27,5 +29,5 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["DFAConfig", "ModelConfig", "PAPER", "REDUCED", "get_config",
-           "list_archs"]
+__all__ = ["DFAConfig", "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
+           "REDUCED_OVERLAP", "REDUCED_V2_WIDE", "get_config", "list_archs"]

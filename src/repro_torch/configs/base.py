@@ -2,9 +2,8 @@
 
 Field names, defaults and meanings are those of the reference
 ``DFAConfig`` and ``ModelConfig`` so a configuration reads the same in
-both packages. Only
-the fields this slice of the port reads (or refuses) are carried; the
-mesh, serving, elastic and tuning knobs arrive with the slices that
+both packages. Only the fields the port reads (or refuses) are carried;
+the mesh, elastic-recovery and tuning knobs arrive with the slices that
 implement them (ROADMAP §1).
 """
 from __future__ import annotations
@@ -27,6 +26,7 @@ class DFAConfig:
     history: int = 10                      # Fig 4 ring depth
     monitoring_period_us: int = 20_000     # 20 ms target interval
     logstar_bits: int = 7                  # mantissa bits kept by the log* LUT
+    event_block: int = 1024                # packet events per extraction block
     report_capacity: int = 4096            # max reports routed per step/shard
     derived_dim: int = 96                  # Marina-style derived feature count
     # kernel selection: "auto" | "cuda" | "ref" (repro_torch.kernels
@@ -38,7 +38,10 @@ class DFAConfig:
     # sorted-event tile of the fused ingest (segment sums are cut at tile
     # boundaries); clamped to 256 and to the block's event count
     event_tile: int = 256
-    # software-pipelined streaming driver (not in this slice)
+    # streaming driver: software-pipeline the period stream so period t's
+    # enrich(+inference) half runs in the same loop body as period t+1's
+    # ingest half (pipeline.run_periods_overlapped); output-identical to
+    # the sequential chain by construction
     overlap_periods: bool = False
     # immediate-inference head on the enriched features: "none" |
     # "linear" | "mlp" (models.flow_head)
@@ -47,8 +50,39 @@ class DFAConfig:
     inference_hidden: int = 64         # mlp hidden width (linear ignores)
     # how a flow's home ring is chosen; this slice runs "ingest" only
     flow_home: str = "ingest"
-    # transport fault injection (not in this slice; None = off)
+    # snapshot the full DFAState every N completed periods (0 = never)
+    snapshot_every_periods: int = 0
+    # where stream()/ServingLoop write snapshots ("" = the caller passes a
+    # directory to enable snapshotting)
+    snapshot_dir: str = ""
+    # keep-last-k snapshot GC (checkpoint.save's ``keep``)
+    snapshot_keep: int = 3
+    # -- continuous online serving (launch.serving) ----------------------
+    # offered event rate of the trace-replay source, events/second; 0 =
+    # line rate (one full event batch per period, no queueing)
+    serve_offered_eps: float = 0.0
+    # per-period latency budget (the SLO) in µs; 0 = monitoring_period_us
+    serve_budget_us: int = 0
+    # host ingest queue capacity in events, on top of the in-flight
+    # batch; 0 = no carry-over (per-period drop accounting exact)
+    serve_queue_events: int = 0
+    # which events to shed when arrivals overflow the host queue:
+    # "newest" (tail drop) | "oldest" (evict the head)
+    drop_policy: str = "newest"
+    # transport fault injection (data.faults.FaultSpec) between
+    # translation and collector ingest; None = off
     fault_spec: Optional[Any] = None
+
+    def serve_budget_resolved_us(self) -> int:
+        """The serving loop's per-period SLO (falls back to the paper's
+        monitoring period)."""
+        return self.serve_budget_us or self.monitoring_period_us
+
+    def ring_region_bytes(self) -> int:
+        """Shard-local collector ring footprint as the port holds it: 64 B
+        entries plus a one-byte validity flag each (the reference counts
+        4 B of validity)."""
+        return self.flows_per_shard * self.history * (16 * 4 + 1)
 
 
 @dataclass(frozen=True)

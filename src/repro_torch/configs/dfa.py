@@ -1,10 +1,19 @@
 """The paper's own DFA system configuration (defaults = Tofino deployment).
 
-PAPER      — faithful Tofino-scale config: 2^17 flows/shard, 10-entry ring,
-             64 B payload, 20 ms monitoring period, 4096 reports/period.
-REDUCED    — CPU-testable miniature with the same structure (256 flows,
-             128 reports/period, 64-event ingest tiles).
+PAPER           — faithful Tofino-scale config: 2^17 flows/shard, 10-entry
+                  ring, 64 B payload, 20 ms monitoring period, 4096
+                  reports/period.
+REDUCED         — CPU-testable miniature with the same structure (256
+                  flows, 128 reports/period, 128-event blocks, 64-event
+                  ingest tiles).
+REDUCED_OVERLAP — REDUCED with the software-pipelined streaming driver.
+REDUCED_INFER   — ... and the linear immediate-inference head armed.
+REDUCED_V2_WIDE — the port's own test preset: the V2 wire at 512 reports
+                  per period from 4096 flows, past V1's 256-value seq, so
+                  V1 and V2 give different results at this shape.
 """
+import dataclasses
+
 from repro_torch.configs.base import DFAConfig
 
 PAPER = DFAConfig()
@@ -14,7 +23,18 @@ REDUCED = DFAConfig(
     history=10,
     monitoring_period_us=20_000,
     logstar_bits=7,
+    event_block=128,
     report_capacity=128,
     derived_dim=96,
     event_tile=64,             # multiple event tiles per 128-event block
 )
+
+REDUCED_OVERLAP = dataclasses.replace(REDUCED, overlap_periods=True)
+
+REDUCED_INFER = dataclasses.replace(REDUCED, overlap_periods=True,
+                                    inference_head="linear",
+                                    inference_classes=8)
+
+REDUCED_V2_WIDE = dataclasses.replace(REDUCED, wire_format="v2",
+                                      flows_per_shard=4096,
+                                      report_capacity=512)

@@ -24,6 +24,7 @@ from repro_torch.core.collector import CollectorState
 from repro_torch.core.pipeline import DFAState
 from repro_torch.core.reporter import ReporterState
 from repro_torch.core.translator import TranslatorState
+from repro_torch.device import on_card_or_cpu
 from repro_torch.models import lm as LM
 from repro_torch.models.param import ParamDesc, torch_dtype
 
@@ -51,8 +52,10 @@ _SCALARS = ("seq", "collisions", "bad_checksum", "seq_anomalies",
             "received", "lost_reports")
 
 
-def state_from_numpy(state, device="cpu") -> DFAState:
-    """Reference one-shard state (numpy leaves) -> the port's DFAState."""
+def state_from_numpy(state, device="cuda") -> DFAState:
+    """Reference one-shard state (numpy leaves) -> the port's DFAState
+    on ``device`` (the card unless the caller asks for ``"cpu"``)."""
+    device = on_card_or_cpu(device, "state_from_numpy")
     parts = []
     for group, cls in _GROUPS:
         src = getattr(state, group)
@@ -86,11 +89,15 @@ def head_params_from_numpy(head: torch.nn.Module,
             p.copy_(src)
 
 
-def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device="cpu"):
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
     """The reference's dense-LM parameters (nested dicts of numpy arrays,
     bf16 as ml_dtypes ``bfloat16``) -> the port's, in the dtypes of
     ``models.lm.lm_descs(cfg)``. bf16 crosses through f32, which holds it
-    exactly. Raises on a missing or extra leaf or a shape that differs."""
+    exactly. Raises on a missing or extra leaf or a shape that differs.
+    The parameters land on ``device`` (the card unless the caller asks for
+    ``"cpu"``)."""
+    device = on_card_or_cpu(device, "lm_params_from_numpy")
+
     def rec(descs, node, path):
         if isinstance(descs, ParamDesc):
             a = np.asarray(node)

@@ -39,7 +39,15 @@ def _luts(bits: int):
 
 
 def lut_tensors(bits: int, device=None, dtype=torch.int64):
-    """Both LUTs as tensors on ``device``."""
+    """Both LUTs as tensors on ``device``, copied there once per (bits,
+    device, dtype) and shared by every later call: a pageable host ->
+    device copy makes the host wait for the device, so a copy per call
+    would stall every period. Callers only read them."""
+    return _lut_tensors(bits, torch.device(device or "cpu"), dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_tensors(bits: int, device: torch.device, dtype):
     return tuple(torch.from_numpy(t.astype(np.int64)).to(device=device,
                                                           dtype=dtype)
                  for t in _luts(bits))

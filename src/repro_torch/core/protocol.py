@@ -11,6 +11,7 @@ xor, so equal corruption masks on two words do not cancel.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -19,6 +20,19 @@ from repro_torch import u32 as U
 from repro_torch.core import wire as WIRE
 
 PAYLOAD_WORDS = WIRE.V1.payload_words
+
+
+def covered_positions(wire: WIRE.WireFormat, device) -> torch.Tensor:
+    """The checksum's covered word positions (int64) on ``device``, made
+    there once per (wire, device): a pageable host -> device copy on
+    every pack and check would make the host wait for the device each
+    time. Callers only read it."""
+    return _covered_positions(wire, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _covered_positions(wire: WIRE.WireFormat, device: torch.device):
+    return torch.tensor(wire.csum_covered, dtype=torch.int64, device=device)
 
 
 def _rotl32(w: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -69,8 +83,7 @@ def pack_rocev2_payload(rep: Dict[str, torch.Tensor], hist_idx,
                       meta[wire.payload_meta_word][..., None]], dim=-1)
     tail = meta[wire.payload_words - 1]
     covered = torch.cat([body, tail[..., None]], dim=-1)
-    csum = xor_checksum(covered, torch.tensor(wire.csum_covered,
-                                              device=body.device))
+    csum = xor_checksum(covered, covered_positions(wire, body.device))
     return U.narrow(torch.cat([body, csum[..., None], tail[..., None]],
                               dim=-1))
 
@@ -91,5 +104,5 @@ def unpack_payload(p: torch.Tensor, wire: WIRE.WireFormat = WIRE.V1
 def payload_valid(p: torch.Tensor, wire: WIRE.WireFormat = WIRE.V1
                   ) -> torch.Tensor:
     """Collector-side integrity check (Fig 4 checksum) -> bool (...,)."""
-    pos = torch.tensor(wire.csum_covered, device=p.device)
+    pos = covered_positions(wire, p.device)
     return xor_checksum(p[..., pos], pos) == U.wide(p[..., wire.csum_word])

@@ -15,6 +15,7 @@ from typing import Any, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import on_card_or_cpu
 from repro_torch.kernels import dispatch
 from repro_torch.models import lm as LM
 from repro_torch.models import param as PM
@@ -29,12 +30,7 @@ class Model:
     backend: Optional[str] = None
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Model runs on the CUDA card by default and this host has "
-                "none; pass device='cpu' to run the plain PyTorch versions "
-                "of the kernels")
+        self.device = on_card_or_cpu(self.device, "Model")
         self.backend = dispatch.check_backend(self.backend)
         LM.check_dense(self.cfg)
 

@@ -503,3 +503,92 @@ def test_reduced_prefill_kernel_equals_plain(cuda, dtype, tol):
                 assert torch.equal(a[n], b[n])
             err = float((a[n].float() - b[n].float()).abs().max())
             assert err <= tol * float(b[n].float().abs().max())
+
+
+# -- the serving slice on the card ---------------------------------------------
+
+def test_host_ingest_ring_stages_from_pinned_memory(cuda):
+    """Pinned slots copied on the ring's own stream; the staged tensors
+    equal the batch; a slot's pinned buffers are not refilled while the
+    step that reads them is in flight (its event has to complete)."""
+    from repro_torch.launch.serving import HostIngestRing
+    N = 1 << 16
+    ring = HostIngestRing(cuda, N)
+    assert ring.copy_stream != torch.cuda.current_stream(cuda)
+    assert all(t.is_pinned() for slot in ring._host for t in slot.values())
+    rng = np.random.default_rng(0)
+    staged = []
+    for p in range(4):
+        views = ring.host_slot()
+        if p >= 2:       # the step that read this slot two periods ago
+            assert ring._consumed[p & 1].query()
+        batch = {"ts": rng.integers(0, 1 << 32, N, dtype=np.uint64
+                                    ).astype(np.uint32),
+                 "size": rng.integers(0, 1 << 32, N, dtype=np.uint64
+                                      ).astype(np.uint32),
+                 "five_tuple": rng.integers(0, 1 << 32, (N, 5),
+                                            dtype=np.uint64).astype(np.uint32),
+                 "valid": rng.random(N) < 0.5}
+        for k in views:
+            views[k][...] = batch[k]
+        ev, now = ring.stage(views, np.uint32(20_000 * (p + 1)))
+        # a long kernel on the compute stream stands in for the step
+        torch.cuda._sleep(20_000_000)
+        got = {k: v.clone() for k, v in ev.items()}
+        ring.consumed()
+        pending = ring._consumed[p & 1]
+        assert not pending.query(), "the step's event completed too early"
+        staged.append((batch, got, int(now)))
+    torch.cuda.synchronize()
+    for p, (batch, got, now) in enumerate(staged):
+        assert now == 20_000 * (p + 1)
+        for k in batch:
+            want = (torch.from_numpy(batch[k]) if k == "valid"
+                    else U.from_numpy(batch[k]))
+            assert torch.equal(got[k].cpu(), want), (p, k)
+
+
+def test_serving_loop_kernels_equal_plain_on_card(cuda, tmp_path):
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.launch.serving import ServingLoop, build_source
+    cfg = dataclasses.replace(REDUCED, wire_format="v2",
+                              inference_head="mlp",
+                              snapshot_every_periods=3)
+    events, nows = PK.period_batches(1, 3, cfg.event_block, n_flows=40,
+                                     flow_seed=1)
+    reports = {}
+    for backend in ("auto", "ref"):
+        system = DFASystem(dataclasses.replace(cfg, kernel_backend=backend),
+                           device=cuda)
+        loop = ServingLoop(system, build_source(system, events, nows),
+                           snapshot_dir=str(tmp_path / backend))
+        reports[backend] = loop.run(7)
+    a, b = reports["auto"], reports["ref"]
+    assert a.balanced and b.balanced and a.snapshots == 3
+    for k in a.metrics:
+        assert torch.equal(a.metrics[k], b.metrics[k]), k
+    for x, y in zip(state_to_numpy(a.last.state), state_to_numpy(b.last.state)):
+        for f in type(x)._fields:
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+    restored, step = C.restore(str(tmp_path / "auto"), device=cuda)
+    assert step == 7
+    assert restored.collector.memory.device.type == "cuda"
+    for x, y in zip(state_to_numpy(restored), state_to_numpy(a.last.state)):
+        for f in type(x)._fields:
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+
+
+def test_checkpoint_cuda_state_to_cuda(cuda, tmp_path):
+    from repro_torch.checkpoint import checkpoint as C
+    system = DFASystem(REDUCED, device=cuda)
+    events, nows = PK.period_batches(1, 2, 256, n_flows=30, device=cuda)
+    live = system.run_periods(system.init_state(), events, nows).state
+    C.save({"state": live, "bf16": torch.ones(3, dtype=torch.bfloat16,
+                                               device=cuda)},
+           str(tmp_path), step=2)
+    got, _ = C.restore(str(tmp_path), device=cuda)
+    assert got["bf16"].device.type == "cuda"
+    assert got["bf16"].dtype == torch.bfloat16
+    for x, y in zip(state_to_numpy(got["state"]), state_to_numpy(live)):
+        for f in type(x)._fields:
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))

@@ -1,10 +1,12 @@
 """Import and device rules of the PyTorch port.
 
 * Importing every ``repro_torch`` module (and ``chip_smoke``) loads
-  neither JAX nor any module of the reference package.
-* ``DFASystem``, the LM ``Model`` and the serving launcher run on the
-  card by default: without a card they raise unless the caller asks for
-  ``device="cpu"``.
+  neither JAX nor any module of the reference package, nor ``msgpack`` or
+  ``ml_dtypes`` (the card's machine has neither).
+* ``DFASystem`` (and so ``ServingLoop`` / ``serve_trace``), the LM
+  ``Model``, the serving launcher, the two converters and
+  ``checkpoint.restore`` run on the card by default: without a card they
+  raise unless the caller asks for ``device="cpu"``.
 * A kernel wrapper handed a CPU tensor runs the plain version, because
   the tensor lies on the CPU; its launch counter stays 0, and
   ``backend="cuda"`` on a CPU tensor raises instead of falling back.
@@ -49,7 +51,8 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m.split(".")[0] in ("msgpack", "ml_dtypes"))
 print(len(names), bad)
 """
 
@@ -62,7 +65,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                                              root=os.path.abspath(ROOT))],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20, out.stdout
+    assert int(n) >= 30, out.stdout
     assert bad == "[]", f"port pulled in {bad}"
 
 
@@ -78,6 +81,23 @@ def test_system_defaults_to_the_card():
     assert Model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SERVE.main(["--reduced", "--gen", "2"])
+    from repro_torch.convert import (lm_params_from_numpy, state_from_numpy,
+                                     state_to_numpy)
+    from repro_torch.launch import serving as SERVING
+    from repro_torch.data import packets as PK
+    st = state_to_numpy(DFASystem(REDUCED, device="cpu").init_state())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state_from_numpy(st)
+    assert state_from_numpy(st, device="cpu").collector.memory.device.type \
+        == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_params_from_numpy({}, cfg)
+    # the serving loop runs where its system runs
+    ev, nows = PK.period_batches(1, 2, REDUCED.event_block, n_flows=8)
+    rep = SERVING.serve_trace(DFASystem(REDUCED, device="cpu"), ev, nows,
+                              periods=1)
+    assert rep.last.enriched.device.type == "cpu"
+    assert not SERVING.HostIngestRing("cpu", 8).on_card
 
 
 def test_cpu_tensors_run_the_plain_versions(rng):

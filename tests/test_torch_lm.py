@@ -57,7 +57,8 @@ def models(mesh):
         jm = jax_model(jax_config(ARCH, reduced=True).replace(**kw), mesh)
         jp = jm.init(jax.random.key(0))
         cfg = get_config(ARCH, reduced=True).replace(**kw)
-        tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg)
+        tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                  device="cpu")
         out[name] = (jm, jp, Model(cfg, device="cpu"), tp)
     return out
 
@@ -154,7 +155,7 @@ def test_params_from_numpy_refuses_a_tree_that_differs(models):
     for bad, msg in ((missing, "leaves"), (extra, "leaves"),
                      (wrong, "shape")):
         with pytest.raises(ValueError, match=msg):
-            lm_params_from_numpy(bad, tm.cfg)
+            lm_params_from_numpy(bad, tm.cfg, device="cpu")
 
 
 # -------------------------------------------------------------- model ------

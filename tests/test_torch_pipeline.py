@@ -7,7 +7,7 @@ features by the row-scaled 1e-5 rule, preds to 1e-5 — against
 ``kernel_backend="ref"`` and, once, ``"interpret"``. The port also
 reproduces ``tests/goldens/run_periods_t4.json`` through the golden
 test's own fingerprint, carries a reference state across mid-stream,
-and refuses what is outside this slice.
+and refuses what is not ported.
 """
 import dataclasses
 import json
@@ -189,7 +189,8 @@ def test_state_carry_from_jax():
     with js.mesh:
         first = run(js.init_state(), {k: v[:2] for k, v in jev.items()},
                     jnows[:2])
-        tstate = state_from_numpy(jax.tree.map(np.asarray, first.state))
+        tstate = state_from_numpy(jax.tree.map(np.asarray, first.state),
+                                  device="cpu")
         assert_state_equal(first.state, tstate)
         jout = run(first.state, {k: v[2:] for k, v in jev.items()},
                    jnows[2:])
@@ -213,7 +214,7 @@ def test_backend_ref_equals_auto_on_cpu():
 
 @pytest.mark.parametrize("change,exc", [
     ({"flow_home": "hash"}, NotImplementedError),
-    ({"wire_format": "v2"}, NotImplementedError),
+    ({"flow_home": "rendezvous"}, NotImplementedError),
     ({"kernel_backend": "pallas"}, ValueError),
     ({"kernel_backend": "interpret"}, ValueError),
     ({"kernel_backend": "tpu"}, ValueError),
@@ -225,17 +226,21 @@ def test_refuses_what_is_outside_the_slice(change, exc):
 
 
 def test_refuses_shards_faults_and_overlap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """More than one shard stays refused (item 7). An armed fault spec
+    and the overlapped driver, refused before they were ported, now run."""
+    from repro_torch.data.faults import FaultSpec
+    with pytest.raises(NotImplementedError, match="item 7"):
         DFASystem(REDUCED, device="cpu", n_shards=2)
-
-    class Armed:
-        armed = True
-
-    with pytest.raises(NotImplementedError, match="fault"):
-        DFASystem(dataclasses.replace(REDUCED, fault_spec=Armed()),
+    with pytest.raises(NotImplementedError, match="item 8"):
+        DFASystem(dataclasses.replace(REDUCED, flow_home="hash"),
                   device="cpu")
-    ts = DFASystem(REDUCED, device="cpu")
+    armed = DFASystem(dataclasses.replace(
+        REDUCED, fault_spec=FaultSpec(seed=1, drop_rate=0.2)), device="cpu")
     _, _, tev, tnows = traces(T=1)
-    with pytest.raises(NotImplementedError, match="overlapped"):
-        ts.stream(ts.init_state(), tev, tnows, overlapped=True)
-    assert ts.stream(ts.init_state(), tev, tnows).enriched.shape[0] == 1
+    out = armed.stream(armed.init_state(), tev, tnows)
+    assert int(out.metrics["injected_drops"][0]) > 0
+    ts = DFASystem(REDUCED, device="cpu")
+    ovl = ts.stream(ts.init_state(), tev, tnows, overlapped=True)
+    seq = ts.stream(ts.init_state(), tev, tnows)
+    assert seq.enriched.shape[0] == 1
+    assert torch.equal(ovl.enriched, seq.enriched)
