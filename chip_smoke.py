@@ -49,7 +49,21 @@ Phases (any failure exits non-zero; nothing is caught):
    periods: Δbad_checksum == flips, Δseq_anomalies == dups + replays,
    Δlost_reports == drops + flips exactly in every period, kernel run ==
    plain run under the same draws; ring_scatter takes 2R rows;
-9. [serving] — ``ServingLoop`` at PAPER V2 with the mlp head: 1000
+9. [mesh1d] — the 1-D shard mesh: 4 shards at PAPER per-shard shapes
+   (V1, flow_home="ingest") on one card, the main path's trace laid out
+   4 x 2^20 events per period for 4 periods; launch counts from 0, the
+   kernel run == the plain run (state bit for bit, features row-scaled),
+   sent == received + bucket drops + misroutes every period; ms and
+   launches per period and the device's idle share;
+10. [mesh2d] — the 2-D (pod, shard) mesh at PAPER width under V2
+   (flow_home="hash", one port per device, 2^17 reporter slots and 4096
+   due reports per port, a 4 x 2^17-flow keyspace), 2^20 events per port
+   per period from 2^19 flows for 4 periods, all with the kernels: the
+   (1,4), (2,2) and (4,1) meshes give the same merged state and
+   flow-sorted outputs bit for bit; on (2,2) (launch counts from 0)
+   kernels == plain, ragged == padded, rendezvous kernels == plain,
+   overlapped == sequential; ms, launches and idle share as in 9;
+11. [serving] — ``ServingLoop`` at PAPER V2 with the mlp head: 1000
    periods of 2^20 events offered at line rate (52,428,800 events/s)
    against a 20,000 us budget, launch counts from 0, p50/p99/p999, SLO
    violations, sustained events/s, the host's time per period by part
@@ -62,8 +76,12 @@ Phases (any failure exits non-zero; nothing is caught):
    2^21-event queue for 50 periods plus the drain (balanced, with drops),
    and a profile of 2 periods with the host -> device copies of the LUTs
    and checksum positions cached and, for comparison, made on every call;
-10. golden — the REDUCED T=4 run reproduces tests/goldens/run_periods_t4.json;
-11. serving at full width — granite-3-2b (40 layers, d 2048, 32/8 heads,
+12. goldens — the REDUCED T=4 run reproduces
+   tests/goldens/run_periods_t4.json; REDUCED_MULTIPOD and
+   REDUCED_MULTIPOD_V2 on a (2,2) mesh, with the kernels, over the port's
+   own cross_pod_mix scenario reproduce run_periods_multipod_t4.json and
+   run_periods_multipod_v2_t4.json (ring_checksum included);
+13. serving at full width — granite-3-2b (40 layers, d 2048, 32/8 heads,
    bf16, seeded random weights): 4 requests of 1024-token prompts, 32
    greedy tokens each, one warm-up request and 3 timed, every prefill
    launching flash_attention once per layer, all on the wgmma variant (the
@@ -674,7 +692,8 @@ def unfused_step(system, state, events, now, backend=None):
     flow_moments family; placement through a staging copy
     (``collector.staged_ingest``); the explicit history gather followed by
     the standalone derived_features family in place of the fused gather +
-    enrichment. One shard (reporter id 0, flow base 0). Returns a
+    enrichment. One shard (reporter id 0, flow base 0), run on its view of
+    the state as ``ingest_half`` runs each shard. Returns a
     ``StepOutputs``."""
     import torch
     from repro_torch import u32 as U
@@ -683,15 +702,13 @@ def unfused_step(system, state, events, now, backend=None):
     from repro_torch.core import translator as TRANS
     from repro_torch.core import wire as WIRE
     from repro_torch.core.pipeline import (DFAState, StepOutputs, _delta,
-                                           _global_seq_gap)
+                                           _global_seq_gap, _join, _part)
     from repro_torch.kernels.derived_features.ops import derived_features
     from repro_torch.kernels.flow_moments.ops import flow_moments
 
     cfg, wf = system.cfg, system.wire
     b = backend or system.backend
-    rep_st, tr_st, coll_st = state
-    coll0, bad0 = rep_st.collisions, coll_st.bad_checksum
-    anom0, lost0 = coll_st.seq_anomalies, coll_st.lost_reports
+    rep_st, tr_st, coll_st = (_part(group, 0, 1) for group in state)
     rep_st = REP.ingest(rep_st, events, cfg, accumulate_fn=lambda r, s, d, v:
                         flow_moments(r, s, d, v, backend=b))
     slots, mask = REP.due_flows(rep_st, now, cfg, cfg.report_capacity)
@@ -705,15 +722,19 @@ def unfused_step(system, state, events, now, backend=None):
     routed = buckets.reshape(-1, wf.report_words)
     rmask = bmask.reshape(-1)
     tr_st, payloads, coords = TRANS.translate(tr_st, routed, rmask, 0, cfg)
-    lseq0, recv0 = coll_st.last_seq, coll_st.received
     coll_st = COLL.staged_ingest(coll_st, payloads, rmask, 0, cfg, backend=b)
-    coll_st, lost_delta = _global_seq_gap(coll_st, lseq0, recv0, lost0)
+    rep_st, tr_st, coll_st = (_join([part], group) for part, group in
+                              zip((rep_st, tr_st, coll_st), state))
+    coll_st, lost_delta = _global_seq_gap(coll_st, state.collector)
     metrics = {"reports_sent": mask.sum(), "reports_recv": rmask.sum(),
                "bucket_drops": mask.sum() - bmask.sum() - mis,
                "misroutes": mis,
-               "collisions": _delta(rep_st.collisions, coll0),
-               "bad_checksum": _delta(coll_st.bad_checksum, bad0),
-               "seq_anomalies": _delta(coll_st.seq_anomalies, anom0),
+               "collisions": _delta(rep_st.collisions,
+                                    state.reporter.collisions),
+               "bad_checksum": _delta(coll_st.bad_checksum,
+                                      state.collector.bad_checksum),
+               "seq_anomalies": _delta(coll_st.seq_anomalies,
+                                       state.collector.seq_anomalies),
                "lost_reports": lost_delta}
     entries, ev = COLL.gather_flow_history(coll_st, coords["local_flow"])
     enriched = derived_features(entries, ev, cfg, backend=b)
@@ -786,17 +807,28 @@ def check_outputs(outs, cfg, tag):
 
 def compare_outputs(o, r, t, tag):
     """One period's outputs against the reference run's: routed flows
-    and metrics exact; returns (row-scaled feature err, preds max abs
-    err) after checking both against their tolerances."""
+    and metrics exact, features row-scaled (their non-finite entries bit
+    for bit), preds when a head is armed; returns (row-scaled feature
+    err, preds max abs err) after checking both against their
+    tolerances."""
     import torch
     require(torch.equal(o.flow_ids, r.flow_ids) and torch.equal(o.mask, r.mask),
             f"[{tag}] period {t}: routed flows differ")
+    require(sorted(o.metrics) == sorted(r.metrics),
+            f"[{tag}] period {t}: metric keys differ")
     for k in o.metrics:
-        require(int(o.metrics[k]) == int(r.metrics[k]),
+        require(torch.equal(o.metrics[k], r.metrics[k]),
                 f"[{tag}] period {t}: metric {k} differs")
-    err = feature_err(o.enriched, r.enriched)
+    odd = ~torch.isfinite(r.enriched)
+    require(torch.equal(o.enriched[odd].view(torch.int32),
+                        r.enriched[odd].view(torch.int32)),
+            f"[{tag}] period {t}: non-finite features differ")
+    err = feature_err(torch.where(odd, 0.0, o.enriched),
+                      torch.where(odd, 0.0, r.enriched))
     require(err <= FEATURE_TOL,
             f"[{tag}] period {t}: features differ, row-scaled {err:.3e}")
+    if o.preds is None:
+        return err, 0.0
     require(torch.allclose(o.preds, r.preds, rtol=PRED_TOL, atol=PRED_TOL),
             f"[{tag}] period {t}: preds differ")
     return err, float((o.preds - r.preds).abs().max())
@@ -899,13 +931,15 @@ def profile_periods(step, state, events, nows, tag, periods: int = 2):
         i = next(t)
         box[0] = step(box[0], {k: v[i] for k, v in events.items()},
                       nows[i]).state
-    profile_window(tag, one, periods, "period")
+    return profile_window(tag, one, periods, "period")
 
 
 def profile_window(tag, fn, n: int, unit: str = "request"):
     """torch.profiler over ``n`` calls of ``fn``: device time by kernel
     name (top 15), the device's busy share of the wall time, and the host
-    ops with the most self time, each per ``unit``."""
+    ops with the most self time, each per ``unit``. Returns the wall and
+    device-busy µs per ``unit``, the idle share and the device kernels
+    per ``unit``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -940,6 +974,8 @@ def profile_window(tag, fn, n: int, unit: str = "request"):
     for e in host[:10]:
         log(f"[profile {tag}]   {e.self_cpu_time_total / n:10.1f} "
             f"us/{unit}  {e.count // n:5d} calls/{unit}  {e.key[:60]}")
+    return {"wall_us": wall_us / n, "busy_us": busy_us / n,
+            "idle_share": 1 - busy_us / wall_us, "kernels": launches}
 
 
 # -- phase 5: the unfused path --------------------------------------------------
@@ -1016,7 +1052,7 @@ def unfused_path(system, events, nows):
     return launches
 
 
-# -- phases 6-9: the online serving slice at PAPER under the V2 wire -----------
+# -- phases 6-8 and 11: the online serving slice at PAPER under the V2 wire --
 
 LINE_RATE_EPS = EVENTS / 0.02        # 2^20 events per 20 ms period
 SERVE_PERIODS = 1000                 # [serving] main run
@@ -1312,46 +1348,372 @@ def serving_phase(dev, events, nows):
     return launches
 
 
-# -- phase 10: golden ------------------------------------------------------------
+# -- phases 9-10: the emulated meshes at PAPER width --------------------------
 
-def golden(dev):
-    from repro_torch.configs import REDUCED
-    from repro_torch.convert import state_to_numpy
+MESH_SHARDS = 4
+MESH_PERIODS = 4
+MESH_FLOWS = 1 << 19          # [mesh2d]'s flow population
+MESH_SLOTS = 1 << 17          # [mesh2d]'s reporter slots and ring per device
+MESH_PORT_REPORTS = 4096      # [mesh2d]'s due reports per port and period
+MESH_GRID = (1, 2, 4)         # pods of the (pods, 4 // pods) meshes
+
+
+def path_kernels():
+    """The main path's kernels: K1 ingest_segment_sums, K2 ring_scatter,
+    K3 gather_enrich."""
+    from repro_torch.kernels.gather_enrich.kernel import KERNEL as K3
+    from repro_torch.kernels.ingest_update.kernel import KERNEL as K1
+    from repro_torch.kernels.ring_scatter.kernel import KERNEL as K2
+    return (K1, K2, K3)
+
+
+def counted_periods(system, events, nows, tag, backend=None):
+    """``timed_periods`` from launch counts of 0; requires every path
+    kernel to have launched. Returns (state, outputs, ms, launches)."""
+    kernels = path_kernels()
+    for k in kernels:
+        k.reset_counts()
+    state, outs, ms = timed_periods(system, events, nows, backend)
+    launches = {k.name: k.launches for k in kernels}
+    for name, n in launches.items():
+        require(n >= len(nows), f"[{tag}] {name} launched {n} times in "
+                                f"{len(nows)} periods")
+    return state, outs, ms, launches
+
+
+def runs_err(a, b, tag) -> float:
+    """Two runs of one system, period by period (``compare_outputs``);
+    returns the largest row-scaled feature error."""
+    return max(compare_outputs(o, r, t, tag)[0]
+               for t, (o, r) in enumerate(zip(a, b)))
+
+
+def require_accounting(outs, tag, drops_allowed: bool):
+    """Every period: sent == received + bucket drops + misroutes, and
+    something was received."""
+    for t, o in enumerate(outs):
+        m = {k: int(v) for k, v in o.metrics.items() if v.dim() == 0}
+        require(m["reports_sent"] == m["reports_recv"] + m["bucket_drops"]
+                + m["misroutes"] and m["reports_recv"] > 0,
+                f"[{tag}] period {t}: accounting {m}")
+        require(drops_allowed or m["bucket_drops"] == 0,
+                f"[{tag}] period {t}: {m['bucket_drops']} bucket drops")
+
+
+def mesh1d_phase(dev):
+    """[mesh1d] The 1-D shard mesh at PAPER per-shard shapes (V1, 2^17
+    flows, 10-entry ring, 4096 reports per period), 4 shards on one card,
+    flow_home="ingest": the main path's trace laid out 4 x 2^20 events per
+    period for MESH_PERIODS periods. Kernel run (launches from 0) == plain
+    run; the report accounting closes every period. Returns launches."""
+    import torch
+    from repro_torch.configs import PAPER
     from repro_torch.core.pipeline import DFASystem
     from repro_torch.data import packets as PK
 
-    want = json.loads(GOLDEN.read_text())
-    T = want["T"]
-    system = DFASystem(REDUCED, device=dev)
-    events, nows = PK.period_batches(1, T, want["events_per_shard"],
-                                     n_flows=10, flow_seed=3, device=dev)
-    out = system.run_periods(system.init_state(), events, nows)
+    n = MESH_SHARDS
+    system = DFASystem(PAPER, device=dev, n_shards=n)
+    t0 = time.perf_counter()
+    events, nows = PK.period_batches(
+        n, MESH_PERIODS, EVENTS, n_flows=PAPER.flows_per_shard, flow_seed=0,
+        period_us=PAPER.monitoring_period_us,
+        window_us=PAPER.monitoring_period_us, device=dev)
+    torch.cuda.synchronize()
+    log(f"[mesh1d] traffic: {MESH_PERIODS} periods x {n} x {EVENTS} events "
+        f"(the main path's trace, one slice per shard), made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    state, outs, ms, launches = counted_periods(system, events, nows,
+                                                "mesh1d")
+    require_accounting(outs, "mesh1d", drops_allowed=True)
+    R = n * max(1, PAPER.report_capacity // n)
+    for t, o in enumerate(outs):
+        require(o.enriched.shape == (n * R, PAPER.derived_dim),
+                f"[mesh1d] period {t}: features {tuple(o.enriched.shape)}")
+    ref_state, ref_outs, ref_ms = timed_periods(system, events, nows, "ref")
+    require_states_equal(state, ref_state, "mesh1d kernels vs plain")
+    err = runs_err(outs, ref_outs, "mesh1d kernels vs plain")
+    prof = profile_periods(system.dfa_step, system.init_state(), events,
+                           nows, "mesh1d")
+    nonfinite = sum(int((~torch.isfinite(o.enriched)).sum()) for o in outs)
+    log(f"[mesh1d] PAPER V1, {n} shards x 2^17 flows, {MESH_PERIODS} "
+        f"periods: metrics per period "
+        f"{[{k: int(v) for k, v in o.metrics.items()} for o in outs]}")
+    log(f"[mesh1d] per-period ms (kernels): {[round(x, 3) for x in ms]}, "
+        f"mean after the first {np.mean(ms[1:]):.4f}; plain "
+        f"{[round(x, 3) for x in ref_ms]}; launches {launches} "
+        f"({ {k: v / MESH_PERIODS for k, v in launches.items()} } per "
+        f"period); device idle {100 * prof['idle_share']:.1f} % "
+        f"({prof['kernels']:.0f} device kernels per period)")
+    log(f"[mesh1d] kernel run == plain run: integer state bitwise, metrics "
+        f"equal, features row-scaled err {err:.3e}; sent == recv + drops + "
+        f"misroutes every period; non-finite features {nonfinite}")
+    return launches
+
+
+def mesh2d_cfg(pods: int, **changes):
+    """[mesh2d]'s configuration: PAPER width under V2, flow_home="hash",
+    one port per device (4 // pods per pod), 2^17 reporter slots per port,
+    4096 due reports per port, the global keyspace fixed at 4 x 2^17."""
+    from repro_torch.configs import PAPER
+    kw = dict(wire_format="v2", flow_home="hash", pods=pods,
+              ports_per_pod=MESH_SHARDS // pods, reporter_slots=MESH_SLOTS,
+              flows_per_shard=MESH_SHARDS * MESH_SLOTS // MESH_SHARDS,
+              port_report_capacity=MESH_PORT_REPORTS)
+    return dataclasses.replace(PAPER, **{**kw, **changes})
+
+
+def merged_state(system, state):
+    """The mesh-shape-independent view of a state (the merge of
+    tests/test_multipod_equiv.py::_merged_state): reporter and the
+    stacked translator / collector tables as they are, ``last_seq`` by
+    an elementwise max over devices, the scalar counters summed."""
+    import torch
+    from repro_torch import u32 as U
+    n = system.n_shards
+    out = {f"rep.{k}": v for k, v in state.reporter._asdict().items()}
+    out["tr.hist_counter"] = state.translator.hist_counter
+    c = state.collector
+    out["coll.memory"] = c.memory
+    out["coll.entry_valid"] = c.entry_valid
+    out["coll.last_seq"] = U.wide(c.last_seq).view(n, -1).amax(0)
+    for k in ("bad_checksum", "seq_anomalies", "received", "lost_reports"):
+        out[f"coll.{k}"] = U.wide(getattr(c, k)).sum().reshape(1)
+    return {k: v.reshape(-1).view(torch.uint8) if v.dtype == torch.bool
+            else v for k, v in out.items()}
+
+
+def canon_periods(outs):
+    """Per period: the flow-sorted ids and feature rows (bits) of the
+    valid rows (tests/test_multipod_equiv.py::_canon_periods): the
+    mesh-invariant content of a period's output."""
+    import torch
+    per = []
+    for o in outs:
+        fid = o.flow_ids[o.mask]
+        order = torch.sort(fid, stable=True).indices
+        per.append({"fid": fid[order],
+                    "enr": o.enriched[o.mask][order].view(torch.int32)})
+    return per
+
+
+def require_invariant(a, b, tag, metrics=None):
+    """Merged states, flow-sorted outputs and metrics, bit for bit."""
+    import torch
+    (sa, pa, ma), (sb, pb, mb) = a, b
+    for k in sa:
+        require(torch.equal(sa[k], sb[k]), f"[{tag}] state {k} differs")
+    for t, (x, y) in enumerate(zip(pa, pb)):
+        for k in x:
+            require(torch.equal(x[k], y[k]), f"[{tag}] period {t}: {k}")
+    for t, (x, y) in enumerate(zip(ma, mb)):
+        for k in (metrics or x):
+            require(torch.equal(x[k], y[k]), f"[{tag}] period {t}: metric "
+                                             f"{k} differs")
+
+
+def mesh2d_phase(dev):
+    """[mesh2d] The 2-D (pod, shard) mesh at PAPER width under V2 (see
+    ``mesh2d_cfg``), 2^20 events per port per period from 2^19 flows,
+    port-major, MESH_PERIODS periods, all with the kernels: the (1,4),
+    (2,2) and (4,1) meshes give the same merged state and flow-sorted
+    outputs bit for bit; on (2,2) (launches from 0) kernels == plain,
+    ragged == padded, rendezvous kernels == plain and overlapped ==
+    sequential. Returns launches."""
+    import torch
+    from repro_torch.core.pipeline import DFASystem
+    from repro_torch.data import packets as PK
+
+    n = MESH_SHARDS
+    t0 = time.perf_counter()
+    events, nows = PK.period_batches(
+        n, MESH_PERIODS, EVENTS, n_flows=MESH_FLOWS, flow_seed=1,
+        period_us=20_000, window_us=20_000, device=dev)
+    torch.cuda.synchronize()
+    log(f"[mesh2d] traffic: {MESH_PERIODS} periods x {n} ports x {EVENTS} "
+        f"events from {MESH_FLOWS} flows, port-major, made in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def system(pods, **changes):
+        return DFASystem(mesh2d_cfg(pods, **changes), device=dev, n_shards=n)
+
+    def view(s, outs, state):
+        return (merged_state(s, state), canon_periods(outs),
+                [o.metrics for o in outs])
+
+    views, main = {}, None
+    for pods in MESH_GRID:
+        s = system(pods)
+        if pods == 2:
+            state, outs, ms, launches = counted_periods(s, events, nows,
+                                                        "mesh2d")
+            main = (s, state, outs, ms)
+        else:
+            state, outs, _ = timed_periods(s, events, nows)
+        require_accounting(outs, f"mesh2d ({pods},{n // pods})",
+                           drops_allowed=False)
+        views[pods] = view(s, outs, state)
+        d = s.describe()
+        log(f"[mesh2d] ({pods},{n // pods}): describe " + str(
+            {k: d[k] for k in ("pods", "shards_per_pod", "total_ports",
+                               "ports_per_device", "port_report_capacity",
+                               "stage2_capacity")}))
+        del state, outs
+    for pods in MESH_GRID[1:]:
+        require_invariant(views[MESH_GRID[0]], views[pods],
+                          f"mesh2d (1,4) vs ({pods},{n // pods})")
+    s, state, outs, ms = main
+    ref_state, ref_outs, ref_ms = timed_periods(s, events, nows, "ref")
+    require_states_equal(state, ref_state, "mesh2d kernels vs plain")
+    err = runs_err(outs, ref_outs, "mesh2d kernels vs plain")
+    del ref_state, ref_outs
+
+    rs = system(2, crosspod_exchange="ragged")
+    r_state, r_outs, r_ms = timed_periods(rs, events, nows)
+    require(all(int(o.metrics["crosspod_sent"]) > 0 for o in r_outs),
+            "[mesh2d] ragged: nothing crossed pods")
+    require_invariant(views[2], view(rs, r_outs, r_state),
+                      "mesh2d ragged vs padded",
+                      metrics=list(outs[0].metrics))
+    xpod = [(int(o.metrics["crosspod_sent"]),
+             int(o.metrics["crosspod_messages"])) for o in r_outs]
+    del r_state, r_outs
+
+    hs = system(2, flow_home="rendezvous")
+    h_state, h_outs, h_ms = timed_periods(hs, events, nows)
+    require_accounting(h_outs, "mesh2d rendezvous", drops_allowed=False)
+    hr_state, hr_outs, _ = timed_periods(hs, events, nows, "ref")
+    require_states_equal(h_state, hr_state, "mesh2d rendezvous kernels vs "
+                                            "plain")
+    h_err = runs_err(h_outs, hr_outs, "mesh2d rendezvous kernels vs plain")
+    del h_state, h_outs, hr_state, hr_outs
+
+    seq = s.stream(s.init_state(), events, nows)
+    ovl = s.stream(s.init_state(), events, nows, overlapped=True)
+    require_states_equal(seq.state, ovl.state, "mesh2d overlapped")
+    for f in ("enriched", "flow_ids", "mask"):
+        a, b = getattr(seq, f), getattr(ovl, f)
+        if f == "enriched":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        require(torch.equal(a, b), f"[mesh2d] overlapped {f} differs")
+    for k in seq.metrics:
+        require(torch.equal(seq.metrics[k], ovl.metrics[k]),
+                f"[mesh2d] overlapped metric {k} differs")
+    del seq, ovl
+
+    prof = profile_periods(s.dfa_step, s.init_state(), events, nows,
+                           "mesh2d")
+    nonfinite = sum(int((~torch.isfinite(o.enriched)).sum()) for o in outs)
+    log(f"[mesh2d] (2,2) PAPER V2 hash, metrics per period "
+        f"{[{k: int(v) for k, v in o.metrics.items()} for o in outs]}")
+    log(f"[mesh2d] (2,2) per-period ms (kernels): {[round(x, 3) for x in ms]}"
+        f", mean after the first {np.mean(ms[1:]):.4f}; plain "
+        f"{[round(x, 3) for x in ref_ms]}; ragged "
+        f"{[round(x, 3) for x in r_ms]}; rendezvous "
+        f"{[round(x, 3) for x in h_ms]}; launches {launches} "
+        f"({ {k: v / MESH_PERIODS for k, v in launches.items()} } per "
+        f"period); device idle {100 * prof['idle_share']:.1f} % "
+        f"({prof['kernels']:.0f} device kernels per period)")
+    log(f"[mesh2d] pod-count invariance (1,4) == (2,2) == (4,1) with the "
+        f"kernels: merged state, flow-sorted outputs and metrics bit for "
+        f"bit; (2,2) kernels == plain (state bitwise, features row-scaled "
+        f"err {err:.3e}); ragged == padded bit for bit (crosspod sent, "
+        f"messages per period {xpod}); rendezvous kernels == plain (err "
+        f"{h_err:.3e}); overlapped == sequential bit for bit; non-finite "
+        f"features {nonfinite}")
+    return launches
+
+
+# -- phase 12: goldens ---------------------------------------------------------
+
+def check_golden(path: Path, out, extra=None):
+    """One run's outputs against a golden fingerprint: every pinned field
+    (integers exactly, float summaries to 1e-4, ``ring_checksum`` when
+    pinned), as tests/test_run_periods_golden.py checks them."""
+    from repro_torch.convert import state_to_numpy
+
+    want = json.loads(path.read_text())
+    tag = f"golden {path.name}"
     st = state_to_numpy(out.state)
     enr, fid = out.enriched.cpu().numpy(), out.flow_ids.cpu().numpy()
     em = out.mask.cpu().numpy()
+    for k, v in (extra or {}).items():
+        require(want.get(k) == v, f"{tag}: {k} {v} != {want.get(k)}")
     require(int(st.collector.received.astype(np.uint64).sum())
-            == want["collector_received"], "golden: collector_received")
+            == want["collector_received"], f"{tag}: collector_received")
     require(int(st.collector.entry_valid.sum()) == want["entry_valid_count"],
-            "golden: entry_valid_count")
+            f"{tag}: entry_valid_count")
     require(int(np.bitwise_xor.reduce(st.reporter.regs.reshape(-1)))
-            == want["regs_checksum"], "golden: regs_checksum")
+            == want["regs_checksum"], f"{tag}: regs_checksum")
+    if "ring_checksum" in want:
+        require(int(np.bitwise_xor.reduce(st.collector.memory.reshape(-1)))
+                == want["ring_checksum"], f"{tag}: ring_checksum")
     for t, w in enumerate(want["periods"]):
         rows = em[t]
         e = enr[t][rows].astype(np.float64)
-        require(int(rows.sum()) == w["received"], f"golden {t}: received")
+        require(int(rows.sum()) == w["received"], f"{tag} {t}: received")
         require(sorted(int(x) for x in fid[t][rows]) == w["flow_ids"],
-                f"golden {t}: flow_ids")
+                f"{tag} {t}: flow_ids")
         for k, v in w["metrics"].items():
-            require(int(out.metrics[k][t]) == v, f"golden {t}: {k}")
+            require(int(out.metrics[k][t]) == v, f"{tag} {t}: {k}")
+        for k in set(out.metrics) - set(w["metrics"]):
+            require(int(out.metrics[k][t]) == 0, f"{tag} {t}: {k} not 0")
         np.testing.assert_allclose(e.sum(), w["enriched_sum"], rtol=1e-4)
         np.testing.assert_allclose(np.abs(e).mean(), w["enriched_abs_mean"],
                                    rtol=1e-4)
         np.testing.assert_allclose(np.sort(e, axis=0)[0][:8],
                                    w["first_row_head"], rtol=1e-4, atol=1e-6)
-    log(f"[golden] REDUCED T={T} reproduces {GOLDEN.relative_to(ROOT)}")
+    return want
 
 
-# -- phase 11: serving at full width ---------------------------------------------
+def golden(dev):
+    """The single-shard golden (REDUCED, T=4) and both multipod goldens
+    (REDUCED_MULTIPOD and REDUCED_MULTIPOD_V2 on a (2,2) mesh over the
+    port's own cross_pod_mix scenario), with the kernels."""
+    import torch
+    from repro_torch import u32 as U
+    from repro_torch.configs import (REDUCED, REDUCED_MULTIPOD,
+                                     REDUCED_MULTIPOD_V2)
+    from repro_torch.core.pipeline import DFASystem
+    from repro_torch.data import packets as PK
+    from repro_torch.data import scenarios as SC
+
+    want = json.loads(GOLDEN.read_text())
+    system = DFASystem(REDUCED, device=dev)
+    events, nows = PK.period_batches(1, want["T"], want["events_per_shard"],
+                                     n_flows=10, flow_seed=3, device=dev)
+    check_golden(GOLDEN, system.run_periods(system.init_state(), events,
+                                            nows))
+    log(f"[golden] REDUCED T={want['T']} reproduces "
+        f"{GOLDEN.relative_to(ROOT)}")
+    for name, cfg, wire in (
+            ("run_periods_multipod_t4", REDUCED_MULTIPOD, None),
+            ("run_periods_multipod_v2_t4", dataclasses.replace(
+                REDUCED_MULTIPOD_V2, port_report_capacity=32), "v2")):
+        path = GOLDEN.parent / f"{name}.json"
+        T = json.loads(path.read_text())["T"]
+        system = DFASystem(cfg, device=dev, n_shards=4)
+        ev, now = SC.build("cross_pod_mix", system.total_ports,
+                           want["events_per_shard"] // system.total_ports, T,
+                           seed=3)
+        events = {k: (torch.from_numpy(v).to(dev) if k == "valid"
+                      else U.from_numpy(v, dev)) for k, v in ev.items()}
+        nows = torch.from_numpy(now.astype(np.int64)).to(dev)
+        for k in path_kernels():
+            k.reset_counts()
+        out = system.run_periods(system.init_state(), events, nows)
+        for k in path_kernels():
+            require(k.launches >= T, f"[golden] {name}: {k.name} launched "
+                                     f"{k.launches} times")
+        extra = {"mesh": [2, 2], "total_ports": 4, "flow_home": "hash"}
+        if wire:
+            extra["wire_format"] = wire
+        check_golden(path, out, extra)
+        log(f"[golden] REDUCED_MULTIPOD{'_V2' if wire else ''} on (2,2), "
+            f"T={T}, kernels: reproduces {path.relative_to(ROOT)}"
+            f"{' (ring_checksum included)' if wire else ''}")
+
+
+# -- phase 13: serving at full width -------------------------------------------
 
 def generate(model, params, tokens, gen_steps, forced=None):
     """Prefill ``tokens`` (B, P), then ``gen_steps - 1`` decode steps into a
@@ -1657,18 +2019,27 @@ def main() -> int:
     v2_phase(dev, events, nows, v1_anomalies)
     overlap_phase(dev, events, nows)
     faults_phase(dev, events, nows)
+
+    # 9.-10. the emulated meshes (launch counts start at 0 for each)
+    mesh1d_launches = mesh1d_phase(dev)
+    torch.cuda.empty_cache()
+    mesh2d_launches = mesh2d_phase(dev)
+    torch.cuda.empty_cache()
+
+    # 11. the serving loop (launch counts start at 0 again)
     serving_launches = serving_phase(dev, events, nows)
     del system, events, nows
 
-    # 10. golden
+    # 12. goldens
     golden(dev)
 
-    # 11. serving at full width (launch counts start at 0 again)
+    # 13. serving at full width (launch counts start at 0 again)
     serve_launches, serve_variants = serve_phase(dev)
 
     print(json.dumps({"kernels": kernel_rows(
         checks, {"main": main_launches, "unfused": unfused_launches,
-                 "serving": serving_launches, "serve": serve_launches},
+                 "serving": serving_launches, "mesh1d": mesh1d_launches,
+                 "mesh2d": mesh2d_launches, "serve": serve_launches},
         {"flash_attention": serve_variants})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

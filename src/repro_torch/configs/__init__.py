@@ -8,6 +8,7 @@ from typing import Dict, List
 
 from repro_torch.configs.base import DFAConfig, ModelConfig
 from repro_torch.configs.dfa import (PAPER, REDUCED, REDUCED_INFER,
+                                     REDUCED_MULTIPOD, REDUCED_MULTIPOD_V2,
                                      REDUCED_OVERLAP, REDUCED_V2_WIDE)
 
 # arch id -> module name; the reference's other architectures (qwen,
@@ -30,4 +31,5 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
 
 
 __all__ = ["DFAConfig", "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
-           "REDUCED_OVERLAP", "REDUCED_V2_WIDE", "get_config", "list_archs"]
+           "REDUCED_MULTIPOD", "REDUCED_MULTIPOD_V2", "REDUCED_OVERLAP",
+           "REDUCED_V2_WIDE", "get_config", "list_archs"]

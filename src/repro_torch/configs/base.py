@@ -3,14 +3,14 @@
 Field names, defaults and meanings are those of the reference
 ``DFAConfig`` and ``ModelConfig`` so a configuration reads the same in
 both packages. Only the fields the port reads (or refuses) are carried;
-the mesh, elastic-recovery and tuning knobs arrive with the slices that
-implement them (ROADMAP §1).
+the elastic-recovery and tuning knobs arrive with the slices that
+implement them (ROADMAP §1 items 11, 12).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -48,8 +48,40 @@ class DFAConfig:
     inference_head: str = "none"
     inference_classes: int = 8         # verdict classes the head emits
     inference_hidden: int = 64         # mlp hidden width (linear ignores)
-    # how a flow's home ring is chosen; this slice runs "ingest" only
+    # -- multi-pod (pod, shard) mesh ---------------------------------------
+    # how a flow's home collector ring is chosen:
+    #   "ingest"     — flow ids are minted from the ingest shard's range
+    #                  (shard * flows_per_shard + slot): a report's home is
+    #                  its ingest shard;
+    #   "hash"       — flow id = FNV-1a hash of the stored five-tuple into
+    #                  the global ring keyspace (n_shards * flows_per_shard),
+    #                  home device = the range shard of that id (pod-major);
+    #                  delivery is intra-pod, then cross-pod;
+    #   "rendezvous" — highest-random-weight hashing over ``home_nodes``:
+    #                  flow id = node_id * flows_per_shard + slot hash
     flow_home: str = "ingest"
+    # pod axis size: DFASystem(cfg, n_shards=n) lays its n devices out as
+    # (pods, n // pods), pod-major
+    pods: int = 1
+    # reporter ports per pod; 0 = one port per shard device. total_ports =
+    # pods * ports_per_pod must be a multiple of the device count; each
+    # device hosts total_ports / n_devices per-port Marina tables
+    ports_per_pod: int = 0
+    # per-PORT Marina table size; 0 = flows_per_shard
+    reporter_slots: int = 0
+    # per-PORT due-report capacity; 0 = report_capacity // total_ports
+    port_report_capacity: int = 0
+    # stage-2 (cross-pod) exchange: "padded" (worst-case buckets) |
+    # "ragged" (pod-local rows stay home, remote rows pre-merged flow-major
+    # into ``crosspod_capacity``-row segments; adds the crosspod_sent /
+    # crosspod_messages metrics)
+    crosspod_exchange: str = "padded"
+    # ragged segment rows per destination pod; 0 = the worst case
+    # (shards_per_pod x stage-1 bucket), at which ragged == padded
+    crosspod_capacity: int = 0
+    # logical node roster for flow_home="rendezvous": one strictly
+    # increasing node id per device (pod-major); () = 0..n_devices-1
+    home_nodes: Tuple[int, ...] = ()
     # snapshot the full DFAState every N completed periods (0 = never)
     snapshot_every_periods: int = 0
     # where stream()/ServingLoop write snapshots ("" = the caller passes a
@@ -77,6 +109,10 @@ class DFAConfig:
         """The serving loop's per-period SLO (falls back to the paper's
         monitoring period)."""
         return self.serve_budget_us or self.monitoring_period_us
+
+    def reporter_table_slots(self) -> int:
+        """Per-port Marina table size (falls back to flows_per_shard)."""
+        return self.reporter_slots or self.flows_per_shard
 
     def ring_region_bytes(self) -> int:
         """Shard-local collector ring footprint as the port holds it: 64 B

@@ -1,13 +1,14 @@
 """State and weights across the two packages, as numpy.
 
-``state_from_numpy`` takes the reference's one-shard ``DFAState`` with
-its leaves as numpy arrays (``uint32`` / ``bool``; scalar counters tiled
-to shape (1,), as the reference's ``init_state`` lays them out) — any
-object with ``reporter`` / ``translator`` / ``collector`` attributes that
-carry the reference's field names — and builds the port's state on a
-device. ``state_to_numpy`` is the inverse, in the reference's dtypes and
-shapes, so the two can be compared leaf by leaf. ``head_params_from_numpy``
-loads the reference head's ``{"w", "b"}`` / ``{"w1", "b1", "w2", "b2"}``
+``state_from_numpy`` takes the reference's ``DFAState`` with its leaves
+as numpy arrays (``uint32`` / ``bool``) in its global layout — tables
+stacked per shard or per port, scalar counters as (n_shards,) /
+(total_ports,) vectors — as any object with ``reporter`` / ``translator``
+/ ``collector`` attributes that carry the reference's field names, and
+builds the port's state on a device; the port keeps the same layout, so
+no leaf is reshaped. ``state_to_numpy`` is the inverse, in the
+reference's dtypes and shapes, so the two can be compared leaf by leaf.
+``head_params_from_numpy`` loads the reference head's ``{"w", "b"}`` / ``{"w1", "b1", "w2", "b2"}``
 into a :class:`~repro_torch.models.flow_head.FlowHead`.
 ``lm_params_from_numpy`` builds the port's language-model parameters from
 the reference's materialised ones (``Model.init``), as numpy.
@@ -32,34 +33,27 @@ _GROUPS = (("reporter", ReporterState), ("translator", TranslatorState),
            ("collector", CollectorState))
 
 
-def _leaf_in(a, name: str, device) -> torch.Tensor:
+def _leaf_in(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.bool_:
         return torch.from_numpy(a.copy()).to(device)
-    t = U.from_numpy(a, device)
-    # reference scalars are per-shard (1,) slices; the port's are ()
-    return t.reshape(()) if name in _SCALARS else t
+    return U.from_numpy(a, device)
 
 
-def _leaf_out(t: torch.Tensor, name: str) -> np.ndarray:
+def _leaf_out(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bool:
         return t.detach().cpu().numpy()
-    a = U.to_numpy(t)
-    return a.reshape(1) if name in _SCALARS else a
-
-
-_SCALARS = ("seq", "collisions", "bad_checksum", "seq_anomalies",
-            "received", "lost_reports")
+    return U.to_numpy(t)
 
 
 def state_from_numpy(state, device="cuda") -> DFAState:
-    """Reference one-shard state (numpy leaves) -> the port's DFAState
+    """Reference state (numpy leaves) -> the port's DFAState
     on ``device`` (the card unless the caller asks for ``"cpu"``)."""
     device = on_card_or_cpu(device, "state_from_numpy")
     parts = []
     for group, cls in _GROUPS:
         src = getattr(state, group)
-        parts.append(cls(*(_leaf_in(getattr(src, f), f, device)
+        parts.append(cls(*(_leaf_in(getattr(src, f), device)
                            for f in cls._fields)))
     return DFAState(*parts)
 
@@ -67,7 +61,7 @@ def state_from_numpy(state, device="cuda") -> DFAState:
 def state_to_numpy(state: DFAState) -> DFAState:
     """The port's state -> the same NamedTuples holding numpy leaves in the
     reference's dtypes and shapes."""
-    return DFAState(*(cls(*(_leaf_out(getattr(getattr(state, group), f), f)
+    return DFAState(*(cls(*(_leaf_out(getattr(getattr(state, group), f))
                             for f in cls._fields))
                       for group, cls in _GROUPS))
 

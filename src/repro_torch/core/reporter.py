@@ -246,17 +246,23 @@ def due_flows(state: ReporterState, now, cfg: DFAConfig,
 
 
 def make_reports(state: ReporterState, slots, mask, now, reporter_id: int,
-                 shard_flow_base: int, cfg: DFAConfig
+                 shard_flow_base: int, cfg: DFAConfig, flow_ids=None
                  ) -> Tuple[ReporterState, torch.Tensor]:
     """Clone-and-truncate analogue: DTA reports for the given slots.
 
     Returns (state', reports (R, report_words) int32 bit patterns);
-    masked-out rows are zero. Sequence numbers increment per report."""
+    masked-out rows are zero. Sequence numbers increment per report.
+    ``flow_ids`` ((R,) u32 values) replaces the range identity
+    ``shard_flow_base + slot``: the 2-D mesh passes the hash-home or
+    rendezvous ids of the slots' stored keys."""
     R = slots.shape[0]
     dev = slots.device
     stats = state.regs[slots]
     tuples = state.keys[slots]
-    flow_ids = (shard_flow_base + slots) & U.MASK
+    if flow_ids is None:
+        flow_ids = (shard_flow_base + slots) & U.MASK
+    else:
+        flow_ids = U.wide(flow_ids)
     seqs = (U.wide(state.seq) + torch.cumsum(mask.to(torch.int64), 0)
             - 1) & U.MASK
     reports = PROTO.pack_dta_report(

@@ -6,6 +6,13 @@ an 8-bit counter cycling through the ``history`` ring entries. Routing
 buckets reports by owning shard for a fixed-capacity exchange; an
 out-of-range destination parks in an overflow slot and counts as a
 misroute instead of being clipped onto a real shard.
+
+The 2-D (pod, shard) mesh adds the home functions: ``home_flow_ids``
+(hash homes in the global keyspace), ``home_coords`` (id -> pod, shard,
+device), the rendezvous (HRW) family (``rendezvous_position``,
+``rendezvous_flow_ids``, ``node_position``), ``canonical_order`` (the
+home translator's arrival order) and ``crosspod_compact`` (the ragged
+stage-2 segments).
 """
 from __future__ import annotations
 
@@ -114,6 +121,131 @@ def route_reports(reports, mask, n_shards: int, flows_per_shard: int,
     flow_id = reports[:, 0].to(torch.int64)
     dest = torch.div(flow_id, flows_per_shard, rounding_mode="floor")
     return route_by_dest(reports, mask, dest, n_shards, capacity_out)
+
+
+def _i32(flow_id) -> torch.Tensor:
+    """u32 flow words (int32 bit patterns or widened int64) as their
+    signed int32 values, widened to int64 (the reference's
+    ``astype(int32)``: ids >= 2^31 go negative)."""
+    return U.narrow(flow_id).to(torch.int64)
+
+
+def home_flow_ids(keys, total_flows: int) -> torch.Tensor:
+    """Mesh-shape-independent flow identity: the FNV-1a hash of the stored
+    five-tuple into the global ring keyspace [0, total_flows) (int64)."""
+    from repro_torch.core.reporter import hash_slot
+    return hash_slot(keys, total_flows)
+
+
+def home_coords(flow_id, flows_per_shard: int, shards_per_pod: int,
+                n_devices: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Global flow id -> (home_pod, home_shard, home_device) under the
+    pod-major range sharding of the keyspace (device d = pod *
+    shards_per_pod + shard owns [d * fps, (d + 1) * fps)).
+
+    The id is divided as int32, floor toward -inf, as the reference does:
+    a hostile id >= 2^31 goes negative, its pod falls outside [0, pods)
+    and routing counts it a misroute, while its shard coordinate (floor
+    mod) stays in range."""
+    dev = torch.div(_i32(flow_id), flows_per_shard, rounding_mode="floor")
+    return (torch.div(dev, shards_per_pod, rounding_mode="floor"),
+            torch.remainder(dev, shards_per_pod), dev)
+
+
+def _mix32(x) -> torch.Tensor:
+    """Finalizer-style u32 bijection (xor-shift-multiply avalanche) on
+    widened values; the multiplies go through ``u32.mul``, since the
+    constants times a u32 overflow int64."""
+    x = U.wide(x)
+    x = x ^ (x >> 16)
+    x = U.mul(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = U.mul(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+# decorrelates the ring-slot hash from the per-node rendezvous scores
+_HRW_SLOT_SALT = 0x9E3779B9
+
+
+def rendezvous_position(key_hash, node_ids) -> torch.Tensor:
+    """Highest-random-weight winner of each key over ``node_ids``: the
+    winner's POSITION in ``node_ids`` (int64). Scores depend only on
+    (key hash, node id); ties break toward the lower position (argmax
+    takes the first maximum)."""
+    salt = _mix32(U.mul(node_ids, 0x9E3779B9) + 1)
+    scores = _mix32(U.wide(key_hash)[..., None] ^ salt)
+    return torch.argmax(scores, dim=-1)
+
+
+def rendezvous_flow_ids(keys, node_ids, flows_per_shard: int
+                        ) -> torch.Tensor:
+    """Elastic flow identity: ``node_id * fps + slot`` (u32, int64), with
+    ``node_id`` the key's HRW winner over the logical node roster and
+    ``slot`` an independent hash into that node's ring."""
+    from repro_torch.core.reporter import hash_u32
+    kh = hash_u32(keys)
+    pos = rendezvous_position(kh, node_ids)
+    slot = _mix32(kh ^ _HRW_SLOT_SALT)
+    fps = int(flows_per_shard)
+    slot = slot & (fps - 1) if fps & (fps - 1) == 0 else slot % fps
+    return (U.mul(U.wide(node_ids)[pos], fps) + slot) & U.MASK
+
+
+def node_position(node, node_ids) -> torch.Tensor:
+    """Stable node id -> its position in the sorted ``node_ids`` roster
+    (the device index, pod-major), clipped into the roster (int64)."""
+    pos = torch.searchsorted(U.wide(node_ids).contiguous(),
+                             U.wide(node).contiguous())
+    return torch.clamp(pos, 0, node_ids.shape[0] - 1)
+
+
+def canonical_order(reports, mask, wire: WIRE.WireFormat = WIRE.V1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The home translator's arrival order: the received batch sorted by
+    (flow_id, reporter_id, seq), padding rows last.
+
+    The exchange interleaves a flow's reports by mesh shape; history
+    indices and placement are order-sensitive, so the home re-sorts on
+    what arrived only. The meta word is monotone in (reporter_id, seq)
+    in every wire format, so it is the secondary key. Keys are sorted as
+    widened u32 values (as int32 patterns the padding key 0xFFFFFFFF
+    would sort first), meta first, then flow, both stable."""
+    f = torch.where(mask, U.wide(reports[:, wire.report_flow_word]),
+                    WIRE.PAD_FLOW_ID)
+    meta = torch.where(mask, U.wide(reports[:, wire.report_meta_word]),
+                       WIRE.PAD_SORT_KEY)
+    o1 = torch.sort(meta, stable=True).indices
+    order = o1[torch.sort(f[o1], stable=True).indices]
+    return reports[order], mask[order]
+
+
+def crosspod_compact(reports, mask, own_pod: int, n_pods: int,
+                     capacity: int, hpod_fn, wire: WIRE.WireFormat = WIRE.V1):
+    """Compact stage-2 segments for the ragged pod exchange: rows homed on
+    ``own_pod`` stay local; the rest are canonically ordered (flow-major)
+    and packed into per-destination segments of ``capacity`` rows.
+    ``hpod_fn`` maps flow words to home-pod indices.
+
+    Returns ``(local_rows, local_mask, buckets, bucket_mask, misroutes,
+    n_messages)``: local rows with masked rows zeroed, the (n_pods,
+    capacity, W) segments, and the number of (destination, flow) runs —
+    the batched messages a wire transport would send."""
+    hpod = hpod_fn(reports[:, wire.report_flow_word])
+    is_local = mask & (hpod == own_pod)
+    remote = mask & (hpod != own_pod)
+    local_rows = torch.where(is_local[:, None], reports,
+                             torch.zeros_like(reports))
+    rr, rm = canonical_order(reports, remote, wire=wire)
+    buckets, bmask, misroutes = route_by_dest(
+        rr, rm, hpod_fn(rr[:, wire.report_flow_word]), n_pods, capacity)
+    # valid rows are a contiguous prefix of each segment: a message starts
+    # at a segment's first valid row or where the flow changes
+    flows = buckets[:, :, wire.report_flow_word]
+    n_messages = (bmask[:, :1].sum()
+                  + (bmask[:, 1:] & (flows[:, 1:] != flows[:, :-1])).sum())
+    return local_rows, is_local, buckets, bmask, misroutes, n_messages
 
 
 def batch_payloads(payloads, mask, batch: int

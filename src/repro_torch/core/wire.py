@@ -29,6 +29,8 @@ from repro_torch import u32 as U
 
 # flow-id value marking a padding row in emitted flow-id streams
 PAD_FLOW_ID = 0xFFFFFFFF
+# sort key of a padding row in the home translator's canonical order
+PAD_SORT_KEY = 0xFFFFFFFF
 ENV_VAR = "REPRO_WIRE_FORMAT"
 
 
@@ -116,6 +118,10 @@ class WireFormat:
     @property
     def n_reporters(self) -> int:
         return self.report_reporter.capacity
+
+    @property
+    def reporter_width(self) -> int:
+        return self.report_reporter.width
 
     @property
     def seq_width(self) -> int:

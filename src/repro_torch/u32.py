@@ -37,6 +37,20 @@ def narrow(x: torch.Tensor) -> torch.Tensor:
     return (((x.to(torch.int64) & MASK) ^ _SIGN) - _SIGN).to(torch.int32)
 
 
+def mul(a, b) -> torch.Tensor:
+    """u32 product mod 2^32 of two u32 values (int32 bit patterns, widened
+    int64 tensors or Python ints), as a widened int64 in [0, 2^32).
+
+    A full product of two u32 values reaches 2^64 and overflows int64, so
+    ``b`` is split into 16-bit halves: each partial product stays below
+    2^48, and the high half only contributes its low 16 bits << 16."""
+    a = wide(a) if isinstance(a, torch.Tensor) else a & MASK
+    b = wide(b) if isinstance(b, torch.Tensor) else b & MASK
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK
+
+
 def from_numpy(a, device=None) -> torch.Tensor:
     """numpy u32 (or anything numpy casts to u32 losslessly) -> int32
     bit-pattern tensor."""

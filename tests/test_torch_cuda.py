@@ -117,6 +117,45 @@ def test_gather_enrich_row_scaled(cuda, R, H):
     assert row_scaled_err(got, ref_card) <= 1e-5
 
 
+@pytest.mark.parametrize("flow_home,exchange", [
+    ("ingest", "padded"), ("hash", "padded"), ("hash", "ragged"),
+    ("rendezvous", "padded")])
+def test_mesh_kernels_equal_plain_on_card(cuda, flow_home, exchange):
+    """The emulated 4-shard mesh (1-D under "ingest", (2, 2) otherwise):
+    K1 per port, K2 and K3 per shard on views of the stacked rings; the
+    kernel run equals the plain run."""
+    from repro_torch.configs import REDUCED_MULTIPOD
+    from repro_torch.data import scenarios as SC
+    if flow_home == "ingest":
+        cfg = REDUCED
+        events, nows = PK.period_batches(4, 3, 256, n_flows=300,
+                                         flow_seed=2, device=cuda)
+    else:
+        cfg = dataclasses.replace(REDUCED_MULTIPOD, flow_home=flow_home,
+                                  crosspod_exchange=exchange)
+        ev, now = SC.build("cross_pod_mix", 4, 64, 3, seed=1)
+        events = {k: (torch.from_numpy(v).to(cuda) if k == "valid"
+                      else U.from_numpy(v, cuda)) for k, v in ev.items()}
+        nows = torch.from_numpy(now.astype(np.int64)).to(cuda)
+    system = DFASystem(cfg, device=cuda, n_shards=4)
+    kernels = (IK.KERNEL, RK.KERNEL, GK.KERNEL)
+    before = [k.launches for k in kernels]
+    a = system.run_periods(system.init_state(), events, nows)
+    assert all(k.launches >= n + 3 * 4 for k, n in zip(kernels, before))
+    b = system.run_periods(system.init_state(), events, nows, backend="ref")
+    for x, y in zip(state_to_numpy(a.state), state_to_numpy(b.state)):
+        for f in type(x)._fields:
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+    for k in a.metrics:
+        assert torch.equal(a.metrics[k], b.metrics[k]), k
+    assert torch.equal(a.flow_ids, b.flow_ids)
+    fin = torch.isfinite(b.enriched)
+    assert torch.equal(fin, torch.isfinite(a.enriched))
+    assert row_scaled_err(torch.where(fin, a.enriched, 0.0).reshape(-1, 96),
+                          torch.where(fin, b.enriched, 0.0).reshape(-1, 96)
+                          ) <= 1e-5
+
+
 def test_pipeline_kernels_equal_plain_on_card(cuda):
     system = DFASystem(dataclasses.replace(REDUCED, inference_head="mlp"),
                        device=cuda)

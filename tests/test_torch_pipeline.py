@@ -7,7 +7,8 @@ features by the row-scaled 1e-5 rule, preds to 1e-5 — against
 ``kernel_backend="ref"`` and, once, ``"interpret"``. The port also
 reproduces ``tests/goldens/run_periods_t4.json`` through the golden
 test's own fingerprint, carries a reference state across mid-stream,
-and refuses what is not ported.
+and refuses what is not ported (the mesh's own tests are
+``test_torch_mesh.py`` and ``test_torch_mesh2d.py``).
 """
 import dataclasses
 import json
@@ -221,22 +222,39 @@ def test_backend_ref_equals_auto_on_cpu():
     ({"kernel_backend": "cuda"}, RuntimeError),
 ])
 def test_refuses_what_is_outside_the_slice(change, exc):
+    """The TPU and unknown backends, and ``"cuda"`` off the card, stay
+    refused. The two ``flow_home`` cases keep their ids, which name the
+    ``NotImplementedError`` they raised while the 2-D mesh (ROADMAP §1
+    item 8) was not ported; it is now, so they assert instead that the
+    system builds on the CPU and that ``describe()`` reports that home."""
+    cfg = dataclasses.replace(REDUCED, **change)
+    if "flow_home" in change:
+        system = DFASystem(cfg, device="cpu")
+        assert system.describe()["flow_home"] == change["flow_home"]
+        return
     with pytest.raises(exc):
-        DFASystem(dataclasses.replace(REDUCED, **change), device="cpu")
+        DFASystem(cfg, device="cpu")
 
 
 def test_refuses_shards_faults_and_overlap():
-    """More than one shard stays refused (item 7). An armed fault spec
-    and the overlapped driver, refused before they were ported, now run."""
+    """Two shards (ROADMAP §1 item 7) and a hash home (item 8), refused
+    before they were ported, now build and run one REDUCED period; so do
+    an armed fault spec and the overlapped driver."""
     from repro_torch.data.faults import FaultSpec
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DFASystem(REDUCED, device="cpu", n_shards=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DFASystem(dataclasses.replace(REDUCED, flow_home="hash"),
-                  device="cpu")
+    _, _, tev, tnows = traces(T=1)
+    two = DFASystem(REDUCED, device="cpu", n_shards=2)
+    ev2, now2 = PK.period_batches(2, 1, EVENTS_PER_SHARD, n_flows=10,
+                                  flow_seed=3)
+    out = two.stream(two.init_state(), ev2, now2)
+    assert out.enriched.shape == (1, 2 * REDUCED.report_capacity,
+                                  REDUCED.derived_dim)
+    assert int(out.metrics["reports_recv"][0]) > 0
+    hashed = DFASystem(dataclasses.replace(REDUCED, flow_home="hash"),
+                       device="cpu")
+    out = hashed.stream(hashed.init_state(), tev, tnows)
+    assert int(out.metrics["reports_recv"][0]) > 0
     armed = DFASystem(dataclasses.replace(
         REDUCED, fault_spec=FaultSpec(seed=1, drop_rate=0.2)), device="cpu")
-    _, _, tev, tnows = traces(T=1)
     out = armed.stream(armed.init_state(), tev, tnows)
     assert int(out.metrics["injected_drops"][0]) > 0
     ts = DFASystem(REDUCED, device="cpu")

@@ -142,7 +142,10 @@ def test_wrapped_seqs_in_the_duplicate_window_match_jax():
 
 DESCRIBE_KEYS = sorted([
     "device", "kernel_backend", "wire_format", "event_tile",
-    "ring_region_bytes", "n_shards", "flow_home", "overlap_periods",
+    "ring_region_bytes", "n_shards", "flow_home", "pods", "shards_per_pod",
+    "total_ports", "ports_per_device", "reporter_slots",
+    "port_report_capacity", "crosspod_exchange", "crosspod_capacity",
+    "stage2_capacity", "home_nodes", "overlap_periods",
     "inference_head", "snapshot_every_periods", "snapshot_keep",
     "serve_offered_eps", "serve_budget_us", "serve_queue_events",
     "drop_policy", "fault_injection",
