@@ -3,8 +3,8 @@
 Field names, defaults and meanings are those of the reference
 ``DFAConfig`` and ``ModelConfig`` so a configuration reads the same in
 both packages. Only the fields the port reads (or refuses) are carried;
-the elastic-recovery and tuning knobs arrive with the slices that
-implement them (ROADMAP §1 items 11, 12).
+the tuning knob arrives with the slice that implements it (ROADMAP §1
+item 12).
 """
 from __future__ import annotations
 
@@ -104,6 +104,11 @@ class DFAConfig:
     # transport fault injection (data.faults.FaultSpec) between
     # translation and collector ingest; None = off
     fault_spec: Optional[Any] = None
+    # what launch.elastic does when re-homing meets an unsplittable ring
+    # row (live entries of one slot whose HRW winners differ):
+    #   "fail" — raise with the count; "warn" — warn, count, and move the
+    #   row by its first live entry's key
+    rehome_collision_policy: str = "fail"
 
     def serve_budget_resolved_us(self) -> int:
         """The serving loop's per-period SLO (falls back to the paper's

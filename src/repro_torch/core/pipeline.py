@@ -734,14 +734,14 @@ class DFASystem:
         wire, the ingest event tile, the ring's bytes, the mesh (shards,
         flow home, pods, ports, the per-port and exchange capacities, the
         home node roster), the overlap and head switches, the snapshot and
-        serving knobs and the fault spec.
+        serving knobs, the fault spec and the re-homing collision policy.
 
         Left out, against the reference's ``describe()``: the TPU-only
         keys (``gather_variant``, ``ingest_variant``, ``ingest_vmem_bytes``,
         ``gather_vmem_bytes``, ``vmem_budget_bytes`` — VMEM budgets and
         the kernel variants they choose; the CUDA kernels have one
-        variant each on this path), ``rehome_collision_policy`` (elastic
-        recovery, ROADMAP §1 item 11) and ``tuning_registry`` (item 12)."""
+        variant each on this path) and ``tuning_registry`` (ROADMAP §1
+        item 12)."""
         from repro_torch.kernels.ingest_update.kernel import clamp_tile
         cfg = self.cfg
         return {
@@ -772,4 +772,5 @@ class DFASystem:
             "drop_policy": cfg.drop_policy,
             "fault_injection": (self.fault_spec.describe()
                                 if self.fault_spec is not None else "none"),
+            "rehome_collision_policy": cfg.rehome_collision_policy,
         }

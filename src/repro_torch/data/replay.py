@@ -33,6 +33,13 @@ accounting for every policy and rate, but holds the queue as runs of
 consecutive positions in the cyclic stream, (start, length) pairs, and
 assembles each batch with slices: arrivals are always the next events
 of the stream, so the queue is a few such runs, never per-event objects.
+
+The same runs are a batch's recipe: :attr:`TraceReplaySource.last_recipe`
+names the stream positions, the event count and the period of the batch
+``next_batch`` just made, and :meth:`TraceReplaySource.rebuild` makes
+that batch again, into fresh arrays. The serving loop's recovery journal
+keeps recipes, not batches: a batch assembled into a reused staging
+buffer is gone once the buffer is refilled.
 """
 from __future__ import annotations
 
@@ -60,6 +67,16 @@ def _host(a) -> np.ndarray:
         a = a.detach().cpu().numpy()
     a = np.asarray(a)
     return a.view(np.uint32) if a.dtype == np.int32 else a
+
+
+class BatchRecipe(NamedTuple):
+    """What one batch was assembled from: runs (start, length) of
+    positions in the cyclic stream, the number of valid events, and the
+    period whose window the timestamps were put on."""
+
+    runs: Tuple[Tuple[int, int], ...]
+    n: int
+    period: int
 
 
 class _RunQueue:
@@ -160,6 +177,7 @@ class TraceReplaySource:
         self._period = 0
         self._draining = False
         self.total = PeriodAccounting(0, 0, 0, 0)
+        self.last_recipe: Optional[BatchRecipe] = None
         N = self.batch_events
         # each period's timestamps are t0 + these offsets (mod 2^32)
         self._ts_off = ((np.arange(N, dtype=np.uint64) * self.budget_us)
@@ -206,7 +224,9 @@ class TraceReplaySource:
                     self._queue.pop_front(excess)
             pending = self._queue.pop_front(self.batch_events)
         processed = sum(n for _, n in pending)
-        batch = self._assemble(pending, processed, out)
+        self.last_recipe = BatchRecipe(tuple(pending), processed,
+                                       self._period)
+        batch = self._assemble(self.last_recipe, out)
         now = np.uint32(((self._period + 1) * self.budget_us)
                         & 0xFFFFFFFF)
         self._period += 1
@@ -219,7 +239,13 @@ class TraceReplaySource:
             self._queue.size)
         return batch, now, acct
 
-    def _assemble(self, runs, n: int, out) -> Dict[str, np.ndarray]:
+    def rebuild(self, recipe: BatchRecipe) -> Dict[str, np.ndarray]:
+        """The batch ``recipe`` describes, assembled again into fresh
+        arrays: equal to the one ``next_batch`` returned for it."""
+        return self._assemble(recipe, None)
+
+    def _assemble(self, recipe: BatchRecipe, out) -> Dict[str, np.ndarray]:
+        runs, n = recipe.runs, recipe.n
         N = self.batch_events
         if out is None:
             out = {"ts": np.empty(N, np.uint32),
@@ -242,7 +268,7 @@ class TraceReplaySource:
         valid[n:] = False
         # re-time onto the serving period window, evenly spaced in
         # arrival order (the reporter contract: sorted within a period)
-        t0 = np.uint32((self._period * self.budget_us) & 0xFFFFFFFF)
+        t0 = np.uint32((recipe.period * self.budget_us) & 0xFFFFFFFF)
         np.add(self._ts_off, t0, out=out["ts"])      # wraps mod 2^32
         return out
 

@@ -1,1 +1,2 @@
-"""Launchers: the serving loop (``serve``)."""
+"""Launchers: the serving loop (``serving``), elastic pod loss and join
+(``elastic``) and the LM serving launcher (``serve``)."""

@@ -24,21 +24,35 @@ budget`` fills the host queue and the drop policy sheds events, with
 exact accounting; wall-clock overruns are counted separately as SLO
 ``violations``.
 
-Elastic in-loop recovery (heartbeat, chaos hook, survivor devices) is
-ROADMAP §1 item 11 and is refused; the report keeps its fields at 0 so
-reports read the same in both packages.
+The loop runs any system ``DFASystem`` builds, the emulated meshes
+included: a period's batch is ``n_shards * event_block`` events, split
+per port (per shard) by the pipeline.
+
+Live recovery: a pod declared dead (by a ``Heartbeat`` roster, or the
+``chaos`` hook) is absorbed between two periods without leaving
+:meth:`ServingLoop.run`: restore the newest snapshot, rebuild on the
+survivor mesh and re-home the dead pod's flows (``launch.elastic``),
+re-feed the periods since the snapshot from the journal, and go on with
+the pending batch. The journal holds each batch's recipe (the stream
+positions it was assembled from, ``data.replay.BatchRecipe``), not the
+batch: on the card a batch lives in a pinned staging slot that is
+refilled two periods later, and copying every batch out would cost more
+than the replay assembly itself. The stall is reported on its own
+(``recovery_stall_us``), never among the per-period latencies.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import u32 as U
 from repro_torch.data.replay import PeriodAccounting, TraceReplaySource
+from repro_torch.launch import elastic as EL
 
 _SHAPES = {"ts": (), "size": (), "five_tuple": (5,), "valid": ()}
 
@@ -55,6 +69,16 @@ def latency_summary(samples_us) -> Dict[str, float]:
     p50, p99, p999 = np.percentile(arr, [50.0, 99.0, 99.9])
     return {"p50": float(p50), "p99": float(p99), "p999": float(p999),
             "count": int(arr.size)}
+
+
+def host_tensors(batch: Dict[str, np.ndarray], now
+                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """A numpy batch as the (events, now) tensors ``dfa_step`` takes, on
+    the CPU (u32 words as int32 bit patterns)."""
+    ev = {k: (torch.from_numpy(np.ascontiguousarray(v)) if k == "valid"
+              else U.from_numpy(v))
+          for k, v in batch.items()}
+    return ev, torch.tensor(int(now), dtype=torch.int64)
 
 
 class HostIngestRing:
@@ -126,10 +150,7 @@ class HostIngestRing:
         returns; the compute stream waits for it."""
         if not self.on_card:
             self.staged += 1
-            ev = {k: (torch.from_numpy(np.ascontiguousarray(v))
-                      if k == "valid" else U.from_numpy(v))
-                  for k, v in batch.items()}
-            return ev, torch.tensor(int(now), dtype=torch.int64)
+            return host_tensors(batch, now)
         s = self.staged & 1
         views = self.host_slot()         # waits until the slot is free
         self.staged += 1
@@ -169,19 +190,24 @@ class ServingReport:
     per_period: List[PeriodAccounting]
     last: object = dataclasses.field(default=None, repr=False)
     snapshots: int = 0                # asynchronous DFAState checkpoints
-    # elastic in-loop recovery is ROADMAP §1 item 11: always 0 / empty
-    recoveries: int = 0
-    recovery_stall_us: List[float] = dataclasses.field(default_factory=list)
-    duplicate_recovery_skips: int = 0
-    journal_replayed: int = 0
+    # -- live in-loop recovery (its own bucket, NOT in latency_us: a
+    # membership change is a planned stall, not a period's verdict) ----
+    recoveries: int = 0               # dead pods absorbed mid-serve
+    recovery_stall_us: List[float] = dataclasses.field(
+        default_factory=list)         # wall stall per recovery
+    duplicate_recovery_skips: int = 0  # re-trips for already-removed pods
+    journal_replayed: int = 0         # journal periods re-fed on recovery
     # the port's own: per-period scalar metrics stacked under (periods,)
-    # (device tensors, read after the run), and the host's time per
-    # period in µs by part — replay assembly, staging, step dispatch and
-    # the wait for the period's outputs
+    # (device tensors, read after the run); the host's time per period
+    # in µs by part — replay assembly, staging, step dispatch and the
+    # wait for the period's outputs; per recovery, its stall in µs by
+    # part — snapshot restore, survivor rebuild + re-home, journal replay
     metrics: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
     host_us: Dict[str, List[float]] = dataclasses.field(
         default_factory=dict, repr=False)
+    recovery_us: List[Dict[str, float]] = dataclasses.field(
+        default_factory=list, repr=False)
 
     @property
     def latency(self) -> Dict[str, float]:
@@ -224,17 +250,22 @@ class ServingLoop:
     through the ingest ring while it runs, then wait for the step's
     outputs and take the latency sample. On shutdown the source stops
     offering arrivals and the loop runs until the host queue is empty,
-    so every admitted event is processed or counted as dropped."""
+    so every admitted event is processed or counted as dropped.
+
+    Live recovery (module docstring): ``heartbeat`` (a
+    ``distributed.monitor.Heartbeat`` with a roster) trips it when a
+    whole pod is stale; ``chaos(t) -> pods to declare dead after period
+    t`` is the test hook. Both name pods by their original index, which
+    a recovery does not renumber. ``recovery_devices``: where the
+    survivor system runs — one torch device, or a sequence of one (the
+    system's own device by default)."""
 
     def __init__(self, system, source: TraceReplaySource,
                  budget_us: Optional[int] = None,
                  snapshot_dir: Optional[str] = None,
-                 heartbeat=None, chaos=None, recovery_devices=None):
-        if (heartbeat is not None or chaos is not None
-                or recovery_devices is not None):
-            raise NotImplementedError(
-                "in-loop elastic recovery (heartbeat / chaos / "
-                "recovery_devices) is ROADMAP §1 item 11 (elastic)")
+                 heartbeat=None,
+                 chaos: Optional[Callable[[int], Sequence[int]]] = None,
+                 recovery_devices=None):
         if source.batch_events % system.n_shards:
             raise ValueError(
                 f"batch_events={source.batch_events} must divide across "
@@ -247,16 +278,108 @@ class ServingLoop:
         self.snapshot_dir = (snapshot_dir if snapshot_dir is not None
                              else (system.cfg.snapshot_dir or None))
         self.snapshot_every = int(system.cfg.snapshot_every_periods)
+        self.heartbeat = heartbeat
+        self.chaos = chaos
+        self.recovery_device = EL.one_device(recovery_devices, system.device)
+        # (period index, batch recipe, now) of the last snapshot window's
+        # batches: snapshot_every - 1 completed periods to re-feed at
+        # worst, plus the pending batch
+        self._journal: collections.deque = collections.deque(
+            maxlen=max(self.snapshot_every, 1) + 1)
+        # original pod ids still in the mesh, in mesh order; a second
+        # declaration of a removed pod is a counted no-op
+        self._live_pods: List[int] = list(range(system.mesh_pods))
+        self._removed_pods: set = set()
+        self._dup_skips = 0
 
-    def _pull(self, split):
-        """Next batch from the source, staged; host time into ``split``."""
+    def _pull(self, split, idx: int):
+        """Next batch from the source (journaled as consumed by period
+        ``idx``), staged; host time into ``split``."""
         t0 = time.perf_counter()
         batch, now, acct = self.source.next_batch(out=self.ring.host_slot())
+        self._journal.append((idx, self.source.last_recipe, now))
         t1 = time.perf_counter()
         staged = self.ring.stage(batch, now)
         split["replay"].append((t1 - t0) * 1e6)
         split["stage"].append((time.perf_counter() - t1) * 1e6)
         return staged, acct
+
+    # -- live recovery ----------------------------------------------------
+
+    def _dead_pods(self, t: int) -> List[int]:
+        """Original pod ids newly declared dead after period ``t`` (chaos
+        hook + whole-pod heartbeat trips), removed pods filtered out and
+        counted."""
+        declared: List[int] = []
+        if self.chaos is not None:
+            declared.extend(int(d) for d in self.chaos(t))
+        if self.heartbeat is not None:
+            declared.extend(EL.whole_dead_pods(self.heartbeat))
+        fresh = []
+        for d in dict.fromkeys(declared):       # de-dup, keep order
+            if d in self._removed_pods:
+                self._dup_skips += 1
+            else:
+                fresh.append(d)
+        return fresh
+
+    def _recover(self, dead_orig: int, t: int):
+        """Absorb a dead pod after period ``t`` without leaving the loop:
+        restore the newest snapshot, rebuild on the survivor mesh and
+        re-home the dead pod's flows, then re-feed the journaled periods
+        since the snapshot, each batch assembled again from its recipe.
+        Returns (state, periods replayed, stall µs by part)."""
+        pos = self._live_pods.index(dead_orig)  # current mesh position
+        if self.snapshot_dir is None:
+            raise RuntimeError(
+                "live recovery needs snapshots: construct the loop with "
+                "snapshot_dir (and cfg.snapshot_every_periods > 0) so a "
+                "restore point exists inside the journal window")
+        new_system, state, period = EL.recover_from_snapshot(
+            self.system, self.snapshot_dir, pos,
+            devices=self.recovery_device)
+        if self.source.batch_events % new_system.n_shards:
+            raise ValueError(
+                f"batch_events={self.source.batch_events} does not "
+                f"divide across the {new_system.n_shards} survivor "
+                "shards")
+        t0 = time.perf_counter()
+        replayed = 0
+        for idx, recipe, now in sorted(self._journal, key=lambda e: e[0]):
+            if period < idx <= t:
+                ev, dnow = host_tensors(self.source.rebuild(recipe), now)
+                ev = {k: v.to(new_system.device) for k, v in ev.items()}
+                state = new_system.dfa_step(
+                    state, ev, dnow.to(new_system.device)).state
+                replayed += 1
+        if period + replayed != t:
+            raise RuntimeError(
+                f"journal window does not reach the snapshot: restored "
+                f"period {period}, journal replayed {replayed} of the "
+                f"{t - period} periods since — raise "
+                "snapshot_every_periods/journal depth or snapshot more "
+                "often")
+        if new_system.device.type == "cuda":
+            torch.cuda.synchronize(new_system.device)
+        parts = {**new_system.last_recovery_us,
+                 "replay": (time.perf_counter() - t0) * 1e6}
+        self.system = new_system
+        self._live_pods.pop(pos)
+        self._removed_pods.add(dead_orig)
+        if self.heartbeat is not None:
+            self.heartbeat.retire_pod(dead_orig)
+        return state, replayed, parts
+
+    def _restage(self, staged):
+        """The pending batch for the survivor system: the staged tensors
+        as they are when it runs on the ring's device, else the batch
+        assembled again from its recipe and staged on a new ring."""
+        device = self.system.device
+        if device == self.ring.device:
+            return staged
+        self.ring = HostIngestRing(device, self.source.batch_events)
+        _, recipe, now = self._journal[-1]
+        return self.ring.stage(self.source.rebuild(recipe), now)
 
     def run(self, periods: int, drain: bool = True,
             state=None) -> ServingReport:
@@ -269,29 +392,33 @@ class ServingLoop:
                 offered=total.offered, processed=total.processed,
                 dropped=total.dropped, violations=0, latency_us=[],
                 per_period=[], last=None, snapshots=0)
-        system, source = self.system, self.source
+        source = self.source
         if state is None:
-            state = system.init_state()
-        on_card = system.device.type == "cuda"
+            state = self.system.init_state()
         split = {k: [] for k in ("replay", "stage", "dispatch", "wait")}
         latencies: List[float] = []
         accounts: List[PeriodAccounting] = []
         period_metrics: List[Dict[str, torch.Tensor]] = []
         violations = drained = snapshots = 0
         snap_threads = []
+        stalls: List[float] = []
+        stall_parts: List[Dict[str, float]] = []
+        replayed_total = 0
+        dup0 = self._dup_skips
         snap_on = self.snapshot_every > 0 and self.snapshot_dir is not None
         if snap_on:
             from repro_torch.checkpoint import checkpoint as CKPT
 
-        staged, acct = self._pull(split)              # period 0
+        staged, acct = self._pull(split, 1)           # period 0
         t = 0
         while True:
+            system = self.system
             accounts.append(acct)
             t0 = time.perf_counter()
             out = system.dfa_step(state, *staged)
             self.ring.consumed()
             done = None
-            if on_card:
+            if system.device.type == "cuda":
                 done = torch.cuda.Event()
                 done.record()
             t1 = time.perf_counter()
@@ -302,7 +429,7 @@ class ServingLoop:
                 source.begin_drain()                  # graceful shutdown
             has_next = t < periods or (drain and source.pending > 0)
             if has_next:
-                staged, acct = self._pull(split)
+                staged, acct = self._pull(split, t + 1)
                 if t >= periods:
                     drained += 1
             state = out.state
@@ -326,6 +453,19 @@ class ServingLoop:
                     state, self.snapshot_dir, step=t,
                     keep=system.cfg.snapshot_keep, async_=True))
                 snapshots += 1
+            # live recovery, between periods: the snapshot threads land
+            # first so the newest restore point exists
+            for dead in self._dead_pods(t):
+                for th in snap_threads:
+                    th.join()
+                snap_threads.clear()
+                stall0 = time.perf_counter()
+                state, replayed, parts = self._recover(dead, t)
+                if has_next:
+                    staged = self._restage(staged)
+                stalls.append((time.perf_counter() - stall0) * 1e6)
+                stall_parts.append(parts)
+                replayed_total += replayed
             if not has_next:
                 break
 
@@ -338,10 +478,13 @@ class ServingLoop:
             offered=total.offered, processed=total.processed,
             dropped=total.dropped, violations=violations,
             latency_us=latencies, per_period=accounts, last=out,
-            snapshots=snapshots,
+            snapshots=snapshots, recoveries=len(stalls),
+            recovery_stall_us=stalls,
+            duplicate_recovery_skips=self._dup_skips - dup0,
+            journal_replayed=replayed_total,
             metrics={k: torch.stack([m[k] for m in period_metrics])
                      for k in period_metrics[0]},
-            host_us=split)
+            host_us=split, recovery_us=stall_parts)
 
 
 def serve_trace(system, events, nows=None, periods: int = 100,

@@ -631,3 +631,134 @@ def test_checkpoint_cuda_state_to_cuda(cuda, tmp_path):
     for x, y in zip(state_to_numpy(got["state"]), state_to_numpy(live)):
         for f in type(x)._fields:
             np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+
+
+# -- elastic pod loss and join on the card --------------------------------------
+
+ELASTIC = dict(flow_home="rendezvous", reporter_slots=64, flows_per_shard=512,
+               port_report_capacity=16, snapshot_every_periods=2,
+               rehome_collision_policy="warn")
+
+
+def elastic_system(pods, nodes, device, **kw):
+    cfg = dataclasses.replace(REDUCED, pods=pods, ports_per_pod=4 // pods,
+                              home_nodes=nodes, **{**ELASTIC, **kw})
+    return DFASystem(cfg, device=device, n_shards=2 * pods)
+
+
+def keys_won_by(nodes, want):
+    """Five-tuples (numpy u32) whose HRW winners over ``nodes`` are the
+    positions ``want``, in order."""
+    from repro_torch.core import translator as TT
+    node_ids = torch.tensor(nodes, dtype=torch.int64)
+    i = torch.arange(1, 1 << 14, dtype=torch.int64)
+    keys = torch.stack([i, i + 1, torch.full_like(i, 7),
+                        torch.full_like(i, 9), torch.full_like(i, 11)], 1)
+    pos = TT.rendezvous_position(TR.hash_u32(keys), node_ids)
+    return [keys[int(torch.nonzero(pos == w)[k])].numpy().astype(np.uint32)
+            for k, w in enumerate(want)]
+
+
+def planted(state, wf, fps, rows):
+    """``state`` (CPU) with ring rows planted: {global row: [(entry,
+    key), ...]}, random words around each key."""
+    rng = np.random.default_rng(0)
+    mem = state.collector.memory.clone()
+    ev = state.collector.entry_valid.clone()
+    for row, entries in rows.items():
+        for h, key in entries:
+            words = rng.integers(0, 1 << 32, 16, dtype=np.uint64)
+            words = words.astype(np.uint32)
+            words[wf.payload_tuple_slice] = key
+            mem[row, h] = U.from_numpy(words)
+            ev[row, h] = True
+    return state._replace(collector=state.collector._replace(
+        memory=mem, entry_valid=ev))
+
+
+def test_rehome_and_expand_on_card_equal_cpu(cuda):
+    """The vectorised state moves give on the card what they give on the
+    CPU (state bit for bit, RehomeStats), planted unsplittable rows and two
+    source rows on one destination row included."""
+    import warnings
+    from repro_torch.data import scenarios as SC
+    from repro_torch.launch import elastic as EL
+    ev, nows = SC.build("cross_pod_mix", 4, 48, 4)
+    tev = {k: (torch.from_numpy(v) if k == "valid" else U.from_numpy(v))
+           for k, v in ev.items()}
+    tnows = torch.from_numpy(nows.astype(np.int64))
+    full, surv = (elastic_system(2, (0, 1, 2, 3), "cpu"),
+                  elastic_system(1, (2, 3), "cpu"))
+    small = elastic_system(1, (0, 1), "cpu")
+    fps, wf = 512, full.wire
+    a, b = keys_won_by((2, 3), [0, 1])
+    c, d = keys_won_by((2, 3), [1, 1])
+    st = planted(full.run_periods(full.init_state(), tev, tnows).state, wf,
+                 fps, {5: [(0, a), (3, b)], 9: [(2, c), (4, c)],
+                       fps + 9: [(1, d), (2, d)]})
+    e, f = keys_won_by((0, 1, 2, 3), [0, 2])
+    g, h = keys_won_by((0, 1, 2, 3), [3, 3])
+    st_small = planted(small.run_periods(small.init_state(), tev,
+                                         tnows).state, wf, fps,
+                       {11: [(0, e), (7, f)], 13: [(0, g), (5, g)],
+                        fps + 13: [(5, h), (9, h)]})
+    on_card = lambda s: type(s)(*(type(x)(*(y.to(cuda) for y in x))
+                                  for x in s))
+    for fn, state, args in (("rehome_state", st, (full, surv, 0)),
+                            ("expand_state", st_small, (small, full))):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            want, wstats = getattr(EL, fn)(state, *args)
+            got, gstats = getattr(EL, fn)(on_card(state), *args)
+        assert tuple(gstats) == tuple(wstats) and wstats.moved_rows > 0
+        assert wstats.unsplittable_collisions == 1
+        assert got.collector.memory.device.type == cuda.type
+        for x, y in zip(state_to_numpy(got), state_to_numpy(want)):
+            for name in type(x)._fields:
+                np.testing.assert_array_equal(getattr(x, name),
+                                              getattr(y, name),
+                                              err_msg=f"{fn} {name}")
+
+
+def test_live_recovery_on_card_equals_offline(cuda, tmp_path):
+    """A REDUCED (2,2) ServingLoop on the card, with the kernels, loses pod
+    0 one period past a snapshot: the journal re-assembles the replayed
+    batch from its recipe (the pinned slot it was staged from has been
+    refilled since), and the final state equals the offline recovery on
+    the card bit for bit."""
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.data import scenarios as SC
+    from repro_torch.launch import elastic as EL
+    from repro_torch.launch.serving import (ServingLoop, build_source,
+                                            host_tensors)
+    ev, nows = SC.build("cross_pod_mix", 4, 48, 6)
+    kill_at, T = 5, 8
+    full = elastic_system(2, (), cuda, rehome_collision_policy="fail")
+    loop = ServingLoop(full, build_source(full, ev, nows),
+                       snapshot_dir=str(tmp_path / "live"),
+                       chaos=lambda t: [0] if t == kill_at else [])
+    assert loop.ring.on_card == (cuda.type == "cuda")
+    report = loop.run(T)
+    assert (report.recoveries, report.journal_replayed) == (1, 1)
+    assert loop.system.device.type == cuda.type and report.balanced
+    src = build_source(full, ev, nows)
+    batches = [src.next_batch()[:2] for _ in range(T)]
+
+    def step(system, state, b, now):
+        e, n = host_tensors(b, now)
+        return system.dfa_step(state, {k: v.to(cuda) for k, v in e.items()},
+                               n.to(cuda)).state
+
+    state = full.init_state()
+    for b, now in batches[:4]:
+        state = step(full, state, b, now)
+    C.save(state, str(tmp_path / "off"), step=4)
+    new, state, period = EL.recover_from_snapshot(full, str(tmp_path / "off"),
+                                                  0)
+    assert period == 4 and new.device.type == cuda.type
+    for b, now in batches[4:]:
+        state = step(new, state, b, now)
+    for x, y in zip(state_to_numpy(report.last.state), state_to_numpy(state)):
+        for name in type(x)._fields:
+            np.testing.assert_array_equal(getattr(x, name), getattr(y, name),
+                                          err_msg=name)

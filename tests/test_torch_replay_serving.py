@@ -8,10 +8,11 @@ policies, through a drain — and refuse what the reference refuses.
 ``latency_summary``: known samples, empty, one sample. ``serve_trace``
 and ``ServingLoop`` on the CPU against the reference's on a 1x1 mesh:
 the same accounting and the same end state. Also the zero-period run,
-the run without a drain, and the refusals (indivisible batch, elastic
-recovery).
+the run without a drain, and the refusals (indivisible batch; a
+recovery without snapshots).
 """
 import dataclasses
+import os
 import types
 
 import numpy as np
@@ -28,6 +29,7 @@ from repro_torch.configs import REDUCED
 from repro_torch.core.pipeline import DFASystem
 from repro_torch.data import packets as PK
 from repro_torch.data.replay import TraceReplaySource
+from repro_torch.distributed.monitor import Heartbeat
 from repro_torch.launch import serving as SERVE
 from test_torch_pipeline import assert_state_equal
 
@@ -229,11 +231,22 @@ def test_serving_loop_refusals():
                                        device=torch.device("cpu"))
     with pytest.raises(ValueError, match="divide across"):
         SERVE.ServingLoop(two_shards, src)
-    ts = DFASystem(REDUCED, device="cpu")
-    for kw in ({"heartbeat": object()}, {"chaos": lambda t: []},
-               {"recovery_devices": []}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            SERVE.ServingLoop(ts, src, **kw)
+    # in-loop recovery: the loop builds with a heartbeat, a chaos hook and
+    # survivor devices on a 2-pod rendezvous system; a recovery with no
+    # snapshot directory raises the reference's error
+    ts = DFASystem(dataclasses.replace(
+        REDUCED, flow_home="rendezvous", pods=2, ports_per_pod=2,
+        reporter_slots=64, port_report_capacity=16), device="cpu",
+        n_shards=4)
+    src4 = TraceReplaySource(tev, tnows, batch_events=4 * 32)
+    hb = Heartbeat(os.devnull, expected_peers={0: 0, 1: 1})
+    for kw in ({"heartbeat": hb}, {"chaos": lambda t: []},
+               {"recovery_devices": ["cpu"]}):
+        assert SERVE.ServingLoop(ts, src4, **kw).system is ts
+    loop = SERVE.ServingLoop(ts, src4, snapshot_dir=None,
+                             chaos=lambda t: [1], recovery_devices="cpu")
+    with pytest.raises(RuntimeError, match="needs snapshots"):
+        loop.run(2)
 
 
 def test_cpu_ring_stages_plain_tensors():

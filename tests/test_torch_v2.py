@@ -148,7 +148,7 @@ DESCRIBE_KEYS = sorted([
     "stage2_capacity", "home_nodes", "overlap_periods",
     "inference_head", "snapshot_every_periods", "snapshot_keep",
     "serve_offered_eps", "serve_budget_us", "serve_queue_events",
-    "drop_policy", "fault_injection",
+    "drop_policy", "fault_injection", "rehome_collision_policy",
 ])
 TPU_ONLY = ("gather_variant", "ingest_variant", "ingest_vmem_bytes",
             "gather_vmem_bytes", "vmem_budget_bytes")
