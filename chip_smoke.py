@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device — the card's name, count, power limit; TF32 off;
-2. build — the six CUDA kernels from src/repro_torch/csrc, one nvcc per
+2. build — the seven CUDA kernels from src/repro_torch/csrc, one nvcc per
    source in parallel, into build/repro_torch_kernels/ (ptxas report:
    registers and spills);
 3. per-kernel check at the shapes each path gives it — each kernel
@@ -28,7 +28,13 @@ Phases (any failure exits non-zero; nothing is caught):
    atomics per call as counted from the inputs; ring_scatter also on a
    duplicate-heavy batch over several of its rounds, its device launches
    per call (must be 1) and the device time of an empty kernel of the
-   same launch shape (its floor);
+   same launch shape (its floor); flash_attention_bwd (K7) at the
+   training shape (B = 4 x 32 heads, 1024 tokens, head_dim 64, group 4)
+   in bf16 and f32 against its plain version (f32 2e-5 of max |grad|,
+   bf16 no further from the f32 plain gradient than plain bf16, x1.5),
+   with o and lse from K6's lse output, itself held against the plain
+   logsumexp (1e-4), and SDPA's backward (forward + backward minus
+   forward) as its library yardstick;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -111,7 +117,25 @@ Phases (any failure exits non-zero; nothing is caught):
    logits within 1e-3 of the largest logit; (b) bf16, the kernel run no
    further from the f32 run than the plain run is (x1.5), with the
    kernel-vs-plain gap printed; (c) the decode step at position P against
-   a full forward over P + 1 tokens.
+   a full forward over P + 1 tokens. Before (a)-(c), each layer's q, k, v
+   of one bf16 prefill run again through the wgmma and the SIMT kernel:
+   max |o_wgmma - o_simt| / max |o_simt| per layer, held to 2e-2;
+16. [train] — granite-3-2b training at full width (40 layers, bf16,
+   remat="full", AdamW with f32 moments, seeded random weights), B = 4 x
+   1024 tokens of data/tokens, 1 warm-up and 4 timed steps, launch counts
+   from 0: the loss, gnorm and lr per step, step ms, tokens/s, model
+   flops over step time as a share of 989 TFLOP/s, max_memory_allocated,
+   flash_attention (2 x 40: the forward and its remat) and
+   flash_attention_bwd (40) launches per step, no plain attention call,
+   and a 1-step profile;
+17. [train check] — one step's loss and gradients at full width with 4
+   layers: bf16 with the kernels, bf16 plain, f32 plain on the same
+   weights and batch; the relative error of every gradient leaf against
+   f32, the kernel run's worst no more than 1.5 x the plain run's;
+18. [examples] — examples/torch_*.py on the card through their ``run``:
+   quickstart, the serving example (accounting balances, with drops), the
+   flow classifier (held-out accuracy > 0.85) and LM training (the loss
+   falls by more than 0.2).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -707,6 +731,126 @@ def check_flash_attention(dev):
                      f"{ATT_TOL['float32']:g} (abs + rel); every case on "
                      "the variant kernel.variant names",
             "errs": errs, "variants": ran}
+
+
+# K7 at the training shape: B = 4 x 32 heads, 1024 tokens, head_dim 64,
+# 8 kv heads (granite-3-2b's), causal
+TRAIN_B, TRAIN_S = 4, 1024
+BWD_TOL = 2e-5     # f32 gradients, kernel vs plain, of max |grad|
+LSE_TOL = 1e-4     # K6's lse vs the plain logsumexp, absolute (lse ~ 10)
+
+
+def grad_err(got, want) -> float:
+    """max |got - want| over max |want|, the worst of a list of tensors."""
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def check_flash_attention_bwd(dev):
+    """K7 at the training path's shape (bf16 and f32) against its plain
+    version on the same inputs (o and lse from K6 with its lse output,
+    which is held against the plain logsumexp); timed in turns, its device
+    time per call, and SDPA's backward as the library yardstick (forward
+    + backward of one scaled_dot_product_attention call minus its
+    forward, on the same inputs; never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as REF
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    H, KH, D = 32, 8, 64
+    BH, G, S = TRAIN_B * H, H // KH, TRAIN_S
+    errs, abs_errs, lse_errs = {}, {}, {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        q = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(BH // G, S, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(BH // G, S, D, generator=gen, device=dev).to(dtype)
+        do = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
+        o, lse = K.flash_attention_cuda(q, k, v, group=G, with_lse=True)
+        _, want_lse = REF.flash_attention_lse_ref(q, k, v, group=G)
+        lse_errs[dt] = float((lse - want_lse).abs().max())
+        before = BK.KERNEL.launches
+        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
+        require(BK.KERNEL.launches == before + 1,
+                "flash_attention_bwd did not count its launch")
+        want = REF.flash_attention_bwd_ref(q, k, v, o, lse, do, group=G)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(g.float()).all()) for g in got),
+                f"flash_attention_bwd ({dt}) gave non-finite gradients")
+        err = grad_err(got, want)
+        abs_errs[dt] = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, want))
+        if dt == "float32":
+            require(err <= BWD_TOL, f"flash_attention_bwd (f32) differs "
+                                    f"from its plain version: {err:.3e} of "
+                                    f"max |grad| > {BWD_TOL:g}")
+            errs[dt] = err
+        else:
+            f32 = REF.flash_attention_bwd_ref(
+                *(t.float() for t in (q, k, v, o)), lse, do.float(), group=G)
+            err_k, err_p = grad_err(got, f32), grad_err(want, f32)
+            log(f"[kernel] flash_attention_bwd bf16 vs the f32 plain "
+                f"gradient: kernel {err_k:.3e}, plain bf16 {err_p:.3e} "
+                f"(held: kernel <= {B_RATIO:g} x plain); kernel vs plain "
+                f"bf16 {err:.3e}")
+            require(err_k <= B_RATIO * err_p,
+                    "flash_attention_bwd (bf16) is further from the f32 "
+                    "gradient than the plain bf16 gradient is")
+            errs[dt] = err
+            del f32
+        require(lse_errs[dt] <= LSE_TOL, f"flash_attention's lse ({dt}) "
+                                         f"differs from the plain logsumexp "
+                                         f"by {lse_errs[dt]:.3e}")
+        del got, want
+    log(f"[kernel] flash_attention lse vs the plain logsumexp (training "
+        f"shape): {lse_errs} (tolerance {LSE_TOL:g} absolute)")
+
+    # q, k, v, o, do, lse of the bf16 case are timed
+    call = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
+    plain = lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                group=G)
+    ms, plain_ms = in_turns(plain, call, 5)
+    q4, k4, v4, do4 = (t.view(TRAIN_B, -1, S, D) for t in (q, k, v, do))
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, leaves, do4)
+
+    for _ in range(3):                  # its first backward sets up
+        sdpa_fwd_bwd()
+    torch.cuda.synchronize()
+    lib_fwd_ms, lib_ms = time_ms(sdpa_fwd, 10), time_ms(sdpa_fwd_bwd, 10)
+    lib_dev = device_us(None, sdpa_fwd_bwd) - device_us(None, sdpa_fwd)
+    pairs = attention_pairs(S, S, True) * BH
+    n_ops = 2 * (3 * D + 2 * D) * pairs
+    # q, o, do read and dq written; k, v read and dk, dv written; lse read
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+    return {"kernel": BK.KERNEL, "max_abs_err": abs_errs["bfloat16"],
+            "ms": ms, "plain_ms": plain_ms, "n_bytes": n_bytes,
+            "n_ops": n_ops, "ops_per_s": BF16_OPS_PER_S,
+            "library_ms": lib_ms - lib_fwd_ms,
+            "library_device_us": lib_dev,
+            "library_note": "scaled_dot_product_attention(is_causal, "
+                            "enable_gqa) forward + backward minus its "
+                            "forward, on the same inputs",
+            "device_us": device_us(BK.KERNEL, call, 5),
+            "shape": f"q/o/do ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), "
+                     f"group {G}, causal, bf16 (f32 checked too)",
+            "check": f"f32 {BWD_TOL:g} of max |grad|; bf16 no further from "
+                     f"the f32 plain gradient than plain bf16, x{B_RATIO:g}; "
+                     f"K6 lse {LSE_TOL:g} absolute",
+            "errs": errs, "abs_errs": abs_errs, "lse_errs": lse_errs}
 
 
 # -- the unfused path ----------------------------------------------------------
@@ -2053,10 +2197,12 @@ def divergence(model, plain, m32, params, params32, tokens):
     runs = [(model, params), (plain, params), (m32, params32)]
     xs = [L.embed(p["embed"], tokens) for _, p in runs]
     rows = []
+    layers = [LM.unstack(p[LM.STACK], model.cfg.num_layers)
+              for _, p in runs]
     for layer in range(model.cfg.num_layers):
-        for i, (m, p) in enumerate(runs):
-            xs[i], _ = LM.block_prefill(LM.layer_params(p[LM.STACK], layer),
-                                        xs[i], m.cfg, backend=m.backend)
+        for i, (m, _) in enumerate(runs):
+            xs[i], _ = LM.block_prefill(layers[i][layer], xs[i], m.cfg,
+                                        backend=m.backend)
         ref = xs[2].float()
         scale = float(ref.abs().max())
         rows.append((float((xs[0].float() - ref).abs().max()) / scale,
@@ -2074,6 +2220,47 @@ def logit_ratio(got, want) -> float:
     """max |got - want| over max |want|, the worst over matching lists."""
     return max(float((a - b).abs().max()) / float(b.abs().max())
                for a, b in zip(got, want))
+
+
+def wgmma_per_layer(model, params, prompt):
+    """Each layer's attention inside one bf16 prefill, run again on the
+    wgmma kernel and on the SIMT kernel (``force_variant="simt"``) with
+    the same bf16 q, k, v: max |o_wgmma - o_simt| / max |o_simt| per
+    layer, held to the per-call tests' 2e-2."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.models import attention as A
+
+    captured = []
+    original = A.flash_attention
+
+    def capture(q, k, v, **kw):
+        captured.append((q, k, v, kw["group"]))
+        return original(q, k, v, **kw)
+    A.flash_attention = capture
+    try:
+        model.prefill(params, {"tokens": prompt})
+    finally:
+        A.flash_attention = original
+    require(len(captured) == model.cfg.num_layers,
+            f"[serve] captured {len(captured)} attention calls of a "
+            f"{model.cfg.num_layers}-layer prefill")
+    ratios = []
+    for q, k, v, g in captured:
+        require(K.variant(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma",
+                "[serve] a bf16 prefill layer is not a wgmma shape")
+        w = K.flash_attention_cuda(q, k, v, group=g)
+        s = K.flash_attention_cuda(q, k, v, group=g, force_variant="simt")
+        ratios.append(float((w.float() - s.float()).abs().max())
+                      / float(s.float().abs().max()))
+    del captured
+    tol = ATT_TOL["bfloat16"]
+    log(f"[serve] wgmma vs simt K6 per layer of a bf16 prefill, max |do| / "
+        f"max |o|: {[float(f'{r:.3e}') for r in ratios]}; worst "
+        f"{max(ratios):.3e} at layer {int(np.argmax(ratios))} (held: <= "
+        f"{tol:g})")
+    require(max(ratios) <= tol, "[serve] the wgmma kernel disagrees with "
+                                "the SIMT kernel inside the prefill")
+    return ratios
 
 
 def serve_phase(dev):
@@ -2161,6 +2348,8 @@ def serve_phase(dev):
         f"{stats['decode_s'] * 1e3 / (SERVE_GEN - 1):.4f} ms/step, 0 "
         f"flash_attention launches")
 
+    wgmma_per_layer(model, params, prompts[1])
+
     # (a)-(c) on one token stream, the f32 kernel run's greedy tokens; all
     # measured and printed, then held
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
@@ -2215,14 +2404,251 @@ def serve_phase(dev):
     return launches, variants
 
 
+# -- phase 16: training at full width ------------------------------------------
+
+TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+TRAIN_CHECK_LAYERS = 4
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """Model flops of one forward over B x S tokens: 2 per weight of every
+    matrix product (the seven per layer and the tied unembedding) per
+    token, plus the causal attention's two products."""
+    D, H, KH = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    d, ff = cfg.d_model, cfg.d_ff
+    per_layer = d * H * D * 2 + d * KH * D * 2 + 3 * d * ff
+    weights = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = cfg.num_layers * B * H * attention_pairs(S, S, True) * 4 * D
+    return 2.0 * weights * B * S + attn
+
+
+class PlainCalls:
+    """Counts calls of flash attention's plain forward and backward while
+    active (the training path must make none on the card)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref as REF
+        self.ref, self.calls = REF, 0
+        self.saved = (REF.flash_attention_lse_ref, REF.flash_attention_bwd_ref)
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return wrapper
+        REF.flash_attention_lse_ref = counted(self.saved[0])
+        REF.flash_attention_bwd_ref = counted(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        (self.ref.flash_attention_lse_ref,
+         self.ref.flash_attention_bwd_ref) = self.saved
+
+
+def train_phase(dev):
+    """granite-3-2b training at full width (see the module docstring);
+    returns the kernels' launch counts over the timed steps."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import tokens as DATA
+    from repro_torch.kernels.flash_attention.bwd_kernel import KERNEL as K7
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.param import count_params
+    from repro_torch.models.registry import Model
+
+    cfg = get_config("granite-3-2b")
+    require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
+            "[train] granite-3-2b should train under remat='full' with f32 "
+            "moments")
+    tcfg = TrainConfig()          # the reference's defaults: 3e-4, warmup 100
+    model = Model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ST.init_train_state(
+        model, tcfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {count_params(model.param_descs())} parameters "
+        f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.dtype}, remat "
+        f"{cfg.remat!r}, AdamW moments {cfg.opt_state_dtype}) and their "
+        f"optimizer state made on the card in {time.perf_counter() - t0:.2f} "
+        f"s; {torch.cuda.memory_allocated()} B allocated")
+    step = ST.make_train_step(model, tcfg)
+    batches = [DATA.batch_at(i, cfg, TRAIN_B, TRAIN_S, device=dev)
+               for i in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+    for b in batches[:TRAIN_WARMUP]:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset_counts()
+    rows = []
+    with PlainCalls() as plain_calls:
+        for i, b in enumerate(batches[TRAIN_WARMUP:-1]):
+            n6, n7 = K6.launches, K7.launches
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rows.append((dt, float(m["loss"]), float(m["gnorm"]),
+                         float(m["lr"]), K6.launches - n6,
+                         K7.launches - n7))
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_B * TRAIN_S
+    fwd = train_flops(cfg, TRAIN_B, TRAIN_S)
+    step_s = float(np.mean([r[0] for r in rows]))
+    for i, (dt, loss, gnorm, lr, n6, n7) in enumerate(rows):
+        log(f"[train] step {TRAIN_WARMUP + i}: loss {loss:.5f} gnorm "
+            f"{gnorm:.5f} lr {lr:.3e}, {dt * 1e3:.3f} ms, flash_attention "
+            f"{n6} launches, flash_attention_bwd {n7}")
+        require(np.isfinite(loss) and np.isfinite(gnorm),
+                "[train] non-finite loss or gradient norm")
+        require(n6 == 2 * cfg.num_layers and n7 == cfg.num_layers,
+                f"[train] a step launched flash_attention {n6} times and "
+                f"flash_attention_bwd {n7} times, expected "
+                f"{2 * cfg.num_layers} (forward + remat) and "
+                f"{cfg.num_layers}")
+    require(plain_calls.calls == 0, f"[train] {plain_calls.calls} calls of "
+                                    "the plain attention on the card")
+    share = lambda flops: 100 * flops / step_s / BF16_OPS_PER_S
+    log(f"[train] {TRAIN_STEPS} timed steps of B={TRAIN_B} x {TRAIN_S} "
+        f"tokens: mean {step_s * 1e3:.3f} ms per step, "
+        f"{tokens / step_s:.1f} tokens/s; model flops per step "
+        f"{3 * fwd:.4e} (forward + backward: {share(3 * fwd):.2f} % of "
+        f"{BF16_OPS_PER_S:.3g} FLOP/s), {4 * fwd:.4e} with the remat "
+        f"forward ({share(4 * fwd):.2f} %); max_memory_allocated {peak} B; "
+        f"launches {launches}")
+    profile_window("train", lambda: step(state, batches[-1]), 1, "step")
+    del state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_check_phase(dev):
+    """One step's loss and gradients at full width with 4 layers: bf16
+    with the kernels, bf16 plain (backend="ref"), and an f32 copy on the
+    plain versions, on the same weights and batch. The kernel run must
+    be no further from f32 than the plain run is (x1.5), over the
+    gradient leaves' worst relative error."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as DATA
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.registry import Model
+    from repro_torch.optim import adamw
+
+    cfg = get_config("granite-3-2b").replace(num_layers=TRAIN_CHECK_LAYERS)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    params32 = adamw.tree_map(lambda t: t.float(), params)
+    batch = DATA.batch_at(0, cfg, TRAIN_B, TRAIN_S, seed=1, device=dev)
+    runs = {"kernels": ST.loss_and_grads(model, params, batch),
+            "plain": ST.loss_and_grads(Model(cfg, device=dev, backend="ref"),
+                                       params, batch),
+            "f32": ST.loss_and_grads(Model(cfg32, device=dev, backend="ref"),
+                                     params32, batch)}
+    names = ["/".join(p) for p in leaf_paths(params)]
+    ref = adamw.leaves(runs["f32"][1])
+    errs = {}
+    for run in ("kernels", "plain"):
+        errs[run] = [float((a.float() - b).abs().max())
+                     / max(float(b.abs().max()), 1e-30)
+                     for a, b in zip(adamw.leaves(runs[run][1]), ref)]
+    loss = {run: float(r[0]) for run, r in runs.items()}
+    log(f"[train check] {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"B={TRAIN_B} x {TRAIN_S}: loss kernels {loss['kernels']:.6f}, "
+        f"plain {loss['plain']:.6f}, f32 {loss['f32']:.6f}")
+    log("[train check] gradient leaves, max |g - g_f32| / max |g_f32| "
+        "(kernels, plain): " + ", ".join(
+            f"{n}: ({k:.2e}, {p:.2e})" for n, k, p in
+            zip(names, errs["kernels"], errs["plain"])))
+    worst_k, worst_p = max(errs["kernels"]), max(errs["plain"])
+    log(f"[train check] worst leaf: kernels {worst_k:.3e}, plain "
+        f"{worst_p:.3e} (held: kernels <= {B_RATIO:g} x plain)")
+    require(all(np.isfinite(errs["kernels"])), "[train check] non-finite "
+                                               "gradient")
+    require(worst_k <= B_RATIO * worst_p, "[train check] the bf16 kernel "
+                                          "step is further from f32 than "
+                                          "the bf16 plain step is")
+    del runs, params, params32
+    torch.cuda.empty_cache()
+
+
+def leaf_paths(tree, prefix=()):
+    """The key paths of a nested dict's leaves, in ``adamw.leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v,
+                                                                prefix + (k,))]
+    return [prefix]
+
+
+# -- phase 17: the four examples on the card -----------------------------------
+
+def load_example(name: str):
+    import importlib.util
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev):
+    """examples/torch_*.py, each through its ``run`` on the card."""
+    import shutil
+    quiet = lambda *a, **k: None
+    t0 = time.perf_counter()
+    q = load_example("torch_quickstart").run(str(dev), log=quiet)
+    require(all(r["features"] > 0 and r["bad_checksum"] == 0
+                for r in q["periods"]) and q["ring_entries"] > 0,
+            "[examples] quickstart enriched no flow")
+    log(f"[examples] torch_quickstart: "
+        f"{[r['features'] for r in q['periods']]} feature vectors per "
+        f"period, {q['ring_entries']} ring entries "
+        f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    s = load_example("torch_serve_traffic_inference").run(str(dev),
+                                                         log=quiet)
+    r = s["report"]
+    require(r.balanced and r.dropped > 0, "[examples] serving accounting "
+                                          "does not balance")
+    log(f"[examples] torch_serve_traffic_inference: offered {r.offered} == "
+        f"processed {r.processed} + dropped {r.dropped}; p50 "
+        f"{r.latency['p50']:.1f} us, p99 {r.latency['p99']:.1f} us over "
+        f"{r.periods} + {r.drained_periods} periods; stage-2 tokens "
+        f"{s['tokens'].tolist()} ({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    c = load_example("torch_train_flow_classifier").run(str(dev), log=quiet)
+    require(c["accuracy"] > 0.85, f"[examples] classifier accuracy "
+                                  f"{c['accuracy']:.3f} <= 0.85")
+    log(f"[examples] torch_train_flow_classifier: {len(c['X'])} feature "
+        f"vectors, loss {c['losses'][0]:.4f} -> {c['losses'][-1]:.4f}, "
+        f"held-out accuracy {c['accuracy']:.3f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    lm = load_example("torch_train_lm_e2e")
+    ckpt = ROOT / "build" / "torch_example_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = lm.run(str(dev), ckpt_dir=ckpt, log=quiet)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    require(last < first - 0.2, f"[examples] LM loss did not fall: "
+                                f"{first:.4f} -> {last:.4f}")
+    log(f"[examples] torch_train_lm_e2e: {len(losses)} steps, loss "
+        f"{first:.4f} -> {last:.4f} ({time.perf_counter() - t0:.2f} s)")
+
+
 def all_kernels():
     from repro_torch.kernels.derived_features.kernel import KERNEL as K5
+    from repro_torch.kernels.flash_attention.bwd_kernel import KERNEL as K7
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
     from repro_torch.kernels.flow_moments.kernel import KERNEL as K4
     from repro_torch.kernels.gather_enrich.kernel import KERNEL as K3
     from repro_torch.kernels.ingest_update.kernel import KERNEL as K1
     from repro_torch.kernels.ring_scatter.kernel import KERNEL as K2
-    return (K1, K2, K3, K4, K5, K6)
+    return (K1, K2, K3, K4, K5, K6, K7)
 
 
 def main() -> int:
@@ -2268,6 +2694,8 @@ def main() -> int:
               check_derived_features(PAPER, dev, gen, mem, valid)]
     del mem, valid
     checks.append(check_flash_attention(dev))
+    checks.append(check_flash_attention_bwd(dev))
+    torch.cuda.empty_cache()
     for c in checks:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
@@ -2346,13 +2774,21 @@ def main() -> int:
 
     # 15. serving at full width (launch counts start at 0 again)
     serve_launches, serve_variants = serve_phase(dev)
+    torch.cuda.empty_cache()
+
+    # 16. training at full width (launch counts start at 0 again), the
+    # step against the plain versions and f32; 17. the examples
+    train_launches = train_phase(dev)
+    train_check_phase(dev)
+    examples_phase(dev)
 
     print(json.dumps({"kernels": kernel_rows(
         checks, {"main": main_launches, "unfused": unfused_launches,
                  "serving": serving_launches, "mesh1d": mesh1d_launches,
                  "mesh2d": mesh2d_launches,
                  "serving_mesh": serving_mesh_launches,
-                 "elastic": elastic_launches, "serve": serve_launches},
+                 "elastic": elastic_launches, "serve": serve_launches,
+                 "train": train_launches},
         {"flash_attention": serve_variants})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2363,7 +2799,7 @@ def main() -> int:
 def kernel_rows(checks, by_path, by_variant):
     """One row of the ``{"kernels": [...]}`` line per checked kernel;
     ``launches`` comes from the first path in ``by_path`` (path name ->
-    {kernel name: launches}) that counted the kernel; ``by_variant``
+    {kernel name: launches}) that launched the kernel; ``by_variant``
     holds the per-variant counts of that run for kernels that have
     variants."""
     rows = []
@@ -2372,7 +2808,8 @@ def kernel_rows(checks, by_path, by_variant):
         b_ms, b_by = bound(c["n_bytes"], c["n_ops"],
                            c.get("ops_per_s", F32_OPS_PER_S))
         counted = {p: n[k.name] for p, n in by_path.items() if k.name in n}
-        path = next(iter(counted))
+        path = next((p for p, n in counted.items() if n),
+                    next(iter(counted)))
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": counted[path],
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
@@ -2402,7 +2839,7 @@ def kernel_rows(checks, by_path, by_variant):
                          "floor_us",
                          "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms",
-                         "simt_note")
+                         "simt_note", "abs_errs", "lse_errs")
                         if key in c}})
     return rows
 

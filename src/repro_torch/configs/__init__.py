@@ -6,7 +6,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import DFAConfig, ModelConfig
+from repro_torch.configs.base import DFAConfig, ModelConfig, TrainConfig
 from repro_torch.configs.dfa import (PAPER, REDUCED, REDUCED_INFER,
                                      REDUCED_MULTIPOD, REDUCED_MULTIPOD_V2,
                                      REDUCED_OVERLAP, REDUCED_V2_WIDE)
@@ -32,4 +32,4 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
 
 __all__ = ["DFAConfig", "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
            "REDUCED_MULTIPOD", "REDUCED_MULTIPOD_V2", "REDUCED_OVERLAP",
-           "REDUCED_V2_WIDE", "get_config", "list_archs"]
+           "REDUCED_V2_WIDE", "TrainConfig", "get_config", "list_archs"]

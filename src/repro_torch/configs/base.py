@@ -151,9 +151,14 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"                 # FFN activation (gated)
-    # numerics: activation/compute and parameter dtypes
-    dtype: str = "bfloat16"
+    # multi-token-prediction heads (deepseek): lm_loss refuses any (item 14c)
+    mtp_depth: int = 0
+    # numerics / memory policy
+    dtype: str = "bfloat16"           # activation/param compute dtype
     param_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"  # AdamW moments (optim.adamw.init)
+    remat: str = "full"               # "none" | "full": recompute each block
+    loss_chunk: int = 2048            # sequence chunk of the CE loss
     # KV chunk of the reference's online-softmax attention (the port's
     # flash kernel tiles itself; kept so configurations read the same)
     attn_chunk: int = 1024
@@ -166,3 +171,40 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-driver configuration (the reference's ``TrainConfig``).
+
+    ``donate_state``: the train step updates the parameters and moments
+    in place (the reference donates them to ``jit``). Gradient
+    compression is not ported: anything but ``"none"`` raises."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    seed: int = 0
+    # fault tolerance
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
+    # distributed optimization
+    grad_compression: str = "none"    # "none" only (int8_ef: item 14c)
+    donate_state: bool = True
+
+    def __post_init__(self):
+        if self.grad_compression != "none":
+            raise NotImplementedError(
+                f"grad_compression={self.grad_compression!r}: gradient "
+                "compression (optim/compression) is not ported yet "
+                "(ROADMAP §1 item 14c)")
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum={self.grad_accum} must be >= 1")

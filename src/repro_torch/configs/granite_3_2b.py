@@ -19,5 +19,5 @@ CONFIG = ModelConfig(
 REDUCED = CONFIG.replace(
     name="granite-3-2b-reduced",
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
-    vocab_size=256, head_dim=16,
+    vocab_size=256, head_dim=16, remat="none",
 )

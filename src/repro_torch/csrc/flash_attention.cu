@@ -89,7 +89,10 @@
 // the heaviest query tiles first.
 //
 // Both: query head bh reads kv row bh / group; the causal mask is
-// top-left.
+// top-left. Given a non-null lse pointer (the training forward), both
+// also store each query row's logsumexp m + log l in natural-log units
+// (the wgmma kernel's max is a raw score, converted by scale * log2 e *
+// ln 2); with null they store nothing and run as before.
 #include <climits>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
@@ -150,7 +153,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, int DVC>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int BH,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int BH,
                        int group, int Sq, int Sk, int D, int Dv, float scale,
                        int causal, int nq) {
   extern __shared__ float smem[];
@@ -258,6 +262,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + row0 + i;
     if (qp >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<long long>(bh) * Sq + qp] = m[i] + logf(den);
     T* o = out + (static_cast<long long>(bh) * Sq + qp) * Dv;
 #pragma unroll
     for (int jj = 0; jj < DVC; ++jj) {
@@ -269,8 +275,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DVC>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
-                int BH, int group, int Sq, int Sk, int D, int Dv, float scale,
-                int causal, cudaStream_t stream) {
+                float* lse, int BH, int group, int Sq, int Sk, int D, int Dv,
+                float scale, int causal, cudaStream_t stream) {
   const int nq = (Sq + kBQ - 1) / kBQ;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBQ + kBK) * (D + 1) +
@@ -281,8 +287,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_attention_kernel<T, DVC><<<nq * BH, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), BH, group, Sq, Sk, D,
-      Dv, scale, causal, nq);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, BH, group, Sq, Sk,
+      D, Dv, scale, causal, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,6 +299,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
 constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16
 constexpr long long kWaitLimit = 1LL << 34;   // cycles before a wait traps
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -621,7 +628,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ out, int BH,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int BH,
                              int group, int Sq, int Sk, float scale_log2,
                              int causal, int nq) {
   using L = WgLayout<D>;
@@ -785,6 +793,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // each thread summed its own columns of a row
     const float den0 = fmaxf(quad_sum(l0), 1e-30f);
     const float den1 = fmaxf(quad_sum(l1), 1e-30f);
+    if (lse != nullptr && t == 0) {
+      // m is the raw score max: m * scale = m * scale_log2 * ln 2
+      float* const lb = lse + static_cast<long long>(bh) * Sq;
+      if (r0 < Sq) lb[r0] = m0 * scale_log2 * kLn2 + logf(den0);
+      if (r1 < Sq) lb[r1] = m1 * scale_log2 * kLn2 + logf(den1);
+    }
     __nv_bfloat16* const ob = out + static_cast<long long>(bh) * Sq * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -865,8 +879,8 @@ cudaError_t num_sms(int* n) {
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int BH, int group, int Sq, int Sk, float scale, int causal,
-                 cudaStream_t stream) {
+                 float* lse, int BH, int group, int Sq, int Sk, float scale,
+                 int causal, cudaStream_t stream) {
   using L = WgLayout<D>;
   EncodeTiled enc;
   const int rc = get_encoder(&enc);
@@ -887,45 +901,52 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return static_cast<int>(e);
   // one block per SM (registers allow no more), each walking its items
   kernel<<<min(nq * BH, sms), kWgThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), BH, group, Sq, Sk,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, BH, group, Sq, Sk,
       scale * kLog2e, causal, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// lse: null, or a (BH, Sq) f32 buffer that receives each query row's
+// logsumexp of the scaled scores (natural log, m + log l), which the
+// backward (flash_attention_bwd.cu) recomputes p from.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). variant: 0 =
 // simt (any dtype and head dims up to 128), 1 = wgmma (bf16, D == Dv in
 // {64, 128} only: the rule of kernel.py variant(), which names the
 // variant). Returns 0, a cudaError_t, or -CUresult when a tensor map
 // cannot be made.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int BH, int group, int Sq, int Sk,
-                               int D, int Dv, float scale, int causal,
-                               int dtype, int variant, void* stream) {
+                               void* out, void* lse_ptr, int BH, int group,
+                               int Sq, int Sk, int D, int Dv, float scale,
+                               int causal, int dtype, int variant,
+                               void* stream) {
   if (BH < 1 || group < 1 || BH % group || Sq < 1 || Sk < 1 || D < 1 ||
       D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim ||
       (dtype != 0 && dtype != 1) ||
       static_cast<long long>((Sq + kBQ - 1) / kBQ) * BH > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  float* const lse = static_cast<float*>(lse_ptr);
   const bool tensor_cores = dtype == 1 && D == Dv && (D == 64 || D == 128);
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
-    return D == 64 ? launch_wgmma<64>(q, k, v, out, BH, group, Sq, Sk, scale,
-                                      causal, s)
-                   : launch_wgmma<128>(q, k, v, out, BH, group, Sq, Sk,
+    return D == 64 ? launch_wgmma<64>(q, k, v, out, lse, BH, group, Sq, Sk,
+                                      scale, causal, s)
+                   : launch_wgmma<128>(q, k, v, out, lse, BH, group, Sq, Sk,
                                        scale, causal, s);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return Dv <= 64 ? launch_simt<float, 4>(q, k, v, out, BH, group, Sq, Sk,
-                                            D, Dv, scale, causal, s)
-                    : launch_simt<float, 8>(q, k, v, out, BH, group, Sq, Sk,
-                                            D, Dv, scale, causal, s);
-  return Dv <= 64 ? launch_simt<__nv_bfloat16, 4>(q, k, v, out, BH, group, Sq,
-                                                  Sk, D, Dv, scale, causal, s)
-                  : launch_simt<__nv_bfloat16, 8>(q, k, v, out, BH, group, Sq,
-                                                  Sk, D, Dv, scale, causal, s);
+    return Dv <= 64 ? launch_simt<float, 4>(q, k, v, out, lse, BH, group, Sq,
+                                            Sk, D, Dv, scale, causal, s)
+                    : launch_simt<float, 8>(q, k, v, out, lse, BH, group, Sq,
+                                            Sk, D, Dv, scale, causal, s);
+  return Dv <= 64 ? launch_simt<__nv_bfloat16, 4>(q, k, v, out, lse, BH, group,
+                                                  Sq, Sk, D, Dv, scale,
+                                                  causal, s)
+                  : launch_simt<__nv_bfloat16, 8>(q, k, v, out, lse, BH, group,
+                                                  Sq, Sk, D, Dv, scale,
+                                                  causal, s);
 }
 

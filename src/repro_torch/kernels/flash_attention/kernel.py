@@ -19,7 +19,7 @@ WGMMA_HEAD_DIMS = (64, 128)
 
 KERNEL = CudaKernel(
     "flash_attention",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     replaces="src/repro/kernels/flash_attention/kernel.py:65",
     device_fns=("flash_attention_kernel", "flash_attention_wgmma_kernel"),
@@ -43,12 +43,15 @@ def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
 
 
 def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
-                         scale=None, force_variant=None) -> torch.Tensor:
+                         scale=None, force_variant=None, with_lse=False):
     """Same contract as ``ref.flash_attention_ref``; f32 or bf16, head
     dims up to 128, any Sq and Sk. The kernel is :func:`variant`'s;
     ``force_variant="simt"`` runs the SIMT kernel on any inputs (to time
     it beside the tensor-core one), and a ``"wgmma"`` the inputs do not
-    qualify for raises."""
+    qualify for raises. ``with_lse``: also return each row's logsumexp
+    (BH, Sq) f32, as ``ref.flash_attention_lse_ref`` (the training
+    forward keeps it for the backward); without it the kernel writes
+    none."""
     BH, Sq, D = q.shape
     BHkv, Sk, Dv = k.shape[0], k.shape[1], v.shape[2]
     chosen = variant(q.dtype, D, Dv)
@@ -72,7 +75,11 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
                      ("v", v, q.dtype, (BHkv, Sk, Dv))))
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty(BH, Sq, Dv, dtype=q.dtype, device=dev)
-    KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), BH, group, Sq, Sk, D,
-                  Dv, scale, int(causal), DTYPES[q.dtype], VARIANTS[chosen],
-                  stream_ptr(dev), variant=chosen)
-    return out
+    lse = (torch.empty(BH, Sq, dtype=torch.float32, device=dev) if with_lse
+           else None)
+    KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out),
+                  ctypes.c_void_p(None if lse is None else lse.data_ptr()),
+                  BH, group, Sq, Sk, D, Dv, scale, int(causal),
+                  DTYPES[q.dtype], VARIANTS[chosen], stream_ptr(dev),
+                  variant=chosen)
+    return (out, lse) if with_lse else out

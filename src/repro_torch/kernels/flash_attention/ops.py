@@ -1,5 +1,5 @@
-"""Wrapper for flash_attention (the prefill attention of the model
-serving path).
+"""Wrapper for flash_attention (the prefill and training attention of the
+model path) and its gradient.
 
 K6 (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``flash_attention_pallas`` (src/repro/kernels/flash_attention/kernel.py).
@@ -11,24 +11,66 @@ in registers); f32 and other head dims run the SIMT kernel (f32 FMAs),
 far above the bound. ``kernel.variant`` names the one that runs, and
 ``kernel.KERNEL.launches_by_variant`` counts them. Both keep the (Sq, Sk)
 scores out of device memory.
+
+The gradient: when an input requires grad, :func:`flash_attention` runs
+:class:`FlashAttention`, whose forward is K6 writing each row's
+logsumexp too, and whose backward is K7 (``csrc/flash_attention_bwd.cu``,
+``bwd_kernel.py``), which recomputes p from it as the reference's
+``_flash_core_bwd`` does. It saves q, k, v, o and lse: nothing of size
+(Sq, Sk).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import bwd_kernel as BK
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref as REF
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: K6 forward and K7 backward on CUDA
+    tensors, the plain versions on CPU tensors or under
+    ``backend="ref"``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, scale, backend):
+        if dispatch.use_kernel(q, backend):
+            o, lse = K.flash_attention_cuda(q, k, v, group=group,
+                                            causal=causal, scale=scale,
+                                            with_lse=True)
+        else:
+            o, lse = REF.flash_attention_lse_ref(q, k, v, group=group,
+                                                 causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (group, causal, scale, backend)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        group, causal, scale, backend = ctx.args
+        fn = (BK.flash_attention_bwd_cuda
+              if dispatch.use_kernel(q, backend)
+              else REF.flash_attention_bwd_ref)
+        dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), group=group,
+                        causal=causal, scale=scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, group: int = 1, causal: bool = True,
                     scale=None, backend=None) -> torch.Tensor:
     """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (BH, Sq, Dv); query
     head ``bh`` reads kv head ``bh // group``. Kernel on CUDA tensors,
-    plain version on CPU tensors or under ``backend="ref"``."""
+    plain version on CPU tensors or under ``backend="ref"``; with a
+    gradient (:class:`FlashAttention`) when an input requires one."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, group, causal, scale, backend)
     if dispatch.use_kernel(q, backend):
-        return K.flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), group=group,
-                                      causal=causal, scale=scale)
+        return K.flash_attention_cuda(q, k, v, group=group, causal=causal,
+                                      scale=scale)
     return REF.flash_attention_ref(q, k, v, group=group, causal=causal,
                                    scale=scale)

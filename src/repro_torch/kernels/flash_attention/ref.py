@@ -1,6 +1,11 @@
-"""Plain PyTorch version of flash_attention: masked softmax attention over
-the flattened (BH, S, D) layout, scores materialised in f32 (the port of
-``repro.kernels.flash_attention.ref``)."""
+"""Plain PyTorch versions of flash_attention and of its gradient:
+masked softmax attention over the flattened (BH, S, D) layout with the
+scores materialised (the port of ``repro.kernels.flash_attention.ref``),
+the forward with its per-row logsumexp, and the recomputing backward of
+the reference's ``_flash_core_bwd`` (``repro.models.attention``).
+
+Arithmetic is in f32 for f32 and bf16 inputs (in f64 for f64 inputs,
+which only the gradient checks use)."""
 from __future__ import annotations
 
 import torch
@@ -8,21 +13,73 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, group: int = 1, causal: bool = True,
-                        scale=None):
-    """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (BH, Sq, Dv) in
-    q's dtype. Scores and the p·v product accumulate in f32; p is rounded
-    to v's dtype before p·v, as the TPU kernel does. The causal mask is
-    top-left: query i sees keys 0..i."""
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, group: int, causal: bool, scale):
+    """f32 (BH, Sq, Sk) scaled scores, masked to -1e30 (top-left causal:
+    query i sees keys 0..i); the head dim's default scale."""
     BH, Sq, D = q.shape
     Sk = k.shape[1]
+    acc = _acc(q.dtype)
     scale = D ** -0.5 if scale is None else scale
-    kv_idx = torch.arange(BH, device=q.device) // group
-    kk, vv = k[kv_idx], v[kv_idx]                       # (BH, Sk, D|Dv)
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kk.float()) * scale
+    kk = k[torch.arange(BH, device=q.device) // group]     # (BH, Sk, D)
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), kk.to(acc)) * scale
     if causal:
         mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask[None], s, NEG_INF)
+    return s, scale
+
+
+def flash_attention_lse_ref(q, k, v, *, group: int = 1, causal: bool = True,
+                            scale=None):
+    """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (out (BH, Sq, Dv)
+    in q's dtype, lse (BH, Sq) f32: each row's logsumexp of the scaled
+    scores, natural log). Scores and the p·v product accumulate in f32; p
+    is rounded to v's dtype before p·v, as the TPU kernel does."""
+    s, _ = _scores(q, k, group, causal, scale)
+    vv = v[torch.arange(q.shape[0], device=q.device) // group]
+    lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bke->bqe", p.to(v.dtype).float(),
-                        vv.float()).to(q.dtype)
+    out = torch.einsum("bqk,bke->bqe", p.to(v.dtype).to(s.dtype),
+                       vv.to(s.dtype)).to(q.dtype)
+    return out, lse.to(torch.promote_types(lse.dtype, torch.float32))
+
+
+def flash_attention_ref(q, k, v, *, group: int = 1, causal: bool = True,
+                        scale=None):
+    """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (BH, Sq, Dv) in
+    q's dtype (see :func:`flash_attention_lse_ref`)."""
+    return flash_attention_lse_ref(q, k, v, group=group, causal=causal,
+                                   scale=scale)[0]
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, group: int = 1,
+                            causal: bool = True, scale=None):
+    """The gradient of :func:`flash_attention_ref` given the forward's
+    output ``o`` and logsumexp ``lse`` (BH, Sq) and the output's gradient
+    ``do`` (BH, Sq, Dv) -> (dq, dk, dv) in the inputs' dtypes, computed in
+    f32 as the reference's ``_flash_core_bwd``:
+
+        Dsum = rowsum(do * o),  p = exp(s - lse),  dv = p^T do,
+        dp = do v^T,  ds = p * (dp - Dsum) * scale,  dq = ds k,
+        dk = ds^T q,
+
+    with dk and dv summed over each kv head's ``group`` query heads."""
+    BH, Sq, D = q.shape
+    BHkv, Sk, Dv = v.shape
+    s, scale = _scores(q, k, group, causal, scale)
+    acc = s.dtype
+    kv_idx = torch.arange(BH, device=q.device) // group
+    do_, o_ = do.to(acc), o.to(acc)
+    dsum = (do_ * o_).sum(-1)                                 # (BH, Sq)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dv = torch.einsum("bqk,bqe->bke", p, do_)
+    dp = torch.einsum("bqe,bke->bqk", do_, v[kv_idx].to(acc))
+    ds = p * (dp - dsum[..., None]) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, k[kv_idx].to(acc))
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.to(acc))
+    dk = dk.reshape(BHkv, group, Sk, D).sum(1)
+    dv = dv.reshape(BHkv, group, Sk, Dv).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -5,8 +5,8 @@ All layers are functions over explicit parameter dicts; each has a
 ``*_descs`` function returning the matching ParamDesc tree. Projection
 matrices are 2-D ``(d_in, d_out)`` as in the reference, so ``x @ w`` is
 the same product. The reference's mesh constraints (``seq_shard``,
-``head_shard``) and its training loss (``chunked_ce_loss``) are not
-ported (ROADMAP §1 item 14).
+``head_shard``) have nothing to do on one device, and neither has the
+vocab-sharded branch of its ``chunked_ce_loss``.
 """
 from __future__ import annotations
 
@@ -127,3 +127,29 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
 def logits_fn(embed_params, x: torch.Tensor, tie: bool) -> torch.Tensor:
     w = embed_params["tok"].T if tie else embed_params["unembed"]
     return x @ w
+
+
+# --------------------------------------------------- chunked cross entropy ----
+
+def chunked_ce_loss(embed_params, x: torch.Tensor, targets: torch.Tensor,
+                    mask: torch.Tensor, tie: bool, chunk: int
+                    ) -> torch.Tensor:
+    """Mean cross-entropy over the vocab without the full (B, S, V) logits.
+
+    x: (B, S, d) final hidden; targets: (B, S) int; mask: (B, S) {0, 1}.
+    Walks the sequence in chunks of ``chunk`` positions (the last one
+    ragged); each chunk's logits are made in f32 from ``logits_fn``.
+    Returns ``sum((lse - picked) * mask) / max(sum(mask), 1)``."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
+    for lo in range(0, S, chunk):
+        hi = min(lo + chunk, S)
+        lg = logits_fn(embed_params, x[:, lo:hi], tie).float()
+        picked = torch.gather(lg, -1, targets[:, lo:hi, None])[..., 0]
+        lse = torch.logsumexp(lg, dim=-1)
+        m = mask[:, lo:hi].float()
+        tot = tot + ((lse - picked) * m).sum()
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)

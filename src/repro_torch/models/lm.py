@@ -4,14 +4,18 @@
 The parameters keep the reference's layout: one stacked ``(L, ...)`` tree
 under ``stack_0_dense`` that the reference scans over and the port walks
 with a Python loop. The decode cache is the reference's list of per-layer
-``{"k", "v"}`` dicts. The moe / vlm families, multi-token prediction and
-the training loss are ROADMAP §1 item 14.
+``{"k", "v"}`` dicts. :func:`lm_loss` is the training loss; under
+``cfg.remat == "full"`` each block is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+scan body). The moe / vlm families and multi-token prediction are
+ROADMAP §1 item 14c.
 """
 from __future__ import annotations
 
 from typing import Any, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -44,11 +48,15 @@ def lm_descs(cfg: ModelConfig) -> Tree:
             STACK: L.stack_descs(block_descs(cfg), cfg.num_layers)}
 
 
-def layer_params(stack: Tree, layer: int) -> Tree:
-    """Layer ``layer``'s slice of a stacked parameter tree (views)."""
+def unstack(stack: Tree, n: int) -> List[Tree]:
+    """Every layer's slice of a stacked tree (views), each leaf cut once
+    with ``unbind``: under autograd that is one node per leaf, whose
+    backward stacks the n slices' gradients once (``stack[layer]`` per
+    layer would build a zero-filled (L, ...) gradient per layer)."""
     if isinstance(stack, dict):
-        return {k: layer_params(v, layer) for k, v in stack.items()}
-    return stack[layer]
+        parts = {k: unstack(v, n) for k, v in stack.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(stack.unbind(0))
 
 
 # ------------------------------------------------------------- blocks ------
@@ -85,12 +93,36 @@ def block_decode(params, x, cfg: ModelConfig, cache, pos):
 
 def lm_hidden(params, batch, cfg: ModelConfig,
               backend: Optional[str] = None) -> torch.Tensor:
-    """Full forward to the final hidden states (B, S, d)."""
+    """Full forward to the final hidden states (B, S, d). Under
+    ``cfg.remat == "full"`` and autograd, each block keeps only its input
+    and runs again in the backward."""
     x = L.embed(params["embed"], batch["tokens"])
-    for layer in range(cfg.num_layers):
-        x = block_train(layer_params(params[STACK], layer), x, cfg,
-                        backend=backend)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for lp in unstack(params[STACK], cfg.num_layers):
+        if remat:
+            x = checkpoint(block_train, lp, x, cfg, backend,
+                           use_reentrant=False)
+        else:
+            x = block_train(lp, x, cfg, backend=backend)
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+
+def lm_loss(params, batch, cfg: ModelConfig,
+            backend: Optional[str] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets"}
+    and an optional "mask", all (B, S)), f32 0-d."""
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            "multi-token prediction (mtp_depth, deepseek) is not ported yet "
+            "(ROADMAP §1 item 14c)")
+    x = lm_hidden(params, batch, cfg, backend=backend)
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    return L.chunked_ce_loss(params["embed"], x, targets, mask,
+                             cfg.tie_embeddings, cfg.loss_chunk)
 
 
 def cache_descs(cfg: ModelConfig, batch: int, seq: int) -> List[Tree]:
@@ -111,9 +143,8 @@ def lm_prefill(params, batch, cfg: ModelConfig,
     a list of ``{"k", "v"}`` of shape (B, S, KH, D))."""
     x = L.embed(params["embed"], batch["tokens"])
     cache = []
-    for layer in range(cfg.num_layers):
-        x, (k, v) = block_prefill(layer_params(params[STACK], layer), x, cfg,
-                                  backend=backend)
+    for lp in unstack(params[STACK], cfg.num_layers):
+        x, (k, v) = block_prefill(lp, x, cfg, backend=backend)
         cache.append({"k": k, "v": v})
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.logits_fn(params["embed"], x[:, -1:, :],
@@ -127,9 +158,8 @@ def lm_decode(params, token, pos, cache, cfg: ModelConfig
     whose tensors are updated in place. Returns (logits (B, V), cache')."""
     x = L.embed(params["embed"], token)
     new_cache = list(cache)
-    for layer in range(cfg.num_layers):
-        x, new = block_decode(layer_params(params[STACK], layer), x, cfg,
-                              cache[layer], pos)
+    for layer, lp in enumerate(unstack(params[STACK], cfg.num_layers)):
+        x, new = block_decode(lp, x, cfg, cache[layer], pos)
         new_cache[layer] = {n: t.to(cache[layer][n].dtype)
                             for n, t in new.items()}
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

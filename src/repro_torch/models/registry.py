@@ -1,9 +1,10 @@
-"""Model registry: the public ``Model`` facade of the serving path (the
-port of ``repro.models.registry``, dense family).
+"""Model registry: the public ``Model`` facade of the training and
+serving paths (the port of ``repro.models.registry``, dense family).
 
 ``Model(cfg)`` runs on the CUDA card unless the caller passes
-``device="cpu"``; on the card the prefill attention launches the
-flash_attention kernel (K6), on the CPU its plain version runs.
+``device="cpu"``; on the card the attention launches the flash_attention
+kernel (K6) and, in the training backward, its gradient (K7); on the CPU
+their plain versions run.
 ``backend="ref"`` forces the plain version on any device
 (``repro_torch.kernels.dispatch``).
 """
@@ -45,6 +46,11 @@ class Model:
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
         return PM.materialize(self.param_descs(), gen, self.device)
+
+    # ---- training -------------------------------------------------------
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy (``lm.lm_loss``), f32 0-d."""
+        return LM.lm_loss(params, batch, self.cfg, backend=self.backend)
 
     # ---- serving --------------------------------------------------------
     def cache_descs(self, batch: int, seq: int) -> List[Tree]:

@@ -29,8 +29,10 @@ from repro_torch.core.pipeline import DFASystem
 from repro_torch.data import packets as PK
 from repro_torch.kernels.derived_features import kernel as DK
 from repro_torch.kernels.derived_features import ops as DF
+from repro_torch.kernels.flash_attention import bwd_kernel as BK
 from repro_torch.kernels.flash_attention import kernel as AK
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.flow_moments import kernel as FK
 from repro_torch.kernels.flow_moments import ops as FM
 from repro_torch.kernels.gather_enrich import kernel as GK
@@ -542,6 +544,185 @@ def test_reduced_prefill_kernel_equals_plain(cuda, dtype, tol):
                 assert torch.equal(a[n], b[n])
             err = float((a[n].float() - b[n].float()).abs().max())
             assert err <= tol * float(b[n].float().abs().max())
+
+
+# -- the training slice on the card: K6's lse, K7 ------------------------------
+
+def _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(BH, Sq, D, generator=g).to(cuda, dtype),
+            torch.randn(BH // group, Sk, D, generator=g).to(cuda, dtype),
+            torch.randn(BH // group, Sk, Dv, generator=g).to(cuda, dtype))
+
+
+@pytest.mark.parametrize("variant,D", [("simt", 64), ("simt", 16),
+                                       ("wgmma", 64), ("wgmma", 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_lse_matches_plain(cuda, variant, D, causal):
+    """K6's logsumexp output (both variants) against the plain
+    logsumexp; f32 for the simt cases, bf16 for wgmma; 1e-4 absolute
+    (lse is O(10): a few f32 ulps plus wgmma's ex2.approx)."""
+    dtype = torch.bfloat16 if variant == "wgmma" else torch.float32
+    q, k, v = _qkv(cuda, 16, 333, 333, D, D, 4, dtype, D + causal)
+    out, lse = AK.flash_attention_cuda(q, k, v, group=4, causal=causal,
+                                       force_variant=variant, with_lse=True)
+    want_o, want = FR.flash_attention_lse_ref(q, k, v, group=4,
+                                              causal=causal)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (16, 333)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(out.float(), want_o.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_output_unchanged_by_lse(cuda, dtype):
+    """At the serving shape K6's output is bit for bit the same with and
+    without the lse output."""
+    q, k, v = _qkv(cuda, 128, 1024, 1024, 64, 64, 4, dtype, 3)
+    plain = AK.flash_attention_cuda(q, k, v, group=4)
+    with_lse, _ = AK.flash_attention_cuda(q, k, v, group=4, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, with_lse)
+
+
+def _bwd_inputs(cuda, BH, Sq, Sk, D, Dv, group, dtype, causal, seed):
+    q, k, v = _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(BH, Sq, Dv, generator=g).to(cuda, dtype)
+    o, lse = FR.flash_attention_lse_ref(q, k, v, group=group, causal=causal)
+    return q, k, v, o, lse, do
+
+
+def _grad_err(got, want):
+    """max |got - want| over max |want|, the worst of dq, dk, dv."""
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,Sq,Sk,D,Dv,group", [
+    (8, 333, 333, 64, 64, 1), (16, 333, 333, 64, 64, 4),
+    (8, 200, 71, 16, 16, 4), (8, 71, 200, 128, 128, 4),
+    (12, 129, 257, 128, 32, 4), (4, 3, 65, 64, 64, 1)])
+def test_flash_bwd_matches_plain(cuda, dtype, causal, BH, Sq, Sk, D, Dv,
+                                 group):
+    """K7 against ``flash_attention_bwd_ref`` on the same inputs (o and
+    lse from the plain forward): f32 within 2e-5 of max |grad|; bf16 no
+    further from the f32 plain gradient than the bf16 plain gradient is,
+    x1.5. Ragged Sq and Sk both ways, D 16/64/128, Dv != D, groups 1/4.
+    (A causal query row that sees one key has ds = 0 exactly, so its dq is
+    rounding noise that no relative measure holds: the shortest case has
+    3 rows.)"""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, BH, Sq, Sk, D, Dv, group, dtype,
+                                      causal, BH * Sq + Sk + D)
+    before = BK.KERNEL.launches
+    got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=group,
+                                      causal=causal)
+    assert BK.KERNEL.launches == before + 1
+    want = FR.flash_attention_bwd_ref(q, k, v, o, lse, do, group=group,
+                                      causal=causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+    if dtype == torch.float32:
+        assert _grad_err(got, want) <= 2e-5
+    else:
+        f32 = FR.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), lse, do.float(), group=group,
+            causal=causal)
+        assert _grad_err(got, f32) <= 1.5 * _grad_err(want, f32)
+
+
+def test_flash_bwd_is_deterministic(cuda):
+    """No float atomics: two runs give the same bits."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 32, 300, 300, 64, 64, 4,
+                                      torch.bfloat16, True, 9)
+    a = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4)
+    b = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_function_on_card(cuda, dtype):
+    """``flash_attention`` with inputs that require grad runs K6 (with
+    lse) forward and K7 backward, and its gradients equal autograd
+    through the plain version (f32 2e-5 of max |grad|; bf16 by the x1.5
+    rule against the f32 gradient)."""
+    q, k, v = _qkv(cuda, 16, 257, 257, 64, 64, 4, dtype, 21)
+    g = torch.Generator().manual_seed(22)
+    do = torch.randn(16, 257, 64, generator=g).to(cuda, dtype)
+
+    def grads(backend, cast=None):
+        leaves = [(t if cast is None else t.to(cast)).detach()
+                  .requires_grad_() for t in (q, k, v)]
+        out = FA.flash_attention(*leaves, group=4, backend=backend)
+        out.backward(do if cast is None else do.to(cast))
+        return out, [t.grad for t in leaves]
+
+    b6, b7 = AK.KERNEL.launches, BK.KERNEL.launches
+    out, got = grads(None)
+    assert (AK.KERNEL.launches, BK.KERNEL.launches) == (b6 + 1, b7 + 1)
+    ref_out, want = grads("ref")
+    assert (AK.KERNEL.launches, BK.KERNEL.launches) == (b6 + 1, b7 + 1)
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               rtol=ATT_TOL[dtype], atol=ATT_TOL[dtype])
+    if dtype == torch.float32:
+        assert _grad_err(got, want) <= 2e-5
+    else:
+        _, f32 = grads("ref", torch.float32)
+        assert _grad_err(got, f32) <= 1.5 * _grad_err(want, f32)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_reduced_train_step_kernels_equal_plain(cuda, remat):
+    """One REDUCED granite train step (f32) on the card through K6 and K7
+    against the same step with the plain versions: loss 1e-5 relative,
+    every gradient leaf 1e-4 of its largest element, the gradient norm
+    1e-4 relative, the updated parameters within 1e-2 of the learning
+    rate. K6 launches once per layer (twice under remat: the backward
+    recomputes each block), K7 once per layer."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import tokens as DATA
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    cfg = get_config("granite-3-2b", reduced=True).replace(
+        dtype="float32", param_dtype="float32", remat=remat)
+    model = Model(cfg, device=cuda)
+    plain = Model(cfg, device=cuda, backend="ref")
+    params = model.init(0)
+    batch = DATA.batch_at(0, cfg, 4, 100, device=cuda)
+    AK.KERNEL.reset_counts()
+    BK.KERNEL.reset_counts()
+    loss, grads = ST.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert AK.KERNEL.launches == (2 * L if remat == "full" else L)
+    assert BK.KERNEL.launches == L
+    ploss, pgrads = ST.loss_and_grads(plain, params, batch)
+    assert BK.KERNEL.launches == L
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+
+    def close(a, b, tol, what):
+        for x, y in zip(adamw.leaves(a), adamw.leaves(b)):
+            err = float((x.float() - y.float()).abs().max())
+            assert err <= tol * float(y.float().abs().max()), what
+    close(grads, pgrads, 1e-4, "grads")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, donate_state=False)
+    states = [{"params": params, "opt": adamw.init(params, tcfg)}
+              for _ in range(2)]
+    got, gm = ST.make_train_step(model, tcfg)(states[0], batch)
+    want, wm = ST.make_train_step(plain, tcfg)(states[1], batch)
+    # Adam's first update is near sign(g) * lr for every element: hold the
+    # parameters to a hundredth of the step size
+    for x, y in zip(adamw.leaves(got["params"]), adamw.leaves(want["params"])):
+        assert float((x - y).abs().max()) <= 1e-2 * tcfg.learning_rate
+    assert abs(float(gm["gnorm"]) - float(wm["gnorm"])) <= \
+        1e-4 * float(wm["gnorm"])
 
 
 # -- the serving slice on the card ---------------------------------------------

@@ -1,8 +1,9 @@
 """Import and device rules of the PyTorch port.
 
-* Importing every ``repro_torch`` module (and ``chip_smoke``) loads
-  neither JAX nor any module of the reference package, nor ``msgpack`` or
-  ``ml_dtypes`` (the card's machine has neither).
+* Importing every ``repro_torch`` module, ``chip_smoke`` and every
+  ``examples/torch_*.py`` loads neither JAX nor any module of the
+  reference package, nor ``msgpack`` or ``ml_dtypes`` (the card's machine
+  has neither).
 * ``DFASystem`` (and so ``ServingLoop`` / ``serve_trace``), the LM
   ``Model``, the serving launcher, the two converters and
   ``checkpoint.restore`` run on the card by default: without a card they
@@ -24,6 +25,7 @@ from repro_torch.core.pipeline import DFASystem
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.derived_features import kernel as DK
 from repro_torch.kernels.derived_features import ops as DF
+from repro_torch.kernels.flash_attention import bwd_kernel as BK
 from repro_torch.kernels.flash_attention import kernel as AK
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.flow_moments import kernel as FK
@@ -38,10 +40,11 @@ from repro_torch.launch import serve as SERVE
 from repro_torch.models.registry import Model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-KERNELS = (IK.KERNEL, RK.KERNEL, GK.KERNEL, FK.KERNEL, DK.KERNEL, AK.KERNEL)
+KERNELS = (IK.KERNEL, RK.KERNEL, GK.KERNEL, FK.KERNEL, DK.KERNEL, AK.KERNEL,
+           BK.KERNEL)
 
 _PROBE = """
-import importlib, pkgutil, sys
+import glob, importlib, importlib.util, os, pkgutil, sys
 sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -49,11 +52,16 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+examples = sorted(glob.glob(os.path.join({root!r}, "examples", "torch_*.py")))
+for path in examples:
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro.")
              or m.split(".")[0] in ("msgpack", "ml_dtypes"))
-print(len(names), bad)
+print(len(names), len(examples), bad)
 """
 
 
@@ -64,8 +72,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         [sys.executable, "-c", _PROBE.format(src=src,
                                              root=os.path.abspath(ROOT))],
         capture_output=True, text=True, env=env, timeout=120, check=True)
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 30, out.stdout
+    n, n_examples, bad = out.stdout.strip().split(" ", 2)
+    assert int(n) >= 30 and int(n_examples) == 4, out.stdout
     assert bad == "[]", f"port pulled in {bad}"
 
 
@@ -98,6 +106,28 @@ def test_system_defaults_to_the_card():
                               periods=1)
     assert rep.last.enriched.device.type == "cpu"
     assert not SERVING.HostIngestRing("cpu", 8).on_card
+
+
+def test_training_and_examples_default_to_the_card(tmp_path):
+    """``launch.train.main`` and every ``examples/torch_*.py`` entry run
+    on the card unless asked for the CPU: without one they raise, naming
+    ``device='cpu'``, before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default is legitimate")
+    import importlib.util
+    from repro_torch.launch import train as TRAIN
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TRAIN.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    for name in ("torch_quickstart", "torch_serve_traffic_inference",
+                 "torch_train_flow_classifier", "torch_train_lm_e2e"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main([])
+    assert not os.listdir(tmp_path)
 
 
 def test_cpu_tensors_run_the_plain_versions(rng):

@@ -1,0 +1,269 @@
+"""The port's training path against the JAX package on the CPU, at REDUCED
+granite width (2 layers, d 64, 4/2 heads of 16, vocab 256) in f32.
+
+The reference's parameters are materialised once by JAX and carried
+across as numpy (``convert.lm_params_from_numpy``); the batches are the
+reference's ``data.tokens`` batches, fed to both (the port's own token
+draws come from a ``torch.Generator``). Tolerances, f32: the loss 1e-5
+and every gradient leaf 1e-4 of its largest element (the same arithmetic
+summed in another order; attention's backward recomputes p from lse);
+after a train step, parameters within 1e-3 of the learning rate and the
+moments within 1e-4 of their largest element.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.configs.base import TrainConfig as JTrainConfig
+from repro.data import tokens as JDATA
+from repro.launch import steps as JST
+from repro.models.lm import lm_loss as jax_lm_loss
+from repro.models.registry import get_model as jax_model
+from repro.optim import adamw as JADAMW
+from repro_torch.checkpoint import checkpoint as CKPT
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.data import tokens as DATA
+from repro_torch.kernels.flash_attention import kernel as AK
+from repro_torch.launch import steps as ST
+from repro_torch.launch import train as TR
+from repro_torch.models import lm as LM
+from repro_torch.models.registry import Model
+from repro_torch.optim import adamw
+
+ARCH = "granite-3-2b"
+F32 = dict(dtype="float32", param_dtype="float32")
+B, S = 4, 32
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _flat(tree, prefix=()):
+    """{path: leaf} of a nested dict (JAX or torch)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _assert_tree_close(got, want, tol, scale=None, what=""):
+    """Every leaf within ``tol`` of ``scale`` (default: the leaf's largest
+    element, at least 1e-30)."""
+    g, w = _flat(got), _flat(want)
+    assert set(g) == set(w), what
+    for path in w:
+        a, b = _np(g[path]), _np(w[path])
+        assert a.shape == b.shape, (what, path)
+        s = scale if scale is not None else max(float(np.abs(b).max()),
+                                                1e-30)
+        err = float(np.abs(a - b).max())
+        assert err <= tol * s, f"{what} {'/'.join(path)}: {err} > {tol} * {s}"
+
+
+@pytest.fixture(scope="module")
+def ref(mesh):
+    """(JAX model, its f32 params, the port's Model, the same params)."""
+    jm = jax_model(jax_config(ARCH, reduced=True).replace(**F32), mesh)
+    jp = jm.init(jax.random.key(0))
+    cfg = get_config(ARCH, reduced=True).replace(**F32)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                              device="cpu")
+    return jm, jp, Model(cfg, device="cpu"), tp
+
+
+def _batch(cfg, step=0, b=B, s=S):
+    """The reference's batch, as JAX arrays and as torch tensors."""
+    jb = JDATA.batch_at(step, cfg, b, s, seed=0)
+    tb = {k: torch.from_numpy(np.asarray(v).astype(
+        np.int64 if k != "mask" else np.float32)) for k, v in jb.items()}
+    return jb, tb
+
+
+def test_lm_loss_and_grads_match_jax(ref, mesh):
+    jm, jp, tm, tp = ref
+    jb, tb = _batch(jm.cfg)
+    with mesh:
+        jl, jg = jax.jit(jax.value_and_grad(
+            lambda p, b: jax_lm_loss(p, b, jm.cfg, mesh, ())))(jp, jb)
+    tl, tg = ST.loss_and_grads(tm, tp, tb)
+    assert tl.dtype == torch.float32 and tl.shape == ()
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    _assert_tree_close(tg, jg, 1e-4, what="grad")
+    assert float(tm.loss(tp, tb)) == pytest.approx(float(tl), rel=1e-7)
+
+
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_remat_equals_no_remat(ref, remat):
+    """``remat="full"`` recomputes each block in the backward; the loss
+    and every gradient equal the stored-activation run's."""
+    _, _, tm, tp = ref
+    _, tb = _batch(tm.cfg, step=3)
+    base = Model(tm.cfg.replace(remat="none"), device="cpu")
+    other = Model(tm.cfg.replace(remat=remat), device="cpu")
+    la, ga = ST.loss_and_grads(base, tp, tb)
+    lb, gb = ST.loss_and_grads(other, tp, tb)
+    assert float(la) == float(lb)
+    for path, g in _flat(ga).items():
+        assert torch.equal(g, _flat(gb)[path]), path
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_matches_jax(ref, mesh, accum):
+    """Two train steps from the same weights and batches (warmup 1, so
+    the first step's lr is 0 and the second's is the peak): loss, gnorm,
+    lr, every parameter, mu and nu against the reference's
+    ``make_train_step``."""
+    jm, jp, tm, tp = ref
+    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+              grad_accum=accum)
+    jstep = jax.jit(JST.make_train_step(jm, JTrainConfig(**kw)))
+    tcfg = TrainConfig(**kw)
+    tstep = ST.make_train_step(tm, tcfg)
+    jstate = {"params": jp, "opt": JADAMW.init(jp, JTrainConfig(**kw))}
+    tstate = {"params": adamw.tree_map(torch.clone, tp),
+              "opt": adamw.init(tp, tcfg)}
+    for step in range(2):
+        jb, tb = _batch(jm.cfg, step=step)
+        with mesh:
+            jstate, jm_ = jstep(jstate, jb)
+        tstate, tm_ = tstep(tstate, tb)
+        np.testing.assert_allclose(float(tm_["loss"]), float(jm_["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(tm_["gnorm"]), float(jm_["gnorm"]),
+                                   rtol=1e-4)
+        assert float(tm_["lr"]) == pytest.approx(float(jm_["lr"]), rel=1e-6)
+        assert int(tstate["opt"].step) == int(jstate["opt"].step) == step + 1
+        _assert_tree_close(tstate["params"], jstate["params"], 1e-3,
+                           scale=kw["learning_rate"], what="params")
+        _assert_tree_close(tstate["opt"].mu, jstate["opt"].mu, 1e-4,
+                           what="mu")
+        _assert_tree_close(tstate["opt"].nu, jstate["opt"].nu, 1e-4,
+                           what="nu")
+
+
+def test_donated_step_updates_in_place(ref):
+    """``donate_state`` (the default) writes the new parameters and
+    moments into the input state's tensors; without it they are new
+    tensors and the input is untouched; both give the same values."""
+    _, _, tm, tp = ref
+    _, tb = _batch(tm.cfg)
+    out = {}
+    for donate in (True, False):
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0,
+                           donate_state=donate)
+        state = {"params": adamw.tree_map(torch.clone, tp),
+                 "opt": adamw.init(tp, tcfg)}
+        w = state["params"]["final_norm"]["scale"]
+        before = w.clone()
+        new, _ = ST.make_train_step(tm, tcfg)(state, tb)
+        assert (new["params"]["final_norm"]["scale"] is w) == donate
+        assert torch.equal(w, before) != donate
+        out[donate] = new
+    for path, t in _flat(out[True]["params"]).items():
+        assert torch.equal(t, _flat(out[False]["params"])[path]), path
+
+
+def test_train_main_loss_falls_and_resume_is_exact(tmp_path, capsys):
+    """``train.main`` on the CPU: the loss falls over 30 steps; 10 steps,
+    then a resume to 20, equal 20 straight (step-keyed data, exact
+    checkpoints); the optimizer state comes back as an ``OptState``."""
+    common = ["--arch", ARCH, "--reduced", "--batch", "4", "--seq", "64",
+              "--device", "cpu", "--log-every", "100"]
+    losses = TR.main(common + ["--steps", "30", "--lr", "3e-3",
+                               "--ckpt-dir", str(tmp_path / "a"),
+                               "--ckpt-every", "100"])
+    assert len(losses) == 30
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2
+    sched = ["--schedule-steps", "20", "--warmup", "2"]
+    d1 = str(tmp_path / "run1")
+    TR.main(common + sched + ["--steps", "10", "--ckpt-dir", d1,
+                              "--ckpt-every", "10"])
+    state, step = CKPT.restore(d1, device="cpu")
+    assert step == 10 and isinstance(state["opt"], adamw.OptState)
+    assert int(state["opt"].step) == 10
+    resumed = TR.main(common + sched + ["--steps", "20", "--ckpt-dir", d1,
+                                        "--ckpt-every", "100", "--resume"])
+    straight = TR.main(common + sched + ["--steps", "20", "--ckpt-dir",
+                                         str(tmp_path / "run2"),
+                                         "--ckpt-every", "100"])
+    assert "resumed from step 10" in capsys.readouterr().out
+    assert resumed == straight[10:]
+
+
+def test_sigterm_checkpoints_and_exits(tmp_path, monkeypatch):
+    """A SIGTERM during step 3 makes ``train.main`` checkpoint after that
+    step and return; the handler it replaced is back afterwards, and a
+    resume goes on from step 4."""
+    import os
+    import signal
+    from repro_torch.distributed.monitor import StepMonitor
+    stop = StepMonitor.stop
+    calls = []
+
+    def stop_and_signal(self):
+        calls.append(1)
+        if len(calls) == 4:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return stop(self)
+
+    monkeypatch.setattr(StepMonitor, "stop", stop_and_signal)
+    before = signal.getsignal(signal.SIGTERM)
+    args = ["--arch", ARCH, "--reduced", "--batch", "2", "--seq", "16",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "100", "--log-every", "100"]
+    losses = TR.main(args + ["--steps", "10"])
+    assert len(losses) == 4 and CKPT.latest_step(str(tmp_path)) == 4
+    assert signal.getsignal(signal.SIGTERM) is before
+    monkeypatch.setattr(StepMonitor, "stop", stop)
+    assert len(TR.main(args + ["--steps", "6", "--resume"])) == 2
+
+
+def test_token_batches_follow_the_reference_recipe():
+    """Step-keyed (same step, same batch; another step, another batch),
+    the motif on every position with (pos // 8) % 4 == 0, targets the
+    next tokens, and the dense family's modality stub is the identity."""
+    cfg = get_config(ARCH, reduced=True)
+    a, b = DATA.batch_at(5, cfg, 3, 70), DATA.batch_at(5, cfg, 3, 70)
+    c = DATA.batch_at(6, cfg, 3, 70)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["tokens"], c["tokens"])
+    full = torch.cat([a["tokens"], a["targets"][:, -1:]], 1)
+    assert torch.equal(a["targets"], full[:, 1:])
+    pos = torch.arange(71)
+    motif_pos = pos[(pos // 8) % 4 == 0]
+    for row in full:
+        m = row[motif_pos]
+        assert torch.equal(m, row[motif_pos % 8][:len(m)])
+    assert int(full.max()) < cfg.vocab_size and int(full.min()) >= 0
+    assert torch.equal(a["mask"], torch.ones(3, 70))
+    assert DATA.add_modality_stub(a, cfg, 5) is a
+    with pytest.raises(NotImplementedError, match="14c"):
+        DATA.add_modality_stub(a, cfg.replace(family="vlm"), 5)
+
+
+def test_training_refusals():
+    with pytest.raises(NotImplementedError, match="14c"):
+        TrainConfig(grad_compression="int8_ef")
+    cfg = get_config(ARCH, reduced=True)
+    with pytest.raises(NotImplementedError, match="14c"):
+        LM.lm_loss({}, {}, cfg.replace(mtp_depth=1))
+    assert cfg.remat == "none" and get_config(ARCH).remat == "full"
+    assert (cfg.loss_chunk, cfg.opt_state_dtype) == (2048, "float32")
+
+
+def test_cpu_training_launches_no_kernel(ref):
+    """On CPU tensors the loss's attention runs the plain versions (its
+    gradient too) and no kernel counts a launch."""
+    _, _, tm, tp = ref
+    _, tb = _batch(tm.cfg)
+    AK.KERNEL.reset_counts()
+    ST.loss_and_grads(tm, tp, tb)
+    assert AK.KERNEL.launches == 0
