@@ -30,11 +30,14 @@ Phases (any failure exits non-zero; nothing is caught):
    per call (must be 1) and the device time of an empty kernel of the
    same launch shape (its floor); flash_attention_bwd (K7) at the
    training shape (B = 4 x 32 heads, 1024 tokens, head_dim 64, group 4)
-   in bf16 and f32 against its plain version (f32 2e-5 of max |grad|,
-   bf16 no further from the f32 plain gradient than plain bf16, x1.5),
-   with o and lse from K6's lse output, itself held against the plain
-   logsumexp (1e-4), and SDPA's backward (forward + backward minus
-   forward) as its library yardstick;
+   in bf16 on both variants (``wgmma``, and ``simt`` forced) and in f32
+   (``simt``) against its plain version (f32 2e-5 of max |grad|, bf16 no
+   further from the f32 plain gradient than plain bf16, x1.5; the wgmma
+   kernels twice, bit for bit), with o and lse from K6's lse output,
+   itself held against the plain logsumexp (1e-4); the wgmma and the
+   SIMT kernels timed in turns and by their device time, SDPA's backward
+   (forward + backward minus forward) as the library yardstick, and the
+   wgmma kernels' share of the bound and factor against SDPA logged;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -126,8 +129,8 @@ Phases (any failure exits non-zero; nothing is caught):
    from 0: the loss, gnorm and lr per step, step ms, tokens/s, model
    flops over step time as a share of 989 TFLOP/s, max_memory_allocated,
    flash_attention (2 x 40: the forward and its remat) and
-   flash_attention_bwd (40) launches per step, no plain attention call,
-   and a 1-step profile;
+   flash_attention_bwd (40, all on its wgmma kernels) launches per step,
+   no plain attention call, and a 1-step profile;
 17. [train check] — one step's loss and gradients at full width with 4
    layers: bf16 with the kernels, bf16 plain, f32 plain on the same
    weights and batch; the relative error of every gradient leaf against
@@ -748,12 +751,15 @@ def grad_err(got, want) -> float:
 
 
 def check_flash_attention_bwd(dev):
-    """K7 at the training path's shape (bf16 and f32) against its plain
-    version on the same inputs (o and lse from K6 with its lse output,
-    which is held against the plain logsumexp); timed in turns, its device
-    time per call, and SDPA's backward as the library yardstick (forward
-    + backward of one scaled_dot_product_attention call minus its
-    forward, on the same inputs; never called by the port)."""
+    """K7 at the training path's shape against its plain version on the
+    same inputs (o and lse from K6 with its lse output, which is held
+    against the plain logsumexp): bf16 on the wgmma kernels (the variant
+    ``kernel.variant`` names there) and forced onto the SIMT ones, f32
+    on the SIMT ones; the wgmma kernels repeat bit for bit. Both bf16
+    variants timed in turns and by their device time per call, and
+    SDPA's backward as the library yardstick (forward + backward of one
+    scaled_dot_product_attention call minus its forward, on the same
+    inputs; never called by the port)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
@@ -763,57 +769,74 @@ def check_flash_attention_bwd(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     H, KH, D = 32, 8, 64
     BH, G, S = TRAIN_B * H, H // KH, TRAIN_S
+    require(K.variant(torch.bfloat16, D, D) == "wgmma",
+            "the training shape does not reach K7's wgmma kernels")
     errs, abs_errs, lse_errs = {}, {}, {}
-    for dt in ("float32", "bfloat16"):
+    runs = (("float32", "simt"), ("bfloat16", "wgmma"), ("bfloat16", "simt"))
+    for dt, variant in runs:
         dtype = getattr(torch, dt)
-        q = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
-        k = torch.randn(BH // G, S, D, generator=gen, device=dev).to(dtype)
-        v = torch.randn(BH // G, S, D, generator=gen, device=dev).to(dtype)
-        do = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
-        o, lse = K.flash_attention_cuda(q, k, v, group=G, with_lse=True)
-        _, want_lse = REF.flash_attention_lse_ref(q, k, v, group=G)
-        lse_errs[dt] = float((lse - want_lse).abs().max())
-        before = BK.KERNEL.launches
-        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
-        require(BK.KERNEL.launches == before + 1,
-                "flash_attention_bwd did not count its launch")
-        want = REF.flash_attention_bwd_ref(q, k, v, o, lse, do, group=G)
+        if variant == "wgmma" or dt == "float32":     # new inputs per dtype
+            q = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
+            k = torch.randn(BH // G, S, D, generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn(BH // G, S, D, generator=gen,
+                            device=dev).to(dtype)
+            do = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
+            o, lse = K.flash_attention_cuda(q, k, v, group=G, with_lse=True)
+            _, want_lse = REF.flash_attention_lse_ref(q, k, v, group=G)
+            lse_errs[dt] = float((lse - want_lse).abs().max())
+            require(lse_errs[dt] <= LSE_TOL,
+                    f"flash_attention's lse ({dt}) differs from the plain "
+                    f"logsumexp by {lse_errs[dt]:.3e}")
+            want = REF.flash_attention_bwd_ref(q, k, v, o, lse, do, group=G)
+        name = f"{dt} {variant}"
+        forced = None if variant == K.variant(dtype, D, D) else variant
+        before = dict(BK.KERNEL.launches_by_variant)
+        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G,
+                                          force_variant=forced)
+        require(BK.KERNEL.launches_by_variant
+                == {**before, variant: before[variant] + 1},
+                f"flash_attention_bwd ({name}) did not count one {variant} "
+                f"launch")
         torch.cuda.synchronize()
         require(all(bool(torch.isfinite(g.float()).all()) for g in got),
-                f"flash_attention_bwd ({dt}) gave non-finite gradients")
+                f"flash_attention_bwd ({name}) gave non-finite gradients")
         err = grad_err(got, want)
-        abs_errs[dt] = max(float((a.float() - b.float()).abs().max())
-                           for a, b in zip(got, want))
+        abs_errs[name] = max(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(got, want))
+        errs[name] = err
         if dt == "float32":
             require(err <= BWD_TOL, f"flash_attention_bwd (f32) differs "
                                     f"from its plain version: {err:.3e} of "
                                     f"max |grad| > {BWD_TOL:g}")
-            errs[dt] = err
-        else:
-            f32 = REF.flash_attention_bwd_ref(
-                *(t.float() for t in (q, k, v, o)), lse, do.float(), group=G)
-            err_k, err_p = grad_err(got, f32), grad_err(want, f32)
-            log(f"[kernel] flash_attention_bwd bf16 vs the f32 plain "
-                f"gradient: kernel {err_k:.3e}, plain bf16 {err_p:.3e} "
-                f"(held: kernel <= {B_RATIO:g} x plain); kernel vs plain "
-                f"bf16 {err:.3e}")
-            require(err_k <= B_RATIO * err_p,
-                    "flash_attention_bwd (bf16) is further from the f32 "
-                    "gradient than the plain bf16 gradient is")
-            errs[dt] = err
-            del f32
-        require(lse_errs[dt] <= LSE_TOL, f"flash_attention's lse ({dt}) "
-                                         f"differs from the plain logsumexp "
-                                         f"by {lse_errs[dt]:.3e}")
-        del got, want
+            continue
+        f32 = REF.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), lse, do.float(), group=G)
+        err_k, err_p = grad_err(got, f32), grad_err(want, f32)
+        log(f"[kernel] flash_attention_bwd bf16 ({variant}) vs the f32 "
+            f"plain gradient: kernel {err_k:.3e}, plain bf16 {err_p:.3e} "
+            f"(held: kernel <= {B_RATIO:g} x plain); kernel vs plain bf16 "
+            f"{err:.3e}")
+        require(err_k <= B_RATIO * err_p,
+                f"flash_attention_bwd (bf16, {variant}) is further from the "
+                f"f32 gradient than the plain bf16 gradient is")
+        if variant == "wgmma":
+            again = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    "flash_attention_bwd (wgmma) differs between two runs")
+            del again
+        del f32
     log(f"[kernel] flash_attention lse vs the plain logsumexp (training "
         f"shape): {lse_errs} (tolerance {LSE_TOL:g} absolute)")
 
     # q, k, v, o, do, lse of the bf16 case are timed
     call = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
+    simt = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G,
+                                               force_variant="simt")
     plain = lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 group=G)
     ms, plain_ms = in_turns(plain, call, 5)
+    wgmma_ms, simt_ms = in_turns(simt, call, 5)
     q4, k4, v4, do4 = (t.view(TRAIN_B, -1, S, D) for t in (q, k, v, do))
     leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
 
@@ -836,7 +859,17 @@ def check_flash_attention_bwd(dev):
     n_ops = 2 * (3 * D + 2 * D) * pairs
     # q, o, do read and dq written; k, v read and dk, dv written; lse read
     n_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
-    return {"kernel": BK.KERNEL, "max_abs_err": abs_errs["bfloat16"],
+    dev_us_ = device_us(BK.KERNEL, call, 5)
+    simt_dev_us = device_us(BK.KERNEL, simt, 5)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    log(f"[kernel] flash_attention_bwd wgmma at the training shape: "
+        f"{dev_us_:.2f} us device ({wgmma_ms * 1e3:.2f} us by events, "
+        f"in turns with simt {simt_ms * 1e3:.2f}), simt {simt_dev_us:.2f} "
+        f"us device ({simt_dev_us / dev_us_:.2f}x); bound {b_ms * 1e3:.2f} "
+        f"us by {b_by}: {100 * b_ms * 1e3 / dev_us_:.1f} % of it; SDPA's "
+        f"backward {lib_dev:.2f} us device: the kernels take "
+        f"{dev_us_ / lib_dev:.2f}x its time")
+    return {"kernel": BK.KERNEL, "max_abs_err": abs_errs["bfloat16 wgmma"],
             "ms": ms, "plain_ms": plain_ms, "n_bytes": n_bytes,
             "n_ops": n_ops, "ops_per_s": BF16_OPS_PER_S,
             "library_ms": lib_ms - lib_fwd_ms,
@@ -844,12 +877,20 @@ def check_flash_attention_bwd(dev):
             "library_note": "scaled_dot_product_attention(is_causal, "
                             "enable_gqa) forward + backward minus its "
                             "forward, on the same inputs",
-            "device_us": device_us(BK.KERNEL, call, 5),
+            "device_us": dev_us_,
+            "variant": "wgmma",
+            "simt_device_us": simt_dev_us,
+            "simt_ms": simt_ms,
+            "simt_note": f"the SIMT kernels on the same inputs, in turns "
+                         f"with the wgmma ones ({wgmma_ms:.5f} ms); max "
+                         f"abs err to the plain version "
+                         f"{abs_errs['bfloat16 simt']:.3e}",
             "shape": f"q/o/do ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), "
                      f"group {G}, causal, bf16 (f32 checked too)",
-            "check": f"f32 {BWD_TOL:g} of max |grad|; bf16 no further from "
-                     f"the f32 plain gradient than plain bf16, x{B_RATIO:g}; "
-                     f"K6 lse {LSE_TOL:g} absolute",
+            "check": f"f32 {BWD_TOL:g} of max |grad|; bf16 (wgmma and simt) "
+                     f"no further from the f32 plain gradient than plain "
+                     f"bf16, x{B_RATIO:g}; wgmma bit for bit twice; K6 lse "
+                     f"{LSE_TOL:g} absolute",
             "errs": errs, "abs_errs": abs_errs, "lse_errs": lse_errs}
 
 
@@ -2447,7 +2488,8 @@ class PlainCalls:
 
 def train_phase(dev):
     """granite-3-2b training at full width (see the module docstring);
-    returns the kernels' launch counts over the timed steps."""
+    returns the kernels' launch counts over the timed steps and K7's
+    counts by variant."""
     import torch
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import tokens as DATA
@@ -2486,22 +2528,25 @@ def train_phase(dev):
     with PlainCalls() as plain_calls:
         for i, b in enumerate(batches[TRAIN_WARMUP:-1]):
             n6, n7 = K6.launches, K7.launches
+            w7 = K7.launches_by_variant["wgmma"]
             t0 = time.perf_counter()
             state, m = step(state, b)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             rows.append((dt, float(m["loss"]), float(m["gnorm"]),
                          float(m["lr"]), K6.launches - n6,
-                         K7.launches - n7))
+                         K7.launches - n7,
+                         K7.launches_by_variant["wgmma"] - w7))
     launches = {k.name: k.launches for k in kernels}
+    variants = dict(K7.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_B * TRAIN_S
     fwd = train_flops(cfg, TRAIN_B, TRAIN_S)
     step_s = float(np.mean([r[0] for r in rows]))
-    for i, (dt, loss, gnorm, lr, n6, n7) in enumerate(rows):
+    for i, (dt, loss, gnorm, lr, n6, n7, w7) in enumerate(rows):
         log(f"[train] step {TRAIN_WARMUP + i}: loss {loss:.5f} gnorm "
             f"{gnorm:.5f} lr {lr:.3e}, {dt * 1e3:.3f} ms, flash_attention "
-            f"{n6} launches, flash_attention_bwd {n7}")
+            f"{n6} launches, flash_attention_bwd {n7} ({w7} wgmma)")
         require(np.isfinite(loss) and np.isfinite(gnorm),
                 "[train] non-finite loss or gradient norm")
         require(n6 == 2 * cfg.num_layers and n7 == cfg.num_layers,
@@ -2509,6 +2554,9 @@ def train_phase(dev):
                 f"flash_attention_bwd {n7} times, expected "
                 f"{2 * cfg.num_layers} (forward + remat) and "
                 f"{cfg.num_layers}")
+        require(w7 == n7, f"[train] {n7 - w7} of a step's {n7} "
+                          f"flash_attention_bwd launches ran the SIMT "
+                          f"kernels, not the wgmma ones")
     require(plain_calls.calls == 0, f"[train] {plain_calls.calls} calls of "
                                     "the plain attention on the card")
     share = lambda flops: 100 * flops / step_s / BF16_OPS_PER_S
@@ -2522,7 +2570,7 @@ def train_phase(dev):
     profile_window("train", lambda: step(state, batches[-1]), 1, "step")
     del state, batches
     torch.cuda.empty_cache()
-    return launches
+    return launches, variants
 
 
 def train_check_phase(dev):
@@ -2778,7 +2826,7 @@ def main() -> int:
 
     # 16. training at full width (launch counts start at 0 again), the
     # step against the plain versions and f32; 17. the examples
-    train_launches = train_phase(dev)
+    train_launches, train_variants = train_phase(dev)
     train_check_phase(dev)
     examples_phase(dev)
 
@@ -2789,7 +2837,8 @@ def main() -> int:
                  "serving_mesh": serving_mesh_launches,
                  "elastic": elastic_launches, "serve": serve_launches,
                  "train": train_launches},
-        {"flash_attention": serve_variants})}))
+        {"flash_attention": serve_variants,
+         "flash_attention_bwd": train_variants})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -2,7 +2,7 @@
 // (K7): given q (BH, Sq, D), k (BH/group, Sk, D), v (BH/group, Sk, Dv), the
 // forward's output o and per-row logsumexp lse (BH, Sq) f32 (K6 with an lse
 // pointer), and the output's gradient do (BH, Sq, Dv), computes dq, dk, dv
-// in the inputs' dtype (f32 or bf16), all arithmetic in f32.
+// in the inputs' dtype (f32 or bf16).
 //
 // Replaces: no Pallas kernel. The reference's backward is pure JAX under
 //   jax.custom_vjp (src/repro/models/attention.py, _flash_core_bwd): it
@@ -15,13 +15,19 @@
 // Bound on this card: operations. The five products S, dP, dV, dK and dQ
 // are 2 * (2 D + 2 Dv + D) flops per (query, key) pair the mask keeps; at
 // the training shape (BH = 128, Sq = Sk = 1024, D = Dv = 64, causal) that
-// is 4.29e10 flops, 43.4 us at the bf16 tensor-core rate. This first
-// version runs f32 FMAs on the CUDA cores (67 TFLOP/s at best) and
-// recomputes S and dP in both passes below, so it is far above the bound;
-// tensor cores (wgmma) and TMA are later work.
+// is 4.29e10 flops, 43.4 us at the bf16 tensor-core rate.
 //
-// Three kernels, one C entry, no float atomics: every output element is
-// summed by one thread in a fixed order, so a run repeats bit for bit.
+// Two variants behind one C entry, chosen by the caller under the rule of
+// K6 (kernels/flash_attention/kernel.py variant()): "wgmma" for bf16 with
+// D == Dv in {64, 128}, "simt" for everything else (f32, whose 2e-5
+// contract TF32 tensor cores would break, and bf16 at other head dims).
+// The entry refuses a wgmma launch that breaks the rule. Neither uses
+// float atomics: every output element is summed by one thread in a fixed
+// order, so a run repeats bit for bit.
+//
+// simt: all arithmetic in f32 FMAs on the CUDA cores (67 TFLOP/s at
+// best), S and dP recomputed in both passes; the f32 path and the
+// yardstick the wgmma variant is timed against.
 //   (a) attn_bwd_dsum_kernel: one warp per query row, Dsum = sum do * o.
 //   (b) attn_bwd_dkdv_kernel: one block of 256 threads per (kv head, 64-row
 //       key tile), heaviest tiles first. K and V tiles stay in shared
@@ -35,13 +41,74 @@
 //       heaviest first; it walks the key tiles up to the diagonal,
 //       recomputes S and dP, writes ds to shared memory and accumulates dq
 //       for its 4 query rows x D/16 columns in registers.
+//
+// wgmma: every product on the tensor cores (wgmma m64nNk16, bf16 in, f32
+// accumulators in registers), tiles fed by TMA (hopper.cuh, shared with
+// K6), three kernels per call.
+//   (a) attn_bwd_prep_kernel: Dv / 8 lanes (16-byte loads) per query row
+//       of a head padded to kRowPad rows: Dsum = sum do * o (0 past Sq) and
+//       lse * log2 e (+inf past Sq, so p = 0 there) into one scratch (2,
+//       BH, Sp), whose 64-row slices a TMA bulk copy can fetch whole.
+//   (b) attn_bwd_dkdv_wgmma_kernel: one block per (kv head, 128-row key
+//       tile), lowest (causally heaviest) key tiles first, of three
+//       warpgroups. Warpgroup 0 is the producer: it lowers its registers
+//       with setmaxnreg and one thread issues the TMA loads, the block's K
+//       and V tiles once, then each 64-row query tile's Q and dO (128-byte
+//       swizzle) and its lse and Dsum slices into a 2-stage ring guarded by
+//       full (TMA bytes) and empty (consumer release) mbarriers, over the
+//       `group` query heads of the kv head and, under the causal mask, only
+//       the query tiles that reach the block's keys. Warpgroups 1 and 2 own
+//       64 keys each and raise their registers to 240 (the launch's 168 x
+//       384 register file regrouped as 24 / 240 / 240; the entry refuses a
+//       build whose kernel does not start at 168, since setmaxnreg.inc
+//       would then wait for registers forever). Per query tile a consumer
+//       runs S^T = K Q^T and dP^T = V dO^T (both operands from shared
+//       memory, K-major), then p and ds in registers in one pass, then
+//       dV += P^T dO (P^T from registers, dO MN-major through the
+//       transpose bit) and dK += dS^T Q, each as two products, hi then lo. The same shared tile of Q
+//       (of dO) is the K-major B of S^T (dP^T) and the MN-major B of dK
+//       (dV), through two descriptors. The accumulator of S^T has keys as
+//       rows and queries as columns, so lse and Dsum are read from shared
+//       memory per fragment column. dK and dV stay in registers across the
+//       whole walk and are stored once, in bf16. A consumer skips a query
+//       tile that lies wholly before its keys (it only releases it); only
+//       tiles that cross the diagonal or the end of Sq or Sk are masked.
+//   (c) attn_bwd_dq_wgmma_kernel: one block per (q head, 128-row query
+//       tile), heaviest first: K6's warpgroups with the Q and dO tiles
+//       loaded once and a 2-stage ring of kDqBK-row K and V tiles up to the
+//       diagonal. Each consumer owns 64 query rows and runs S = Q K^T and
+//       dP = dO V^T (both from shared memory) and dQ += dS K (dS from
+//       registers, K MN-major), dS again as hi then lo. S and dP are
+//       committed apart, so p is computed while dP runs.
+//   Rounding points: S and dP accumulate in f32 from bf16 inputs; p =
+//   2^(s * scale * log2 e - lse * log2 e) in f32 with ex2.approx.ftz as in
+//   K6; ds = p * (dp - Dsum) * scale in f32; p (as dV's A operand) and ds
+//   (as dK's and dQ's) are each entered as a pair hi = bf16(x), lo =
+//   bf16(x - hi), so their products see 16 of x's mantissa bits; dk, dv and
+//   dq are rounded to bf16 once. A single bf16 rounding is not enough:
+//   rounded once, ds can put dq, and p can put dv, more than 1.5x further
+//   from the f32 gradient than the plain bf16 gradient (dv when one p
+//   dominates a key's sum, as in the full softmax with group 1);
+//   tests/test_torch_flash_bwd.py models the roundings.
+//   Operation count: 10 products against the 5 the bound counts: (b) runs
+//   4 + 2 (dV's and dK's lo), (c) 3 + 1 (dQ's lo). The lo products are the
+//   price of holding the x1.5 rule; recomputing S and dP in (c) is the
+//   price of determinism: summing dq inside (b) with float atomics (FA2's
+//   and FA3's way) would make runs differ in their last bits.
+//   Ragged Sq and Sk: the 3-D tensor maps (D, S, BH) zero-fill rows past S,
+//   and keys >= Sk and rows >= Sq are masked to p = 0. A barrier wait that
+//   exceeds ~2^34 cycles traps instead of hanging the card.
+//
 // Masked (query, key) pairs (keys >= Sk, rows >= Sq, and keys past the
 // row under the top-left causal mask) get p = 0, as exp(-1e30 - lse) is in
 // the reference.
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -478,29 +545,696 @@ int launch_dims(const void* q, const void* k, const void* v, const void* o,
                          Sq, Sk, D, Dv, scale, causal, s);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core variant (bf16, D == Dv in {64, 128})
+
+constexpr int kRowPad = 128;      // the prep scratch's rows per head: Sq up
+                                  // to a multiple of this (kernels/flash_
+                                  // attention/bwd_kernel.py ROW_PAD)
+constexpr int kConsumers = 2;     // consumer warpgroups of 64 rows each
+constexpr int kStages = 2;        // ring depth
+constexpr int kWgThreads = 128 * (kConsumers + 1);
+// __launch_bounds__(384, 1) gives every thread 168 registers; setmaxnreg
+// regroups them as 24 (producer) + 2 x 240 (consumers) = 3 x 168
+constexpr int kLaunchRegs = 168;
+constexpr int kDkdvBK = 128;      // keys per dK, dV block (64 per consumer)
+constexpr int kDkdvBQ = 64;       // query rows per dK, dV ring tile
+constexpr int kDqBQ = 128;        // query rows per dQ block (64 per consumer)
+constexpr int kDqBK = 128;        // keys per dQ ring tile
+constexpr float kMasked = -1e30f; // a masked raw score: p = 2^(-huge) = 0
+
+// (a) Dsum and lse * log2 e of every query row, each head padded to Sp rows
+// (Dsum 0 and lse * log2 e = +inf past Sq): Dv / 8 lanes per row, each
+// loading 16 bytes of o and of do. Sp is a multiple of kRowPad, so every
+// warp is whole.
+template <int Dv>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ lse2,
+                     float* __restrict__ dsum, int BH, int Sq, int Sp) {
+  constexpr int kLanes = Dv / 8;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
+  const int part = threadIdx.x % kLanes;
+  if (row >= static_cast<long long>(BH) * Sp) return;  // whole warps
+  const int bh = static_cast<int>(row / Sp);
+  const int i = static_cast<int>(row - static_cast<long long>(bh) * Sp);
+  const long long r = static_cast<long long>(bh) * Sq + i;
+  float acc = 0.f;
+  if (i < Sq) {
+    const uint4 a = reinterpret_cast<const uint4*>(o + r * Dv)[part];
+    const uint4 b = reinterpret_cast<const uint4*>(dout + r * Dv)[part];
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]);
+      const float2 y = __bfloat1622float2(b2[e]);
+      acc = fmaf(y.x, x.x, acc);
+      acc = fmaf(y.y, x.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0) {
+    lse2[row] = i < Sq ? lse[r] * kLog2e : INFINITY;
+    dsum[row] = acc;
+  }
+}
+
+// x0, x1 as bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
+// The two register passes of a tile, on the f32 accumulators of S (raw
+// scores) and dP element for element (4j + e, hopper.cuh's layout); the
+// A fragments they fill take, at k16 step kk, the columns 16kk..16kk+15:
+// the accumulator's n-blocks 2kk and 2kk + 1.
+//
+// p_tile: sc[i] = p = 2^(s * scale * log2 e + nl), nl = -lse * log2 e of
+// the element's query (stats(j, e)), 0 where masked(j, e) (asked only
+// when `edge`)
+template <int N, typename Masked, typename Stats>
+__device__ __forceinline__ void p_tile(float (&sc)[N], bool edge,
+                                       Masked masked, Stats stats,
+                                       float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float s = edge && masked(j, e) ? kMasked : sc[4 * j + e];
+      sc[4 * j + e] = ex2(fmaf(s, scale_log2, stats(j, e)));
+    }
+}
+
+// ds_tile: ds = p * (dp - Dsum) * scale (Dsum of the element's query:
+// dsum(j, e)) into the hi and lo A fragments dh and dl
+template <int N, typename Dsum>
+__device__ __forceinline__ void ds_tile(const float (&p)[N],
+                                        const float (&dp)[N],
+                                        uint32_t (&dh)[N / 8][4],
+                                        uint32_t (&dl)[N / 8][4], Dsum dsum,
+                                        float scale) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ds[e] = p[4 * j + e] * (dp[4 * j + e] - dsum(j, e)) * scale;
+    const int kk = j / 2, r = (j % 2) * 2;
+    split_bf16(ds[0], ds[1], dh[kk][r], dl[kk][r]);
+    split_bf16(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
+  }
+}
+
+// p_tile and ds_tile in one pass, element by element, once both products
+// are done: the dK, dV kernel's way (its S^T and dP^T registers die as its
+// fragments fill), with p entered as hi and lo too (ph, pl). On the card
+// the two passes made that kernel slower and the dQ kernel faster, so each
+// keeps its own.
+template <int N, typename Masked, typename Stats, typename Dsum>
+__device__ __forceinline__ void p_ds_tile(
+    const float (&sc)[N], const float (&dp)[N], uint32_t (&ph)[N / 8][4],
+    uint32_t (&pl)[N / 8][4], uint32_t (&dh)[N / 8][4],
+    uint32_t (&dl)[N / 8][4], bool edge, Masked masked, Stats stats,
+    Dsum dsum, float scale_log2, float scale) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float s = edge && masked(j, e) ? kMasked : sc[4 * j + e];
+      p[e] = ex2(fmaf(s, scale_log2, stats(j, e)));
+      ds[e] = p[e] * (dp[4 * j + e] - dsum(j, e)) * scale;
+    }
+    const int kk = j / 2, r = (j % 2) * 2;
+    split_bf16(p[0], p[1], ph[kk][r], pl[kk][r]);
+    split_bf16(p[2], p[3], ph[kk][r + 1], pl[kk][r + 1]);
+    split_bf16(ds[0], ds[1], dh[kk][r], dl[kk][r]);
+    split_bf16(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
+  }
+}
+
+// the first 1024-byte boundary of dynamic shared memory (128-byte swizzle)
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+template <int D>
+struct DkdvLayout {
+  static constexpr int kBlocks = D / 64;                // 64-column blocks
+  static constexpr int kKBlock = kDkdvBK * kRowBytes;   // one block of K, V
+  static constexpr int kKBytes = kKBlock * kBlocks;
+  static constexpr int kQBlock = kDkdvBQ * kRowBytes;   // one of Q or dO
+  static constexpr int kQBytes = kQBlock * kBlocks;     // one stage of either
+  static constexpr int kVecBytes = kDkdvBQ * 4;         // a tile's lse2, Dsum
+  // K, V, the Q ring, the dO ring, the (lse2, Dsum) ring, then the
+  // mbarriers full_kv, full[], empty[]; plus 1024 bytes of alignment
+  static constexpr int kQOff = 2 * kKBytes;
+  static constexpr int kDoOff = kQOff + kStages * kQBytes;
+  static constexpr int kVecOff = kDoOff + kStages * kQBytes;
+  static constexpr int kBarOffset = kVecOff + kStages * 2 * kVecBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
+
+// (b) dK, dV: one block per (kv head, 128-row key tile)
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse2,
+                           const float* __restrict__ dsum,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int BHkv,
+                           int group, int Sq, int Sk, int Sp, float scale,
+                           float scale_log2, int causal) {
+  using L = DkdvLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sk = aligned_smem(smem_raw);
+  uint8_t* const sv = sk + L::kKBytes;
+  uint8_t* const sq = sk + L::kQOff;                   // [kStages][kQBytes]
+  uint8_t* const sdo = sk + L::kDoOff;                 // [kStages][kQBytes]
+  float* const svec =                                  // [kStages][2][64]
+      reinterpret_cast<float*>(sk + L::kVecOff);
+  uint64_t* const full_kv = reinterpret_cast<uint64_t*>(sk + L::kBarOffset);
+  uint64_t* const full = full_kv + 1;
+  uint64_t* const empty = full + kStages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kConsumers);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // blocks take the lowest key tiles first: under the causal mask they
+  // meet the most query tiles
+  const int kvh = blockIdx.x % BHkv;
+  const int k0 = static_cast<int>(blockIdx.x / BHkv) * kDkdvBK;
+  const int nq = (Sq + kDkdvBQ - 1) / kDkdvBQ;
+  // causal: query tiles before k0's hold only rows < k0, which see none of
+  // the block's keys; tiles are walked head by head, the ring running on
+  const int qt0 = causal ? min(k0 / kDkdvBQ, nq) : 0;
+  const int per_head = nq - qt0;
+  const int n_tiles = group * per_head;
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_kv, 2 * L::kKBytes);
+#pragma unroll
+      for (int b = 0; b < L::kBlocks; ++b) {
+        tma_load(sk + b * L::kKBlock, &tk, full_kv, 64 * b, k0, kvh);
+        tma_load(sv + b * L::kKBlock, &tv, full_kv, 64 * b, k0, kvh);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int bh = kvh * group + it / per_head;
+        const int q0 = (qt0 + it % per_head) * kDkdvBQ;
+        const int s = it % kStages;
+        // the stage's tile before last released (passes at once at first)
+        mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * L::kQBytes + 2 * L::kVecBytes);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b) {
+          tma_load(sq + s * L::kQBytes + b * L::kQBlock, &tq, full + s,
+                   64 * b, q0, bh);
+          tma_load(sdo + s * L::kQBytes + b * L::kQBlock, &tdo, full + s,
+                   64 * b, q0, bh);
+        }
+        const long long row = static_cast<long long>(bh) * Sp + q0;
+        bulk_load(svec + s * 2 * kDkdvBQ, lse2 + row, L::kVecBytes, full + s);
+        bulk_load(svec + s * 2 * kDkdvBQ + kDkdvBQ, dsum + row, L::kVecBytes,
+                  full + s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  // consumer warpgroups: cw owns keys kb .. kb + 63
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb = k0 + 64 * cw;
+  const int key0 = kb + 16 * warp + g, key1 = key0 + 8;  // this thread's keys
+  // K, V rows of this warpgroup as K-major A; Q, dO as the K-major B of
+  // S^T, dP^T and as the MN-major B of dK, dV
+  const uint64_t dka = make_desc(sk + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t dva = make_desc(sv + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t dqk = make_desc(sq, 16, 1024);
+  const uint64_t dok = make_desc(sdo, 16, 1024);
+  const uint64_t dqm = make_desc(sq, L::kQBlock, 1024);
+  const uint64_t dom = make_desc(sdo, L::kQBlock, 1024);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float adk[D / 2], adv[D / 2], st[kDkdvBQ / 2], dpt[kDkdvBQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDkdvBQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t ph[kDkdvBQ / 16][4], pl[kDkdvBQ / 16][4];
+  uint32_t dh[kDkdvBQ / 16][4], dl[kDkdvBQ / 16][4];
+
+  mbar_wait(full_kv, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (qt0 + it % per_head) * kDkdvBQ;
+    const int s = it % kStages;
+    mbar_wait(full + s, (it / kStages) & 1);
+    // causal: a tile wholly before this warpgroup's keys adds nothing
+    if (!(causal && q0 + kDkdvBQ <= kb)) {
+      // S^T = K Q^T and dP^T = V dO^T: D/16 steps of k16; a step advances
+      // 32 bytes inside a 128-byte swizzled row, or moves to the next
+      // 64-column block
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_row = (kk % 4) * 32;
+        const uint32_t oa = (kk / 4) * L::kKBlock + in_row;
+        const uint32_t ob = s * L::kQBytes + (kk / 4) * L::kQBlock + in_row;
+        wgmma_ss(st, dka + (oa >> 4), dqk + (ob >> 4), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_row = (kk % 4) * 32;
+        const uint32_t oa = (kk / 4) * L::kKBlock + in_row;
+        const uint32_t ob = s * L::kQBytes + (kk / 4) * L::kQBlock + in_row;
+        wgmma_ss(dpt, dva + (oa >> 4), dok + (ob >> 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(st);
+      keep(dpt);
+
+      // rows are keys, columns queries: lse and Dsum per column
+      const float* const vec = svec + s * 2 * kDkdvBQ;
+      const bool edge =
+          (causal && q0 < kb + 63) || kb + 64 > Sk || q0 + kDkdvBQ > Sq;
+      p_ds_tile(
+          st, dpt, ph, pl, dh, dl, edge,
+          [&](int j, int e) {
+            const int key = e < 2 ? key0 : key1;
+            const int qp = q0 + 8 * j + 2 * t + (e & 1);
+            return key >= Sk || qp >= Sq || (causal && key > qp);
+          },
+          [&](int j, int e) { return -vec[8 * j + 2 * t + (e & 1)]; },
+          [&](int j, int e) {
+            return vec[kDkdvBQ + 8 * j + 2 * t + (e & 1)];
+          },
+          scale_log2, scale);
+
+      // dV += P^T dO, dK += dS^T Q (each hi, then lo): dO and Q are the
+      // MN-major B operands; a k16 step is 16 query rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+        wgmma_rs(adv, ph[kk],
+                 dom + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+#pragma unroll
+      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+        wgmma_rs(adv, pl[kk],
+                 dom + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+#pragma unroll
+      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+        wgmma_rs(adk, dh[kk],
+                 dqm + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+#pragma unroll
+      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+        wgmma_rs(adk, dl[kk],
+                 dqm + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(adv);
+      keep(adk);
+      keep(ph);
+      keep(pl);
+      keep(dh);
+      keep(dl);
+    }
+    release(empty + s);
+  }
+
+  const long long base = static_cast<long long>(kvh) * Sk;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (key0 < Sk) {
+      const long long r = (base + key0) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + r) =
+          __floats2bfloat162_rn(adk[4 * j], adk[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + r) =
+          __floats2bfloat162_rn(adv[4 * j], adv[4 * j + 1]);
+    }
+    if (key1 < Sk) {
+      const long long r = (base + key1) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + r) =
+          __floats2bfloat162_rn(adk[4 * j + 2], adk[4 * j + 3]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + r) =
+          __floats2bfloat162_rn(adv[4 * j + 2], adv[4 * j + 3]);
+    }
+  }
+}
+
+template <int D>
+struct DqLayout {
+  static constexpr int kBlocks = D / 64;                // 64-column blocks
+  static constexpr int kQBlock = kDqBQ * kRowBytes;     // one block of Q, dO
+  static constexpr int kQBytes = kQBlock * kBlocks;
+  static constexpr int kKBlock = kDqBK * kRowBytes;     // one of K or V
+  static constexpr int kKBytes = kKBlock * kBlocks;     // one stage of either
+  // Q, dO, the K ring, the V ring, then the mbarriers full_q, full_k[],
+  // full_v[], empty[]; plus 1024 bytes of alignment
+  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOffset = kVOff + kStages * kKBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 3 * kStages);
+};
+
+// (c) dQ: one block per (q head, 128-row query tile)
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ dsum,
+                         __nv_bfloat16* __restrict__ dq, int BH, int group,
+                         int Sq, int Sk, int Sp, float scale,
+                         float scale_log2, int causal, int nq) {
+  using L = DqLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sq = aligned_smem(smem_raw);
+  uint8_t* const sdo = sq + L::kQBytes;
+  uint8_t* const sk = sq + L::kKOff;                   // [kStages][kKBytes]
+  uint8_t* const sv = sq + L::kVOff;                   // [kStages][kKBytes]
+  uint64_t* const full_q = reinterpret_cast<uint64_t*>(sq + L::kBarOffset);
+  uint64_t* const full_k = full_q + 1;
+  uint64_t* const full_v = full_k + kStages;
+  uint64_t* const empty = full_v + kStages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 4 * kConsumers);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // heaviest (last) query tiles first
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kDqBQ;
+  int nk = (Sk + kDqBK - 1) / kDqBK;
+  if (causal) nk = min(nk, (min(q0 + kDqBQ, Sq) - 1) / kDqBK + 1);
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int kvh = bh / group;
+      mbar_expect_tx(full_q, 2 * L::kQBytes);
+#pragma unroll
+      for (int b = 0; b < L::kBlocks; ++b) {
+        tma_load(sq + b * L::kQBlock, &tq, full_q, 64 * b, q0, bh);
+        tma_load(sdo + b * L::kQBlock, &tdo, full_q, 64 * b, q0, bh);
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty + s, ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_k + s, L::kKBytes);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b)
+          tma_load(sk + s * L::kKBytes + b * L::kKBlock, &tk, full_k + s,
+                   64 * b, kt * kDqBK, kvh);
+        mbar_expect_tx(full_v + s, L::kKBytes);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b)
+          tma_load(sv + s * L::kKBytes + b * L::kKBlock, &tv, full_v + s,
+                   64 * b, kt * kDqBK, kvh);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  // consumer warpgroups: cw owns query rows ra .. ra + 63
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = q0 + 64 * cw;
+  const int r0 = ra + 16 * warp + g, r1 = r0 + 8;    // this thread's rows
+  // tiles past nk_wg lie wholly above this warpgroup's rows (causal): they
+  // are only released
+  const int nk_wg = causal ? min(nk, (ra + 63) / kDqBK + 1) : nk;
+  // the padded scratch holds rows up to Sp >= q0 + 128
+  const long long srow = static_cast<long long>(bh) * Sp;
+  const float nl0 = -lse2[srow + r0], nl1 = -lse2[srow + r1];
+  const float ds0 = dsum[srow + r0], ds1 = dsum[srow + r1];
+  // Q, dO rows of this warpgroup as K-major A; K, V as the K-major B of S,
+  // dP; K as the MN-major B of dQ
+  const uint64_t dqa = make_desc(sq + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t doa = make_desc(sdo + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t dkb = make_desc(sk, 16, 1024);
+  const uint64_t dvb = make_desc(sv, 16, 1024);
+  const uint64_t dkm = make_desc(sk, L::kKBlock, 1024);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float adq[D / 2], sc[kDqBK / 2], dp[kDqBK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDqBK / 2; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t dh[kDqBK / 16][4], dl[kDqBK / 16][4];
+
+  mbar_wait(full_q, 0);
+  for (int kt = 0; kt < nk_wg; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t ph = (kt / kStages) & 1;
+    const int k0 = kt * kDqBK;
+    mbar_wait(full_k + s, ph);
+    mbar_wait(full_v + s, ph);
+
+    // S = Q K^T and dP = dO V^T; p while dP runs
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t in_row = (kk % 4) * 32;
+      const uint32_t oa = (kk / 4) * L::kQBlock + in_row;
+      const uint32_t ob = s * L::kKBytes + (kk / 4) * L::kKBlock + in_row;
+      wgmma_ss(sc, dqa + (oa >> 4), dkb + (ob >> 4), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t in_row = (kk % 4) * 32;
+      const uint32_t oa = (kk / 4) * L::kQBlock + in_row;
+      const uint32_t ob = s * L::kKBytes + (kk / 4) * L::kKBlock + in_row;
+      wgmma_ss(dp, doa + (oa >> 4), dvb + (ob >> 4), kk > 0);
+    }
+    wgmma_commit();
+
+    // rows are queries, columns keys: lse and Dsum per row
+    const bool edge =
+        k0 + kDqBK > Sk || (causal && k0 + kDqBK - 1 > ra) || ra + 64 > Sq;
+    wgmma_wait<1>();
+    keep(sc);
+    p_tile(
+        sc, edge,
+        [&](int j, int e) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = e < 2 ? r0 : r1;
+          return kp >= Sk || row >= Sq || (causal && kp > row);
+        },
+        [&](int, int e) { return e < 2 ? nl0 : nl1; }, scale_log2);
+    wgmma_wait<0>();
+    keep(dp);
+    ds_tile(sc, dp, dh, dl, [&](int, int e) { return e < 2 ? ds0 : ds1; },
+            scale);
+
+    // dQ += dS K (hi, then lo): K is the MN-major B operand; a k16 step is
+    // 16 key rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqBK / 16; ++kk)
+      wgmma_rs(adq, dh[kk],
+               dkm + ((s * L::kKBytes + kk * 16 * kRowBytes) >> 4));
+#pragma unroll
+    for (int kk = 0; kk < kDqBK / 16; ++kk)
+      wgmma_rs(adq, dl[kk],
+               dkm + ((s * L::kKBytes + kk * 16 * kRowBytes) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(adq);
+    keep(dh);
+    keep(dl);
+    release(empty + s);
+  }
+  for (int kt = nk_wg; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t ph = (kt / kStages) & 1;
+    mbar_wait(full_k + s, ph);
+    mbar_wait(full_v + s, ph);
+    release(empty + s);
+  }
+
+  __nv_bfloat16* const ob = dq + static_cast<long long>(bh) * Sq * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + static_cast<long long>(r0) * D + col) =
+          __floats2bfloat162_rn(adq[4 * j], adq[4 * j + 1]);
+    if (r1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + static_cast<long long>(r1) * D + col) =
+          __floats2bfloat162_rn(adq[4 * j + 2], adq[4 * j + 3]);
+  }
+}
+
+// The register count the kernel starts with must be the 168 setmaxnreg's
+// 24 / 240 / 240 regrouping assumes: with fewer, setmaxnreg.inc would wait
+// for registers that never come. Looked up once per kernel.
+template <typename Kernel>
+cudaError_t check_regs(Kernel kernel, int* cached) {
+  if (*cached < 0) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return e;
+    *cached = a.numRegs;
+  }
+  return *cached == kLaunchRegs ? cudaSuccess : cudaErrorInvalidKernelImage;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* scratch,
+                 void* dq, void* dk, void* dv, int BH, int group, int Sq,
+                 int Sk, float scale, int causal, cudaStream_t stream) {
+  using A = DkdvLayout<D>;
+  using C = DqLayout<D>;
+  const int BHkv = BH / group;
+  const int Sp = (Sq + kRowPad - 1) / kRowPad * kRowPad;
+  float* const lse2 = scratch;
+  float* const dsum = scratch + static_cast<long long>(BH) * Sp;
+  // D / 8 lanes per padded row
+  const long long lanes = static_cast<long long>(BH) * Sp * (D / 8);
+  attn_bwd_prep_kernel<D><<<static_cast<unsigned>(lanes / kThreads),
+                            kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2, dsum, BH, Sq, Sp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  EncodeTiled enc;
+  const int rc = get_encoder(&enc);
+  if (rc != 0) return rc;
+  CUtensorMap q64, do64, k_dkdv, v_dkdv, q128, do128, k_dq, v_dq;
+  CUresult r = encode(enc, &q64, q, BH, Sq, D, kDkdvBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &do64, dout, BH, Sq, D, kDkdvBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &k_dkdv, k, BHkv, Sk, D, kDkdvBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &v_dkdv, v, BHkv, Sk, D, kDkdvBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &q128, q, BH, Sq, D, kDqBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &do128, dout, BH, Sq, D, kDqBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &k_dq, k, BHkv, Sk, D, kDqBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &v_dq, v, BHkv, Sk, D, kDqBK);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+
+  static int regs_dkdv = -1, regs_dq = -1;
+  auto dkdv_kernel = attn_bwd_dkdv_wgmma_kernel<D>;
+  auto dq_kernel = attn_bwd_dq_wgmma_kernel<D>;
+  e = check_regs(dkdv_kernel, &regs_dkdv);
+  if (e == cudaSuccess) e = check_regs(dq_kernel, &regs_dq);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dkdv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             A::kSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const float scale_log2 = scale * kLog2e;
+  const int nkt = (Sk + kDkdvBK - 1) / kDkdvBK;
+  dkdv_kernel<<<nkt * BHkv, kWgThreads, A::kSmem, stream>>>(
+      q64, k_dkdv, v_dkdv, do64, lse2, dsum, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), BHkv, group, Sq, Sk, Sp, scale,
+      scale_log2, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nq = (Sq + kDqBQ - 1) / kDqBQ;
+  dq_kernel<<<nq * BH, kWgThreads, C::kSmem, stream>>>(
+      q128, k_dq, v_dq, do128, lse2, dsum, static_cast<__nv_bfloat16*>(dq),
+      BH, group, Sq, Sk, Sp, scale, scale_log2, causal, nq);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, o, do, dq: (BH, Sq, D|Dv); k, v, dk, dv: (BH / group, Sk, D|Dv); lse
-// and the Dsum scratch dsum: (BH, Sq) f32. dtype: 0 = float32, 1 =
-// bfloat16 (every tensor but lse and dsum). Launches (a), (b), (c) in
-// order on `stream`; returns 0 or the first cudaError_t.
+// (BH, Sq) f32. scratch: f32, (BH, Sq) for simt (Dsum); (2, BH, Sp) for
+// wgmma (lse * log2 e and Dsum), Sp = Sq rounded up to a multiple of
+// kRowPad. dtype: 0 = float32, 1 = bfloat16 (every tensor but lse and
+// scratch). variant: 0 = simt (any dtype and head dims up to 128), 1 =
+// wgmma (bf16, D == Dv in {64, 128} only: the rule of kernel.py variant(),
+// which names the variant). Launches (a), (b), (c) in order on `stream`;
+// returns 0, the first cudaError_t (cudaErrorInvalidKernelImage when a
+// wgmma kernel was not built with the 168 registers its setmaxnreg
+// regrouping needs), or -CUresult when a tensor map cannot be made.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
-                                   void* dsum, void* dq, void* dk, void* dv,
-                                   int BH, int group, int Sq, int Sk, int D,
-                                   int Dv, float scale, int causal, int dtype,
+                                   void* scratch, void* dq, void* dk,
+                                   void* dv, int BH, int group, int Sq,
+                                   int Sk, int D, int Dv, float scale,
+                                   int causal, int dtype, int variant,
                                    void* stream) {
   if (BH < 1 || group < 1 || BH % group || Sq < 1 || Sk < 1 || D < 1 ||
       D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim ||
       (dtype != 0 && dtype != 1) ||
       static_cast<long long>((Sq + kBQ - 1) / kBQ) * BH > INT_MAX ||
       static_cast<long long>((Sk + kBK - 1) / kBK) * (BH / group) > INT_MAX ||
-      static_cast<long long>(BH) * Sq * 32 / kThreads > INT_MAX)
+      static_cast<long long>(BH) * ((Sq + kRowPad - 1) / kRowPad) * kRowPad *
+              32 / kThreads > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* ds = static_cast<float*>(dsum);
+  float* ds = static_cast<float*>(scratch);
+  const bool tensor_cores = dtype == 1 && D == Dv && (D == 64 || D == 128);
+  if (variant == 1) {
+    if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64 ? launch_wgmma<64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
+                                      group, Sq, Sk, scale, causal, s)
+                   : launch_wgmma<128>(q, k, v, o, dout, l, ds, dq, dk, dv,
+                                       BH, group, Sq, Sk, scale, causal, s);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_dims<float>(q, k, v, o, dout, l, ds, dq, dk, dv, BH, group,
                               Sq, Sk, D, Dv, scale, causal, s);

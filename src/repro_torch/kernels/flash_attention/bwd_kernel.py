@@ -1,5 +1,11 @@
 """Binding of the CUDA kernel ``flash_attention_bwd``
-(csrc/flash_attention_bwd.cu, K7): the gradient of K6's attention."""
+(csrc/flash_attention_bwd.cu, K7): the gradient of K6's attention.
+
+The C entry holds two sets of kernels under K6's rule
+(:func:`kernel.variant`): ``"wgmma"`` (tensor cores, bf16 with D == Dv in
+{64, 128}) and ``"simt"`` (f32 FMAs, every other input); the entry
+refuses a ``"wgmma"`` launch that breaks the rule.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -7,28 +13,57 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
-from repro_torch.kernels.flash_attention.kernel import DTYPES, MAX_HEAD_DIM
+from repro_torch.kernels.flash_attention.kernel import (DTYPES, MAX_HEAD_DIM,
+                                                        VARIANTS,
+                                                        WGMMA_HEAD_DIMS,
+                                                        variant)
+
+# the wgmma variant's scratch holds each head's rows padded to a multiple
+# of this (kRowPad in csrc/flash_attention_bwd.cu)
+ROW_PAD = 128
 
 KERNEL = CudaKernel(
     "flash_attention_bwd",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     replaces="src/repro/models/attention.py:146",
     device_fns=("attn_bwd_dsum_kernel", "attn_bwd_dkdv_kernel",
-                "attn_bwd_dq_kernel"))
+                "attn_bwd_dq_kernel", "attn_bwd_prep_kernel",
+                "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel"),
+    variants=tuple(VARIANTS))
+
+
+def scratch_numel(chosen: str, BH: int, Sq: int) -> int:
+    """f32 elements of the scratch a launch of variant ``chosen`` needs:
+    Dsum (BH, Sq) for simt; lse * log2 e and Dsum (2, BH, Sp) for wgmma,
+    each head's rows padded to Sp, a multiple of :data:`ROW_PAD`."""
+    if chosen == "simt":
+        return BH * Sq
+    return 2 * BH * (-(-Sq // ROW_PAD) * ROW_PAD)
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
-                             causal: bool = True, scale=None):
+                             causal: bool = True, scale=None,
+                             force_variant=None):
     """Same contract as ``ref.flash_attention_bwd_ref``: q, o, do (BH, Sq,
     D|Dv) and k, v (BH // group, Sk, D|Dv) in f32 or bf16, lse (BH, Sq)
     f32 from K6 -> (dq, dk, dv) in the inputs' dtype. Head dims up to 128,
-    any Sq and Sk. One call launches the kernel's three passes."""
+    any Sq and Sk. One call launches the chosen variant's three kernels:
+    :func:`kernel.variant`'s, or the SIMT ones under
+    ``force_variant="simt"`` (to time them beside the tensor-core ones);
+    a ``"wgmma"`` the inputs do not qualify for raises."""
     BH, Sq, D = q.shape
     BHkv, Sk, Dv = v.shape
-    if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention_bwd takes float32 or bfloat16, "
-                         f"got {q.dtype}")
+    chosen = variant(q.dtype, D, Dv)
+    if force_variant is not None:
+        if force_variant not in VARIANTS:
+            raise ValueError(f"unknown variant {force_variant!r}; expected "
+                             f"one of {list(VARIANTS)}")
+        if force_variant == "wgmma" and chosen != "wgmma":
+            raise ValueError(f"the wgmma kernels take bf16 with D == Dv in "
+                             f"{WGMMA_HEAD_DIMS}, got {q.dtype} D={D} "
+                             f"Dv={Dv}")
+        chosen = force_variant
     if not (0 < D <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM):
         raise ValueError(f"head dims D={D}, Dv={Dv}: the kernel takes 1.."
                          f"{MAX_HEAD_DIM}")
@@ -44,11 +79,13 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
                      ("do", do, dt, (BH, Sq, Dv)),
                      ("lse", lse, torch.float32, (BH, Sq))))
     scale = D ** -0.5 if scale is None else float(scale)
-    dsum = torch.empty(BH, Sq, dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_numel(chosen, BH, Sq), dtype=torch.float32,
+                          device=dev)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
-                  ptr(dsum), ptr(dq), ptr(dk), ptr(dv), BH, group, Sq, Sk, D,
-                  Dv, scale, int(causal), DTYPES[dt], stream_ptr(dev))
+                  ptr(scratch), ptr(dq), ptr(dk), ptr(dv), BH, group, Sq, Sk,
+                  D, Dv, scale, int(causal), DTYPES[dt], VARIANTS[chosen],
+                  stream_ptr(dev), variant=chosen)
     return dq, dk, dv

@@ -602,27 +602,44 @@ def _grad_err(got, want):
                for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("BH,Sq,Sk,D,Dv,group", [
+_BWD_SHAPES = [
     (8, 333, 333, 64, 64, 1), (16, 333, 333, 64, 64, 4),
     (8, 200, 71, 16, 16, 4), (8, 71, 200, 128, 128, 4),
-    (12, 129, 257, 128, 32, 4), (4, 3, 65, 64, 64, 1)])
+    (12, 129, 257, 128, 32, 4), (4, 3, 65, 64, 64, 1),
+    (8, 200, 71, 64, 64, 4), (8, 333, 333, 128, 128, 1),
+    (16, 333, 333, 128, 128, 4)]
+# every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
+# (D == Dv in {64, 128}) runs on wgmma and once more forced to simt
+_BWD_CASES = [
+    (dtype, causal, *shape, variant)
+    for dtype in (torch.float32, torch.bfloat16)
+    for causal in (True, False)
+    for shape in _BWD_SHAPES
+    for variant in (("wgmma", "simt")
+                    if AK.variant(dtype, shape[3], shape[4]) == "wgmma"
+                    else ("simt",))]
+
+
+@pytest.mark.parametrize("dtype,causal,BH,Sq,Sk,D,Dv,group,variant",
+                         _BWD_CASES)
 def test_flash_bwd_matches_plain(cuda, dtype, causal, BH, Sq, Sk, D, Dv,
-                                 group):
+                                 group, variant):
     """K7 against ``flash_attention_bwd_ref`` on the same inputs (o and
     lse from the plain forward): f32 within 2e-5 of max |grad|; bf16 no
     further from the f32 plain gradient than the bf16 plain gradient is,
-    x1.5. Ragged Sq and Sk both ways, D 16/64/128, Dv != D, groups 1/4.
-    (A causal query row that sees one key has ds = 0 exactly, so its dq is
-    rounding noise that no relative measure holds: the shortest case has
-    3 rows.)"""
+    x1.5. Ragged Sq and Sk both ways, D 16/64/128, Dv != D, groups 1/4,
+    both variants where bf16 reaches the wgmma kernels; the launch is
+    counted under the variant that ran. (A causal query row that sees one
+    key has ds = 0 exactly, so its dq is rounding noise that no relative
+    measure holds: the shortest case has 3 rows.)"""
     q, k, v, o, lse, do = _bwd_inputs(cuda, BH, Sq, Sk, D, Dv, group, dtype,
                                       causal, BH * Sq + Sk + D)
-    before = BK.KERNEL.launches
+    before = dict(BK.KERNEL.launches_by_variant)
+    forced = None if variant == AK.variant(dtype, D, Dv) else variant
     got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=group,
-                                      causal=causal)
-    assert BK.KERNEL.launches == before + 1
+                                      causal=causal, force_variant=forced)
+    assert BK.KERNEL.launches_by_variant == {
+        **before, variant: before[variant] + 1}
     want = FR.flash_attention_bwd_ref(q, k, v, o, lse, do, group=group,
                                       causal=causal)
     torch.cuda.synchronize()
@@ -638,21 +655,44 @@ def test_flash_bwd_matches_plain(cuda, dtype, causal, BH, Sq, Sk, D, Dv,
         assert _grad_err(got, f32) <= 1.5 * _grad_err(want, f32)
 
 
-def test_flash_bwd_is_deterministic(cuda):
-    """No float atomics: two runs give the same bits."""
+@pytest.mark.parametrize("variant", ["simt", "wgmma"])
+def test_flash_bwd_is_deterministic(cuda, variant):
+    """No float atomics: two runs give the same bits, on either
+    variant."""
     q, k, v, o, lse, do = _bwd_inputs(cuda, 32, 300, 300, 64, 64, 4,
                                       torch.bfloat16, True, 9)
-    a = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4)
-    b = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4)
+    before = dict(BK.KERNEL.launches_by_variant)
+    a = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4,
+                                    force_variant=variant)
+    b = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4,
+                                    force_variant=variant)
+    assert BK.KERNEL.launches_by_variant == {
+        **before, variant: before[variant] + 2}
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 16)])
+def test_flash_bwd_forced_wgmma_refuses(cuda, dtype, D):
+    """A forced "wgmma" on inputs the tensor-core kernels do not take (f32,
+    whose 2e-5 contract TF32 would break; bf16 at D = 16) raises and
+    launches nothing."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 8, 64, 64, D, D, 4, dtype, True,
+                                      5)
+    before = dict(BK.KERNEL.launches_by_variant)
+    with pytest.raises(ValueError, match="wgmma kernels take bf16"):
+        BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4,
+                                    force_variant="wgmma")
+    assert BK.KERNEL.launches_by_variant == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_function_on_card(cuda, dtype):
     """``flash_attention`` with inputs that require grad runs K6 (with
-    lse) forward and K7 backward, and its gradients equal autograd
-    through the plain version (f32 2e-5 of max |grad|; bf16 by the x1.5
-    rule against the f32 gradient)."""
+    lse) forward and K7 backward (bf16 on K7's wgmma kernels, f32 on its
+    simt ones), and its gradients equal autograd through the plain
+    version (f32 2e-5 of max |grad|; bf16 by the x1.5 rule against the
+    f32 gradient)."""
     q, k, v = _qkv(cuda, 16, 257, 257, 64, 64, 4, dtype, 21)
     g = torch.Generator().manual_seed(22)
     do = torch.randn(16, 257, 64, generator=g).to(cuda, dtype)
@@ -665,8 +705,12 @@ def test_flash_attention_function_on_card(cuda, dtype):
         return out, [t.grad for t in leaves]
 
     b6, b7 = AK.KERNEL.launches, BK.KERNEL.launches
+    by_variant = dict(BK.KERNEL.launches_by_variant)
     out, got = grads(None)
     assert (AK.KERNEL.launches, BK.KERNEL.launches) == (b6 + 1, b7 + 1)
+    ran = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert BK.KERNEL.launches_by_variant == {
+        **by_variant, ran: by_variant[ran] + 1}
     ref_out, want = grads("ref")
     assert (AK.KERNEL.launches, BK.KERNEL.launches) == (b6 + 1, b7 + 1)
     torch.testing.assert_close(out.float(), ref_out.float(),

@@ -3,7 +3,10 @@
 ``jax.vjp`` of the reference's ``chunked_attention`` (its ``custom_vjp``
 backward, ``_flash_core_bwd``) and against torch autograd through the
 plain forward; ``ops.FlashAttention`` under ``gradcheck`` in f64; the
-forward's logsumexp.
+forward's logsumexp; K7's variant choice; and a plain model of the
+rounding points of K7's tensor-core (``wgmma``) kernels, held to the
+card tests' bf16 rule against the f32 gradient and against the
+reference's.
 
 Inputs are drawn with numpy and handed to both packages, in the
 reference's (B, S, H, D) layout, flattened to (B*H, S, D) as the port's
@@ -11,6 +14,9 @@ reference's (B, S, H, D) layout, flattened to (B*H, S, D) as the port's
 gradient's largest element (the reference sums over chunk pairs, the
 plain version over whole rows).
 """
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,3 +154,202 @@ def test_flash_attention_takes_the_function_only_with_grad(rng):
         BK.flash_attention_bwd_cuda(q, kv, kv, o, lse, o, group=2)
     with pytest.raises(ValueError, match="group"):
         BK.flash_attention_bwd_cuda(q, kv, kv, o, lse, o, group=3)
+
+
+# -- K7's variants --------------------------------------------------------------
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
+                   "csrc", "flash_attention_bwd.cu")
+
+
+@pytest.mark.parametrize("dtype,D,Dv,want", [
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 64, 128, "simt"), (torch.bfloat16, 128, 64, "simt"),
+    (torch.bfloat16, 16, 16, "simt"), (torch.bfloat16, 96, 96, "simt"),
+    (torch.bfloat16, 32, 32, "simt"), (torch.float32, 64, 64, "simt"),
+    (torch.float32, 128, 128, "simt"), (torch.float32, 16, 8, "simt")])
+def test_bwd_variant_choice(dtype, D, Dv, want):
+    """K7 takes K6's rule: ``wgmma`` for bf16 with D == Dv in {64, 128},
+    ``simt`` otherwise. A forced ``"wgmma"`` on inputs that do not
+    qualify raises before anything is built; on inputs that do, the
+    wrapper goes on to its checks (and refuses CPU tensors). The scratch
+    is Dsum for simt, lse and Dsum over rows padded to ROW_PAD for
+    wgmma."""
+    assert AK.variant(dtype, D, Dv) == want
+    q = torch.zeros(4, 9, D, dtype=dtype)
+    kv = torch.zeros(2, 9, D, dtype=dtype)
+    v = torch.zeros(2, 9, Dv, dtype=dtype)
+    o = torch.zeros(4, 9, Dv, dtype=dtype)
+    lse = torch.zeros(4, 9)
+    if want == "wgmma":
+        with pytest.raises(ValueError, match="on the card"):
+            BK.flash_attention_bwd_cuda(q, kv, v, o, lse, o, group=2,
+                                        force_variant="wgmma")
+    else:
+        with pytest.raises(ValueError, match="wgmma kernels take bf16"):
+            BK.flash_attention_bwd_cuda(q, kv, v, o, lse, o, group=2,
+                                        force_variant="wgmma")
+    with pytest.raises(ValueError, match="on the card"):
+        BK.flash_attention_bwd_cuda(q, kv, v, o, lse, o, group=2,
+                                    force_variant="simt")
+    with pytest.raises(ValueError, match="unknown variant"):
+        BK.flash_attention_bwd_cuda(q, kv, v, o, lse, o, group=2,
+                                    force_variant="tf32")
+    assert BK.scratch_numel("simt", 4, 9) == 36
+    assert BK.scratch_numel("wgmma", 4, 9) == 2 * 4 * BK.ROW_PAD
+    assert BK.scratch_numel("wgmma", 3, 2 * BK.ROW_PAD + 1) == \
+        2 * 3 * 3 * BK.ROW_PAD
+    assert BK.KERNEL.launches == 0
+
+
+def test_bwd_row_pad_matches_the_source():
+    """The wrapper's ROW_PAD is the kernel's kRowPad, and the wgmma
+    kernels' tiles divide it (a tile's lse and Dsum slices stay inside a
+    head's padded rows)."""
+    src = open(SRC).read()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kRowPad"]) == BK.ROW_PAD
+    for tile in ("kDkdvBQ", "kDqBQ"):
+        assert BK.ROW_PAD % int(consts[tile]) == 0
+
+
+# -- the rounding points of K7's wgmma kernels -----------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _pair(x, split):
+    """The bf16 A operands a tensor-core product takes for f32 x: hi =
+    bf16(x) and lo = bf16(x - hi), or hi alone."""
+    hi = _bf16(x)
+    return [hi, _bf16(x - hi)] if split else [hi]
+
+
+def wgmma_model(q, k, v, o, lse, do, *, group, causal, split_p=True,
+                split_ds=True):
+    """The wgmma kernels' arithmetic in plain torch (f32 on bf16 inputs):
+    S and dP from bf16 operands in f32; p = 2^(s scale log2 e - lse log2
+    e); ds = p (dp - Dsum) scale; p enters dV = P^T dO and ds enters
+    dK = dS^T Q and dQ = dS K as bf16 hi and lo pairs (a single bf16
+    rounding with ``split_p`` / ``split_ds`` False); dk, dv summed over
+    the group, outputs rounded to bf16 once."""
+    BH, Sq, D = q.shape
+    BHkv, Sk, Dv = v.shape
+    scale = D ** -0.5
+    kv = torch.arange(BH) // group
+    kk, vv, qq, dd = k[kv].float(), v[kv].float(), q.float(), do.float()
+    s = torch.einsum("bqd,bkd->bqk", qq, kk)
+    p = torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None])
+    if causal:
+        keep = torch.ones(Sq, Sk, dtype=torch.bool).tril()
+        p = torch.where(keep[None], p, 0.0)
+    dsum = (dd * o.float()).sum(-1)
+    dv = sum(torch.einsum("bqk,bqe->bke", a, dd) for a in _pair(p, split_p))
+    dp = torch.einsum("bqe,bke->bqk", dd, vv)
+    ds = p * (dp - dsum[..., None]) * scale
+    parts = _pair(ds, split_ds)
+    dq = sum(torch.einsum("bqk,bkd->bqd", a, kk) for a in parts)
+    dk = sum(torch.einsum("bqk,bqd->bkd", a, qq) for a in parts)
+    dk = dk.reshape(BHkv, group, Sk, D).sum(1)
+    dv = dv.reshape(BHkv, group, Sk, Dv).sum(1)
+    return (dq.to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16))
+
+
+def _grad_err(got, want):
+    """max |got - want| over max |want|, the worst of dq, dk, dv (the card
+    tests' measure)."""
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def _bf16_case(seed, BH, S, D, group, causal):
+    """bf16 q, k, v, do from numpy; o and lse from the plain forward (as
+    K6 gives them); the bf16 and f32 plain gradients."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    q, do = mk(BH, S, D), mk(BH, S, D)
+    k, v = mk(BH // group, S, D), mk(BH // group, S, D)
+    o, lse = FR.flash_attention_lse_ref(q, k, v, group=group, causal=causal)
+    plain = FR.flash_attention_bwd_ref(q, k, v, o, lse, do, group=group,
+                                       causal=causal)
+    f32 = FR.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)),
+                                     lse, do.float(), group=group,
+                                     causal=causal)
+    return (q, k, v, o, lse, do), plain, f32
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4])
+def test_wgmma_rounding_model_holds_the_bf16_rule(causal, group):
+    """Over seeds 0-3 at BH 8, S 256, D 64: the wgmma kernels' rounding
+    points keep the gradient no further from the f32 gradient than the
+    plain bf16 gradient is, x1.5 (the rule the card tests and
+    chip_smoke.py hold K7 to)."""
+    for seed in range(4):
+        args, plain, f32 = _bf16_case(seed, 8, 256, 64, group, causal)
+        got = wgmma_model(*args, group=group, causal=causal)
+        for a, b in zip(got, plain):
+            assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _grad_err(got, f32) <= 1.5 * _grad_err(plain, f32), seed
+
+
+@pytest.mark.parametrize("split_p,split_ds,seed,causal,group", [
+    (False, True, 2, False, 1), (True, False, 5, True, 4)])
+def test_one_bf16_rounding_breaks_the_bf16_rule(split_p, split_ds, seed,
+                                                causal, group):
+    """Why p and ds enter their products as hi and lo pairs: rounded to
+    bf16 once, p (into dv; the full softmax, group 1) or ds (into dq and
+    dk) puts the gradient more than 1.5x further from the f32 gradient
+    than the plain bf16 gradient on these inputs, where the pairs hold
+    it."""
+    args, plain, f32 = _bf16_case(seed, 8, 256, 64, group, causal)
+    ref = _grad_err(plain, f32)
+    once = wgmma_model(*args, group=group, causal=causal, split_p=split_p,
+                       split_ds=split_ds)
+    pairs = wgmma_model(*args, group=group, causal=causal)
+    assert _grad_err(once, f32) > 1.5 * ref
+    assert _grad_err(pairs, f32) <= 1.5 * ref
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4])
+def test_wgmma_rounding_model_matches_jax_custom_vjp(causal, group):
+    """The rounding model on bf16 inputs against the reference's
+    ``_flash_core_bwd`` (``jax.vjp`` of ``chunked_attention``): no further
+    from its f32 gradient than its own bf16 gradient is, x1.5."""
+    B, S, D, KH = 2, 128, 64, 4 // group
+    H = KH * group
+    rng = np.random.default_rng(11 + group + 2 * causal)
+    x = [rng.standard_normal(shape).astype(np.float32)
+         for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D),
+                       (B, S, H, D))]
+    x = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+         for a in x]                              # bf16-representable
+    f = lambda q_, k_, v_: JA.chunked_attention(
+        q_, k_, v_, causal=causal, q_chunk=64, kv_chunk=64)
+
+    def grads(dtype):
+        args = [jnp.asarray(a, dtype) for a in x]
+        _, vjp = jax.vjp(f, *args[:3])
+        return [np.asarray(g.astype(jnp.float32)) for g in vjp(args[3])]
+
+    jax32, jax16 = grads(jnp.float32), grads(jnp.bfloat16)
+    tq, tk, tv, tdo = (_flat(a, B, S, n).to(torch.bfloat16)
+                       for a, n in zip(x, (H, KH, KH, H)))
+    o, lse = FR.flash_attention_lse_ref(tq, tk, tv, group=group,
+                                        causal=causal)
+    got = wgmma_model(tq, tk, tv, o, lse, tdo, group=group, causal=causal)
+    unflat = lambda t, n: t.float().reshape(B, n, S, -1).transpose(1, 2)
+    got = [unflat(g, n).numpy() for g, n in zip(got, (H, KH, KH))]
+
+    def err(a, b):
+        return max(float(np.abs(u - w).max()) / float(np.abs(w).max())
+                   for u, w in zip(a, b))
+    assert err(got, jax32) <= 1.5 * err(jax16, jax32)
