@@ -20,7 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
    timed by CUDA events and by its device time; flash_attention's cases
    each run the variant ``kernel.variant`` names (``wgmma`` for bf16 with
    D == Dv in {64, 128}, ``simt`` otherwise), and the SIMT kernel is timed
-   at the serving shape beside the tensor-core one; gather_enrich (on
+   at the serving shape beside the tensor-core one; flash_attention past
+   head dim 128 on its SIMT kernel: deepseek-v3's MLA prefill shape (B = 4
+   x 128 heads, 1024 tokens, D = 192, Dv = 128, group 1, causal) in bf16
+   and, at 64 heads, in f32, and (80, 80), (160, 64), (256, 256), each
+   against its plain version, the MLA shape timed in turns with its
+   device time, its bound and one scaled_dot_product_attention call (or
+   the reason SDPA refuses Dv != D); gather_enrich (on
    random and on distinct flow ids) and derived_features (on the
    gathered history and the whole ring) also give their achieved GB/s
    and the bound's share of their device time; flow_moments is also
@@ -123,7 +129,20 @@ Phases (any failure exits non-zero; nothing is caught):
    a full forward over P + 1 tokens. Before (a)-(c), each layer's q, k, v
    of one bf16 prefill run again through the wgmma and the SIMT kernel:
    max |o_wgmma - o_simt| / max |o_simt| per layer, held to 2e-2;
-16. [train] — granite-3-2b training at full width (40 layers, bf16,
+16. [serve deepseek-v3] — deepseek-v3 cut to 5 layers (3 dense + 2 MoE, all
+   256 experts whole, top-8 sigmoid routing with its bias, full
+   vocabulary, MTP block left out; bf16, seeded random weights): the
+   requests of 15, one warm-up and 2 timed, each prefill launching K6
+   once per layer, all simt (MLA's D = 192, Dv = 128); parameters,
+   max_memory_allocated, prefill ms, decode ms per step, tok/s; the share
+   of (token, expert) pairs each MoE layer drops by capacity (from the
+   port's ``route``); the bf16 plain run's logit gap to the kernel run;
+   then, with those weights freed, 15's checks (a)-(c) on the 3 dense
+   layers (MLA + FFN) with fresh seeded weights;
+17. [serve qwen3-14b] — qwen3-14b whole (40 layers, 40/8 heads of 128,
+   qk-norm, untied 151,936-row vocabulary, bf16) as 16, K6 on its wgmma
+   variant; checks (a)-(c) on 8 of its layers;
+18. [train] — granite-3-2b training at full width (40 layers, bf16,
    remat="full", AdamW with f32 moments, seeded random weights), B = 4 x
    1024 tokens of data/tokens, 1 warm-up and 4 timed steps, launch counts
    from 0: the loss, gnorm and lr per step, step ms, tokens/s, model
@@ -131,11 +150,11 @@ Phases (any failure exits non-zero; nothing is caught):
    flash_attention (2 x 40: the forward and its remat) and
    flash_attention_bwd (40, all on its wgmma kernels) launches per step,
    no plain attention call, and a 1-step profile;
-17. [train check] — one step's loss and gradients at full width with 4
+19. [train check] — one step's loss and gradients at full width with 4
    layers: bf16 with the kernels, bf16 plain, f32 plain on the same
    weights and batch; the relative error of every gradient leaf against
    f32, the kernel run's worst no more than 1.5 x the plain run's;
-18. [examples] — examples/torch_*.py on the card through their ``run``:
+20. [examples] — examples/torch_*.py on the card through their ``run``:
    quickstart, the serving example (accounting balances, with drops), the
    flow classifier (held-out accuracy > 0.85) and LM training (the loss
    falls by more than 0.2).
@@ -623,14 +642,54 @@ def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
     return n * (n + 1) // 2 + max(0, Sq - Sk) * Sk
 
 
+def hold_k6_against_plain(name, q, k, v, group, causal, expect):
+    """One K6 call against its plain version on the same inputs: it must
+    launch the ``expect`` variant once and nothing else, and agree within
+    ATT_TOL (abs + rel). In bf16 the kernel must also be no further from
+    the f32 plain run on the same inputs than the bf16 plain run is, within
+    B_RATIO (max abs distances). Returns (max abs err vs plain, that
+    distance ratio or None in f32)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+
+    before = dict(K.KERNEL.launches_by_variant)
+    got = ops.flash_attention(q, k, v, group=group, causal=causal)
+    torch.cuda.synchronize()
+    delta = {n: K.KERNEL.launches_by_variant[n] - before[n] for n in before}
+    require(delta == {n: int(n == expect) for n in delta},
+            f"flash_attention ({name}) launched {delta}, expected one "
+            f"{expect} launch")
+    want = ops.flash_attention(q, k, v, group=group, causal=causal,
+                               backend="ref").float()
+    diff = (got.float() - want).abs()
+    tol = ATT_TOL[str(q.dtype).removeprefix("torch.")]
+    err = float(diff.max())
+    require(bool(torch.isfinite(got).all())
+            and float((diff - tol * want.abs()).max()) <= tol,
+            f"flash_attention ({name}) differs from its plain version: max "
+            f"abs err {err:.3e}, tolerance {tol:g} abs + rel")
+    if q.dtype == torch.float32:
+        return err, None
+    want32 = ops.flash_attention(q.float(), k.float(), v.float(),
+                                 group=group, causal=causal, backend="ref")
+    err_k = float((got.float() - want32).abs().max())
+    err_p = float((want - want32).abs().max())
+    require(err_k <= B_RATIO * err_p,
+            f"flash_attention ({name}) is {err_k:.3e} from the f32 plain "
+            f"run, more than {B_RATIO:g} x the bf16 plain run's {err_p:.3e}")
+    return err, err_k / err_p
+
+
 def check_flash_attention(dev):
     """K6 at the serving path's shape (B = 4 requests x 32 heads, 1024
     tokens, head_dim 64, 8 kv heads, causal, bf16: the wgmma variant)
     against its plain version, the SIMT variant at the same shape, and one
     scaled_dot_product_attention call as the library yardstick; plus an
     f32 run at the same shape, ragged lengths, Sq != Sk both ways, D = 128,
-    groups 1 and 8, Dv != D, D = 16 and the non-causal softmax, each on the
-    variant ``kernel.variant`` names."""
+    groups 1 and 8, Dv != D, D = 16, the non-causal softmax and qwen3-14b's
+    prefill shape (D = 128, group 5), each on the variant
+    ``kernel.variant`` names (:func:`hold_k6_against_plain`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -641,11 +700,7 @@ def check_flash_attention(dev):
     BH, G, S = SERVE_B * H, H // KH, SERVE_PROMPT
 
     def inputs(BH, Sq, Sk, D, Dv, group, dtype):
-        return (torch.randn(BH, Sq, D, generator=gen, device=dev).to(dtype),
-                torch.randn(BH // group, Sk, D, generator=gen,
-                            device=dev).to(dtype),
-                torch.randn(BH // group, Sk, Dv, generator=gen,
-                            device=dev).to(dtype))
+        return attention_inputs(gen, dev, BH, Sq, Sk, D, Dv, group, dtype)
 
     R = S - 24                                   # not a tile multiple
     cases = {
@@ -665,33 +720,24 @@ def check_flash_attention(dev):
         "non-causal Sq=300 Sk=500 D=128 bf16": (24, 300, 500, 128, 128, 3,
                                                 "bfloat16", False),
         "S=300 D=16 bf16": (32, 300, 300, 16, 16, 4, "bfloat16", True),
+        # qwen3-14b's prefill: B = 4 x 40 heads of 128, 8 kv heads
+        "qwen serve bf16": (SERVE_B * 40, S, S, 128, 128, 5, "bfloat16",
+                            True),
+        "qwen serve f32": (SERVE_B * 40, S, S, 128, 128, 5, "float32", True),
     }
-    errs, ran = {}, {}
+    errs, ran, ratios = {}, {}, {}
     for name, (bh, sq, sk, d, dv, g, dt, causal) in cases.items():
         dtype = getattr(torch, dt)
         q, k, v = inputs(bh, sq, sk, d, dv, g, dtype)
-        before = dict(K.KERNEL.launches_by_variant)
-        got = ops.flash_attention(q, k, v, group=g, causal=causal)
-        want = ops.flash_attention(q, k, v, group=g, causal=causal,
-                                   backend="ref")
-        torch.cuda.synchronize()
-        expect = K.variant(dtype, d, dv)
-        delta = {n: K.KERNEL.launches_by_variant[n] - before[n]
-                 for n in before}
-        require(delta == {n: int(n == expect) for n in delta},
-                f"flash_attention ({name}) launched {delta}, expected one "
-                f"{expect} launch")
-        diff = (got.float() - want.float()).abs()
-        tol = ATT_TOL[dt]
-        excess = float((diff - tol * want.float().abs()).max())
-        require(bool(torch.isfinite(got).all()) and excess <= tol,
-                f"flash_attention ({name}) differs from its plain version: "
-                f"max abs err {float(diff.max()):.3e}, tolerance "
-                f"{tol:g} abs + rel")
-        errs[name] = float(diff.max())
-        ran[name] = expect
+        ran[name] = K.variant(dtype, d, dv)
+        errs[name], ratio = hold_k6_against_plain(name, q, k, v, g, causal,
+                                                  ran[name])
+        if ratio is not None:
+            ratios[name] = ratio
     log(f"[kernel] flash_attention max abs err vs plain (variant): "
-        f"{ {k: f'{v:.3e} ({ran[k]})' for k, v in errs.items()} }")
+        f"{ {k: f'{v:.3e} ({ran[k]})' for k, v in errs.items()} }; bf16 "
+        f"distance to the f32 plain run, kernel / plain (held <= "
+        f"{B_RATIO:g}): { {k: f'{v:.3f}' for k, v in ratios.items()} }")
 
     q, k, v = inputs(BH, S, S, D, D, G, torch.bfloat16)
     require(K.variant(q.dtype, D, D) == "wgmma",
@@ -728,12 +774,117 @@ def check_flash_attention(dev):
                          f"to the wgmma variant {simt_err:.3e}",
             "shape": f"q ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), group "
                      f"{G}, causal, bf16 (f32, ragged, Sq != Sk both ways, "
-                     "D = 128, groups 1 and 8, Dv != D, D = 16 and "
-                     "non-causal checked too)",
+                     "D = 128, groups 1 and 8, Dv != D, D = 16, "
+                     "non-causal and qwen3-14b's (160, 1024, 128) group 5 "
+                     "checked too)",
             "check": f"bf16 {ATT_TOL['bfloat16']:g}, f32 "
-                     f"{ATT_TOL['float32']:g} (abs + rel); every case on "
-                     "the variant kernel.variant names",
-            "errs": errs, "variants": ran}
+                     f"{ATT_TOL['float32']:g} (abs + rel); bf16 no further "
+                     f"from the f32 plain run than plain bf16, x{B_RATIO:g}; "
+                     "every case on the variant kernel.variant names",
+            "errs": errs, "variants": ran, "bf16_ratios": ratios}
+
+
+# K6 at deepseek-v3's MLA prefill: B = 4 x 128 heads, 1024 tokens, D = nope +
+# rope = 192, Dv = 128, group 1, causal
+MLA_HEADS, MLA_D, MLA_DV = 128, 192, 128
+
+
+def attention_inputs(gen, dev, BH, Sq, Sk, D, Dv, group, dtype):
+    import torch
+    return (torch.randn(BH, Sq, D, generator=gen, device=dev).to(dtype),
+            torch.randn(BH // group, Sk, D, generator=gen,
+                        device=dev).to(dtype),
+            torch.randn(BH // group, Sk, Dv, generator=gen,
+                        device=dev).to(dtype))
+
+
+def check_flash_attention_wide(dev):
+    """K6 past head dim 128, where only the SIMT kernel runs: at MLA's
+    prefill shape in bf16, in f32 at 64 heads, and at (80, 80), (160, 64)
+    and (256, 256), each against its plain version
+    (:func:`hold_k6_against_plain`); at the MLA shape the
+    kernel and the plain version timed in turns, K6's device time, its
+    bound, and one scaled_dot_product_attention call where it takes
+    Dv != D. Returns the entry for K6's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    BH, S = SERVE_B * MLA_HEADS, SERVE_PROMPT
+    scale = MLA_D ** -0.5
+    cases = {
+        "mla bf16": (BH, S, S, MLA_D, MLA_DV, 1, "bfloat16", True),
+        "mla f32 BH=64": (64, S, S, MLA_D, MLA_DV, 1, "float32", True),
+        "D=80 group 2 ragged bf16": (32, 1000, 1000, 80, 80, 2, "bfloat16",
+                                     True),
+        "D=80 f32 Sq=300 Sk=500 non-causal": (16, 300, 500, 80, 80, 2,
+                                              "float32", False),
+        "D=160 Dv=64 group 3 bf16": (24, 330, 200, 160, 64, 3, "bfloat16",
+                                     True),
+        "D=160 Dv=64 f32": (24, 200, 330, 160, 64, 3, "float32", True),
+        "D=256 bf16": (16, 700, 700, 256, 256, 1, "bfloat16", True),
+        "D=256 f32 non-causal": (8, 300, 257, 256, 256, 1, "float32",
+                                 False),
+    }
+    errs, ratios = {}, {}
+    for name, (bh, sq, sk, d, dv, g, dt, causal) in cases.items():
+        q, k, v = attention_inputs(gen, dev, bh, sq, sk, d, dv, g,
+                                   getattr(torch, dt))
+        errs[name], ratio = hold_k6_against_plain(name, q, k, v, g, causal,
+                                                  "simt")
+        if ratio is not None:
+            ratios[name] = ratio
+        del q, k, v
+    log(f"[kernel] flash_attention past head dim 128, max abs err vs plain "
+        f"(all simt): { {k: f'{v:.3e}' for k, v in errs.items()} }; bf16 "
+        f"distance to the f32 plain run, kernel / plain (held <= "
+        f"{B_RATIO:g}): { {k: f'{v:.3f}' for k, v in ratios.items()} }")
+
+    q, k, v = attention_inputs(gen, dev, BH, S, S, MLA_D, MLA_DV, 1,
+                               torch.bfloat16)
+    call = lambda: ops.flash_attention(q, k, v, scale=scale)
+    ms, plain_ms = in_turns(
+        lambda: ops.flash_attention(q, k, v, scale=scale, backend="ref"),
+        call, 5)
+    dev_time = device_us(K.KERNEL, call, 5)
+    n_ops = 2 * (MLA_D + MLA_DV) * attention_pairs(S, S, True) * BH
+    n_bytes = (q.numel() + k.numel() + v.numel() + BH * S * MLA_DV) * 2
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    q4, k4, v4 = (t.view(SERVE_B, MLA_HEADS, S, -1) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                 scale=scale)
+    try:
+        out = lib()
+    except RuntimeError as e:          # no SDPA backend takes Dv != D
+        library_ms = library_us = None
+        library_note = f"n/a: scaled_dot_product_attention refused: {e}"
+    else:
+        lib_err = float((out.reshape(BH, S, MLA_DV).float()
+                         - call().float()).abs().max())
+        library_ms = time_ms(lib, 5)
+        library_us = device_us(None, lib, 5)
+        library_note = ("one scaled_dot_product_attention(is_causal, "
+                        f"scale) call; max abs diff to K6 {lib_err:.3e}")
+        del out
+    row = {"shape": f"q ({BH}, {S}, {MLA_D}), k ({BH}, {S}, {MLA_D}), v "
+                    f"({BH}, {S}, {MLA_DV}), group 1, causal, bf16",
+           "variant": "simt", "max_abs_err": errs["mla bf16"], "ms": ms,
+           "plain_ms": plain_ms, "device_us": dev_time, "bound_ms": b_ms,
+           "bound_by": b_by, "n_bytes": n_bytes, "n_ops": n_ops,
+           "bound_share": b_ms * 1e3 / dev_time,
+           "library_ms": library_ms, "library_device_us": library_us,
+           "library_note": library_note, "errs": errs,
+           "bf16_ratios": ratios}
+    log(f"[kernel] flash_attention at MLA's prefill shape {row['shape']}: "
+        f"simt kernel {ms:.5f} ms, device {dev_time:.3f} us, plain "
+        f"{plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us by {b_by} "
+        f"({n_bytes / 1e6:.1f} MB, {n_ops:.4g} operations), "
+        f"{100 * row['bound_share']:.2f} % of the bound; library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.5f} ms, device {library_us:.3f} us'}"
+        f" ({library_note})")
+    return row
 
 
 # K7 at the training shape: B = 4 x 32 heads, 1024 tokens, head_dim 64,
@@ -2238,12 +2389,12 @@ def divergence(model, plain, m32, params, params32, tokens):
     runs = [(model, params), (plain, params), (m32, params32)]
     xs = [L.embed(p["embed"], tokens) for _, p in runs]
     rows = []
-    layers = [LM.unstack(p[LM.STACK], model.cfg.num_layers)
-              for _, p in runs]
+    layers = [LM.layers(p, model.cfg) for _, p in runs]
     for layer in range(model.cfg.num_layers):
         for i, (m, _) in enumerate(runs):
-            xs[i], _ = LM.block_prefill(layers[i][layer], xs[i], m.cfg,
-                                        backend=m.backend)
+            kind, lp = layers[i][layer]
+            xs[i], _ = LM.block_prefill(lp, xs[i], m.cfg, backend=m.backend,
+                                        kind=kind)
         ref = xs[2].float()
         scale = float(ref.abs().max())
         rows.append((float((xs[0].float() - ref).abs().max()) / scale,
@@ -2304,32 +2455,101 @@ def wgmma_per_layer(model, params, prompt):
     return ratios
 
 
-def serve_phase(dev):
-    """granite-3-2b serving at full width (see the module docstring);
-    returns the kernels' launch counts over the 3 timed requests, and
-    flash_attention's by variant."""
+def upcast(params):
+    """A copy of a parameter tree in f32."""
+    return {k: upcast(v) if isinstance(v, dict) else v.float()
+            for k, v in params.items()}
+
+
+def logit_checks(tag, cfg, params, prompt, note_b=""):
+    """Checks (a)-(c) of a bf16 model ``cfg`` with ``params`` on one token
+    stream, the f32 kernel run's greedy tokens from ``prompt``, all
+    measured and printed here and held by :func:`require_logit_checks`:
+    (a) the f32 model, kernel run against plain run, prefill and
+    teacher-forced decode logits; (b) bf16, each run's distance to the f32
+    kernel run; (c) the f32 decode step at position P against a full
+    forward over P + 1 tokens. The f32 prefill must run K6's simt
+    variant once per layer."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
-    from repro_torch.launch.serve import serve
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
+    from repro_torch.models.registry import Model
+
+    dev = prompt.device
+    model = Model(cfg, device=dev)
+    plain = Model(cfg, device=dev, backend="ref")
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = upcast(params)
+    m32, p32 = Model(cfg32, device=dev), Model(cfg32, device=dev,
+                                               backend="ref")
+    P = prompt.shape[1]
+    counts = dict(K6.launches_by_variant)
+    toks32, lg32 = generate(m32, params32, prompt, SERVE_GEN)
+    require(K6.launches_by_variant == {**counts, "simt": counts["simt"]
+                                       + cfg.num_layers},
+            f"{tag} the f32 prefill did not run flash_attention's simt "
+            "variant once per layer")
+    _, lg32_ref = generate(p32, params32, prompt, SERVE_GEN, forced=toks32)
+    _, lgb = generate(model, params, prompt, SERVE_GEN, forced=toks32)
+    _, lgb_ref = generate(plain, params, prompt, SERVE_GEN, forced=toks32)
+    h = LM.lm_hidden(params32, {"tokens": torch.cat([prompt, toks32[:, :1]],
+                                                    1)}, cfg32)
+    fwd = L.logits_fn(params32["embed"], h[:, -1:],
+                      cfg.tie_embeddings)[:, 0].float()
+    r = {"a": (logit_ratio(lg32[:1], lg32_ref[:1]),
+               logit_ratio(lg32[1:], lg32_ref[1:])),
+         "b": (logit_ratio(lgb[:1], lgb_ref[:1]),
+               logit_ratio(lgb[1:], lgb_ref[1:])),
+         "err_k": logit_ratio(lgb, lg32), "err_p": logit_ratio(lgb_ref, lg32),
+         "c": logit_ratio(lg32[1:2], [fwd]),
+         "model": model, "plain": plain, "m32": m32, "params32": params32}
+    log(f"{tag} (a) f32 kernel vs plain: max |dlogit| / max |logit| "
+        f"prefill {r['a'][0]:.3e}, teacher-forced decode over "
+        f"{SERVE_GEN - 1} steps {r['a'][1]:.3e} (tolerance {A_TOL:g})")
+    log(f"{tag} (b) bf16 kernel vs plain: prefill {r['b'][0]:.3e}, decode "
+        f"{r['b'][1]:.3e}; each bf16 run against the f32 run: kernel "
+        f"{r['err_k']:.3e}, plain {r['err_p']:.3e} (held: kernel <= "
+        f"{B_RATIO:g} x plain){note_b}")
+    log(f"{tag} (c) decode logits at position {P} vs a full forward over "
+        f"{P + 1} tokens (f32): {r['c']:.3e} (tolerance {A_TOL:g})")
+    return r
+
+
+def require_logit_checks(tag, r) -> None:
+    require(max(r["a"]) <= A_TOL, f"{tag} (a) f32 kernel run and plain run "
+                                  "disagree")
+    require(r["err_k"] <= B_RATIO * r["err_p"],
+            f"{tag} (b) the bf16 kernel run is further from the f32 run "
+            "than the bf16 plain run is")
+    require(r["c"] <= A_TOL, f"{tag} (c) decode disagrees with the forward")
+
+
+def serve_requests(tag, cfg, dev, n_timed: int, variant: str):
+    """``cfg``'s model on the card with seeded random weights: one warm-up
+    request and ``n_timed`` timed ones of SERVE_B x SERVE_PROMPT-token
+    prompts and SERVE_GEN greedy tokens, launch counts from 0 before the
+    timed ones, each prefill required to launch flash_attention once per
+    layer, all on ``variant``. Returns (model, params, prompts, runs,
+    launches over the timed requests, flash_attention's by variant)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.launch.serve import serve
     from repro_torch.models.param import count_params
     from repro_torch.models.registry import Model
 
-    cfg = get_config("granite-3-2b")
     model = Model(cfg, device=dev)
-    plain = Model(cfg, device=dev, backend="ref")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {count_params(model.param_descs())} parameters "
+    log(f"{tag} {cfg.name}: {count_params(model.param_descs())} parameters "
         f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
         f"{cfg.num_kv_heads} heads, {cfg.dtype}) made on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     gen = torch.Generator(device=dev).manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
-                             generator=gen, device=dev) for _ in range(4)]
+                             generator=gen, device=dev)
+               for _ in range(n_timed + 1)]
     args = (SERVE_PROMPT, SERVE_GEN, SERVE_CACHE)
 
     serve(model, params, {"tokens": prompts[0]}, *args)          # warm-up
@@ -2341,40 +2561,57 @@ def serve_phase(dev):
     runs = []
     for prompt in prompts[1:]:
         before, stats = K6.launches, {}
-        wgmma = K6.launches_by_variant["wgmma"]
+        on_variant = K6.launches_by_variant[variant]
         toks, tps = serve(model, params, {"tokens": prompt}, *args,
                           stats=stats)
         runs.append((toks, tps, stats, K6.launches - before,
-                     K6.launches_by_variant["wgmma"] - wgmma))
+                     K6.launches_by_variant[variant] - on_variant))
     launches = {k.name: k.launches for k in kernels}
     variants = dict(K6.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
-    for _, _, _, n, n_wgmma in runs:
-        require(n == cfg.num_layers, f"[serve] a request launched "
+    for _, _, _, n, n_on in runs:
+        require(n == cfg.num_layers, f"{tag} a request launched "
                                      f"flash_attention {n} times, expected "
                                      f"{cfg.num_layers} (one per layer)")
-        require(n_wgmma == n, f"[serve] {n - n_wgmma} of a bf16 prefill's "
-                              f"{n} flash_attention launches were not on "
-                              "the wgmma variant")
+        require(n_on == n, f"{tag} {n - n_on} of a bf16 prefill's {n} "
+                           f"flash_attention launches were not on the "
+                           f"{variant} variant")
     prefill_ms = [r[2]["prefill_s"] * 1e3 for r in runs]
     step_ms = [r[2]["decode_s"] * 1e3 / (SERVE_GEN - 1) for r in runs]
     total_s = [r[2]["prefill_s"] + r[2]["decode_s"] for r in runs]
-    log(f"[serve] {len(runs)} timed requests of B={SERVE_B} x "
+    log(f"{tag} {len(runs)} timed requests of B={SERVE_B} x "
         f"{SERVE_PROMPT}-token prompts, {SERVE_GEN} greedy tokens, cache "
         f"{SERVE_CACHE}: prefill ms {[round(x, 3) for x in prefill_ms]}, "
         f"decode ms/step {[round(x, 4) for x in step_ms]}")
-    log(f"[serve] mean prefill {np.mean(prefill_ms):.3f} ms "
+    log(f"{tag} mean prefill {np.mean(prefill_ms):.3f} ms "
         f"({SERVE_B * SERVE_PROMPT / np.mean(prefill_ms) * 1e3:.1f} prefill "
         f"tok/s), decode {np.mean(step_ms):.4f} ms/step, generated "
         f"{np.mean([r[1] for r in runs]):.2f} tok/s "
         f"({SERVE_B * SERVE_GEN / np.mean(total_s):.2f} from the mean "
         f"request); max_memory_allocated {peak} B; flash_attention launches "
-        f"per request {[r[3] for r in runs]} (wgmma {[r[4] for r in runs]}); "
-        f"launches {launches}")
+        f"per request {[r[3] for r in runs]} ({variant} "
+        f"{[r[4] for r in runs]}); launches {launches}")
     for toks, *_ in runs:
         require(toks.shape == (SERVE_B, SERVE_GEN)
                 and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
-                "[serve] generated tokens out of range")
+                f"{tag} generated tokens out of range")
+    return model, params, prompts, runs, launches, variants
+
+
+def serve_phase(dev):
+    """granite-3-2b serving at full width (see the module docstring);
+    returns the kernels' launch counts over the 3 timed requests, and
+    flash_attention's by variant."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import Model
+
+    cfg = get_config("granite-3-2b")
+    model, params, prompts, runs, launches, variants = serve_requests(
+        "[serve]", cfg, dev, 3, "wgmma")
+    plain = Model(cfg, device=dev, backend="ref")
+    args = (SERVE_PROMPT, SERVE_GEN, SERVE_CACHE)
 
     profile_window("serve", lambda: serve(model, params,
                                           {"tokens": prompts[1]}, *args), 1)
@@ -2391,61 +2628,117 @@ def serve_phase(dev):
 
     wgmma_per_layer(model, params, prompts[1])
 
-    # (a)-(c) on one token stream, the f32 kernel run's greedy tokens; all
-    # measured and printed, then held
-    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
-    params32 = {}
-
-    def upcast(node, out):
-        for key, val in node.items():
-            if isinstance(val, dict):
-                upcast(val, out.setdefault(key, {}))
-            else:
-                out[key] = val.float()
-    upcast(params, params32)
-    m32, p32 = Model(cfg32, device=dev), Model(cfg32, device=dev,
-                                               backend="ref")
-    prompt = prompts[1]
-    counts = dict(K6.launches_by_variant)
-    toks32, lg32 = generate(m32, params32, prompt, SERVE_GEN)
-    require(K6.launches_by_variant == {**counts, "simt": counts["simt"]
-                                       + cfg.num_layers},
-            "[serve] the f32 prefill did not run flash_attention's simt "
-            "variant once per layer")
-    _, lg32_ref = generate(p32, params32, prompt, SERVE_GEN, forced=toks32)
-    _, lgb = generate(model, params, prompt, SERVE_GEN, forced=toks32)
-    _, lgb_ref = generate(plain, params, prompt, SERVE_GEN, forced=toks32)
-    full = torch.cat([prompt, toks32[:, :1]], 1)
-    h = LM.lm_hidden(params32, {"tokens": full}, cfg32)
-    fwd = L.logits_fn(params32["embed"], h[:, -1:], True)[:, 0].float()
-    a = (logit_ratio(lg32[:1], lg32_ref[:1]), logit_ratio(lg32[1:],
-                                                           lg32_ref[1:]))
-    b = (logit_ratio(lgb[:1], lgb_ref[:1]), logit_ratio(lgb[1:], lgb_ref[1:]))
-    err_k, err_p = logit_ratio(lgb, lg32), logit_ratio(lgb_ref, lg32)
-    r_c = logit_ratio(lg32[1:2], [fwd])
     agree = int((plain_toks == runs[0][0]).sum())
-    log(f"[serve] (a) f32 kernel vs plain: max |dlogit| / max |logit| "
-        f"prefill {a[0]:.3e}, teacher-forced decode over {SERVE_GEN - 1} "
-        f"steps {a[1]:.3e} (tolerance {A_TOL:g})")
-    log(f"[serve] (b) bf16 kernel vs plain: prefill {b[0]:.3e}, decode "
-        f"{b[1]:.3e}; each bf16 run against the f32 run: kernel "
-        f"{err_k:.3e}, plain {err_p:.3e} (held: kernel <= {B_RATIO:g} x "
-        f"plain); greedy tokens of the two free bf16 runs that agree "
-        f"{agree} of {plain_toks.numel()}")
-    log(f"[serve] (c) decode logits at position {SERVE_PROMPT} vs a full "
-        f"forward over {SERVE_PROMPT + 1} tokens (f32): {r_c:.3e} "
-        f"(tolerance {A_TOL:g})")
-    divergence(model, plain, m32, params, params32, prompt)
-    require(max(a) <= A_TOL, "[serve] (a) f32 kernel run and plain run "
-                             "disagree")
-    require(err_k <= B_RATIO * err_p, "[serve] (b) the bf16 kernel run is "
-                                      "further from the f32 run than the "
-                                      "bf16 plain run is")
-    require(r_c <= A_TOL, "[serve] (c) decode disagrees with the forward")
+    r = logit_checks("[serve]", cfg, params, prompts[1],
+                     f"; greedy tokens of the two free bf16 runs that agree "
+                     f"{agree} of {plain_toks.numel()}")
+    divergence(r["model"], r["plain"], r["m32"], params, r["params32"],
+               prompts[1])
+    require_logit_checks("[serve]", r)
     return launches, variants
 
 
-# -- phase 16: training at full width ------------------------------------------
+# -- phases 16-17: deepseek-v3 (MLA, MoE) and qwen3-14b serving -----------------
+
+def moe_drops(model, params, prompt):
+    """The share of (token, expert) pairs dropped by capacity in each MoE
+    layer of one prefill of ``prompt``, computed from the port's ``route``
+    on each MoE layer's input: sum over experts of max(0, pairs - C) over
+    all pairs."""
+    import torch
+    from repro_torch.models import moe as M
+
+    shares = []
+    original = M.moe_ffn
+
+    def counted(p, x, cfg):
+        B, S, d = x.shape
+        _, idx = M.route(p, x.reshape(B * S, d), cfg)
+        per_expert = torch.bincount(idx.reshape(-1),
+                                    minlength=cfg.moe.num_experts)
+        C = M.capacity(cfg, B * S)
+        shares.append(float((per_expert - C).clamp(min=0).sum())
+                      / idx.numel())
+        return original(p, x, cfg)
+    M.moe_ffn = counted
+    try:
+        model.prefill(params, {"tokens": prompt})
+    finally:
+        M.moe_ffn = original
+    return shares
+
+
+def serve_arch_phase(dev, tag, cfg, variant, check_cfg):
+    """``cfg`` served at full width as :func:`serve_requests` does, with 2
+    timed requests; for the moe family the share of pairs each MoE layer
+    drops; the gap of the bf16 plain run (backend="ref") to the kernel run
+    on the same weights and the kernel run's greedy tokens (printed); then,
+    with those weights freed, checks (a)-(c) on ``check_cfg`` (a cut that
+    fits in f32 beside its bf16 copy) with fresh seeded weights. Returns
+    the launch counts over the timed requests, and flash_attention's by
+    variant."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.models.registry import Model
+
+    model, params, prompts, runs, launches, variants = serve_requests(
+        tag, cfg, dev, 2, variant)
+    if cfg.moe:
+        from repro_torch.models import moe as M
+        shares = moe_drops(model, params, prompts[1])
+        log(f"{tag} pairs dropped by capacity (C = "
+            f"{M.capacity(cfg, SERVE_B * SERVE_PROMPT)} per expert over "
+            f"{SERVE_B * SERVE_PROMPT} tokens x top-{cfg.moe.top_k}) per MoE "
+            f"layer of a prefill: {[f'{x:.4%}' for x in shares]}; decode "
+            f"runs at C = {M.capacity(cfg, SERVE_B)}")
+    before = K6.launches
+    toks, lg = generate(model, params, prompts[1], SERVE_GEN)
+    _, lg_ref = generate(Model(cfg, device=dev, backend="ref"), params,
+                         prompts[1], SERVE_GEN, forced=toks)
+    require(K6.launches == before + cfg.num_layers,
+            f"{tag} expected {cfg.num_layers} flash_attention launches from "
+            "the kernel run's prefill and none from the plain run")
+    log(f"{tag} bf16 plain run vs kernel run on the kernel run's tokens: "
+        f"max |dlogit| / max |logit| prefill "
+        f"{logit_ratio(lg[:1], lg_ref[:1]):.3e}, teacher-forced decode "
+        f"{logit_ratio(lg[1:], lg_ref[1:]):.3e}")
+    del model, params, prompts, runs, lg, lg_ref
+    torch.cuda.empty_cache()
+
+    cparams = Model(check_cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(2))
+    prompt = torch.randint(0, check_cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(3), device=dev)
+    log(f"{tag} checks (a)-(c) on {check_cfg.num_layers} layers "
+        f"({check_cfg.name}, seeded weights, bf16 and an f32 copy)")
+    r = logit_checks(tag, check_cfg, cparams, prompt)
+    require_logit_checks(tag, r)
+    del cparams, r
+    torch.cuda.empty_cache()
+    return launches, variants
+
+
+def serve_deepseek_phase(dev):
+    """deepseek-v3 cut to 5 layers (3 dense + 2 MoE) with its MTP block
+    left out; checks on the 3 dense layers (MLA + FFN): with MoE layers a
+    decode step's C = 1 drops pairs that a full forward keeps (in the
+    reference too), so (c) would not hold."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b").replace(num_layers=5, mtp_depth=0)
+    return serve_arch_phase(dev, "[serve deepseek-v3]", cfg, "simt",
+                            cfg.replace(num_layers=cfg.moe.first_moe_layer))
+
+
+def serve_qwen_phase(dev):
+    """qwen3-14b whole; checks on 8 of its layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-14b")
+    return serve_arch_phase(dev, "[serve qwen3-14b]", cfg, "wgmma",
+                            cfg.replace(num_layers=8))
+
+
+# -- phase 18: training at full width ------------------------------------------
 
 TRAIN_WARMUP, TRAIN_STEPS = 1, 4
 TRAIN_CHECK_LAYERS = 4
@@ -2633,7 +2926,7 @@ def leaf_paths(tree, prefix=()):
     return [prefix]
 
 
-# -- phase 17: the four examples on the card -----------------------------------
+# -- phase 20: the four examples on the card -----------------------------------
 
 def load_example(name: str):
     import importlib.util
@@ -2688,6 +2981,22 @@ def examples_phase(dev):
         f"{first:.4f} -> {last:.4f} ({time.perf_counter() - t0:.2f} s)")
 
 
+def ptxas_lines(report: str):
+    """(function, line) for each register and spill line of an
+    ``nvcc -Xptxas -v`` report; the function is the entry being compiled,
+    shortened to its name and template arguments (the mangled form)."""
+    import re
+    fn = "?"
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            short = re.search(r"([a-z_]+kernel)(I\w*?)?EE?v", m.group(1))
+            fn = short.group(1) + (short.group(2) or "") if short else \
+                m.group(1)
+        elif "registers" in line or "spill" in line:
+            yield fn, line.replace("ptxas info    :", "").strip()
+
+
 def all_kernels():
     from repro_torch.kernels.derived_features.kernel import KERNEL as K5
     from repro_torch.kernels.flash_attention.bwd_kernel import KERNEL as K7
@@ -2725,9 +3034,8 @@ def main() -> int:
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
         f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for kname, (path, report) in built.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas] {kname}: {line.strip()}")
+        for fn, line in ptxas_lines(report):
+            log(f"[ptxas] {kname} {fn}: {line}")
 
     # 3. per-kernel checks at the paths' shapes
     from repro_torch.configs import PAPER
@@ -2742,6 +3050,8 @@ def main() -> int:
               check_derived_features(PAPER, dev, gen, mem, valid)]
     del mem, valid
     checks.append(check_flash_attention(dev))
+    checks[-1]["mla"] = check_flash_attention_wide(dev)
+    torch.cuda.empty_cache()
     checks.append(check_flash_attention_bwd(dev))
     torch.cuda.empty_cache()
     for c in checks:
@@ -2824,8 +3134,17 @@ def main() -> int:
     serve_launches, serve_variants = serve_phase(dev)
     torch.cuda.empty_cache()
 
-    # 16. training at full width (launch counts start at 0 again), the
-    # step against the plain versions and f32; 17. the examples
+    # 16.-17. deepseek-v3 (MLA + MoE) and qwen3-14b serving (launch counts
+    # start at 0 again for each)
+    deepseek_launches, deepseek_variants = serve_deepseek_phase(dev)
+    qwen_launches, qwen_variants = serve_qwen_phase(dev)
+    k6_row = next(c for c in checks if c["kernel"].name == "flash_attention")
+    k6_row["variants_by_path"] = {"serve": serve_variants,
+                                  "serve_deepseek": deepseek_variants,
+                                  "serve_qwen": qwen_variants}
+
+    # 18. training at full width (launch counts start at 0 again), 19. the
+    # step against the plain versions and f32; 20. the examples
     train_launches, train_variants = train_phase(dev)
     train_check_phase(dev)
     examples_phase(dev)
@@ -2836,7 +3155,8 @@ def main() -> int:
                  "mesh2d": mesh2d_launches,
                  "serving_mesh": serving_mesh_launches,
                  "elastic": elastic_launches, "serve": serve_launches,
-                 "train": train_launches},
+                 "serve_deepseek": deepseek_launches,
+                 "serve_qwen": qwen_launches, "train": train_launches},
         {"flash_attention": serve_variants,
          "flash_attention_bwd": train_variants})}))
     print(smi)
@@ -2888,7 +3208,8 @@ def kernel_rows(checks, by_path, by_variant):
                          "floor_us",
                          "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms",
-                         "simt_note", "abs_errs", "lse_errs")
+                         "simt_note", "abs_errs", "lse_errs", "mla",
+                         "variants_by_path")
                         if key in c}})
     return rows
 

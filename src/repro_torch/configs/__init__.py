@@ -6,15 +6,21 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import DFAConfig, ModelConfig, TrainConfig
+from repro_torch.configs.base import (DFAConfig, MLAConfig, MoEConfig,
+                                     ModelConfig, TrainConfig)
 from repro_torch.configs.dfa import (PAPER, REDUCED, REDUCED_INFER,
                                      REDUCED_MULTIPOD, REDUCED_MULTIPOD_V2,
                                      REDUCED_OVERLAP, REDUCED_V2_WIDE)
 
-# arch id -> module name; the reference's other architectures (qwen,
-# deepseek, zamba2, whisper, rwkv, ...) are ROADMAP §1 item 14
+# arch id -> module name, in the reference's order; its other
+# architectures (zamba2, llava, whisper, rwkv) are ROADMAP §1 item 14c
 _ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
+    "qwen1.5-32b": "qwen15_32b",
+    "qwen3-14b": "qwen3_14b",
+    "granite-20b": "granite_20b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 
@@ -25,11 +31,11 @@ def list_archs() -> List[str]:
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch not in _ARCH_MODULES:
         raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP §1 item "
-                       f"14); ported: {list_archs()}")
+                       f"14c); ported: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["DFAConfig", "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
+__all__ = ["DFAConfig", "MLAConfig", "MoEConfig", "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
            "REDUCED_MULTIPOD", "REDUCED_MULTIPOD_V2", "REDUCED_OVERLAP",
            "REDUCED_V2_WIDE", "TrainConfig", "get_config", "list_archs"]

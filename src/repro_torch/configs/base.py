@@ -4,7 +4,9 @@ Field names, defaults and meanings are those of the reference
 ``DFAConfig`` and ``ModelConfig`` so a configuration reads the same in
 both packages. Only the fields the port reads (or refuses) are carried;
 the tuning knob arrives with the slice that implements it (ROADMAP §1
-item 12).
+item 12). ``MoEConfig`` and ``MLAConfig`` carry every field of the
+reference's; its SSM, hybrid, encoder-decoder and vision sub-configs
+arrive with their families (ROADMAP §1 item 14c).
 """
 from __future__ import annotations
 
@@ -127,13 +129,45 @@ class DFAConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration (GShard-style top-k routing)."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int                  # per-expert FFN hidden width
+    num_shared_experts: int = 0       # always-on experts (deepseek-v3 style)
+    d_ff_shared: int = 0              # hidden width of the shared expert(s)
+    capacity_factor: float = 1.25     # per-expert buffer slack for dispatch
+    router_dtype: str = "float32"
+    # Layers [0, first_moe_layer) use a dense FFN of width ``d_ff_dense``.
+    first_moe_layer: int = 0
+    d_ff_dense: int = 0
+    # deepseek-v3 routing details
+    routed_scaling_factor: float = 1.0
+    score_func: str = "softmax"       # "softmax" | "sigmoid" (deepseek-v3)
+    moe_every: int = 1                # MoE FFN every k-th layer (llama4: 1)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (deepseek-v3)."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """One model architecture (the port's own copy of the reference's
-    ``ModelConfig``, dense-family fields only).
+    ``ModelConfig``, the fields of the dense and moe families).
 
-    Families: only ``"dense"`` (decoder-only GQA/MQA/MHA transformer) is
-    ported; the reference's moe / hybrid / ssm / encdec / vlm families and
-    their sub-configs are ROADMAP §1 item 14.
+    Families: ``"dense"`` (decoder-only GQA/MQA/MHA transformer) and
+    ``"moe"`` (decoder-only with MoE FFNs, optionally MLA attention) are
+    ported; the reference's hybrid / ssm / encdec / vlm families and their
+    sub-configs are ROADMAP §1 item 14c.
     """
 
     name: str
@@ -151,7 +185,10 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"                 # FFN activation (gated)
-    # multi-token-prediction heads (deepseek): lm_loss refuses any (item 14c)
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    # multi-token-prediction heads (deepseek): the parameters are carried;
+    # lm_loss refuses any (ROADMAP §1 item 14d)
     mtp_depth: int = 0
     # numerics / memory policy
     dtype: str = "bfloat16"           # activation/param compute dtype

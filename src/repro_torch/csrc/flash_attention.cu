@@ -77,8 +77,9 @@
 // 64-row query tile). The query tile and each 64-row K and V tile are
 // staged in shared memory as f32 (rows padded by one word so column walks
 // hit distinct banks); the scores of a tile never leave the SM. Each
-// thread owns 4 query rows x 4 score columns and 4 rows x Dv/16 output
-// columns, so the online-softmax state (m, l, acc) stays in registers; a
+// thread owns 4 query rows x 4 score columns and 4 rows x DVC output
+// columns (DVC = 4, 8 or 16 for Dv up to 64, 128 or 256), so the
+// online-softmax state (m, l, acc) stays in registers; a
 // row's max and sum are reduced across the 16 lanes that share it with
 // shuffles. p is rounded to the value type before p·v and l sums the
 // unrounded p, as the TPU kernel does. It runs f32 FMAs on the CUDA
@@ -86,7 +87,11 @@
 // (top-left: query i sees keys 0..i) key tiles past the tile's last query
 // row are skipped, which is exact: their terms are exp(-1e30 - m) = 0.
 // Ragged Sq and Sk are masked here, so any length is taken. Blocks run
-// the heaviest query tiles first.
+// the heaviest query tiles first. Head dims run to 256, D != Dv (MLA's
+// prefill is D = 192, Dv = 128): shared memory is (64 + 64)(D + 1) +
+// 64 Dv + 64 * 65 floats, 148 KB at (192, 128) and 214 KB at (256, 256),
+// under the 227 KB a block may opt into, so at those widths one block
+// fits on an SM.
 //
 // Both: query head bh reads kv row bh / group; the causal mask is
 // top-left. Given a non-null lse pointer (the training forward), both
@@ -107,7 +112,7 @@ constexpr int kBK = 64;         // key rows per tile
 constexpr int kThreads = 256;   // 16 x 16 threads
 constexpr int kRows = 4;        // query rows per thread: ty * 4 + i
 constexpr int kCols = 4;        // score columns per thread: tx + 16 * j
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -151,8 +156,17 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// Blocks per SM the register allocation is made for: 2 caps a thread at
+// 128 registers. The DVC = 16 instance (Dv > 128) spilled under that cap
+// (80 bytes of spill stores; acc alone is 64 registers), so it is built
+// for 1 block: at Dv > 128 its shared memory, at least 2 x 64 x (D + 1)
+// + 64 x 129 + 64 x 65 floats, leaves room for a second block only while
+// D <= 134, and no config in the repo has such a head dim.
+template <int DVC>
+constexpr int simt_min_blocks() { return DVC > 8 ? 1 : 2; }
+
 template <typename T, int DVC>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, simt_min_blocks<DVC>())
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int BH,
@@ -291,6 +305,22 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(v), static_cast<T*>(out), lse, BH, group, Sq, Sk,
       D, Dv, scale, causal, nq);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// the SIMT instance whose DVC output columns per thread cover Dv
+template <typename T>
+int launch_simt_dv(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int BH, int group, int Sq, int Sk, int D,
+                   int Dv, float scale, int causal, cudaStream_t stream) {
+  if (Dv <= 64)
+    return launch_simt<T, 4>(q, k, v, out, lse, BH, group, Sq, Sk, D, Dv,
+                             scale, causal, stream);
+  if (Dv <= 128)
+    return launch_simt<T, 8>(q, k, v, out, lse, BH, group, Sq, Sk, D, Dv,
+                             scale, causal, stream);
+  return launch_simt<T, 16>(q, k, v, out, lse, BH, group, Sq, Sk, D, Dv,
+                            scale, causal, stream);
 }
 
 
@@ -633,7 +663,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // logsumexp of the scaled scores (natural log, m + log l), which the
 // backward (flash_attention_bwd.cu) recomputes p from.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). variant: 0 =
-// simt (any dtype and head dims up to 128), 1 = wgmma (bf16, D == Dv in
+// simt (any dtype and head dims up to 256), 1 = wgmma (bf16, D == Dv in
 // {64, 128} only: the rule of kernel.py variant(), which names the
 // variant). Returns 0, a cudaError_t, or -CUresult when a tensor map
 // cannot be made.
@@ -658,16 +688,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                        scale, causal, s);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return Dv <= 64 ? launch_simt<float, 4>(q, k, v, out, lse, BH, group, Sq,
+  return dtype == 0 ? launch_simt_dv<float>(q, k, v, out, lse, BH, group, Sq,
                                             Sk, D, Dv, scale, causal, s)
-                    : launch_simt<float, 8>(q, k, v, out, lse, BH, group, Sq,
-                                            Sk, D, Dv, scale, causal, s);
-  return Dv <= 64 ? launch_simt<__nv_bfloat16, 4>(q, k, v, out, lse, BH, group,
-                                                  Sq, Sk, D, Dv, scale,
-                                                  causal, s)
-                  : launch_simt<__nv_bfloat16, 8>(q, k, v, out, lse, BH, group,
-                                                  Sq, Sk, D, Dv, scale,
-                                                  causal, s);
+                    : launch_simt_dv<__nv_bfloat16>(q, k, v, out, lse, BH,
+                                                    group, Sq, Sk, D, Dv,
+                                                    scale, causal, s);
 }
 

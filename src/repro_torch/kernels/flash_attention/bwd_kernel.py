@@ -13,10 +13,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
-from repro_torch.kernels.flash_attention.kernel import (DTYPES, MAX_HEAD_DIM,
-                                                        VARIANTS,
+from repro_torch.kernels.flash_attention.kernel import (DTYPES, VARIANTS,
                                                         WGMMA_HEAD_DIMS,
                                                         variant)
+
+# K7's own head-dim limit (kMaxHeadDim in csrc/flash_attention_bwd.cu):
+# K6 takes up to 256, but MLA's D = 192 backward is ROADMAP §1 item 14d
+MAX_HEAD_DIM = 128
 
 # the wgmma variant's scratch holds each head's rows padded to a multiple
 # of this (kRowPad in csrc/flash_attention_bwd.cu)

@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
 
-MAX_HEAD_DIM = 128
+# D and Dv up to this (kMaxHeadDim in csrc/flash_attention.cu); the Pallas
+# function takes any head dim, and no config in the repo has one above it
+MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "wgmma": 1}
 WGMMA_HEAD_DIMS = (64, 128)
@@ -29,8 +31,9 @@ KERNEL = CudaKernel(
 def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
     """The kernel that runs for these inputs: ``"wgmma"`` (tensor cores)
     for bf16 with D == Dv in {64, 128}; ``"simt"`` for every other bf16
-    head dim and for f32, whose 2e-5 contract TF32 would break. Raises
-    ValueError for another dtype or a head dim outside 1..128."""
+    head dim (MLA's D = 192, Dv = 128 among them) and for f32, whose 2e-5
+    contract TF32 would break. Raises ValueError for another dtype or a
+    head dim outside 1..MAX_HEAD_DIM."""
     if dtype not in DTYPES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
                          f"{dtype}")
@@ -45,7 +48,7 @@ def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
 def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
                          scale=None, force_variant=None, with_lse=False):
     """Same contract as ``ref.flash_attention_ref``; f32 or bf16, head
-    dims up to 128, any Sq and Sk. The kernel is :func:`variant`'s;
+    dims up to :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk. The kernel is :func:`variant`'s;
     ``force_variant="simt"`` runs the SIMT kernel on any inputs (to time
     it beside the tensor-core one), and a ``"wgmma"`` the inputs do not
     qualify for raises. ``with_lse``: also return each row's logsumexp

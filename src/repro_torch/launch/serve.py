@@ -1,12 +1,15 @@
 """Batched serving: prefill + greedy decode loop (the port of
-``repro.launch.serve``, dense family).
+``repro.launch.serve``, dense and moe families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --reduced --batch 4 --prompt 32 --gen 16 --device cpu
 
-Runs on the CUDA card by default (``--device cuda``), where the prefill
-attention launches the flash_attention kernel. Weights and the prompt
-are random, from ``--seed``. Reports tokens/s.
+``--arch`` takes any id of ``configs.list_archs()``: granite-3-2b,
+qwen1.5-32b, qwen3-14b, granite-20b, deepseek-v3-671b (MLA, whose decode
+cache is the latent ``{"ckv", "kr"}``) and llama4-scout-17b-a16e. Runs on
+the CUDA card by default (``--device cuda``), where the prefill attention
+launches the flash_attention kernel. Weights and the prompt are random,
+from ``--seed``. Reports tokens/s.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from repro_torch.models.registry import Model
 
 
 def build_cache(model, prefill_cache, B, S_cache):
-    """Splice a prefill cache into a zero decode cache of length S_cache."""
+    """Splice a prefill cache into a zero decode cache of length S_cache,
+    layer by layer and name by name (``{"k", "v"}`` or MLA's ``{"ckv",
+    "kr"}``), along the sequence axis."""
     big = PM.materialize(model.cache_descs(B, S_cache), None, model.device)
     for layer, part in zip(big, prefill_cache):
         for name, t in part.items():

@@ -10,7 +10,7 @@ vocab-sharded branch of its ``chunked_ce_loss``.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,8 +90,10 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
 
 # ------------------------------------------------------------------ FFN ----
 
-def ffn_descs(cfg: ModelConfig) -> Tree:
-    d_ff, dt = cfg.d_ff, cfg.param_dtype
+def ffn_descs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Tree:
+    """A gated (or, under gelu, plain) FFN of width ``d_ff`` (default
+    ``cfg.d_ff``)."""
+    d_ff, dt = d_ff or cfg.d_ff, cfg.param_dtype
     if cfg.act == "gelu":                   # non-gated MLP with bias
         return {"up": linear_descs(cfg.d_model, d_ff, dt, bias=True),
                 "down": linear_descs(d_ff, cfg.d_model, dt, bias=True)}

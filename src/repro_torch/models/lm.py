@@ -1,14 +1,22 @@
-"""Decoder-only LM assembly, dense family (the port of
+"""Decoder-only LM assembly, dense and moe families (the port of
 ``repro.models.lm``).
 
-The parameters keep the reference's layout: one stacked ``(L, ...)`` tree
-under ``stack_0_dense`` that the reference scans over and the port walks
-with a Python loop. The decode cache is the reference's list of per-layer
-``{"k", "v"}`` dicts. :func:`lm_loss` is the training loss; under
-``cfg.remat == "full"`` each block is recomputed in the backward
+The parameters keep the reference's layout: per contiguous run of one
+block kind (:func:`_segments`) a stacked ``(L, ...)`` tree under
+``stack_{i}_{kind}`` that the reference scans over and the port walks
+with a Python loop (the dense family has one, ``stack_0_dense``;
+deepseek-v3 has ``stack_0_dense`` for its first 3 layers and
+``stack_1_moe`` for the rest). A block attends with MLA when
+``cfg.mla`` is set, else with GQA, and runs the MoE FFN or a dense one.
+The multi-token-prediction block (``mtp``) is in the tree when
+``cfg.mtp_depth`` is set, so the reference's parameters cross whole;
+serving never reads it. The decode cache is the reference's list of
+per-layer ``{"k", "v"}`` dicts, or ``{"ckv", "kr"}`` (the latent cache)
+under MLA. :func:`lm_loss` is the training loss of the dense family;
+under ``cfg.remat == "full"`` each block is recomputed in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
-scan body). The moe / vlm families and multi-token prediction are
-ROADMAP §1 item 14c.
+scan body). Training the moe family and multi-token prediction are
+ROADMAP §1 item 14d; the vlm family is item 14c.
 """
 from __future__ import annotations
 
@@ -20,32 +28,67 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.param import ParamDesc
 
 Tree = Any
-STACK = "stack_0_dense"
+FAMILIES = ("dense", "moe")
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP §1 item "
-            "14); the port runs the dense family")
+            f"14c); the port runs the {' and '.join(FAMILIES)} families")
 
 
-def block_descs(cfg: ModelConfig) -> Tree:
-    """One dense transformer block."""
-    return {"ln1": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
-            "ln2": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
-            "attn": A.attn_descs(cfg),
-            "ffn": L.ffn_descs(cfg)}
+def block_descs(cfg: ModelConfig, kind: str) -> Tree:
+    """One transformer block. kind: "dense" | "moe"."""
+    t = {"ln1": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
+         "ln2": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
+         "attn": A.mla_descs(cfg) if cfg.mla else A.attn_descs(cfg)}
+    if kind == "moe":
+        t["moe"] = M.moe_descs(cfg)
+    else:
+        d_ff = (cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense)
+                else cfg.d_ff)
+        t["ffn"] = L.ffn_descs(cfg, d_ff)
+    return t
+
+
+def _segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """[(kind, n_layers)]: the contiguous runs of one block kind."""
+    if cfg.family == "moe":
+        nd = cfg.moe.first_moe_layer
+        return ([("dense", nd)] if nd else []) + [("moe",
+                                                    cfg.num_layers - nd)]
+    return [("dense", cfg.num_layers)]
+
+
+def layers(params, cfg: ModelConfig) -> List[Tuple[str, Tree]]:
+    """Every layer's (kind, parameters) in order, cut once from the
+    stacks with :func:`unstack`."""
+    out = []
+    for i, (kind, n) in enumerate(_segments(cfg)):
+        out += [(kind, lp) for lp in unstack(params[f"stack_{i}_{kind}"], n)]
+    return out
 
 
 def lm_descs(cfg: ModelConfig) -> Tree:
-    check_dense(cfg)
-    return {"embed": L.embed_descs(cfg),
-            "final_norm": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
-            STACK: L.stack_descs(block_descs(cfg), cfg.num_layers)}
+    check_family(cfg)
+    t = {"embed": L.embed_descs(cfg),
+         "final_norm": L.rms_norm_descs(cfg.d_model, cfg.param_dtype)}
+    for i, (kind, n) in enumerate(_segments(cfg)):
+        t[f"stack_{i}_{kind}"] = L.stack_descs(block_descs(cfg, kind), n)
+    if cfg.mtp_depth:
+        t["mtp"] = {
+            "proj": L.linear_descs(2 * cfg.d_model, cfg.d_model,
+                                   cfg.param_dtype),
+            "norm_h": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
+            "norm_e": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
+            "block": block_descs(cfg, "moe" if cfg.moe else "dense"),
+        }
+    return t
 
 
 def unstack(stack: Tree, n: int) -> List[Tree]:
@@ -61,32 +104,51 @@ def unstack(stack: Tree, n: int) -> List[Tree]:
 
 # ------------------------------------------------------------- blocks ------
 
-def block_train(params, x, cfg: ModelConfig,
-                backend: Optional[str] = None):
+def _attend(params, h, cfg: ModelConfig, return_kv: bool,
+            backend: Optional[str]):
+    fn = A.mla_train if cfg.mla else A.attn_train
+    return fn(params["attn"], h, cfg, return_kv=return_kv, backend=backend)
+
+
+def _ffn(params, h, cfg: ModelConfig, kind: str):
+    if kind == "moe":
+        return M.moe_ffn(params["moe"], h, cfg)
+    return L.ffn(params["ffn"], h, cfg.act)
+
+
+def block_train(params, x, cfg: ModelConfig, backend: Optional[str] = None,
+                kind: str = "dense"):
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
-    x = x + A.attn_train(params["attn"], h, cfg, backend=backend)
+    x = x + _attend(params, h, cfg, False, backend)
     h = L.rms_norm(params["ln2"], x, cfg.norm_eps)
-    return x + L.ffn(params["ffn"], h, cfg.act)
+    return x + _ffn(params, h, cfg, kind)
 
 
 def block_prefill(params, x, cfg: ModelConfig,
-                  backend: Optional[str] = None):
-    """Like train but returns the KV-cache contribution."""
+                  backend: Optional[str] = None, kind: str = "dense"):
+    """Like train but returns the cache contribution: (k, v), or (c_kv,
+    k_rope) under MLA."""
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
-    h, kv = A.attn_train(params["attn"], h, cfg, return_kv=True,
-                         backend=backend)
+    h, kv = _attend(params, h, cfg, True, backend)
     x = x + h
     h = L.rms_norm(params["ln2"], x, cfg.norm_eps)
-    return x + L.ffn(params["ffn"], h, cfg.act), kv
+    return x + _ffn(params, h, cfg, kind), kv
 
 
-def block_decode(params, x, cfg: ModelConfig, cache, pos):
+def block_decode(params, x, cfg: ModelConfig, cache, pos,
+                 kind: str = "dense"):
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
-    h, k, v = A.attn_decode(params["attn"], h, cfg, cache["k"], cache["v"],
-                            pos)
+    if cfg.mla:
+        h, ckv, kr = A.mla_decode(params["attn"], h, cfg, cache["ckv"],
+                                  cache["kr"], pos)
+        new_cache = {"ckv": ckv, "kr": kr}
+    else:
+        h, k, v = A.attn_decode(params["attn"], h, cfg, cache["k"],
+                                cache["v"], pos)
+        new_cache = {"k": k, "v": v}
     x = x + h
     h = L.rms_norm(params["ln2"], x, cfg.norm_eps)
-    return x + L.ffn(params["ffn"], h, cfg.act), {"k": k, "v": v}
+    return x + _ffn(params, h, cfg, kind), new_cache
 
 
 # ------------------------------------------------------------ assembly -----
@@ -98,23 +160,24 @@ def lm_hidden(params, batch, cfg: ModelConfig,
     and runs again in the backward."""
     x = L.embed(params["embed"], batch["tokens"])
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for lp in unstack(params[STACK], cfg.num_layers):
+    for kind, lp in layers(params, cfg):
         if remat:
-            x = checkpoint(block_train, lp, x, cfg, backend,
+            x = checkpoint(block_train, lp, x, cfg, backend, kind,
                            use_reentrant=False)
         else:
-            x = block_train(lp, x, cfg, backend=backend)
+            x = block_train(lp, x, cfg, backend=backend, kind=kind)
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
 def lm_loss(params, batch, cfg: ModelConfig,
             backend: Optional[str] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets"}
-    and an optional "mask", all (B, S)), f32 0-d."""
-    if cfg.mtp_depth:
+    and an optional "mask", all (B, S)), f32 0-d; the dense family."""
+    if cfg.family != "dense" or cfg.mtp_depth:
         raise NotImplementedError(
-            "multi-token prediction (mtp_depth, deepseek) is not ported yet "
-            "(ROADMAP §1 item 14c)")
+            f"training the {cfg.family!r} family with mtp_depth="
+            f"{cfg.mtp_depth} is not ported yet: the moe family's loss and "
+            "multi-token prediction are ROADMAP §1 item 14d")
     x = lm_hidden(params, batch, cfg, backend=backend)
     targets = batch["targets"]
     mask = batch.get("mask")
@@ -126,26 +189,33 @@ def lm_loss(params, batch, cfg: ModelConfig,
 
 
 def cache_descs(cfg: ModelConfig, batch: int, seq: int) -> List[Tree]:
-    """The decode cache: a list of per-layer ``{"k", "v"}`` of shape
-    (batch, seq, KH, D) in the activation dtype."""
-    check_dense(cfg)
-    D = cfg.resolved_head_dim
-    shape = (batch, seq, cfg.num_kv_heads, D)
-    return [{"k": ParamDesc(shape, cfg.dtype, init="zeros"),
-             "v": ParamDesc(shape, cfg.dtype, init="zeros")}
-            for _ in range(cfg.num_layers)]
+    """The decode cache, in the activation dtype: a list of per-layer
+    ``{"k", "v"}`` of shape (batch, seq, KH, D), or under MLA the latent
+    cache ``{"ckv": (batch, seq, kv_lora_rank), "kr": (batch, seq,
+    qk_rope_head_dim)}``."""
+    check_family(cfg)
+    if cfg.mla:
+        shapes = {"ckv": (batch, seq, cfg.mla.kv_lora_rank),
+                  "kr": (batch, seq, cfg.mla.qk_rope_head_dim)}
+    else:
+        shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shapes = {"k": shape, "v": shape}
+    return [{n: ParamDesc(s, cfg.dtype, init="zeros")
+             for n, s in shapes.items()} for _ in range(cfg.num_layers)]
 
 
 def lm_prefill(params, batch, cfg: ModelConfig,
                backend: Optional[str] = None
                ) -> Tuple[torch.Tensor, List[Tree]]:
     """Returns (last-token logits (B, V), per-layer cache of the prompt:
-    a list of ``{"k", "v"}`` of shape (B, S, KH, D))."""
+    a list of ``{"k", "v"}`` of shape (B, S, KH, D), or of ``{"ckv",
+    "kr"}`` under MLA)."""
     x = L.embed(params["embed"], batch["tokens"])
+    names = ("ckv", "kr") if cfg.mla else ("k", "v")
     cache = []
-    for lp in unstack(params[STACK], cfg.num_layers):
-        x, (k, v) = block_prefill(lp, x, cfg, backend=backend)
-        cache.append({"k": k, "v": v})
+    for kind, lp in layers(params, cfg):
+        x, kv = block_prefill(lp, x, cfg, backend=backend, kind=kind)
+        cache.append(dict(zip(names, kv)))
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.logits_fn(params["embed"], x[:, -1:, :],
                          cfg.tie_embeddings)[:, 0]
@@ -158,8 +228,8 @@ def lm_decode(params, token, pos, cache, cfg: ModelConfig
     whose tensors are updated in place. Returns (logits (B, V), cache')."""
     x = L.embed(params["embed"], token)
     new_cache = list(cache)
-    for layer, lp in enumerate(unstack(params[STACK], cfg.num_layers)):
-        x, new = block_decode(lp, x, cfg, cache[layer], pos)
+    for layer, (kind, lp) in enumerate(layers(params, cfg)):
+        x, new = block_decode(lp, x, cfg, cache[layer], pos, kind=kind)
         new_cache[layer] = {n: t.to(cache[layer][n].dtype)
                             for n, t in new.items()}
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

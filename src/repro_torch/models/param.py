@@ -21,6 +21,8 @@ import torch
 Tree = Any
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# elements of the largest f32 draw :func:`materialize` makes at once
+DRAW_CHUNK = 1 << 30
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -62,15 +64,27 @@ def _init_leaf(d: ParamDesc, generator: torch.Generator,
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
-    w = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                    device=device)
     if d.init == "embed":
-        return (w * d.scale).to(dtype)
-    if d.init == "normal":
+        scale = d.scale
+    elif d.init == "normal":
         fan_in = d.shape[0] if len(d.shape) >= 2 else 1
-        scale = d.scale if d.scale else 1.0
-        return (w * min(scale, 1.0 / np.sqrt(max(fan_in, 1)))).to(dtype)
-    raise ValueError(f"unknown init {d.init}")
+        scale = min(d.scale if d.scale else 1.0, 1.0 / np.sqrt(max(fan_in, 1)))
+    else:
+        raise ValueError(f"unknown init {d.init}")
+    # drawn in f32 pieces of at most DRAW_CHUNK into the leaf's own dtype,
+    # so a leaf as large as deepseek-v3's stacked experts (7.5e9 elements)
+    # never needs 4 bytes for each of its elements at once; randn fills by
+    # element count alone, so a leaf of one piece draws what randn(shape)
+    # would, and a leaf of no elements draws nothing
+    n = int(np.prod(d.shape))
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for lo in range(0, n, DRAW_CHUNK):
+        hi = min(lo + DRAW_CHUNK, n)
+        w = torch.randn(hi - lo, generator=generator, dtype=torch.float32,
+                        device=device)
+        flat[lo:hi] = (w * scale).to(dtype)
+    return out
 
 
 def materialize(descs: Tree, generator: torch.Generator, device) -> Tree:

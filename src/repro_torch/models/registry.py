@@ -1,5 +1,6 @@
 """Model registry: the public ``Model`` facade of the training and
-serving paths (the port of ``repro.models.registry``, dense family).
+serving paths (the port of ``repro.models.registry``, dense and moe
+families; ``loss`` takes the dense family).
 
 ``Model(cfg)`` runs on the CUDA card unless the caller passes
 ``device="cpu"``; on the card the attention launches the flash_attention
@@ -33,7 +34,7 @@ class Model:
     def __post_init__(self):
         self.device = on_card_or_cpu(self.device, "Model")
         self.backend = dispatch.check_backend(self.backend)
-        LM.check_dense(self.cfg)
+        LM.check_family(self.cfg)
 
     # ---- parameters -----------------------------------------------------
     def param_descs(self) -> Tree:

@@ -468,6 +468,7 @@ def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
 
 @pytest.mark.parametrize("BH,Sq,Sk,D,group,causal", [
     (128, 1024, 1024, 64, 4, True),     # the serving shape
+    (160, 1024, 1024, 128, 5, True),    # qwen3-14b's serving shape
     (8, 1000, 1000, 64, 4, True),
     (8, 1000, 1000, 128, 4, True),
     (8, 1000, 1000, 64, 1, False),
@@ -515,6 +516,76 @@ def test_flash_attention_simt_variant_forced(cuda):
     for got in (simt, wgmma):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,Dv,Sq,Sk,group", [
+    (192, 128, 1024, 1024, 1),          # deepseek-v3's MLA prefill
+    (192, 128, 200, 330, 1),            # ragged, Sq < Sk
+    (80, 80, 330, 200, 2),              # zamba2's head dim, Sq > Sk
+    (160, 64, 130, 70, 3),
+    (256, 256, 100, 257, 1),            # the widest the kernel takes
+])
+def test_flash_attention_wide_head_dims(cuda, dtype, causal, D, Dv, Sq, Sk,
+                                        group):
+    """Head dims past 128 (D != Dv) on the SIMT kernel, the only variant
+    that takes them, against the plain version."""
+    assert AK.variant(dtype, D, Dv) == "simt"
+    before = dict(AK.KERNEL.launches_by_variant)
+    _attention_case(cuda, 2 * group, Sq, Sk, D, Dv, group, dtype, causal,
+                    D + Dv + Sq)
+    assert AK.KERNEL.launches_by_variant == {**before,
+                                             "simt": before["simt"] + 1}
+
+
+@pytest.mark.parametrize("D,Dv", [(257, 64), (64, 257), (320, 320)])
+def test_flash_attention_refuses_past_256_on_the_card(cuda, D, Dv):
+    """Refused before anything is built or launched, on CUDA tensors too."""
+    q = torch.zeros(2, 8, D, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(2, 8, Dv, device=cuda, dtype=torch.bfloat16)
+    launches = AK.KERNEL.launches
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention(q, q, v)
+    assert AK.KERNEL.launches == launches
+
+
+def test_reduced_deepseek_kernel_equals_plain(cuda):
+    """deepseek-v3 at REDUCED (MLA, 1 dense + 3 MoE layers) in f32 on the
+    card: the prefill (K6 once per layer, D = 24, Dv = 16), its latent
+    cache, and 3 greedy decode steps equal the plain run's to 1e-4 of the
+    largest logit."""
+    from repro_torch.launch.serve import build_cache
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    model = Model(cfg, device=cuda)
+    plain = Model(cfg, device=cuda, backend="ref")
+    params = model.init(0)
+    g = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 70), generator=g).to(cuda)
+    before = AK.KERNEL.launches
+    outs = []
+    for m in (model, plain):
+        logits, pc = m.prefill(params, {"tokens": tokens})
+        cache = build_cache(m, pc, 2, 80)
+        seen = [logits]
+        tok, pos = logits.argmax(-1)[:, None], torch.full((2,), 70,
+                                                          device=cuda)
+        for _ in range(3):
+            logits, cache = m.decode(params, tok, pos, cache)
+            seen.append(logits)
+            tok, pos = logits.argmax(-1)[:, None], pos + 1
+        outs.append((seen, pc))
+    assert AK.KERNEL.launches == before + cfg.num_layers
+    (got, gc), (want, wc) = outs
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+    for a, b in zip(gc, wc):
+        assert set(a) == {"ckv", "kr"}
+        for n in a:
+            assert float((a[n] - b[n]).abs().max()) <= 1e-4 * float(
+                b[n].abs().max())
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),

@@ -65,6 +65,27 @@ def test_plain_version_matches_pallas_and_ref(rng, BH, Sq, Sk, D, Dv, group,
         np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,causal", [("float32", True),
+                                          ("float32", False),
+                                          ("bfloat16", True)])
+def test_plain_version_matches_pallas_at_the_mla_head_dims(rng, dtype,
+                                                           causal):
+    """MLA's prefill shape, D = 128 + 64 = 192 and Dv = 128 (group 1),
+    against the Pallas function in interpret mode (its BlockSpecs span the
+    whole D and Dv) at Sq = Sk = 128 with 64-row tiles."""
+    BH, S, D, Dv = 2, 128, 192, 128
+    qj, qt = _both(rng.standard_normal((BH, S, D)), dtype)
+    kj, kt = _both(rng.standard_normal((BH, S, D)), dtype)
+    vj, vt = _both(rng.standard_normal((BH, S, Dv)), dtype)
+    scale = D ** -0.5
+    got = FA.flash_attention(qt, kt, vt, causal=causal, scale=scale)
+    assert got.shape == (BH, S, Dv) and FK.variant(qt.dtype, D, Dv) == "simt"
+    want = flash_attention_pallas(qj, kj, vj, causal=causal, scale=scale,
+                                  bq=64, bk=64)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("B,S,H,KH", [(2, 64, 8, 4), (2, 64, 8, 2),
                                       (1, 40, 8, 2), (3, 40, 4, 2)])
 def test_chunked_attention_matches_jax(rng, B, S, H, KH):
@@ -116,7 +137,7 @@ def test_kernel_wrapper_refuses_what_k6_does_not_take():
     bad = [
         (dict(q=q.double(), k=kv.double(), v=kv.double(), group=2), "float32"),
         (dict(q=q, k=kv, v=kv, group=3), "heads"),
-        (dict(q=torch.zeros(4, 8, 160), k=torch.zeros(2, 8, 160), v=kv,
+        (dict(q=torch.zeros(4, 8, 320), k=torch.zeros(2, 8, 320), v=kv,
               group=2), "head dims"),
         (dict(q=q, k=kv, v=kv, group=2), "contiguous"),      # CPU tensors
     ]
@@ -142,6 +163,14 @@ VARIANT_CASES = [
     (torch.float32, 64, 64, "simt"),         # f32 keeps its 2e-5 contract
     (torch.float32, 128, 128, "simt"),
     (torch.float32, 16, 16, "simt"),
+    # head dims past 128 run SIMT, D != Dv among them
+    (torch.bfloat16, 192, 128, "simt"),      # deepseek-v3's MLA prefill
+    (torch.float32, 192, 128, "simt"),
+    (torch.bfloat16, 80, 80, "simt"),        # zamba2's head dim
+    (torch.bfloat16, 129, 129, "simt"),
+    (torch.bfloat16, 256, 256, "simt"),
+    (torch.bfloat16, 64, 160, "simt"),
+    (torch.float32, 192, 64, "simt"),
 ]
 
 
@@ -151,15 +180,15 @@ def test_variant_rule(dtype, D, Dv, want):
 
 
 @pytest.mark.parametrize("dtype,D,Dv,msg", [
-    (torch.bfloat16, 129, 129, "head dims"),
-    (torch.bfloat16, 256, 256, "head dims"),
-    (torch.bfloat16, 64, 160, "head dims"),
-    (torch.float32, 192, 64, "head dims"),
+    (torch.bfloat16, 257, 257, "head dims"),
+    (torch.bfloat16, 320, 320, "head dims"),
+    (torch.bfloat16, 64, 257, "head dims"),
+    (torch.float32, 320, 64, "head dims"),
     (torch.bfloat16, 0, 64, "head dims"),
     (torch.float16, 64, 64, "float32 or bfloat16"),
 ])
 def test_variant_refuses_before_any_launch(dtype, D, Dv, msg):
-    """A head dim past 128 (or a dtype K6 lacks) is refused by variant()
+    """A head dim past 256 (or a dtype K6 lacks) is refused by variant()
     and by the wrapper, before anything is built or launched."""
     with pytest.raises(ValueError, match=msg):
         FK.variant(dtype, D, Dv)

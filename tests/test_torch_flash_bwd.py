@@ -202,6 +202,23 @@ def test_bwd_variant_choice(dtype, D, Dv, want):
     assert BK.KERNEL.launches == 0
 
 
+@pytest.mark.parametrize("D,Dv", [(192, 128), (129, 129), (64, 192)])
+def test_bwd_still_refuses_head_dims_past_128(D, Dv):
+    """K6 takes head dims up to 256, K7 keeps its own limit of 128 (MLA's
+    D = 192 backward waits for the moe training slice): refused before
+    anything is built or launched, and the limit is the source's."""
+    assert BK.MAX_HEAD_DIM == 128 < AK.MAX_HEAD_DIM == 256
+    assert AK.variant(torch.bfloat16, D, Dv) == "simt"
+    q = torch.zeros(4, 9, D, dtype=torch.bfloat16)
+    v = torch.zeros(4, 9, Dv, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        BK.flash_attention_bwd_cuda(q, q, v, v, torch.zeros(4, 9), v)
+    src = open(SRC).read()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kMaxHeadDim"]) == BK.MAX_HEAD_DIM
+    assert BK.KERNEL._fn is None and BK.KERNEL.launches == 0
+
+
 def test_bwd_row_pad_matches_the_source():
     """The wrapper's ROW_PAD is the kernel's kRowPad, and the wgmma
     kernels' tiles divide it (a tile's lse and Dsum slices stay inside a

@@ -244,16 +244,42 @@ def test_serve_cli_and_registry_on_the_cpu(capsys):
                     "--prompt", "8", "--gen", "3", "--cache", "16"])
     assert tuple(toks.shape) == (2, 3)
     assert "generated (2, 3)" in capsys.readouterr().out
-    assert list_archs() == [ARCH]
+    assert list_archs() == [ARCH, "qwen1.5-32b", "qwen3-14b", "granite-20b",
+                            "deepseek-v3-671b", "llama4-scout-17b-a16e"]
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen3-14b")
+        get_config("zamba2-2.7b")
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.d_ff, full.vocab_size) == (
         40, 2048, 32, 8, 64, 8192, 49155)
     assert count_params(Model(full, device="cpu").param_descs()) == (
         2_533_531_648)
-    moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
-                      num_heads=2, num_kv_heads=1, d_ff=8, vocab_size=8)
+    hybrid = ModelConfig(name="m", family="hybrid", num_layers=1,
+                         d_model=8, num_heads=2, num_kv_heads=1, d_ff=8,
+                         vocab_size=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(moe, device="cpu")
+        Model(hybrid, device="cpu")
+
+
+@pytest.mark.parametrize("init,shape", [("normal", (300, 7)),
+                                        ("embed", (2101,)),
+                                        ("normal", (4, 0, 8))])
+def test_materialize_draws_a_leaf_in_pieces(monkeypatch, init, shape):
+    """A leaf larger than DRAW_CHUNK is filled piece by piece, in order,
+    from the caller's generator; one of no elements draws nothing."""
+    from repro_torch.models import param as PM
+
+    monkeypatch.setattr(PM, "DRAW_CHUNK", 512)
+    desc = PM.ParamDesc(shape, dtype="float32", init=init, scale=0.5)
+    drawn = torch.Generator().manual_seed(3)
+    got = PM.materialize({"w": desc}, drawn, "cpu")["w"]
+    gen = torch.Generator().manual_seed(3)
+    n = int(np.prod(shape))
+    want = torch.cat([torch.randn(min(512, n - lo), generator=gen)
+                      for lo in range(0, n, 512)] + [torch.zeros(0)])
+    scale = 0.5 if init == "embed" else min(0.5, shape[0] ** -0.5)
+    assert got.shape == shape and got.dtype == torch.float32
+    torch.testing.assert_close(got.view(-1), want * scale, rtol=0, atol=0)
+    # the generator moved on by exactly the values drawn
+    assert torch.equal(torch.randn(4, generator=drawn),
+                       torch.randn(4, generator=gen))

@@ -253,8 +253,11 @@ def test_training_refusals():
     with pytest.raises(NotImplementedError, match="14c"):
         TrainConfig(grad_compression="int8_ef")
     cfg = get_config(ARCH, reduced=True)
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(NotImplementedError, match="14d"):
         LM.lm_loss({}, {}, cfg.replace(mtp_depth=1))
+    with pytest.raises(NotImplementedError, match="14d"):
+        LM.lm_loss({}, {}, get_config("deepseek-v3-671b", reduced=True)
+                   .replace(mtp_depth=0))
     assert cfg.remat == "none" and get_config(ARCH).remat == "full"
     assert (cfg.loss_chunk, cfg.opt_state_dtype) == (2048, "float32")
 
