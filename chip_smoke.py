@@ -44,6 +44,11 @@ Phases (any failure exits non-zero; nothing is caught):
    SIMT kernels timed in turns and by their device time, SDPA's backward
    (forward + backward minus forward) as the library yardstick, and the
    wgmma kernels' share of the bound and factor against SDPA logged;
+   flash_attention_bwd past head dim 128 on its SIMT kernels at MLA's
+   training shape (B = 4 x 128 heads, 1024 tokens, D = 192, Dv = 128,
+   group 1, causal) in f32 and bf16 under the same rules, timed in turns
+   with its device time, its bound and SDPA's backward (or the reason it
+   refuses Dv != D);
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -150,11 +155,24 @@ Phases (any failure exits non-zero; nothing is caught):
    flash_attention (2 x 40: the forward and its remat) and
    flash_attention_bwd (40, all on its wgmma kernels) launches per step,
    no plain attention call, and a 1-step profile;
-19. [train check] — one step's loss and gradients at full width with 4
-   layers: bf16 with the kernels, bf16 plain, f32 plain on the same
-   weights and batch; the relative error of every gradient leaf against
-   f32, the kernel run's worst no more than 1.5 x the plain run's;
-20. [examples] — examples/torch_*.py on the card through their ``run``:
+19. [train deepseek-v3] — as 18 for deepseek-v3 at full width cut to its
+   3 dense layers (MLA + the 18432-wide FFN; one MoE layer alone holds
+   11.3e9 expert parameters), MTP left out, full untied vocabulary, bf16
+   AdamW moments (its config's), 1 warm-up and 2 timed steps: 6 K6 and 3
+   K7 launches per step, all simt (D = 192, Dv = 128);
+20. [train llama4-scout] — as 19 for llama4-scout cut to 1 of 48 layers
+   (16 experts whole, the shared expert, the 202,048-row untied
+   vocabulary, f32 moments; C = 320 slots per expert): 2 K6 and 1 K7
+   launches per step, all wgmma (D = 128, group 5), and the share of
+   pairs capacity drops;
+21. [train check] — one step's loss and gradients at full width of
+   granite-3-2b with 4 layers and of deepseek-v3's 3 dense layers: bf16
+   with the kernels, bf16 plain, f32 plain on the same weights and batch;
+   the relative error of every gradient leaf against f32, the kernel
+   run's worst no more than 1.5 x the plain run's; and deepseek-v3 at
+   REDUCED width (MoE layers, MLA, MTP) in f32, kernels against plain,
+   every gradient leaf within 1e-4 of its largest element;
+22. [examples] — examples/torch_*.py on the card through their ``run``:
    quickstart, the serving example (accounting balances, with drops), the
    flow classifier (held-out accuracy > 0.85) and LM training (the loss
    falls by more than 0.2).
@@ -901,27 +919,22 @@ def grad_err(got, want) -> float:
                for a, b in zip(got, want))
 
 
-def check_flash_attention_bwd(dev):
-    """K7 at the training path's shape against its plain version on the
-    same inputs (o and lse from K6 with its lse output, which is held
-    against the plain logsumexp): bf16 on the wgmma kernels (the variant
-    ``kernel.variant`` names there) and forced onto the SIMT ones, f32
-    on the SIMT ones; the wgmma kernels repeat bit for bit. Both bf16
-    variants timed in turns and by their device time per call, and
-    SDPA's backward as the library yardstick (forward + backward of one
-    scaled_dot_product_attention call minus its forward, on the same
-    inputs; never called by the port)."""
+def hold_k7_against_plain(gen, dev, tag, BH, G, S, D):
+    """K7 at one GQA shape (q/o/do (BH, S, D), k/v (BH // G, S, D), causal)
+    against its plain version on the same inputs, o and lse from K6 with
+    its lse output, which is held against the plain logsumexp within
+    LSE_TOL: f32 on the SIMT kernels within BWD_TOL of max |grad|; bf16 on
+    the variant ``kernel.variant`` names (the wgmma kernels, which repeat
+    bit for bit) and forced onto the SIMT ones, each no further from the
+    f32 plain gradient than the bf16 plain gradient is, x B_RATIO. Returns
+    (errs, abs_errs, lse_errs, the bf16 (q, k, v, o, lse, do))."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as REF
 
-    gen = torch.Generator(device=dev).manual_seed(7)
-    H, KH, D = 32, 8, 64
-    BH, G, S = TRAIN_B * H, H // KH, TRAIN_S
     require(K.variant(torch.bfloat16, D, D) == "wgmma",
-            "the training shape does not reach K7's wgmma kernels")
+            f"K7 at {tag}'s shape does not reach the wgmma kernels")
     errs, abs_errs, lse_errs = {}, {}, {}
     runs = (("float32", "simt"), ("bfloat16", "wgmma"), ("bfloat16", "simt"))
     for dt, variant in runs:
@@ -937,9 +950,10 @@ def check_flash_attention_bwd(dev):
             _, want_lse = REF.flash_attention_lse_ref(q, k, v, group=G)
             lse_errs[dt] = float((lse - want_lse).abs().max())
             require(lse_errs[dt] <= LSE_TOL,
-                    f"flash_attention's lse ({dt}) differs from the plain "
-                    f"logsumexp by {lse_errs[dt]:.3e}")
-            want = REF.flash_attention_bwd_ref(q, k, v, o, lse, do, group=G)
+                    f"flash_attention's lse ({tag}, {dt}) differs from the "
+                    f"plain logsumexp by {lse_errs[dt]:.3e}")
+            want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
+                                               group=G)
         name = f"{dt} {variant}"
         forced = None if variant == K.variant(dtype, D, D) else variant
         before = dict(BK.KERNEL.launches_by_variant)
@@ -947,38 +961,70 @@ def check_flash_attention_bwd(dev):
                                           force_variant=forced)
         require(BK.KERNEL.launches_by_variant
                 == {**before, variant: before[variant] + 1},
-                f"flash_attention_bwd ({name}) did not count one {variant} "
-                f"launch")
+                f"flash_attention_bwd ({tag}, {name}) did not count one "
+                f"{variant} launch")
         torch.cuda.synchronize()
         require(all(bool(torch.isfinite(g.float()).all()) for g in got),
-                f"flash_attention_bwd ({name}) gave non-finite gradients")
+                f"flash_attention_bwd ({tag}, {name}) gave non-finite "
+                f"gradients")
         err = grad_err(got, want)
         abs_errs[name] = max(float((a.float() - b.float()).abs().max())
                              for a, b in zip(got, want))
         errs[name] = err
         if dt == "float32":
-            require(err <= BWD_TOL, f"flash_attention_bwd (f32) differs "
-                                    f"from its plain version: {err:.3e} of "
-                                    f"max |grad| > {BWD_TOL:g}")
+            require(err <= BWD_TOL, f"flash_attention_bwd ({tag}, f32) "
+                                    f"differs from its plain version: "
+                                    f"{err:.3e} of max |grad| > "
+                                    f"{BWD_TOL:g}")
             continue
         f32 = REF.flash_attention_bwd_ref(
-            *(t.float() for t in (q, k, v, o)), lse, do.float(), group=G)
+            *(t.float() for t in (q, k, v, o)), want_lse, do.float(),
+            group=G)
         err_k, err_p = grad_err(got, f32), grad_err(want, f32)
-        log(f"[kernel] flash_attention_bwd bf16 ({variant}) vs the f32 "
-            f"plain gradient: kernel {err_k:.3e}, plain bf16 {err_p:.3e} "
-            f"(held: kernel <= {B_RATIO:g} x plain); kernel vs plain bf16 "
-            f"{err:.3e}")
+        log(f"[kernel] flash_attention_bwd at {tag}'s shape, bf16 "
+            f"({variant}) vs the f32 plain gradient: kernel {err_k:.3e}, "
+            f"plain bf16 {err_p:.3e} (held: kernel <= {B_RATIO:g} x plain); "
+            f"kernel vs plain bf16 {err:.3e}")
         require(err_k <= B_RATIO * err_p,
-                f"flash_attention_bwd (bf16, {variant}) is further from the "
-                f"f32 gradient than the plain bf16 gradient is")
+                f"flash_attention_bwd ({tag}, bf16, {variant}) is further "
+                f"from the f32 gradient than the plain bf16 gradient is")
         if variant == "wgmma":
             again = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
             require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                    "flash_attention_bwd (wgmma) differs between two runs")
+                    f"flash_attention_bwd ({tag}, wgmma) differs between "
+                    f"two runs")
             del again
         del f32
-    log(f"[kernel] flash_attention lse vs the plain logsumexp (training "
-        f"shape): {lse_errs} (tolerance {LSE_TOL:g} absolute)")
+    log(f"[kernel] flash_attention_bwd at {tag}'s shape q/o/do ({BH}, {S}, "
+        f"{D}), k/v ({BH // G}, {S}, {D}), group {G}: of max |grad| vs plain "
+        f"{ {n: f'{e:.3e}' for n, e in errs.items()} }; K6's lse vs the plain "
+        f"logsumexp {lse_errs} (tolerance {LSE_TOL:g} absolute)")
+    return errs, abs_errs, lse_errs, (q, k, v, o, lse, do)
+
+
+def check_flash_attention_bwd(dev):
+    """K7 against its plain version (:func:`hold_k7_against_plain`) at the
+    two training paths' wgmma shapes: granite-3-2b's (B = 4 x 32 heads of
+    64, 8 kv heads, the <64> instance) and llama4-scout's (B = 4 x 40
+    heads of 128, 8 kv heads, the <128> instance), 1024 tokens, causal.
+    At granite's shape both bf16 variants timed in turns and by their
+    device time per call, and SDPA's backward as the library yardstick
+    (forward + backward of one scaled_dot_product_attention call minus its
+    forward, on the same inputs; never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import ref as REF
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    l_errs, l_abs, l_lse, tensors = hold_k7_against_plain(
+        gen, dev, "llama4-scout", TRAIN_B * 40, 5, TRAIN_S, 128)
+    del tensors
+    torch.cuda.empty_cache()
+    H, KH, D = 32, 8, 64
+    BH, G, S = TRAIN_B * H, H // KH, TRAIN_S
+    errs, abs_errs, lse_errs, (q, k, v, o, lse, do) = hold_k7_against_plain(
+        gen, dev, "granite-3-2b", BH, G, S, D)
 
     # q, k, v, o, do, lse of the bf16 case are timed
     call = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
@@ -1037,12 +1083,146 @@ def check_flash_attention_bwd(dev):
                          f"abs err to the plain version "
                          f"{abs_errs['bfloat16 simt']:.3e}",
             "shape": f"q/o/do ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), "
-                     f"group {G}, causal, bf16 (f32 checked too)",
+                     f"group {G}, causal, bf16 (f32 checked too; and "
+                     f"llama4-scout's (160, {S}, 128) group 5)",
             "check": f"f32 {BWD_TOL:g} of max |grad|; bf16 (wgmma and simt) "
                      f"no further from the f32 plain gradient than plain "
                      f"bf16, x{B_RATIO:g}; wgmma bit for bit twice; K6 lse "
                      f"{LSE_TOL:g} absolute",
-            "errs": errs, "abs_errs": abs_errs, "lse_errs": lse_errs}
+            "errs": errs, "abs_errs": abs_errs, "lse_errs": lse_errs,
+            "llama4": {"errs": l_errs, "abs_errs": l_abs,
+                       "lse_errs": l_lse}}
+
+
+def check_flash_attention_bwd_mla(dev):
+    """K7 past head dim 128 (SIMT only) at MLA's training shape: B = 4 x
+    128 heads, 1024 tokens, D = 192, Dv = 128, group 1, causal, MLA's
+    scale, o and lse from K6, whose lse is held against the plain
+    logsumexp within LSE_TOL. f32 within BWD_TOL of max |grad| of the
+    plain version (from the plain lse); bf16 no further from the f32 plain gradient than the
+    bf16 plain gradient is, x B_RATIO; the bf16 kernels timed in turns
+    with the plain version and by their device time, beside the bound and
+    SDPA's backward (forward + backward minus forward, or the reason it
+    refuses Dv != D). Returns the entry for K7's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as REF
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    BH, S, D, Dv = TRAIN_B * MLA_HEADS, TRAIN_S, MLA_D, MLA_DV
+    scale = D ** -0.5
+    require(K.variant(torch.bfloat16, D, Dv) == "simt",
+            "MLA's head dims should run K7's SIMT kernels")
+    errs, abs_errs, lse_errs = {}, {}, {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        q, k, v = attention_inputs(gen, dev, BH, S, S, D, Dv, 1, dtype)
+        do = torch.randn(BH, S, Dv, generator=gen, device=dev).to(dtype)
+        o, lse = K.flash_attention_cuda(q, k, v, scale=scale, with_lse=True)
+        _, want_lse = REF.flash_attention_lse_ref(q, k, v, scale=scale)
+        lse_errs[dt] = float((lse - want_lse).abs().max())
+        require(lse_errs[dt] <= LSE_TOL,
+                f"flash_attention's lse (MLA, {dt}) differs from the plain "
+                f"logsumexp by {lse_errs[dt]:.3e}")
+        want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
+                                           scale=scale)
+        before = dict(BK.KERNEL.launches_by_variant)
+        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale=scale)
+        require(BK.KERNEL.launches_by_variant
+                == {**before, "simt": before["simt"] + 1},
+                f"flash_attention_bwd (MLA, {dt}) did not count one simt "
+                f"launch")
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(g.float()).all()) for g in got),
+                f"flash_attention_bwd (MLA, {dt}) gave non-finite gradients")
+        errs[dt] = grad_err(got, want)
+        abs_errs[dt] = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, want))
+        if dt == "float32":
+            require(errs[dt] <= BWD_TOL,
+                    f"flash_attention_bwd (MLA, f32) differs from its plain "
+                    f"version: {errs[dt]:.3e} of max |grad| > {BWD_TOL:g}")
+            del q, k, v, do, o, lse, want_lse, want, got
+            torch.cuda.empty_cache()
+            continue
+        f32 = REF.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), want_lse, do.float(),
+            scale=scale)
+        err_k, err_p = grad_err(got, f32), grad_err(want, f32)
+        log(f"[kernel] flash_attention_bwd at MLA's shape, bf16 (simt) vs "
+            f"the f32 plain gradient: kernel {err_k:.3e}, plain bf16 "
+            f"{err_p:.3e} (held: kernel <= {B_RATIO:g} x plain); kernel vs "
+            f"plain bf16 {errs[dt]:.3e}; f32 kernel vs plain "
+            f"{errs['float32']:.3e} (held <= {BWD_TOL:g}); K6's lse vs the "
+            f"plain logsumexp {lse_errs} (held <= {LSE_TOL:g})")
+        require(err_k <= B_RATIO * err_p,
+                "flash_attention_bwd (MLA, bf16) is further from the f32 "
+                "gradient than the plain bf16 gradient is")
+        del f32, want, want_lse, got
+
+    call = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               scale=scale)
+    plain = lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                scale=scale)
+    ms, plain_ms = in_turns(plain, call, 3)
+    dev_time = device_us(BK.KERNEL, call, 3)
+    pairs = attention_pairs(S, S, True) * BH
+    n_ops = 2 * (2 * D + 2 * Dv + D) * pairs
+    # q, k read and dq, dk written (D wide); v, o, do read and dv written
+    # (Dv wide); lse read
+    n_bytes = 2 * BH * S * (4 * D + 4 * Dv) + 4 * BH * S
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    q4, k4, v4, do4 = (t.view(TRAIN_B, MLA_HEADS, S, -1)
+                       for t in (q, k, v, do))
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  scale=scale)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             scale=scale)
+        torch.autograd.grad(out, leaves, do4)
+
+    try:
+        for _ in range(3):              # its first backward sets up
+            sdpa_fwd_bwd()
+        torch.cuda.synchronize()
+    except RuntimeError as e:           # no SDPA backend takes Dv != D
+        library_ms = library_us = None
+        library_note = (f"n/a: scaled_dot_product_attention's backward "
+                        f"refused: {e}")
+    else:
+        library_ms = time_ms(sdpa_fwd_bwd, 5) - time_ms(sdpa_fwd, 5)
+        library_us = device_us(None, sdpa_fwd_bwd, 3) - device_us(
+            None, sdpa_fwd, 3)
+        library_note = ("scaled_dot_product_attention(is_causal, scale) "
+                        "forward + backward minus its forward, on the same "
+                        "inputs")
+    row = {"shape": f"q/dq ({BH}, {S}, {D}), k/dk ({BH}, {S}, {D}), v/o/do "
+                    f"({BH}, {S}, {Dv}), group 1, causal, bf16 (f32 "
+                    f"checked too)",
+           "variant": "simt", "max_abs_err": abs_errs["bfloat16"],
+           "ms": ms, "plain_ms": plain_ms, "device_us": dev_time,
+           "bound_ms": b_ms, "bound_by": b_by, "n_bytes": n_bytes,
+           "n_ops": n_ops, "bound_share": b_ms * 1e3 / dev_time,
+           "library_ms": library_ms, "library_device_us": library_us,
+           "library_note": library_note, "errs": errs,
+           "abs_errs": abs_errs, "lse_errs": lse_errs}
+    log(f"[kernel] flash_attention_bwd at MLA's training shape "
+        f"{row['shape']}: simt kernels {ms:.5f} ms, device {dev_time:.3f} "
+        f"us, plain {plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us by {b_by} "
+        f"({n_bytes / 1e6:.1f} MB, {n_ops:.4g} operations), "
+        f"{100 * row['bound_share']:.2f} % of the bound; library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.5f} ms, device {library_us:.3f} us'}"
+        f" ({library_note})")
+    del q, k, v, o, lse, do, leaves
+    torch.cuda.empty_cache()
+    return row
 
 
 # -- the unfused path ----------------------------------------------------------
@@ -2640,32 +2820,12 @@ def serve_phase(dev):
 
 # -- phases 16-17: deepseek-v3 (MLA, MoE) and qwen3-14b serving -----------------
 
-def moe_drops(model, params, prompt):
+def moe_drops(run):
     """The share of (token, expert) pairs dropped by capacity in each MoE
-    layer of one prefill of ``prompt``, computed from the port's ``route``
-    on each MoE layer's input: sum over experts of max(0, pairs - C) over
-    all pairs."""
-    import torch
+    layer that ``run()`` (a prefill, or a loss under no_grad) goes
+    through (``models.moe.drops_of``)."""
     from repro_torch.models import moe as M
-
-    shares = []
-    original = M.moe_ffn
-
-    def counted(p, x, cfg):
-        B, S, d = x.shape
-        _, idx = M.route(p, x.reshape(B * S, d), cfg)
-        per_expert = torch.bincount(idx.reshape(-1),
-                                    minlength=cfg.moe.num_experts)
-        C = M.capacity(cfg, B * S)
-        shares.append(float((per_expert - C).clamp(min=0).sum())
-                      / idx.numel())
-        return original(p, x, cfg)
-    M.moe_ffn = counted
-    try:
-        model.prefill(params, {"tokens": prompt})
-    finally:
-        M.moe_ffn = original
-    return shares
+    return [dropped / pairs for dropped, pairs in M.drops_of(run)]
 
 
 def serve_arch_phase(dev, tag, cfg, variant, check_cfg):
@@ -2685,7 +2845,8 @@ def serve_arch_phase(dev, tag, cfg, variant, check_cfg):
         tag, cfg, dev, 2, variant)
     if cfg.moe:
         from repro_torch.models import moe as M
-        shares = moe_drops(model, params, prompts[1])
+        shares = moe_drops(lambda: model.prefill(params,
+                                                 {"tokens": prompts[1]}))
         log(f"{tag} pairs dropped by capacity (C = "
             f"{M.capacity(cfg, SERVE_B * SERVE_PROMPT)} per expert over "
             f"{SERVE_B * SERVE_PROMPT} tokens x top-{cfg.moe.top_k}) per MoE "
@@ -2741,18 +2902,50 @@ def serve_qwen_phase(dev):
 # -- phase 18: training at full width ------------------------------------------
 
 TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+TRAIN_MOE_STEPS = 2          # timed steps of [train deepseek-v3] / [llama4]
 TRAIN_CHECK_LAYERS = 4
 
 
 def train_flops(cfg, B: int, S: int) -> float:
     """Model flops of one forward over B x S tokens: 2 per weight of every
-    matrix product (the seven per layer and the tied unembedding) per
-    token, plus the causal attention's two products."""
-    D, H, KH = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    d, ff = cfg.d_model, cfg.d_ff
-    per_layer = d * H * D * 2 + d * KH * D * 2 + 3 * d * ff
-    weights = cfg.num_layers * per_layer + d * cfg.vocab_size
-    attn = cfg.num_layers * B * H * attention_pairs(S, S, True) * 4 * D
+    matrix product a token goes through per token (attention's
+    projections, GQA's four or MLA's six; the dense FFN's three, or in an
+    MoE layer the router, top-k routed experts' and the shared experts'
+    three each; the unembedding; with multi-token prediction its
+    projection, one more block and the unembedding again), plus the
+    causal attention's two products (2 (D + Dv) per kept pair and head).
+    Pairs that capacity drops are counted as computed."""
+    d, H = cfg.d_model, cfg.num_heads
+    if cfg.mla:
+        m = cfg.mla
+        Dqk, Dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+        attn_w = (d * m.q_lora_rank + m.q_lora_rank * H * Dqk
+                  + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                  + m.kv_lora_rank * H * (m.qk_nope_head_dim + Dv)
+                  + H * Dv * d)
+    else:
+        Dqk = Dv = cfg.resolved_head_dim
+        attn_w = d * H * Dqk * 2 + d * cfg.num_kv_heads * Dqk * 2
+    if cfg.moe:
+        e = cfg.moe
+        dense_ff = e.d_ff_dense or cfg.d_ff
+        moe_w = (d * e.num_experts + 3 * d * e.d_ff_expert * e.top_k
+                 + 3 * d * e.d_ff_shared * e.num_shared_experts)
+        n_dense = e.first_moe_layer if cfg.family == "moe" else \
+            cfg.num_layers
+    else:
+        dense_ff, moe_w, n_dense = cfg.d_ff, 0, cfg.num_layers
+    blocks = [(n_dense, 3 * d * dense_ff),
+              (cfg.num_layers - n_dense, moe_w)]
+    n_blocks = cfg.num_layers
+    weights = sum(n * (attn_w + ffn) for n, ffn in blocks) \
+        + d * cfg.vocab_size
+    if cfg.mtp_depth:
+        weights += (2 * d * d + attn_w + (moe_w if cfg.moe else
+                                          3 * d * dense_ff)
+                    + d * cfg.vocab_size)
+        n_blocks += 1
+    attn = n_blocks * B * H * attention_pairs(S, S, True) * 2 * (Dqk + Dv)
     return 2.0 * weights * B * S + attn
 
 
@@ -2779,23 +2972,27 @@ class PlainCalls:
          self.ref.flash_attention_bwd_ref) = self.saved
 
 
-def train_phase(dev):
-    """granite-3-2b training at full width (see the module docstring);
-    returns the kernels' launch counts over the timed steps and K7's
-    counts by variant."""
+def train_run(dev, tag, cfg, variant, steps, drops=False):
+    """``cfg`` trained at full width with seeded random weights: AdamW with
+    the reference's defaults and moments in ``cfg.opt_state_dtype``, B =
+    TRAIN_B x TRAIN_S tokens of data/tokens, TRAIN_WARMUP warm-up and
+    ``steps`` timed steps, launch counts from 0 before the timed ones:
+    the loss, gnorm and lr per step, step ms, tokens/s, model flops over
+    step time as a share of 989 TFLOP/s, max_memory_allocated, and a
+    1-step profile. Each step must launch K6 for every block's forward
+    and again for its remat, K7 once per block, all on ``variant``, and
+    no plain attention. ``drops``: also the share of pairs each MoE layer
+    drops by capacity. Returns the launch counts over the timed steps and
+    K7's by variant."""
     import torch
-    from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import tokens as DATA
+    from repro_torch.configs import TrainConfig
     from repro_torch.kernels.flash_attention.bwd_kernel import KERNEL as K7
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
     from repro_torch.launch import steps as ST
     from repro_torch.models.param import count_params
     from repro_torch.models.registry import Model
 
-    cfg = get_config("granite-3-2b")
-    require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
-            "[train] granite-3-2b should train under remat='full' with f32 "
-            "moments")
     tcfg = TrainConfig()          # the reference's defaults: 3e-4, warmup 100
     model = Model(cfg, device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -2803,25 +3000,39 @@ def train_phase(dev):
     state = ST.init_train_state(
         model, tcfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: {count_params(model.param_descs())} parameters "
+    log(f"{tag} {cfg.name}: {count_params(model.param_descs())} parameters "
         f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.dtype}, remat "
         f"{cfg.remat!r}, AdamW moments {cfg.opt_state_dtype}) and their "
         f"optimizer state made on the card in {time.perf_counter() - t0:.2f} "
         f"s; {torch.cuda.memory_allocated()} B allocated")
     step = ST.make_train_step(model, tcfg)
     batches = [DATA.batch_at(i, cfg, TRAIN_B, TRAIN_S, device=dev)
-               for i in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+               for i in range(TRAIN_WARMUP + steps + 1)]
     for b in batches[:TRAIN_WARMUP]:
         state, _ = step(state, b)
     torch.cuda.synchronize()
+    if drops:
+        from repro_torch.models import moe as M
+        with torch.no_grad():
+            shares = moe_drops(lambda: model.loss(state["params"],
+                                                  batches[-1]))
+        log(f"{tag} pairs dropped by capacity (C = "
+            f"{M.capacity(cfg, TRAIN_B * TRAIN_S)} per expert over "
+            f"{TRAIN_B * TRAIN_S} tokens x top-{cfg.moe.top_k}) per MoE "
+            f"layer of a step: {[f'{x:.4%}' for x in shares]}")
     kernels = all_kernels()
     for k in kernels:
         k.reset_counts()
+    # the MTP block is not rematerialised: one K6 launch under remat too
+    mtp = 1 if cfg.mtp_depth else 0
+    want6 = (2 if cfg.remat == "full" else 1) * cfg.num_layers + mtp
+    want7 = cfg.num_layers + mtp
     rows = []
     with PlainCalls() as plain_calls:
         for i, b in enumerate(batches[TRAIN_WARMUP:-1]):
             n6, n7 = K6.launches, K7.launches
-            w7 = K7.launches_by_variant["wgmma"]
+            v6, v7 = (K6.launches_by_variant[variant],
+                      K7.launches_by_variant[variant])
             t0 = time.perf_counter()
             state, m = step(state, b)
             torch.cuda.synchronize()
@@ -2829,101 +3040,210 @@ def train_phase(dev):
             rows.append((dt, float(m["loss"]), float(m["gnorm"]),
                          float(m["lr"]), K6.launches - n6,
                          K7.launches - n7,
-                         K7.launches_by_variant["wgmma"] - w7))
+                         K6.launches_by_variant[variant] - v6,
+                         K7.launches_by_variant[variant] - v7))
     launches = {k.name: k.launches for k in kernels}
     variants = dict(K7.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_B * TRAIN_S
     fwd = train_flops(cfg, TRAIN_B, TRAIN_S)
     step_s = float(np.mean([r[0] for r in rows]))
-    for i, (dt, loss, gnorm, lr, n6, n7, w7) in enumerate(rows):
-        log(f"[train] step {TRAIN_WARMUP + i}: loss {loss:.5f} gnorm "
+    for i, (dt, loss, gnorm, lr, n6, n7, w6, w7) in enumerate(rows):
+        log(f"{tag} step {TRAIN_WARMUP + i}: loss {loss:.5f} gnorm "
             f"{gnorm:.5f} lr {lr:.3e}, {dt * 1e3:.3f} ms, flash_attention "
-            f"{n6} launches, flash_attention_bwd {n7} ({w7} wgmma)")
+            f"{n6} launches ({w6} {variant}), flash_attention_bwd {n7} "
+            f"({w7} {variant})")
         require(np.isfinite(loss) and np.isfinite(gnorm),
-                "[train] non-finite loss or gradient norm")
-        require(n6 == 2 * cfg.num_layers and n7 == cfg.num_layers,
-                f"[train] a step launched flash_attention {n6} times and "
-                f"flash_attention_bwd {n7} times, expected "
-                f"{2 * cfg.num_layers} (forward + remat) and "
-                f"{cfg.num_layers}")
-        require(w7 == n7, f"[train] {n7 - w7} of a step's {n7} "
-                          f"flash_attention_bwd launches ran the SIMT "
-                          f"kernels, not the wgmma ones")
-    require(plain_calls.calls == 0, f"[train] {plain_calls.calls} calls of "
+                f"{tag} non-finite loss or gradient norm")
+        require(n6 == want6 and n7 == want7,
+                f"{tag} a step launched flash_attention {n6} times and "
+                f"flash_attention_bwd {n7} times, expected {want6} "
+                f"(forward{' + remat' if want6 > want7 else ''}) and "
+                f"{want7}")
+        require(w6 == n6 and w7 == n7,
+                f"{tag} {n6 - w6} of a step's {n6} flash_attention and "
+                f"{n7 - w7} of its {n7} flash_attention_bwd launches did "
+                f"not run the {variant} kernels")
+    require(plain_calls.calls == 0, f"{tag} {plain_calls.calls} calls of "
                                     "the plain attention on the card")
     share = lambda flops: 100 * flops / step_s / BF16_OPS_PER_S
-    log(f"[train] {TRAIN_STEPS} timed steps of B={TRAIN_B} x {TRAIN_S} "
+    log(f"{tag} {steps} timed steps of B={TRAIN_B} x {TRAIN_S} "
         f"tokens: mean {step_s * 1e3:.3f} ms per step, "
         f"{tokens / step_s:.1f} tokens/s; model flops per step "
         f"{3 * fwd:.4e} (forward + backward: {share(3 * fwd):.2f} % of "
         f"{BF16_OPS_PER_S:.3g} FLOP/s), {4 * fwd:.4e} with the remat "
         f"forward ({share(4 * fwd):.2f} %); max_memory_allocated {peak} B; "
         f"launches {launches}")
-    profile_window("train", lambda: step(state, batches[-1]), 1, "step")
+    profile_window(tag.strip("[]").replace(" ", "-"),
+                   lambda: step(state, batches[-1]), 1, "step")
     del state, batches
     torch.cuda.empty_cache()
     return launches, variants
 
 
-def train_check_phase(dev):
-    """One step's loss and gradients at full width with 4 layers: bf16
-    with the kernels, bf16 plain (backend="ref"), and an f32 copy on the
-    plain versions, on the same weights and batch. The kernel run must
-    be no further from f32 than the plain run is (x1.5), over the
-    gradient leaves' worst relative error."""
-    import torch
+def train_phase(dev):
+    """granite-3-2b training at full width (see the module docstring):
+    remat, f32 moments, every attention on the wgmma kernels."""
     from repro_torch.configs import get_config
+    cfg = get_config("granite-3-2b")
+    require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
+            "[train] granite-3-2b should train under remat='full' with f32 "
+            "moments")
+    return train_run(dev, "[train]", cfg, "wgmma", TRAIN_STEPS)
+
+
+def train_deepseek_phase(dev):
+    """deepseek-v3 at full width cut to its 3 dense layers (MLA + the
+    18432-wide FFN; one MoE layer alone holds 11.3e9 expert parameters),
+    the MTP block left out, full untied vocabulary, bf16 AdamW moments
+    (its config's): K6 and K7 on the SIMT kernels (D = 192, Dv = 128)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b")
+    require(cfg.remat == "full" and cfg.opt_state_dtype == "bfloat16",
+            "[train deepseek-v3] deepseek-v3 should train under "
+            "remat='full' with bf16 moments")
+    cfg = cfg.replace(num_layers=cfg.moe.first_moe_layer, mtp_depth=0)
+    return train_run(dev, "[train deepseek-v3]", cfg, "simt",
+                     TRAIN_MOE_STEPS)
+
+
+def train_llama4_phase(dev):
+    """llama4-scout at full width cut to 1 of its 48 layers: all 16
+    experts whole, the shared expert, the full untied 202,048-row
+    vocabulary, f32 moments; attention (D = 128, group 5) on the wgmma
+    kernels; the share of pairs capacity drops."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama4-scout-17b-a16e").replace(num_layers=1)
+    return train_run(dev, "[train llama4-scout]", cfg, "wgmma",
+                     TRAIN_MOE_STEPS, drops=True)
+
+
+def leaf_errs(grads, ref):
+    """{path: max |g - g_ref| / max |g_ref|} of every non-empty gradient
+    leaf (a stack cut to 0 layers has empty ones)."""
+    from repro_torch.optim import adamw
+    return {"/".join(p): float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), 1e-30)
+            for p, a, b in zip(adamw.paths(ref), adamw.leaves(grads),
+                               adamw.leaves(ref)) if b.numel()}
+
+
+def bf16_step_check(dev, cfg):
+    """One step's loss and gradients of the bf16 ``cfg`` at full width:
+    with the kernels, plain (backend="ref"), and an f32 copy on the plain
+    versions, on the same weights and batch; each bf16 run's gradients
+    are held against the f32 ones as soon as they exist, so at most one
+    bf16 gradient tree lives beside the f32 one. The kernel run must be
+    no further from f32 than the plain run is (x1.5), over the gradient
+    leaves' worst relative error."""
+    import torch
     from repro_torch.data import tokens as DATA
     from repro_torch.launch import steps as ST
     from repro_torch.models.registry import Model
     from repro_torch.optim import adamw
 
-    cfg = get_config("granite-3-2b").replace(num_layers=TRAIN_CHECK_LAYERS)
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(3))
     params32 = adamw.tree_map(lambda t: t.float(), params)
     batch = DATA.batch_at(0, cfg, TRAIN_B, TRAIN_S, seed=1, device=dev)
-    runs = {"kernels": ST.loss_and_grads(model, params, batch),
-            "plain": ST.loss_and_grads(Model(cfg, device=dev, backend="ref"),
-                                       params, batch),
-            "f32": ST.loss_and_grads(Model(cfg32, device=dev, backend="ref"),
-                                     params32, batch)}
-    names = ["/".join(p) for p in leaf_paths(params)]
-    ref = adamw.leaves(runs["f32"][1])
+    loss = {}
+    loss["f32"], ref = ST.loss_and_grads(
+        Model(cfg32, device=dev, backend="ref"), params32, batch)
+    del params32
+    torch.cuda.empty_cache()
     errs = {}
-    for run in ("kernels", "plain"):
-        errs[run] = [float((a.float() - b).abs().max())
-                     / max(float(b.abs().max()), 1e-30)
-                     for a, b in zip(adamw.leaves(runs[run][1]), ref)]
-    loss = {run: float(r[0]) for run, r in runs.items()}
+    for run, backend in (("kernels", None), ("plain", "ref")):
+        loss[run], grads = ST.loss_and_grads(
+            Model(cfg, device=dev, backend=backend), params, batch)
+        errs[run] = leaf_errs(grads, ref)
+        del grads
+        torch.cuda.empty_cache()
+    loss = {run: float(x) for run, x in loss.items()}
     log(f"[train check] {cfg.name} at full width, {cfg.num_layers} layers, "
         f"B={TRAIN_B} x {TRAIN_S}: loss kernels {loss['kernels']:.6f}, "
         f"plain {loss['plain']:.6f}, f32 {loss['f32']:.6f}")
     log("[train check] gradient leaves, max |g - g_f32| / max |g_f32| "
         "(kernels, plain): " + ", ".join(
-            f"{n}: ({k:.2e}, {p:.2e})" for n, k, p in
-            zip(names, errs["kernels"], errs["plain"])))
-    worst_k, worst_p = max(errs["kernels"]), max(errs["plain"])
-    log(f"[train check] worst leaf: kernels {worst_k:.3e}, plain "
-        f"{worst_p:.3e} (held: kernels <= {B_RATIO:g} x plain)")
-    require(all(np.isfinite(errs["kernels"])), "[train check] non-finite "
-                                               "gradient")
-    require(worst_k <= B_RATIO * worst_p, "[train check] the bf16 kernel "
-                                          "step is further from f32 than "
-                                          "the bf16 plain step is")
-    del runs, params, params32
+            f"{n}: ({k:.2e}, {errs['plain'][n]:.2e})"
+            for n, k in errs["kernels"].items()))
+    worst_k = max(errs["kernels"].values())
+    worst_p = max(errs["plain"].values())
+    log(f"[train check] {cfg.name} worst leaf: kernels {worst_k:.3e}, "
+        f"plain {worst_p:.3e} (held: kernels <= {B_RATIO:g} x plain)")
+    require(all(np.isfinite(list(errs["kernels"].values()))),
+            "[train check] non-finite gradient")
+    require(worst_k <= B_RATIO * worst_p, f"[train check] {cfg.name}: the "
+                                          "bf16 kernel step is further "
+                                          "from f32 than the bf16 plain "
+                                          "step is")
+    del ref, params
     torch.cuda.empty_cache()
 
 
-def leaf_paths(tree, prefix=()):
-    """The key paths of a nested dict's leaves, in ``adamw.leaves``
-    order."""
-    if isinstance(tree, dict):
-        return [p for k, v in tree.items() for p in leaf_paths(v,
-                                                                prefix + (k,))]
-    return [prefix]
+MOE_GRAD_TOL = 1e-4   # f32 gradient leaves, kernels vs plain, of max |g|
+
+
+def moe_step_check(dev):
+    """deepseek-v3 at REDUCED width with its MoE layers and MTP block, in
+    f32 (a bf16 rounding moves tokens between experts): one step's loss
+    and gradients with the kernels against the plain versions, every
+    gradient leaf within MOE_GRAD_TOL of its largest element; K6 and K7
+    launch once per layer and once for the MTP block (no remat), and no
+    plain attention runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as DATA
+    from repro_torch.kernels.flash_attention.bwd_kernel import KERNEL as K7
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.registry import Model
+
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    require(cfg.remat == "none", f"[train check] REDUCED {cfg.name} should "
+                                 "not rematerialise")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(4))
+    batch = DATA.batch_at(0, cfg, TRAIN_B, TRAIN_S, seed=2, device=dev)
+    n6, n7 = K6.launches, K7.launches
+    with PlainCalls() as plain:
+        loss, grads = ST.loss_and_grads(model, params, batch)
+    launched = (K6.launches - n6, K7.launches - n7)
+    ploss, pgrads = ST.loss_and_grads(Model(cfg, device=dev, backend="ref"),
+                                      params, batch)
+    errs = leaf_errs(grads, pgrads)
+    worst = max(errs, key=errs.get)
+    log(f"[train check] {cfg.name} (MoE, MLA, MTP) in f32, B={TRAIN_B} x "
+        f"{TRAIN_S}: loss kernels {float(loss):.7f}, plain "
+        f"{float(ploss):.7f}; flash_attention, flash_attention_bwd "
+        f"launches {launched}, plain attention calls {plain.calls}; worst "
+        f"gradient leaf {worst} {errs[worst]:.3e} of its max (held <= "
+        f"{MOE_GRAD_TOL:g})")
+    blocks = cfg.num_layers + 1
+    require(launched == (blocks, blocks) and plain.calls == 0,
+            f"[train check] {cfg.name} launched flash_attention and "
+            f"flash_attention_bwd {launched} times with {plain.calls} plain "
+            f"attention calls, expected ({blocks}, {blocks}) and none")
+    require(abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss)),
+            f"[train check] {cfg.name}: the kernel loss differs from the "
+            "plain loss")
+    require(errs[worst] <= MOE_GRAD_TOL, f"[train check] {cfg.name}: a "
+                                       "gradient leaf differs from the "
+                                       "plain one")
+
+
+def train_check_phase(dev):
+    """granite-3-2b with 4 layers and deepseek-v3's 3 dense layers, both
+    at full width, by :func:`bf16_step_check`; the moe family with MTP at
+    REDUCED width by :func:`moe_step_check`."""
+    from repro_torch.configs import get_config
+    bf16_step_check(dev, get_config("granite-3-2b").replace(
+        num_layers=TRAIN_CHECK_LAYERS))
+    ds = get_config("deepseek-v3-671b")
+    bf16_step_check(dev, ds.replace(num_layers=ds.moe.first_moe_layer,
+                                    mtp_depth=0))
+    moe_step_check(dev)
 
 
 # -- phase 20: the four examples on the card -----------------------------------
@@ -3054,6 +3374,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     checks.append(check_flash_attention_bwd(dev))
     torch.cuda.empty_cache()
+    checks[-1]["mla"] = check_flash_attention_bwd_mla(dev)
     for c in checks:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
@@ -3142,10 +3463,18 @@ def main() -> int:
     k6_row["variants_by_path"] = {"serve": serve_variants,
                                   "serve_deepseek": deepseek_variants,
                                   "serve_qwen": qwen_variants}
+    k7_row = next(c for c in checks
+                  if c["kernel"].name == "flash_attention_bwd")
 
-    # 18. training at full width (launch counts start at 0 again), 19. the
-    # step against the plain versions and f32; 20. the examples
+    # 18.-20. training at full width: granite-3-2b, deepseek-v3's dense
+    # layers, a llama4-scout MoE layer (launch counts start at 0 again for
+    # each); 21. steps against the plain versions and f32; 22. the examples
     train_launches, train_variants = train_phase(dev)
+    train_ds_launches, train_ds_variants = train_deepseek_phase(dev)
+    train_l4_launches, train_l4_variants = train_llama4_phase(dev)
+    k7_row["variants_by_path"] = {"train": train_variants,
+                                  "train_deepseek": train_ds_variants,
+                                  "train_llama4": train_l4_variants}
     train_check_phase(dev)
     examples_phase(dev)
 
@@ -3156,7 +3485,9 @@ def main() -> int:
                  "serving_mesh": serving_mesh_launches,
                  "elastic": elastic_launches, "serve": serve_launches,
                  "serve_deepseek": deepseek_launches,
-                 "serve_qwen": qwen_launches, "train": train_launches},
+                 "serve_qwen": qwen_launches, "train": train_launches,
+                 "train_deepseek": train_ds_launches,
+                 "train_llama4": train_l4_launches},
         {"flash_attention": serve_variants,
          "flash_attention_bwd": train_variants})}))
     print(smi)

@@ -187,8 +187,8 @@ class ModelConfig:
     act: str = "silu"                 # FFN activation (gated)
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    # multi-token-prediction heads (deepseek): the parameters are carried;
-    # lm_loss refuses any (ROADMAP §1 item 14d)
+    # multi-token-prediction depth (deepseek): 1 adds the MTP block and
+    # its loss (weight 0.3) to lm_loss; serving never reads it
     mtp_depth: int = 0
     # numerics / memory policy
     dtype: str = "bfloat16"           # activation/param compute dtype

@@ -15,7 +15,8 @@
 // Bound on this card: operations. The five products S, dP, dV, dK and dQ
 // are 2 * (2 D + 2 Dv + D) flops per (query, key) pair the mask keeps; at
 // the training shape (BH = 128, Sq = Sk = 1024, D = Dv = 64, causal) that
-// is 4.29e10 flops, 43.4 us at the bf16 tensor-core rate.
+// is 4.29e10 flops, 43.4 us at the bf16 tensor-core rate; at MLA's (BH =
+// 512, Sq = Sk = 1024, D = 192, Dv = 128) 4.47e11 flops, 452 us.
 //
 // Two variants behind one C entry, chosen by the caller under the rule of
 // K6 (kernels/flash_attention/kernel.py variant()): "wgmma" for bf16 with
@@ -26,21 +27,26 @@
 // order, so a run repeats bit for bit.
 //
 // simt: all arithmetic in f32 FMAs on the CUDA cores (67 TFLOP/s at
-// best), S and dP recomputed in both passes; the f32 path and the
-// yardstick the wgmma variant is timed against.
+// best), S and dP recomputed in both passes; the f32 path, every head dim
+// up to 256 (D != Dv too: MLA's 192 / 128), and the yardstick the wgmma
+// variant is timed against.
 //   (a) attn_bwd_dsum_kernel: one warp per query row, Dsum = sum do * o.
 //   (b) attn_bwd_dkdv_kernel: one block of 256 threads per (kv head, 64-row
 //       key tile), heaviest tiles first. K and V tiles stay in shared
 //       memory (f32, rows padded by one word); the block walks the group's
 //       query heads and, under the causal mask, only the query tiles whose
-//       rows reach its keys. Per query tile it stages q, do, lse and Dsum,
-//       computes the transposed score and dP tiles (each thread 4 keys x 4
-//       queries), writes p and ds to shared memory, then accumulates dk and
-//       dv for its 4 keys x D/16 and Dv/16 columns in registers.
+//       rows reach its keys. Per query tile (16 NC rows) it stages q, do,
+//       lse and Dsum, computes the transposed score and dP tiles (each
+//       thread 4 keys x NC queries), writes p and ds to shared memory, then
+//       accumulates dk and dv for its 4 keys x D/16 and Dv/16 columns in
+//       registers.
 //   (c) attn_bwd_dq_kernel: one block per (q head, 64-row query tile),
-//       heaviest first; it walks the key tiles up to the diagonal,
-//       recomputes S and dP, writes ds to shared memory and accumulates dq
-//       for its 4 query rows x D/16 columns in registers.
+//       heaviest first; it walks the key tiles (16 NC rows) up to the
+//       diagonal, recomputes S and dP, writes ds to shared memory and
+//       accumulates dq for its 4 query rows x D/16 columns in registers.
+//   launch_dims picks the instance: NC = 4 up to (D, Dv) = (192, 128),
+//   whose tiles take 194 KB of shared memory in (b); NC = 2 past it, where
+//   64-row tiles at (256, 256) would take 290 KB.
 //
 // wgmma: every product on the tensor cores (wgmma m64nNk16, bf16 in, f32
 // accumulators in registers), tiles fed by TMA (hopper.cuh, shared with
@@ -112,12 +118,11 @@
 
 namespace {
 
-constexpr int kBQ = 64;         // query rows per tile
-constexpr int kBK = 64;         // key rows per tile
 constexpr int kThreads = 256;   // 16 x 16 threads
 constexpr int kRows = 4;        // tile rows per thread: ty * 4 + i
-constexpr int kCols = 4;        // tile columns per thread: tx + 16 * j
-constexpr int kMaxHeadDim = 128;
+constexpr int kTileRows = 16 * kRows;  // a block's own rows: 64 keys in
+                                       // (b), 64 queries in (c)
+constexpr int kMaxHeadDim = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -173,26 +178,27 @@ attn_bwd_dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) dsum[row] = acc;
 }
 
-// p and ds of one thread's 4 x 4 (row, column) cells of a tile pair, from
+// p and ds of one thread's 4 x NC (row, column) cells of a tile pair, from
 // its raw scores s and dP; live(i, j) says whether the mask keeps the cell
-template <typename Live>
-__device__ __forceinline__ void p_and_ds(float (&s)[kRows][kCols],
-                                         float (&dp)[kRows][kCols],
-                                         const float (&lse)[kRows][kCols],
-                                         const float (&dsum)[kRows][kCols],
+template <int NC, typename Live>
+__device__ __forceinline__ void p_and_ds(float (&s)[kRows][NC],
+                                         float (&dp)[kRows][NC],
+                                         const float (&lse)[kRows][NC],
+                                         const float (&dsum)[kRows][NC],
                                          float scale, Live live) {
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
+    for (int j = 0; j < NC; ++j) {
       const float p = live(i, j) ? expf(s[i][j] * scale - lse[i][j]) : 0.f;
       s[i][j] = p;
       dp[i][j] = p * (dp[i][j] - dsum[i][j]) * scale;
     }
 }
 
-// (b) dk, dv: one block per (kv head, key tile)
-template <typename T, int DC, int DVC>
+// (b) dk, dv: one block per (kv head, 64-row key tile), query tiles of
+// 16 NC rows (each thread NC of them)
+template <typename T, int DC, int DVC, int NC>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -200,6 +206,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ dsum, T* __restrict__ dk,
                      T* __restrict__ dv, int BHkv, int group, int Sq, int Sk,
                      int D, int Dv, float scale, int causal) {
+  constexpr int kBK = kTileRows, kBQ = 16 * NC;
   extern __shared__ float smem[];
   const int sd = D + 1, sv = Dv + 1, sp = kBQ + 1;
   float* ks = smem;                   // (kBK, D + 1)
@@ -246,41 +253,41 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       // transposed tiles: cell (i, j) is key k0 + row0 + i, query
       // q0 + tx + 16 j
-      float s[kRows][kCols], dp[kRows][kCols];
+      float s[kRows][NC], dp[kRows][NC];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < NC; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float a[kRows], b[kCols];
+        float a[kRows], b[NC];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) a[i] = ks[(row0 + i) * sd + d];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) b[j] = qs[(tx + 16 * j) * sd + d];
+        for (int j = 0; j < NC; ++j) b[j] = qs[(tx + 16 * j) * sd + d];
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          for (int j = 0; j < NC; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
       }
 #pragma unroll 4
       for (int e = 0; e < Dv; ++e) {
-        float a[kRows], b[kCols];
+        float a[kRows], b[NC];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) a[i] = vs[(row0 + i) * sv + e];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) b[j] = dos[(tx + 16 * j) * sv + e];
+        for (int j = 0; j < NC; ++j) b[j] = dos[(tx + 16 * j) * sv + e];
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int j = 0; j < kCols; ++j)
+          for (int j = 0; j < NC; ++j)
             dp[i][j] = fmaf(a[i], b[j], dp[i][j]);
       }
-      float lr[kRows][kCols], dr[kRows][kCols];
+      float lr[kRows][NC], dr[kRows][NC];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
+        for (int j = 0; j < NC; ++j) {
           lr[i][j] = ls[tx + 16 * j];
           dr[i][j] = dl[tx + 16 * j];
         }
@@ -291,7 +298,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
+        for (int j = 0; j < NC; ++j) {
           ps[(row0 + i) * sp + tx + 16 * j] = s[i][j];
           dss[(row0 + i) * sp + tx + 16 * j] = dp[i][j];
         }
@@ -344,8 +351,9 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// (c) dq: one block per (q head, query tile)
-template <typename T, int DC>
+// (c) dq: one block per (q head, 64-row query tile), key tiles of 16 NC
+// rows (each thread NC of them)
+template <typename T, int DC, int NC>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
@@ -353,6 +361,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ dsum, T* __restrict__ dq, int BH,
                    int group, int Sq, int Sk, int D, int Dv, float scale,
                    int causal, int nq) {
+  constexpr int kBQ = kTileRows, kBK = 16 * NC;
   extern __shared__ float smem[];
   const int sd = D + 1, sv = Dv + 1, sp = kBK + 1;
   float* qs = smem;                   // (kBQ, D + 1)
@@ -395,40 +404,40 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // cell (i, j) is query q0 + row0 + i, key k0 + tx + 16 j
-    float s[kRows][kCols], dp[kRows][kCols];
+    float s[kRows][NC], dp[kRows][NC];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < NC; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[kRows], b[kCols];
+      float a[kRows], b[NC];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) a[i] = qs[(row0 + i) * sd + d];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) b[j] = ks[(tx + 16 * j) * sd + d];
+      for (int j = 0; j < NC; ++j) b[j] = ks[(tx + 16 * j) * sd + d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int j = 0; j < NC; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
     }
 #pragma unroll 4
     for (int e = 0; e < Dv; ++e) {
-      float a[kRows], b[kCols];
+      float a[kRows], b[NC];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) a[i] = dos[(row0 + i) * sv + e];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) b[j] = vs[(tx + 16 * j) * sv + e];
+      for (int j = 0; j < NC; ++j) b[j] = vs[(tx + 16 * j) * sv + e];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) dp[i][j] = fmaf(a[i], b[j], dp[i][j]);
+        for (int j = 0; j < NC; ++j) dp[i][j] = fmaf(a[i], b[j], dp[i][j]);
     }
-    float lr[kRows][kCols], dr[kRows][kCols];
+    float lr[kRows][NC], dr[kRows][NC];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
+      for (int j = 0; j < NC; ++j) {
         lr[i][j] = ls[row0 + i];
         dr[i][j] = dl[row0 + i];
       }
@@ -439,7 +448,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
+      for (int j = 0; j < NC; ++j)
         dss[(row0 + i) * sp + tx + 16 * j] = dp[i][j];
     __syncthreads();
 
@@ -474,19 +483,23 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-size_t dkdv_smem(int D, int Dv) {
+// shared memory of (b) with `bq`-row query tiles and of (c) with `bk`-row
+// key tiles: at (D, Dv) = (192, 128) and 64-row tiles 198,656 and 182,016
+// bytes; at (256, 256) 64-row tiles would take 296,960, over a block's
+// 232,448, so that instance runs 32-row ones (214,528 and 206,336)
+size_t dkdv_smem(int D, int Dv, int bq) {
   return sizeof(float) *
-         (static_cast<size_t>(kBK + kBQ) * (D + 1 + Dv + 1) +
-          2 * static_cast<size_t>(kBK) * (kBQ + 1) + 2 * kBQ);
+         (static_cast<size_t>(kTileRows + bq) * (D + 1 + Dv + 1) +
+          2 * static_cast<size_t>(kTileRows) * (bq + 1) + 2 * bq);
 }
 
-size_t dq_smem(int D, int Dv) {
+size_t dq_smem(int D, int Dv, int bk) {
   return sizeof(float) *
-         (static_cast<size_t>(kBK + kBQ) * (D + 1 + Dv + 1) +
-          static_cast<size_t>(kBQ) * (kBK + 1) + 2 * kBQ);
+         (static_cast<size_t>(bk + kTileRows) * (D + 1 + Dv + 1) +
+          static_cast<size_t>(kTileRows) * (bk + 1) + 2 * kTileRows);
 }
 
-template <typename T, int DC, int DVC>
+template <typename T, int DC, int DVC, int NC>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int BH, int group, int Sq, int Sk, int D,
@@ -504,45 +517,49 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
 
   const int BHkv = BH / group;
-  const int nk = (Sk + kBK - 1) / kBK, nq = (Sq + kBQ - 1) / kBQ;
-  const size_t s1 = dkdv_smem(D, Dv);
-  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, DC, DVC>,
+  const int nk = (Sk + kTileRows - 1) / kTileRows;
+  const int nq = (Sq + kTileRows - 1) / kTileRows;
+  const size_t s1 = dkdv_smem(D, Dv, 16 * NC);
+  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, DC, DVC, NC>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(s1));
   if (e != cudaSuccess) return static_cast<int>(e);
-  attn_bwd_dkdv_kernel<T, DC, DVC><<<nk * BHkv, kThreads, s1, stream>>>(
+  attn_bwd_dkdv_kernel<T, DC, DVC, NC><<<nk * BHkv, kThreads, s1, stream>>>(
       tq, tk, tv, tdo, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
       BHkv, group, Sq, Sk, D, Dv, scale, causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  const size_t s2 = dq_smem(D, Dv);
-  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DC>,
+  const size_t s2 = dq_smem(D, Dv, 16 * NC);
+  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DC, NC>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(s2));
   if (e != cudaSuccess) return static_cast<int>(e);
-  attn_bwd_dq_kernel<T, DC><<<nq * BH, kThreads, s2, stream>>>(
+  attn_bwd_dq_kernel<T, DC, NC><<<nq * BH, kThreads, s2, stream>>>(
       tq, tk, tv, tdo, lse, dsum, static_cast<T*>(dq), BH, group, Sq, Sk, D,
       Dv, scale, causal, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance for (D, Dv): DC = D / 16 and DVC = Dv / 16 columns per
+// thread rounded up to one of the built widths, 64-row tiles up to
+// MLA's (192, 128); past that every head dim up to 256 runs the widest
+// instance on 32-row query (b) and key (c) tiles, to fit shared memory.
 template <typename T>
 int launch_dims(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* dsum, void* dq,
                 void* dk, void* dv, int BH, int group, int Sq, int Sk, int D,
                 int Dv, float scale, int causal, cudaStream_t s) {
-  if (D <= 64 && Dv <= 64)
-    return launch<T, 4, 4>(q, k, v, o, dout, lse, dsum, dq, dk, dv, BH, group,
-                           Sq, Sk, D, Dv, scale, causal, s);
-  if (D <= 64)
-    return launch<T, 4, 8>(q, k, v, o, dout, lse, dsum, dq, dk, dv, BH, group,
-                           Sq, Sk, D, Dv, scale, causal, s);
-  if (Dv <= 64)
-    return launch<T, 8, 4>(q, k, v, o, dout, lse, dsum, dq, dk, dv, BH, group,
-                           Sq, Sk, D, Dv, scale, causal, s);
-  return launch<T, 8, 8>(q, k, v, o, dout, lse, dsum, dq, dk, dv, BH, group,
-                         Sq, Sk, D, Dv, scale, causal, s);
+#define K7_LAUNCH(DC, DVC, NC)                                               \
+  return launch<T, DC, DVC, NC>(q, k, v, o, dout, lse, dsum, dq, dk, dv, BH, \
+                                group, Sq, Sk, D, Dv, scale, causal, s)
+  if (D <= 64 && Dv <= 64) K7_LAUNCH(4, 4, 4);
+  if (D <= 64 && Dv <= 128) K7_LAUNCH(4, 8, 4);
+  if (D <= 128 && Dv <= 64) K7_LAUNCH(8, 4, 4);
+  if (D <= 128 && Dv <= 128) K7_LAUNCH(8, 8, 4);
+  if (D <= 192 && Dv <= 128) K7_LAUNCH(12, 8, 4);
+  K7_LAUNCH(16, 16, 2);
+#undef K7_LAUNCH
 }
 
 // ---------------------------------------------------------------------------
@@ -1218,8 +1235,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (BH < 1 || group < 1 || BH % group || Sq < 1 || Sk < 1 || D < 1 ||
       D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim ||
       (dtype != 0 && dtype != 1) ||
-      static_cast<long long>((Sq + kBQ - 1) / kBQ) * BH > INT_MAX ||
-      static_cast<long long>((Sk + kBK - 1) / kBK) * (BH / group) > INT_MAX ||
+      static_cast<long long>((Sq + kTileRows - 1) / kTileRows) * BH >
+          INT_MAX ||
+      static_cast<long long>((Sk + kTileRows - 1) / kTileRows) *
+              (BH / group) > INT_MAX ||
       static_cast<long long>(BH) * ((Sq + kRowPad - 1) / kRowPad) * kRowPad *
               32 / kThreads > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -17,9 +17,9 @@ from repro_torch.kernels.flash_attention.kernel import (DTYPES, VARIANTS,
                                                         WGMMA_HEAD_DIMS,
                                                         variant)
 
-# K7's own head-dim limit (kMaxHeadDim in csrc/flash_attention_bwd.cu):
-# K6 takes up to 256, but MLA's D = 192 backward is ROADMAP §1 item 14d
-MAX_HEAD_DIM = 128
+# K7's head-dim limit (kMaxHeadDim in csrc/flash_attention_bwd.cu), K6's:
+# the SIMT kernels take D and Dv up to 256 (MLA's 192 / 128 among them)
+MAX_HEAD_DIM = 256
 
 # the wgmma variant's scratch holds each head's rows padded to a multiple
 # of this (kRowPad in csrc/flash_attention_bwd.cu)
@@ -50,8 +50,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
                              force_variant=None):
     """Same contract as ``ref.flash_attention_bwd_ref``: q, o, do (BH, Sq,
     D|Dv) and k, v (BH // group, Sk, D|Dv) in f32 or bf16, lse (BH, Sq)
-    f32 from K6 -> (dq, dk, dv) in the inputs' dtype. Head dims up to 128,
-    any Sq and Sk. One call launches the chosen variant's three kernels:
+    f32 from K6 -> (dq, dk, dv) in the inputs' dtype. Head dims up to
+    :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk. One call launches the chosen variant's three kernels:
     :func:`kernel.variant`'s, or the SIMT ones under
     ``force_variant="simt"`` (to time them beside the tensor-core ones);
     a ``"wgmma"`` the inputs do not qualify for raises."""

@@ -22,15 +22,24 @@ Tree = Any
 
 def loss_and_grads(model: Model, params: Tree, batch
                    ) -> Tuple[torch.Tensor, Tree]:
-    """(loss, gradients in the parameters' dtypes) of one batch."""
+    """(loss, gradients in the parameters' dtypes) of one batch. The
+    sigmoid router's ``bias`` steers only top-k's indices, which carry no
+    gradient, so the loss may not reach it: it gets a zero gradient, as
+    in the reference; so does an empty leaf (a stack cut to 0 layers).
+    Any other leaf the loss does not reach raises."""
     leaves = adamw.leaves(params)
     live = [t.detach().requires_grad_(True) for t in leaves]
     it = iter(live)
     tracked = adamw.tree_map(lambda _: next(it), params)
     with torch.enable_grad():
         loss = model.loss(tracked, batch)
-        grads = torch.autograd.grad(loss, live)
-    it = iter(grads)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    stray = ["/".join(p) for p, t, g in zip(adamw.paths(params), live, grads)
+             if g is None and t.numel() and p[-2:] != ("moe", "bias")]
+    if stray:
+        raise RuntimeError(f"the loss does not reach the parameters {stray}")
+    it = iter(torch.zeros_like(t) if g is None else g
+              for t, g in zip(live, grads))
     return loss.detach(), adamw.tree_map(lambda _: next(it), params)
 
 

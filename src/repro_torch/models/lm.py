@@ -12,11 +12,12 @@ The multi-token-prediction block (``mtp``) is in the tree when
 ``cfg.mtp_depth`` is set, so the reference's parameters cross whole;
 serving never reads it. The decode cache is the reference's list of
 per-layer ``{"k", "v"}`` dicts, or ``{"ckv", "kr"}`` (the latent cache)
-under MLA. :func:`lm_loss` is the training loss of the dense family;
-under ``cfg.remat == "full"`` each block is recomputed in the backward
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
-scan body). Training the moe family and multi-token prediction are
-ROADMAP §1 item 14d; the vlm family is item 14c.
+under MLA. :func:`lm_loss` is the training loss of both families, with
+the multi-token-prediction loss (:func:`_mtp_loss`) added at weight 0.3
+when the tree holds ``mtp``; under ``cfg.remat == "full"`` each block of
+the stacks is recomputed in the backward (``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint`` of the scan body), the MTP block is
+not. The vlm family is ROADMAP §1 item 14c.
 """
 from __future__ import annotations
 
@@ -172,20 +173,49 @@ def lm_hidden(params, batch, cfg: ModelConfig,
 def lm_loss(params, batch, cfg: ModelConfig,
             backend: Optional[str] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets"}
-    and an optional "mask", all (B, S)), f32 0-d; the dense family."""
-    if cfg.family != "dense" or cfg.mtp_depth:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family with mtp_depth="
-            f"{cfg.mtp_depth} is not ported yet: the moe family's loss and "
-            "multi-token prediction are ROADMAP §1 item 14d")
+    and an optional "mask", all (B, S)), f32 0-d; plus 0.3 x
+    :func:`_mtp_loss` when ``cfg.mtp_depth`` is set and the tree holds
+    the MTP block."""
+    check_family(cfg)
     x = lm_hidden(params, batch, cfg, backend=backend)
-    targets = batch["targets"]
+    mask = _mask(batch)
+    loss = L.chunked_ce_loss(params["embed"], x, batch["targets"], mask,
+                             cfg.tie_embeddings, cfg.loss_chunk)
+    if cfg.mtp_depth and "mtp" in params:
+        loss = loss + 0.3 * _mtp_loss(params, x, batch, mask, cfg, backend)
+    return loss
+
+
+def _mask(batch) -> torch.Tensor:
     mask = batch.get("mask")
     if mask is None:
+        targets = batch["targets"]
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    return L.chunked_ce_loss(params["embed"], x, targets, mask,
-                             cfg.tie_embeddings, cfg.loss_chunk)
+    return mask
+
+
+def _mtp_loss(params, h, batch, mask, cfg: ModelConfig,
+              backend: Optional[str]) -> torch.Tensor:
+    """Single-depth multi-token prediction (deepseek-v3 §2.2): the normed
+    main hidden state at position t and the embedding of token t + 1,
+    each normed, are projected to d_model and run through one block (its
+    kind that of the tree's block) to predict token t + 2 with the shared
+    embedding and head; the last position, whose rolled target wraps,
+    is masked."""
+    p = params["mtp"]
+    tokens, targets = batch["tokens"], batch["targets"]
+    S = tokens.shape[1]
+    emb_next = L.embed(params["embed"], torch.roll(tokens, -1, dims=1))
+    comb = torch.cat([L.rms_norm(p["norm_h"], h, cfg.norm_eps),
+                      L.rms_norm(p["norm_e"], emb_next, cfg.norm_eps)], -1)
+    x = L.linear(p["proj"], comb)
+    kind = "moe" if (cfg.moe and "moe" in p["block"]) else "dense"
+    x = block_train(p["block"], x, cfg, backend=backend, kind=kind)
+    keep = torch.arange(S, device=tokens.device)[None, :] < S - 1
+    return L.chunked_ce_loss(params["embed"], x,
+                             torch.roll(targets, -1, dims=1),
+                             mask * keep, cfg.tie_embeddings, cfg.loss_chunk)
 
 
 def cache_descs(cfg: ModelConfig, batch: int, seq: int) -> List[Tree]:

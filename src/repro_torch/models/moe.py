@@ -21,7 +21,7 @@ outside any Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Any, Tuple
+from typing import Any, Callable, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,6 +76,32 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
     m = cfg.moe
     return max(1, int(math.ceil(tokens * m.top_k * m.capacity_factor
                                 / m.num_experts)))
+
+
+def drops_of(run: Callable[[], Any]) -> List[Tuple[int, int]]:
+    """Runs ``run()`` (a prefill, or a loss) and returns (pairs dropped by
+    capacity, pairs routed) of each expert layer it went through, in call
+    order: :func:`route` on the layer's input, and per expert max(0,
+    pairs - C). The layers' outputs are unchanged."""
+    global moe_ffn
+    original, counts = moe_ffn, []
+
+    def counted(params, x, cfg):
+        B, S, d = x.shape
+        with torch.no_grad():
+            _, idx = route(params, x.reshape(B * S, d), cfg)
+            per_expert = torch.bincount(idx.reshape(-1),
+                                        minlength=cfg.moe.num_experts)
+            C = capacity(cfg, B * S)
+            counts.append((int((per_expert - C).clamp(min=0).sum()),
+                           idx.numel()))
+        return original(params, x, cfg)
+    moe_ffn = counted
+    try:
+        run()
+    finally:
+        moe_ffn = original
+    return counts
 
 
 def _expert_gather_compute(x_flat, w_pair, e_pair, params_loc, E_loc: int,

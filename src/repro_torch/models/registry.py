@@ -1,6 +1,6 @@
 """Model registry: the public ``Model`` facade of the training and
 serving paths (the port of ``repro.models.registry``, dense and moe
-families; ``loss`` takes the dense family).
+families).
 
 ``Model(cfg)`` runs on the CUDA card unless the caller passes
 ``device="cpu"``; on the card the attention launches the flash_attention
@@ -50,7 +50,8 @@ class Model:
 
     # ---- training -------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross-entropy (``lm.lm_loss``), f32 0-d."""
+        """Mean next-token cross-entropy, plus the multi-token-prediction
+        loss where the config has one (``lm.lm_loss``), f32 0-d."""
         return LM.lm_loss(params, batch, self.cfg, backend=self.backend)
 
     # ---- serving --------------------------------------------------------

@@ -51,6 +51,13 @@ def leaves(tree: Tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def paths(tree: Tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, ...]]:
+    """The key paths of a nested dict's leaves, in :func:`leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in paths(v, prefix + (k,))]
+    return [prefix]
+
+
 def init(params: Tree, cfg: TrainConfig, state_dtype: str = "float32"
          ) -> OptState:
     dt = torch_dtype(state_dtype)

@@ -678,7 +678,11 @@ _BWD_SHAPES = [
     (8, 200, 71, 16, 16, 4), (8, 71, 200, 128, 128, 4),
     (12, 129, 257, 128, 32, 4), (4, 3, 65, 64, 64, 1),
     (8, 200, 71, 64, 64, 4), (8, 333, 333, 128, 128, 1),
-    (16, 333, 333, 128, 128, 4)]
+    (16, 333, 333, 128, 128, 4),
+    # past head dim 128 (simt only): MLA's (192, 128), K7's limit (256,
+    # 256) on its 32-row tiles, and ragged in-between widths
+    (8, 333, 333, 192, 128, 1), (6, 130, 257, 256, 256, 2),
+    (6, 200, 71, 160, 200, 3), (4, 65, 65, 136, 24, 1)]
 # every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
 # (D == Dv in {64, 128}) runs on wgmma and once more forced to simt
 _BWD_CASES = [
@@ -838,6 +842,41 @@ def test_reduced_train_step_kernels_equal_plain(cuda, remat):
         assert float((x - y).abs().max()) <= 1e-2 * tcfg.learning_rate
     assert abs(float(gm["gnorm"]) - float(wm["gnorm"])) <= \
         1e-4 * float(wm["gnorm"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
+                                  "llama4-scout-17b-a16e"])
+def test_reduced_moe_train_step_kernels_equal_plain(cuda, arch):
+    """One REDUCED moe-family loss and gradient (f32; deepseek-v3 with MLA
+    at D = 24, Dv = 16 and its MTP block) on the card through K6 and K7
+    against the plain versions: loss 1e-5 relative, every gradient leaf
+    1e-4 of its largest element (the top-1 router of llama4-scout, whose
+    gradient is 0 up to rounding, of the tree's largest element). K6
+    and K7 launch once per layer and once for the MTP block."""
+    from repro_torch.data import tokens as DATA
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    cfg = get_config(arch, reduced=True).replace(dtype="float32",
+                                                 param_dtype="float32")
+    model = Model(cfg, device=cuda)
+    params = model.init(0)
+    batch = DATA.batch_at(0, cfg, 4, 100, device=cuda)
+    AK.KERNEL.reset_counts()
+    BK.KERNEL.reset_counts()
+    loss, grads = ST.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    n = cfg.num_layers + (1 if cfg.mtp_depth else 0)
+    assert AK.KERNEL.launches == BK.KERNEL.launches == n
+    ploss, pgrads = ST.loss_and_grads(Model(cfg, device=cuda, backend="ref"),
+                                      params, batch)
+    assert BK.KERNEL.launches == n
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    top = max(float(g.abs().max()) for g in adamw.leaves(pgrads))
+    for path, x, y in zip(adamw.paths(grads), adamw.leaves(grads),
+                          adamw.leaves(pgrads)):
+        scale = (top if cfg.moe.top_k == 1 and path[-1] == "router"
+                 else float(y.abs().max()))
+        assert float((x - y).abs().max()) <= 1e-4 * scale, path
 
 
 # -- the serving slice on the card ---------------------------------------------

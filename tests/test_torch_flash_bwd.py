@@ -204,19 +204,52 @@ def test_bwd_variant_choice(dtype, D, Dv, want):
 
 @pytest.mark.parametrize("D,Dv", [(192, 128), (129, 129), (64, 192)])
 def test_bwd_still_refuses_head_dims_past_128(D, Dv):
-    """K6 takes head dims up to 256, K7 keeps its own limit of 128 (MLA's
-    D = 192 backward waits for the moe training slice): refused before
+    """K7 takes K6's head dims, up to 256 with D != Dv (MLA's D = 192,
+    Dv = 128 among them): these reach the wrapper's device checks (and
+    CPU tensors are refused there), a head dim of 257 is refused before
     anything is built or launched, and the limit is the source's."""
-    assert BK.MAX_HEAD_DIM == 128 < AK.MAX_HEAD_DIM == 256
+    assert BK.MAX_HEAD_DIM == AK.MAX_HEAD_DIM == 256
     assert AK.variant(torch.bfloat16, D, Dv) == "simt"
     q = torch.zeros(4, 9, D, dtype=torch.bfloat16)
     v = torch.zeros(4, 9, Dv, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="on the card"):
         BK.flash_attention_bwd_cuda(q, q, v, v, torch.zeros(4, 9), v)
+    for d, dv in ((BK.MAX_HEAD_DIM + 1, Dv), (D, BK.MAX_HEAD_DIM + 1)):
+        q = torch.zeros(4, 9, d, dtype=torch.bfloat16)
+        v = torch.zeros(4, 9, dv, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dims"):
+            BK.flash_attention_bwd_cuda(q, q, v, v, torch.zeros(4, 9), v)
     src = open(SRC).read()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kMaxHeadDim"]) == BK.MAX_HEAD_DIM
     assert BK.KERNEL._fn is None and BK.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("D,Dv", [(192, 128), (256, 256)])
+def test_bwd_ref_matches_jax_at_wide_head_dims(rng, D, Dv, group):
+    """The plain backward at MLA's head dims (192, 128) and at K7's limit
+    (256, 256) against ``jax.vjp`` of the reference's attention, with
+    MLA's scale (D ** -0.5), causal, over several chunk pairs."""
+    B, KH, Sq = 2, 2, 40
+    H = KH * group
+    q, k, v, do = _inputs(rng, B, Sq, Sq, H, KH, D, Dv)
+    f = lambda q_, k_, v_: JA.chunked_attention(q_, k_, v_, causal=True,
+                                                q_chunk=16, kv_chunk=24)
+
+    def fwd_bwd(q_, k_, v_, do_):
+        o_, vjp = jax.vjp(f, q_, k_, v_)
+        return o_, vjp(do_)
+
+    o_j, grads_j = jax.jit(fwd_bwd)(*(jnp.asarray(x) for x in (q, k, v, do)))
+    tq, tk, tv = _flat(q, B, Sq, H), _flat(k, B, Sq, KH), _flat(v, B, Sq, KH)
+    o, lse = FR.flash_attention_lse_ref(tq, tk, tv, group=group)
+    got = FR.flash_attention_bwd_ref(tq, tk, tv, o, lse, _flat(do, B, Sq, H),
+                                     group=group)
+    unflat = lambda t, n: t.reshape(B, n, Sq, -1).transpose(1, 2)
+    assert _err(unflat(o, H), o_j) <= TOL
+    for g, want, n in zip(got, grads_j, (H, KH, KH)):
+        assert _err(unflat(g, n), want) <= TOL
 
 
 def test_bwd_row_pad_matches_the_source():

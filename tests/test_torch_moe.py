@@ -8,7 +8,6 @@ the output within 1e-2 of its largest entry (the frameworks round the
 expert products and the scatter-add at other places). Zero-initialised
 router biases are replaced by numpy draws so that they count.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -16,11 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jax_config
 from repro.models import moe as JM
 from repro_torch.configs import get_config
 from repro_torch.models import moe as TM
-from torch_cross import close, to_np
+from torch_cross import close, configs, to_np
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
@@ -28,11 +26,7 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 def _configs(arch, **moe_changes):
     """(reference config, port config) of ``arch`` at REDUCED in f32 with
     ``moe_changes`` applied to both MoE sub-configs."""
-    kw = dict(dtype="float32", param_dtype="float32")
-    j = jax_config(arch, reduced=True).replace(**kw)
-    t = get_config(arch, reduced=True).replace(**kw)
-    return (j.replace(moe=dataclasses.replace(j.moe, **moe_changes)),
-            t.replace(moe=dataclasses.replace(t.moe, **moe_changes)))
+    return configs(arch, "float32", moe=moe_changes)
 
 
 def _params(rng, d, E, f, dtype="float32", shared=True, bias=True):

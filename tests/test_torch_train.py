@@ -250,14 +250,25 @@ def test_token_batches_follow_the_reference_recipe():
 
 
 def test_training_refusals():
+    """What training still refuses (gradient compression and the families
+    of ROADMAP §1 item 14c), and what it no longer does: the moe family's
+    loss and multi-token prediction run (they are held against JAX in
+    tests/test_torch_train_moe.py)."""
     with pytest.raises(NotImplementedError, match="14c"):
         TrainConfig(grad_compression="int8_ef")
     cfg = get_config(ARCH, reduced=True)
-    with pytest.raises(NotImplementedError, match="14d"):
-        LM.lm_loss({}, {}, cfg.replace(mtp_depth=1))
-    with pytest.raises(NotImplementedError, match="14d"):
-        LM.lm_loss({}, {}, get_config("deepseek-v3-671b", reduced=True)
-                   .replace(mtp_depth=0))
+    for family in ("vlm", "hybrid", "ssm", "encdec"):
+        with pytest.raises(NotImplementedError, match="14c"):
+            LM.lm_loss({}, {}, cfg.replace(family=family))
+    tokens = torch.randint(0, 256, (2, 8), generator=torch.Generator()
+                           .manual_seed(0))
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    for moe_cfg in (get_config("deepseek-v3-671b", reduced=True),
+                    get_config("deepseek-v3-671b", reduced=True)
+                    .replace(mtp_depth=0)):
+        model = Model(moe_cfg, device="cpu")
+        loss = LM.lm_loss(model.init(0), batch, moe_cfg)
+        assert loss.shape == () and bool(torch.isfinite(loss))
     assert cfg.remat == "none" and get_config(ARCH).remat == "full"
     assert (cfg.loss_chunk, cfg.opt_state_dtype) == (2048, "float32")
 

@@ -10,6 +10,8 @@ would hide a port that drops or misplaces them, so :func:`perturbed`
 moves each by N(0, 0.1^2) noise from one numpy seed before both packages
 get the same arrays.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from repro.models.registry import get_model as jax_model
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models.registry import Model
+from repro_torch.optim import adamw
 
 F32 = dict(dtype="float32", param_dtype="float32")
 DTYPES = {"float32": F32, "bfloat16": {}}
@@ -42,25 +45,33 @@ def perturbed(tree, seed: int = 0):
     return rec(tree)
 
 
-def leaves(tree, prefix=()):
+def leaves(tree):
     """{path: leaf} of a nested dict."""
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(leaves(v, prefix + (k,)))
-        return out
-    return {prefix: tree}
+    return dict(zip(adamw.paths(tree), adamw.leaves(tree)))
 
 
-def cross(arch: str, dtype: str, mesh, **changes):
+def configs(arch: str, dtype: str, moe=None, **changes):
+    """(reference config, port config) of ``arch`` at REDUCED width in
+    ``dtype``, with ``changes`` applied to both and ``moe`` (a dict) to
+    both MoE sub-configs."""
+    kw = dict(DTYPES[dtype], **changes)
+    out = []
+    for c in (jax_config(arch, reduced=True), get_config(arch,
+                                                         reduced=True)):
+        if moe:
+            kw["moe"] = dataclasses.replace(c.moe, **moe)
+        out.append(c.replace(**kw))
+    return tuple(out)
+
+
+def cross(arch: str, dtype: str, mesh, moe=None, **changes):
     """(JAX model, its params, the port's Model on the CPU, the same
     params carried across) for ``arch`` at REDUCED width in ``dtype``,
-    with ``changes`` applied to both configurations and the unit leaves
-    perturbed."""
-    kw = dict(DTYPES[dtype], **changes)
-    jm = jax_model(jax_config(arch, reduced=True).replace(**kw), mesh)
+    with ``changes`` (and ``moe``, see :func:`configs`) applied to both
+    configurations and the unit leaves perturbed."""
+    jcfg, cfg = configs(arch, dtype, moe, **changes)
+    jm = jax_model(jcfg, mesh)
     tree = perturbed(jax.tree.map(np.asarray, jm.init(jax.random.key(0))))
-    cfg = get_config(arch, reduced=True).replace(**kw)
     return (jm, jax.tree.map(jnp.asarray, tree), Model(cfg, device="cpu"),
             lm_params_from_numpy(tree, cfg, device="cpu"))
 
