@@ -19,14 +19,16 @@ Phases (any failure exits non-zero; nothing is caught):
    against one ``scaled_dot_product_attention`` call, each library call
    timed by CUDA events and by its device time; flash_attention's cases
    each run the variant ``kernel.variant`` names (``wgmma`` for bf16 with
-   D == Dv in {64, 128}, ``simt`` otherwise), and the SIMT kernel is timed
-   at the serving shape beside the tensor-core one; flash_attention past
-   head dim 128 on its SIMT kernel: deepseek-v3's MLA prefill shape (B = 4
-   x 128 heads, 1024 tokens, D = 192, Dv = 128, group 1, causal) in bf16
-   and, at 64 heads, in f32, and (80, 80), (160, 64), (256, 256), each
-   against its plain version, the MLA shape timed in turns with its
-   device time, its bound and one scaled_dot_product_attention call (or
-   the reason SDPA refuses Dv != D); gather_enrich (on
+   (D, Dv) in {(64, 64), (128, 128), (192, 128)}, ``simt`` otherwise), and
+   the SIMT kernel is timed at the serving shape beside the tensor-core
+   one; flash_attention past head dim 128: deepseek-v3's MLA prefill shape
+   (B = 4 x 128 heads, 1024 tokens, D = 192, Dv = 128, group 1, causal) in
+   bf16 on the wgmma kernel and, at 64 heads, in f32 on the SIMT one, two
+   ragged bf16 MLA shapes (wgmma), and (80, 80), (160, 64), (256, 256)
+   (SIMT), each against its plain version, the MLA shape timed in turns
+   with its device time, its bound, the SIMT kernel forced onto the same
+   inputs and one scaled_dot_product_attention call (or the reason SDPA
+   refuses Dv != D); gather_enrich (on
    random and on distinct flow ids) and derived_features (on the
    gathered history and the whole ring) also give their achieved GB/s
    and the bound's share of their device time; flow_moments is also
@@ -44,11 +46,12 @@ Phases (any failure exits non-zero; nothing is caught):
    SIMT kernels timed in turns and by their device time, SDPA's backward
    (forward + backward minus forward) as the library yardstick, and the
    wgmma kernels' share of the bound and factor against SDPA logged;
-   flash_attention_bwd past head dim 128 on its SIMT kernels at MLA's
-   training shape (B = 4 x 128 heads, 1024 tokens, D = 192, Dv = 128,
-   group 1, causal) in f32 and bf16 under the same rules, timed in turns
-   with its device time, its bound and SDPA's backward (or the reason it
-   refuses Dv != D);
+   flash_attention_bwd at MLA's training shape (B = 4 x 128 heads, 1024
+   tokens, D = 192, Dv = 128, group 1, causal) in f32 (simt) and bf16
+   (wgmma, twice bit for bit, and simt forced) under the same rules, the
+   wgmma kernels timed in turns with the plain version and with the SIMT
+   kernels, by their device time (split by kernel), beside the bound and
+   SDPA's backward (or the reason it refuses Dv != D);
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -138,7 +141,7 @@ Phases (any failure exits non-zero; nothing is caught):
    256 experts whole, top-8 sigmoid routing with its bias, full
    vocabulary, MTP block left out; bf16, seeded random weights): the
    requests of 15, one warm-up and 2 timed, each prefill launching K6
-   once per layer, all simt (MLA's D = 192, Dv = 128); parameters,
+   once per layer, all wgmma (MLA's D = 192, Dv = 128); parameters,
    max_memory_allocated, prefill ms, decode ms per step, tok/s; the share
    of (token, expert) pairs each MoE layer drops by capacity (from the
    port's ``route``); the bf16 plain run's logit gap to the kernel run;
@@ -159,7 +162,7 @@ Phases (any failure exits non-zero; nothing is caught):
    3 dense layers (MLA + the 18432-wide FFN; one MoE layer alone holds
    11.3e9 expert parameters), MTP left out, full untied vocabulary, bf16
    AdamW moments (its config's), 1 warm-up and 2 timed steps: 6 K6 and 3
-   K7 launches per step, all simt (D = 192, Dv = 128);
+   K7 launches per step, all wgmma (D = 192, Dv = 128);
 20. [train llama4-scout] — as 19 for llama4-scout cut to 1 of 48 layers
    (16 experts whole, the shared expert, the 202,048-row untied
    vocabulary, f32 moments; C = 320 slots per expert): 2 K6 and 1 K7
@@ -817,13 +820,16 @@ def attention_inputs(gen, dev, BH, Sq, Sk, D, Dv, group, dtype):
 
 
 def check_flash_attention_wide(dev):
-    """K6 past head dim 128, where only the SIMT kernel runs: at MLA's
-    prefill shape in bf16, in f32 at 64 heads, and at (80, 80), (160, 64)
-    and (256, 256), each against its plain version
-    (:func:`hold_k6_against_plain`); at the MLA shape the
-    kernel and the plain version timed in turns, K6's device time, its
-    bound, and one scaled_dot_product_attention call where it takes
-    Dv != D. Returns the entry for K6's row."""
+    """K6 past head dim 128: at MLA's prefill shape in bf16 on the wgmma
+    kernel's (192, 128) instance and in f32 at 64 heads on the SIMT one,
+    two ragged bf16 MLA shapes (wgmma), and (80, 80), (160, 64) and (256,
+    256) (SIMT), each on the variant ``kernel.variant`` names and against
+    its plain version (:func:`hold_k6_against_plain`); at the MLA shape
+    the kernel and the plain version timed in turns, K6's device time, its
+    bound, the SIMT kernel forced onto the same inputs (timed, and held
+    against the wgmma kernel within ATT_TOL), and one
+    scaled_dot_product_attention call where it takes Dv != D. Returns the
+    entry for K6's row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -832,9 +838,15 @@ def check_flash_attention_wide(dev):
     gen = torch.Generator(device=dev).manual_seed(23)
     BH, S = SERVE_B * MLA_HEADS, SERVE_PROMPT
     scale = MLA_D ** -0.5
+    require(K.variant(torch.bfloat16, MLA_D, MLA_DV) == "wgmma",
+            "MLA's head dims should run K6's wgmma kernel in bf16")
     cases = {
         "mla bf16": (BH, S, S, MLA_D, MLA_DV, 1, "bfloat16", True),
         "mla f32 BH=64": (64, S, S, MLA_D, MLA_DV, 1, "float32", True),
+        "mla Sq=1000 Sk=700 group 2 bf16": (32, 1000, 700, MLA_D, MLA_DV,
+                                            2, "bfloat16", True),
+        "mla non-causal Sq=330 Sk=1000 group 3 bf16": (
+            24, 330, 1000, MLA_D, MLA_DV, 3, "bfloat16", False),
         "D=80 group 2 ragged bf16": (32, 1000, 1000, 80, 80, 2, "bfloat16",
                                      True),
         "D=80 f32 Sq=300 Sk=500 non-causal": (16, 300, 500, 80, 80, 2,
@@ -846,27 +858,36 @@ def check_flash_attention_wide(dev):
         "D=256 f32 non-causal": (8, 300, 257, 256, 256, 1, "float32",
                                  False),
     }
-    errs, ratios = {}, {}
+    errs, ran, ratios = {}, {}, {}
     for name, (bh, sq, sk, d, dv, g, dt, causal) in cases.items():
-        q, k, v = attention_inputs(gen, dev, bh, sq, sk, d, dv, g,
-                                   getattr(torch, dt))
+        dtype = getattr(torch, dt)
+        q, k, v = attention_inputs(gen, dev, bh, sq, sk, d, dv, g, dtype)
+        ran[name] = K.variant(dtype, d, dv)
         errs[name], ratio = hold_k6_against_plain(name, q, k, v, g, causal,
-                                                  "simt")
+                                                  ran[name])
         if ratio is not None:
             ratios[name] = ratio
         del q, k, v
     log(f"[kernel] flash_attention past head dim 128, max abs err vs plain "
-        f"(all simt): { {k: f'{v:.3e}' for k, v in errs.items()} }; bf16 "
-        f"distance to the f32 plain run, kernel / plain (held <= "
+        f"(variant): { {k: f'{v:.3e} ({ran[k]})' for k, v in errs.items()} }"
+        f"; bf16 distance to the f32 plain run, kernel / plain (held <= "
         f"{B_RATIO:g}): { {k: f'{v:.3f}' for k, v in ratios.items()} }")
 
     q, k, v = attention_inputs(gen, dev, BH, S, S, MLA_D, MLA_DV, 1,
                                torch.bfloat16)
     call = lambda: ops.flash_attention(q, k, v, scale=scale)
+    simt = lambda: K.flash_attention_cuda(q, k, v, scale=scale,
+                                          force_variant="simt")
     ms, plain_ms = in_turns(
         lambda: ops.flash_attention(q, k, v, scale=scale, backend="ref"),
         call, 5)
     dev_time = device_us(K.KERNEL, call, 5)
+    wgmma_ms, simt_ms = in_turns(simt, call, 3)
+    simt_us = device_us(K.KERNEL, simt, 3)
+    simt_err = float((simt().float() - call().float()).abs().max())
+    require(simt_err <= ATT_TOL["bfloat16"],
+            f"flash_attention at MLA's shape: the wgmma and the SIMT kernel "
+            f"differ by {simt_err:.3e}")
     n_ops = 2 * (MLA_D + MLA_DV) * attention_pairs(S, S, True) * BH
     n_bytes = (q.numel() + k.numel() + v.numel() + BH * S * MLA_DV) * 2
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
@@ -888,20 +909,27 @@ def check_flash_attention_wide(dev):
         del out
     row = {"shape": f"q ({BH}, {S}, {MLA_D}), k ({BH}, {S}, {MLA_D}), v "
                     f"({BH}, {S}, {MLA_DV}), group 1, causal, bf16",
-           "variant": "simt", "max_abs_err": errs["mla bf16"], "ms": ms,
+           "variant": "wgmma", "max_abs_err": errs["mla bf16"], "ms": ms,
            "plain_ms": plain_ms, "device_us": dev_time, "bound_ms": b_ms,
            "bound_by": b_by, "n_bytes": n_bytes, "n_ops": n_ops,
            "bound_share": b_ms * 1e3 / dev_time,
            "library_ms": library_ms, "library_device_us": library_us,
-           "library_note": library_note, "errs": errs,
-           "bf16_ratios": ratios}
+           "library_note": library_note, "simt_ms": simt_ms,
+           "simt_device_us": simt_us,
+           "simt_note": f"the SIMT kernel on the same inputs, in turns with "
+                        f"the wgmma one ({wgmma_ms:.5f} ms); max abs diff "
+                        f"to it {simt_err:.3e}",
+           "errs": errs, "variants": ran, "bf16_ratios": ratios}
     log(f"[kernel] flash_attention at MLA's prefill shape {row['shape']}: "
-        f"simt kernel {ms:.5f} ms, device {dev_time:.3f} us, plain "
+        f"wgmma kernel {ms:.5f} ms, device {dev_time:.3f} us, plain "
         f"{plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us by {b_by} "
         f"({n_bytes / 1e6:.1f} MB, {n_ops:.4g} operations), "
-        f"{100 * row['bound_share']:.2f} % of the bound; library "
-        f"{'n/a' if library_ms is None else f'{library_ms:.5f} ms, device {library_us:.3f} us'}"
+        f"{100 * row['bound_share']:.2f} % of the bound; simt kernel "
+        f"{simt_ms:.5f} ms, device {simt_us:.3f} us "
+        f"({simt_us / dev_time:.2f}x the wgmma kernel); library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.5f} ms, device {library_us:.3f} us, the kernel takes {dev_time / library_us:.2f}x its time'}"
         f" ({library_note})")
+    del q, k, v, q4, k4, v4
     return row
 
 
@@ -1094,14 +1122,50 @@ def check_flash_attention_bwd(dev):
                        "lse_errs": l_lse}}
 
 
+def device_split(fn, iters: int, names) -> dict:
+    """Device µs per call of ``fn`` in each ``__global__`` function of
+    ``names``, each of which ``fn`` launches once (torch.profiler's
+    device events over ``iters`` calls). The profiler has kept one of K7's
+    three kernels and lost the other two in a window (on an H100), so a
+    window counts only when every function ran ``iters`` times in it; up
+    to 3 windows, and fail if none did."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, seen = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for n in names:
+                if n in e.key:
+                    us[n] += dev_us(e) / iters
+                    seen[n] += e.count
+        if all(c == iters for c in seen.values()):
+            return us
+        log(f"[profile] attempt {attempt + 1}: device launches {seen} in "
+            f"{iters} calls")
+    raise AssertionError(f"the profiler did not see each of {names} once "
+                         f"per call in any of 3 windows")
+
+
 def check_flash_attention_bwd_mla(dev):
-    """K7 past head dim 128 (SIMT only) at MLA's training shape: B = 4 x
-    128 heads, 1024 tokens, D = 192, Dv = 128, group 1, causal, MLA's
-    scale, o and lse from K6, whose lse is held against the plain
-    logsumexp within LSE_TOL. f32 within BWD_TOL of max |grad| of the
-    plain version (from the plain lse); bf16 no further from the f32 plain gradient than the
-    bf16 plain gradient is, x B_RATIO; the bf16 kernels timed in turns
-    with the plain version and by their device time, beside the bound and
+    """K7 at MLA's training shape: B = 4 x 128 heads, 1024 tokens, D = 192,
+    Dv = 128, group 1, causal, MLA's scale, o and lse from K6, whose lse
+    is held against the plain logsumexp within LSE_TOL. f32 on the SIMT
+    kernels within BWD_TOL of max |grad| of the plain version (from the
+    plain lse); bf16 on the wgmma kernels' (192, 128) instance (twice, bit
+    for bit) and forced onto the SIMT ones, each no further from the f32
+    plain gradient than the bf16 plain gradient is, x B_RATIO. The wgmma
+    kernels timed in turns with the plain version and with the SIMT
+    kernels, by their device time (summed over their three kernels, from
+    one profiler window that saw each once per call), beside the bound and
     SDPA's backward (forward + backward minus forward, or the reason it
     refuses Dv != D). Returns the entry for K7's row."""
     import torch
@@ -1113,37 +1177,46 @@ def check_flash_attention_bwd_mla(dev):
     gen = torch.Generator(device=dev).manual_seed(29)
     BH, S, D, Dv = TRAIN_B * MLA_HEADS, TRAIN_S, MLA_D, MLA_DV
     scale = D ** -0.5
-    require(K.variant(torch.bfloat16, D, Dv) == "simt",
-            "MLA's head dims should run K7's SIMT kernels")
+    require(K.variant(torch.bfloat16, D, Dv) == "wgmma"
+            and K.variant(torch.float32, D, Dv) == "simt",
+            "MLA's head dims should run K7's wgmma kernels in bf16 and its "
+            "SIMT kernels in f32")
     errs, abs_errs, lse_errs = {}, {}, {}
-    for dt in ("float32", "bfloat16"):
+    runs = (("float32", "simt"), ("bfloat16", "wgmma"), ("bfloat16", "simt"))
+    for dt, variant in runs:
         dtype = getattr(torch, dt)
-        q, k, v = attention_inputs(gen, dev, BH, S, S, D, Dv, 1, dtype)
-        do = torch.randn(BH, S, Dv, generator=gen, device=dev).to(dtype)
-        o, lse = K.flash_attention_cuda(q, k, v, scale=scale, with_lse=True)
-        _, want_lse = REF.flash_attention_lse_ref(q, k, v, scale=scale)
-        lse_errs[dt] = float((lse - want_lse).abs().max())
-        require(lse_errs[dt] <= LSE_TOL,
-                f"flash_attention's lse (MLA, {dt}) differs from the plain "
-                f"logsumexp by {lse_errs[dt]:.3e}")
-        want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
-                                           scale=scale)
+        if variant == "wgmma" or dt == "float32":     # new inputs per dtype
+            q, k, v = attention_inputs(gen, dev, BH, S, S, D, Dv, 1, dtype)
+            do = torch.randn(BH, S, Dv, generator=gen, device=dev).to(dtype)
+            o, lse = K.flash_attention_cuda(q, k, v, scale=scale,
+                                            with_lse=True)
+            _, want_lse = REF.flash_attention_lse_ref(q, k, v, scale=scale)
+            lse_errs[dt] = float((lse - want_lse).abs().max())
+            require(lse_errs[dt] <= LSE_TOL,
+                    f"flash_attention's lse (MLA, {dt}) differs from the "
+                    f"plain logsumexp by {lse_errs[dt]:.3e}")
+            want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
+                                               scale=scale)
+        name = f"{dt} {variant}"
+        forced = None if variant == K.variant(dtype, D, Dv) else variant
         before = dict(BK.KERNEL.launches_by_variant)
-        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale=scale)
+        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale=scale,
+                                          force_variant=forced)
         require(BK.KERNEL.launches_by_variant
-                == {**before, "simt": before["simt"] + 1},
-                f"flash_attention_bwd (MLA, {dt}) did not count one simt "
-                f"launch")
+                == {**before, variant: before[variant] + 1},
+                f"flash_attention_bwd (MLA, {name}) did not count one "
+                f"{variant} launch")
         torch.cuda.synchronize()
         require(all(bool(torch.isfinite(g.float()).all()) for g in got),
-                f"flash_attention_bwd (MLA, {dt}) gave non-finite gradients")
-        errs[dt] = grad_err(got, want)
-        abs_errs[dt] = max(float((a.float() - b.float()).abs().max())
-                           for a, b in zip(got, want))
+                f"flash_attention_bwd (MLA, {name}) gave non-finite "
+                f"gradients")
+        errs[name] = grad_err(got, want)
+        abs_errs[name] = max(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(got, want))
         if dt == "float32":
-            require(errs[dt] <= BWD_TOL,
+            require(errs[name] <= BWD_TOL,
                     f"flash_attention_bwd (MLA, f32) differs from its plain "
-                    f"version: {errs[dt]:.3e} of max |grad| > {BWD_TOL:g}")
+                    f"version: {errs[name]:.3e} of max |grad| > {BWD_TOL:g}")
             del q, k, v, do, o, lse, want_lse, want, got
             torch.cuda.empty_cache()
             continue
@@ -1151,23 +1224,43 @@ def check_flash_attention_bwd_mla(dev):
             *(t.float() for t in (q, k, v, o)), want_lse, do.float(),
             scale=scale)
         err_k, err_p = grad_err(got, f32), grad_err(want, f32)
-        log(f"[kernel] flash_attention_bwd at MLA's shape, bf16 (simt) vs "
-            f"the f32 plain gradient: kernel {err_k:.3e}, plain bf16 "
+        log(f"[kernel] flash_attention_bwd at MLA's shape, bf16 ({variant}) "
+            f"vs the f32 plain gradient: kernel {err_k:.3e}, plain bf16 "
             f"{err_p:.3e} (held: kernel <= {B_RATIO:g} x plain); kernel vs "
-            f"plain bf16 {errs[dt]:.3e}; f32 kernel vs plain "
-            f"{errs['float32']:.3e} (held <= {BWD_TOL:g}); K6's lse vs the "
-            f"plain logsumexp {lse_errs} (held <= {LSE_TOL:g})")
+            f"plain bf16 {errs[name]:.3e}")
         require(err_k <= B_RATIO * err_p,
-                "flash_attention_bwd (MLA, bf16) is further from the f32 "
-                "gradient than the plain bf16 gradient is")
-        del f32, want, want_lse, got
+                f"flash_attention_bwd (MLA, bf16, {variant}) is further from "
+                f"the f32 gradient than the plain bf16 gradient is")
+        if variant == "wgmma":
+            again = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                scale=scale)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    "flash_attention_bwd (MLA, wgmma) differs between two "
+                    "runs")
+            del again
+        del f32, got
+    log(f"[kernel] flash_attention_bwd at MLA's shape: of max |grad| vs "
+        f"plain { {n: f'{e:.3e}' for n, e in errs.items()} } (f32 held <= "
+        f"{BWD_TOL:g}); K6's lse vs the plain logsumexp {lse_errs} (held <= "
+        f"{LSE_TOL:g})")
+    del want, want_lse
+    torch.cuda.empty_cache()
 
+    # the bf16 inputs are timed
     call = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
                                                scale=scale)
+    simt = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                               scale=scale,
+                                               force_variant="simt")
     plain = lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 scale=scale)
     ms, plain_ms = in_turns(plain, call, 3)
-    dev_time = device_us(BK.KERNEL, call, 3)
+    split = device_split(call, 5, ("attn_bwd_prep_kernel",
+                                   "attn_bwd_dkdv_wgmma_kernel",
+                                   "attn_bwd_dq_wgmma_kernel"))
+    dev_time = sum(split.values())
+    wgmma_ms, simt_ms = in_turns(simt, call, 2)
+    simt_us = device_us(BK.KERNEL, simt, 2)
     pairs = attention_pairs(S, S, True) * BH
     n_ops = 2 * (2 * D + 2 * Dv + D) * pairs
     # q, k read and dq, dk written (D wide); v, o, do read and dv written
@@ -1206,19 +1299,28 @@ def check_flash_attention_bwd_mla(dev):
     row = {"shape": f"q/dq ({BH}, {S}, {D}), k/dk ({BH}, {S}, {D}), v/o/do "
                     f"({BH}, {S}, {Dv}), group 1, causal, bf16 (f32 "
                     f"checked too)",
-           "variant": "simt", "max_abs_err": abs_errs["bfloat16"],
+           "variant": "wgmma", "max_abs_err": abs_errs["bfloat16 wgmma"],
            "ms": ms, "plain_ms": plain_ms, "device_us": dev_time,
+           "device_us_by_kernel": split,
            "bound_ms": b_ms, "bound_by": b_by, "n_bytes": n_bytes,
            "n_ops": n_ops, "bound_share": b_ms * 1e3 / dev_time,
            "library_ms": library_ms, "library_device_us": library_us,
-           "library_note": library_note, "errs": errs,
-           "abs_errs": abs_errs, "lse_errs": lse_errs}
+           "library_note": library_note, "simt_ms": simt_ms,
+           "simt_device_us": simt_us,
+           "simt_note": f"the SIMT kernels on the same inputs, in turns with "
+                        f"the wgmma ones ({wgmma_ms:.5f} ms); max abs err to "
+                        f"the plain version "
+                        f"{abs_errs['bfloat16 simt']:.3e}",
+           "errs": errs, "abs_errs": abs_errs, "lse_errs": lse_errs}
     log(f"[kernel] flash_attention_bwd at MLA's training shape "
-        f"{row['shape']}: simt kernels {ms:.5f} ms, device {dev_time:.3f} "
-        f"us, plain {plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us by {b_by} "
+        f"{row['shape']}: wgmma kernels {ms:.5f} ms, device {dev_time:.3f} "
+        f"us ({', '.join(f'{n} {u:.1f}' for n, u in split.items())}), plain "
+        f"{plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us by {b_by} "
         f"({n_bytes / 1e6:.1f} MB, {n_ops:.4g} operations), "
-        f"{100 * row['bound_share']:.2f} % of the bound; library "
-        f"{'n/a' if library_ms is None else f'{library_ms:.5f} ms, device {library_us:.3f} us'}"
+        f"{100 * row['bound_share']:.2f} % of the bound; simt kernels "
+        f"{simt_ms:.5f} ms, device {simt_us:.3f} us "
+        f"({simt_us / dev_time:.2f}x the wgmma kernels); library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.5f} ms, device {library_us:.3f} us, the kernels take {dev_time / library_us:.2f}x its time'}"
         f" ({library_note})")
     del q, k, v, o, lse, do, leaves
     torch.cuda.empty_cache()
@@ -2887,7 +2989,7 @@ def serve_deepseek_phase(dev):
     reference too), so (c) would not hold."""
     from repro_torch.configs import get_config
     cfg = get_config("deepseek-v3-671b").replace(num_layers=5, mtp_depth=0)
-    return serve_arch_phase(dev, "[serve deepseek-v3]", cfg, "simt",
+    return serve_arch_phase(dev, "[serve deepseek-v3]", cfg, "wgmma",
                             cfg.replace(num_layers=cfg.moe.first_moe_layer))
 
 
@@ -3096,14 +3198,14 @@ def train_deepseek_phase(dev):
     """deepseek-v3 at full width cut to its 3 dense layers (MLA + the
     18432-wide FFN; one MoE layer alone holds 11.3e9 expert parameters),
     the MTP block left out, full untied vocabulary, bf16 AdamW moments
-    (its config's): K6 and K7 on the SIMT kernels (D = 192, Dv = 128)."""
+    (its config's): K6 and K7 on the wgmma kernels (D = 192, Dv = 128)."""
     from repro_torch.configs import get_config
     cfg = get_config("deepseek-v3-671b")
     require(cfg.remat == "full" and cfg.opt_state_dtype == "bfloat16",
             "[train deepseek-v3] deepseek-v3 should train under "
             "remat='full' with bf16 moments")
     cfg = cfg.replace(num_layers=cfg.moe.first_moe_layer, mtp_depth=0)
-    return train_run(dev, "[train deepseek-v3]", cfg, "simt",
+    return train_run(dev, "[train deepseek-v3]", cfg, "wgmma",
                      TRAIN_MOE_STEPS)
 
 

@@ -11,13 +11,15 @@
 // Bound on this card: operations. Causal attention at the serving shape
 // (BH = 128, Sq = Sk = 1024, D = 64) is 4*BH*Sq*Sk*D/2 = 17.2 GFLOP against
 // 42 MB of q/k/v/o: 17.4 us at the bf16 tensor-core rate, 12.5 us for the
-// bytes. Only wgmma reaches that rate.
+// bytes. At MLA's prefill shape (BH = 512, D = 192, Dv = 128) it is 172
+// GFLOP, 174 us, against 671 MB, 200 us: bytes there. Only wgmma reaches
+// either.
 //
 // Two kernels, one C entry. The caller names the variant; the entry
 // checks it against the same rule as kernels/flash_attention/kernel.py
-// variant(): "wgmma" for bf16 with D == Dv in {64, 128}, "simt" for
-// everything else (f32, whose 2e-5 contract TF32 tensor cores would
-// break, and bf16 at other head dims).
+// variant(): "wgmma" for bf16 with (D, Dv) in {(64, 64), (128, 128),
+// (192, 128)} (MLA's), "simt" for everything else (f32, whose 2e-5
+// contract TF32 tensor cores would break, and bf16 at other head dims).
 //
 // wgmma (flash_attention_wgmma_kernel): persistent blocks of three
 // warpgroups, one block per SM (its 384 threads x 168 registers fill the
@@ -25,25 +27,30 @@
 // heaviest query tiles first, blockIdx.x + k * gridDim.x.
 //   * Warpgroup 0 is the producer: it lowers its registers with
 //     setmaxnreg, and one thread issues TMA loads of each item's Q tile
-//     into one of two Q buffers and of each 128-row K and V tile into a
-//     2-stage shared-memory ring, guarded by full (TMA bytes) and empty
-//     (consumer release) mbarriers. Ring and Q buffers run on across
-//     items, so the next item's loads overlap this one's last tiles and
-//     its epilogue. The consumers keep the launch allocation (168
+//     into one of two Q buffers (one at (192, 128), where two would not
+//     fit beside the rings: 209 KB with one) and of each 128-row K and V
+//     tile into a 2-stage shared-memory ring, guarded by full (TMA bytes)
+//     and empty (consumer release) mbarriers. Ring and Q buffers run on
+//     across items, so the next item's loads overlap this one's last
+//     tiles and its epilogue; with one Q buffer a consumer releases it
+//     right after its last S = Q K^T, with two after the item (releasing
+//     early there measured ~3 % slower at the granite serve shape with
+//     tools/attention_ab.py). The consumers keep the launch allocation (168
 //     registers under __launch_bounds__(384, 1), no spills); asking for
 //     more with setmaxnreg.inc would hang if ptxas allocated fewer.
 //   * Warpgroups 1 and 2 each own 64 query rows. S = Q K^T is
 //     wgmma m64n128k16 with Q and K both read from shared memory, K-major
 //     with the 128-byte swizzle (a row of 64 bf16 is exactly 128 bytes;
-//     D = 128 is two such column blocks). The tensor maps and the wgmma
-//     descriptors name the same swizzle.
+//     D = 128 is two such column blocks, 192 three: 12 k16 steps). The
+//     tensor maps and the wgmma descriptors name the same swizzle.
 //   * The online softmax runs on the f32 accumulator fragment in
 //     registers: each thread holds 2 rows x 32 scores, and a row's max is
 //     reduced over the 4 threads that share it with __shfl_xor_sync.
 //   * P is converted in registers into the bf16 A fragment of
 //     wgmma m64nDvk16 (the accumulator's layout maps onto the A operand's
 //     pairwise), and V is read from shared memory as a transposed
-//     (MN-major) B operand.
+//     (MN-major) B operand. A consumer holds o (Dv / 2 = 64 registers at
+//     Dv = 128), the scores (64) and P's fragment (32) at either D.
 //   * Rounding points of the TPU kernel (kernel.py:40-60): S from bf16
 //     inputs accumulated in f32, scaled in f32; masked scores -1e30; m
 //     and l in f32; p = exp(s - m) in f32, l sums the unrounded p; p is
@@ -325,30 +332,42 @@ int launch_simt_dv(const void* q, const void* k, const void* v, void* out,
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant (bf16, D == Dv in {64, 128})
+// The tensor-core variant (bf16, (D, Dv) in {(64, 64), (128, 128), (192,
+// 128)})
 
 constexpr float kLn2 = 0.6931471805599453f;
 
 // One block: kConsumers warpgroups of 64 query rows (kBQ), a kStages-deep
-// ring of kWgBK-row K and V tiles, two Q buffers.
+// ring of kWgBK-row K and V tiles, kQBufs Q buffers.
 constexpr int kWgBK = 128;
 constexpr int kConsumers = 2;
 constexpr int kStages = 2;
 constexpr int kWgThreads = 128 * (kConsumers + 1);
 
-template <int D>
+template <int D, int Dv>
 struct WgLayout {
   static constexpr int kBQ = 64 * kConsumers;         // query rows
   static constexpr int kBlocks = D / 64;              // 64-column blocks
+  static constexpr int kVBlocks = Dv / 64;            // of V
   static constexpr int kQBlock = kBQ * kRowBytes;     // one block of Q
   static constexpr int kKBlock = kWgBK * kRowBytes;   // one of K or V
   static constexpr int kQBytes = kQBlock * kBlocks;   // one Q buffer
-  static constexpr int kKBytes = kKBlock * kBlocks;   // one stage of K or V
-  // two Q buffers, the K ring, the V ring, then the mbarriers: full_q[2],
-  // empty_q[2], full_k[], full_v[], empty[]; plus 1024 bytes to align the
-  // tiles for the 128-byte swizzle
-  static constexpr int kBarOffset = 2 * kQBytes + 2 * kStages * kKBytes;
-  static constexpr int kSmem = 1024 + kBarOffset + 8 * (4 + 3 * kStages);
+  static constexpr int kKBytes = kKBlock * kBlocks;   // one stage of K
+  static constexpr int kVBytes = kKBlock * kVBlocks;  // one stage of V
+  static constexpr int kRings = kStages * (kKBytes + kVBytes);
+  // Two Q buffers where they fit beside the rings. At (192, 128) two (96
+  // KB) and the rings (160 KB) would take 256 KB, so the next item's Q
+  // waits for this item's last S = Q K^T (209 KB with one).
+  static constexpr int kQBufs =
+      1024 + 2 * kQBytes + kRings + 8 * (4 + 3 * kStages) <= kMaxSmem ? 2
+                                                                       : 1;
+  // the Q buffers, the K ring, the V ring, then the mbarriers:
+  // full_q[kQBufs], empty_q[kQBufs], full_k[], full_v[], empty[]; plus 1024
+  // bytes to align the tiles for the 128-byte swizzle
+  static constexpr int kBarOffset = kQBufs * kQBytes + kRings;
+  static constexpr int kSmem =
+      1024 + kBarOffset + 8 * (2 * kQBufs + 3 * kStages);
+  static_assert(kSmem <= kMaxSmem, "K6's tiles exceed shared memory");
 };
 
 // The online softmax of one tile's raw scores, in registers. sc[4j + e] is
@@ -422,7 +441,7 @@ __device__ __forceinline__ void rescale(float (&o)[N], float c0, float c1) {
   }
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -431,21 +450,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              float* __restrict__ lse, int BH,
                              int group, int Sq, int Sk, float scale_log2,
                              int causal, int nq) {
-  using L = WgLayout<D>;
+  using L = WgLayout<D, Dv>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* const sq =                               // [2][kQBytes]
+  uint8_t* const sq =                               // [kQBufs][kQBytes]
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* const sk = sq + 2 * L::kQBytes;          // [kStages][kKBytes]
-  uint8_t* const sv = sk + kStages * L::kKBytes;    // [kStages][kKBytes]
+  uint8_t* const sk = sq + L::kQBufs * L::kQBytes;  // [kStages][kKBytes]
+  uint8_t* const sv = sk + kStages * L::kKBytes;    // [kStages][kVBytes]
   uint64_t* const full_q = reinterpret_cast<uint64_t*>(sq + L::kBarOffset);
-  uint64_t* const empty_q = full_q + 2;
-  uint64_t* const full_k = empty_q + 2;
+  uint64_t* const empty_q = full_q + L::kQBufs;
+  uint64_t* const full_k = empty_q + L::kQBufs;
   uint64_t* const full_v = full_k + kStages;
   uint64_t* const empty = full_v + kStages;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < L::kQBufs; ++b) {
       mbar_init(full_q + b, 1);
       mbar_init(empty_q + b, 4 * kConsumers);
     }
@@ -460,8 +479,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   // Work items are (bh, query tile) pairs, heaviest query tiles first; the
-  // block takes items blockIdx.x, + gridDim.x, ... The K/V ring and the two
-  // Q buffers run on across items, so the next item's loads overlap this
+  // block takes items blockIdx.x, + gridDim.x, ... The K/V ring and the Q
+  // buffers run on across items, so the next item's loads overlap this
   // one's last tiles and its epilogue.
   const int n_items = nq * BH;
   auto item_q0 = [&](int item) {
@@ -481,9 +500,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
         const int bh = item % BH, q0 = item_q0(item), kvh = bh / group;
         const int nk = item_tiles(q0);
-        const int qb = n & 1;
-        // the buffer's item before last released (passes at once at first)
-        mbar_wait(empty_q + qb, ((n >> 1) & 1) ^ 1);
+        const int qb = n % L::kQBufs;
+        // the buffer's previous item released (passes at once at first)
+        mbar_wait(empty_q + qb, ((n / L::kQBufs) & 1) ^ 1);
         mbar_expect_tx(full_q + qb, L::kQBytes);
 #pragma unroll
         for (int b = 0; b < L::kBlocks; ++b)
@@ -497,10 +516,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           for (int b = 0; b < L::kBlocks; ++b)
             tma_load(sk + s * L::kKBytes + b * L::kKBlock, &tk, full_k + s,
                      64 * b, kt * kWgBK, kvh);
-          mbar_expect_tx(full_v + s, L::kKBytes);
+          mbar_expect_tx(full_v + s, L::kVBytes);
 #pragma unroll
-          for (int b = 0; b < L::kBlocks; ++b)
-            tma_load(sv + s * L::kKBytes + b * L::kKBlock, &tv, full_v + s,
+          for (int b = 0; b < L::kVBlocks; ++b)
+            tma_load(sv + s * L::kVBytes + b * L::kKBlock, &tv, full_v + s,
                      64 * b, kt * kWgBK, kvh);
         }
       }
@@ -526,7 +545,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
     const int bh = item % BH, q0 = item_q0(item);
     const int nk = item_tiles(q0);
-    const int qb = n & 1;
+    const int qb = n % L::kQBufs;
     const int row_a = q0 + 64 * cw;
     const int r0 = row_a + 16 * warp + g, r1 = r0 + 8;  // this thread's rows
     // tiles past nk_wg lie wholly above this warpgroup's rows (causal):
@@ -534,15 +553,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int nk_wg = causal ? min(nk, (row_a + 63) / kWgBK + 1) : nk;
     const uint64_t dqb = dq + ((qb * L::kQBytes) >> 4);
 
-    float o[D / 2], sc[kWgBK / 2];
+    float o[Dv / 2], sc[kWgBK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < Dv / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kWgBK / 2; ++i) sc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0, c1;
     uint32_t pa[kWgBK / 16][4];
 
-    mbar_wait(full_q + qb, (n >> 1) & 1);
+    mbar_wait(full_q + qb, (n / L::kQBufs) & 1);
     for (int kt = 0; kt < nk_wg; ++kt) {
       const int s = (it + kt) % kStages;
       const uint32_t ph = ((it + kt) / kStages) & 1;
@@ -562,6 +581,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
       wgmma_wait<0>();
       keep(sc);
+      // one Q buffer: the item's last S has read it, so the next item's Q
+      // may load under this item's last P V and epilogue
+      if constexpr (L::kQBufs == 1) {
+        if (kt == nk_wg - 1) release(empty_q + qb);
+      }
 
       const bool edge =
           k0 + kWgBK > Sk || (causal && k0 + kWgBK - 1 > row_a);
@@ -575,14 +599,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < kWgBK / 16; ++kk)
         wgmma_rs(o, pa[kk],
-                 dv + ((s * L::kKBytes + kk * 16 * kRowBytes) >> 4));
+                 dv + ((s * L::kVBytes + kk * 16 * kRowBytes) >> 4));
       wgmma_commit();
       wgmma_wait<0>();
       keep(o);
       keep(pa);
       release(empty + s);
     }
-    release(empty_q + qb);
+    if constexpr (L::kQBufs == 2) release(empty_q + qb);
     for (int kt = nk_wg; kt < nk; ++kt) {
       mbar_wait(full_k + (it + kt) % kStages, ((it + kt) / kStages) & 1);
       release(empty + (it + kt) % kStages);
@@ -598,17 +622,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (r0 < Sq) lb[r0] = m0 * scale_log2 * kLn2 + logf(den0);
       if (r1 < Sq) lb[r1] = m1 * scale_log2 * kLn2 + logf(den1);
     }
-    __nv_bfloat16* const ob = out + static_cast<long long>(bh) * Sq * D;
+    __nv_bfloat16* const ob = out + static_cast<long long>(bh) * Sq * Dv;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < Dv / 8; ++j) {
       const int col = 8 * j + 2 * t;
       if (r0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            ob + static_cast<long long>(r0) * D + col) =
+            ob + static_cast<long long>(r0) * Dv + col) =
             __floats2bfloat162_rn(o[4 * j] / den0, o[4 * j + 1] / den0);
       if (r1 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            ob + static_cast<long long>(r1) * D + col) =
+            ob + static_cast<long long>(r1) * Dv + col) =
             __floats2bfloat162_rn(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
     }
   }
@@ -628,24 +652,24 @@ cudaError_t num_sms(int* n) {
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, int Dv>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int BH, int group, int Sq, int Sk, float scale,
                  int causal, cudaStream_t stream) {
-  using L = WgLayout<D>;
+  using L = WgLayout<D, Dv>;
   EncodeTiled enc;
   const int rc = get_encoder(&enc);
   if (rc != 0) return rc;
   CUtensorMap tq, tk, tv;
   CUresult r = encode(enc, &tq, q, BH, Sq, D, L::kBQ);
   if (r == CUDA_SUCCESS) r = encode(enc, &tk, k, BH / group, Sk, D, kWgBK);
-  if (r == CUDA_SUCCESS) r = encode(enc, &tv, v, BH / group, Sk, D, kWgBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &tv, v, BH / group, Sk, Dv, kWgBK);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const int nq = (Sq + L::kBQ - 1) / L::kBQ;
   int sms = 0;
   cudaError_t e = num_sms(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  auto kernel = flash_attention_wgmma_kernel<D>;
+  auto kernel = flash_attention_wgmma_kernel<D, Dv>;
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::kSmem);
@@ -663,10 +687,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // logsumexp of the scaled scores (natural log, m + log l), which the
 // backward (flash_attention_bwd.cu) recomputes p from.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). variant: 0 =
-// simt (any dtype and head dims up to 256), 1 = wgmma (bf16, D == Dv in
-// {64, 128} only: the rule of kernel.py variant(), which names the
-// variant). Returns 0, a cudaError_t, or -CUresult when a tensor map
-// cannot be made.
+// simt (any dtype and head dims up to 256), 1 = wgmma (bf16 with (D, Dv)
+// in {(64, 64), (128, 128), (192, 128)} only: the rule of kernel.py
+// variant(), which names the variant). Returns 0, a cudaError_t, or
+// -CUresult when a tensor map cannot be made.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* lse_ptr, int BH, int group,
                                int Sq, int Sk, int D, int Dv, float scale,
@@ -679,13 +703,20 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   float* const lse = static_cast<float*>(lse_ptr);
-  const bool tensor_cores = dtype == 1 && D == Dv && (D == 64 || D == 128);
+  // the rule of kernel.py variant() (tests/test_torch_flash.py reads it)
+  const bool tensor_cores =
+      dtype == 1 && ((D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
+                     (D == 192 && Dv == 128));
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
-    return D == 64 ? launch_wgmma<64>(q, k, v, out, lse, BH, group, Sq, Sk,
-                                      scale, causal, s)
-                   : launch_wgmma<128>(q, k, v, out, lse, BH, group, Sq, Sk,
-                                       scale, causal, s);
+    if (D == 64)
+      return launch_wgmma<64, 64>(q, k, v, out, lse, BH, group, Sq, Sk,
+                                  scale, causal, s);
+    if (D == 128)
+      return launch_wgmma<128, 128>(q, k, v, out, lse, BH, group, Sq, Sk,
+                                    scale, causal, s);
+    return launch_wgmma<192, 128>(q, k, v, out, lse, BH, group, Sq, Sk,
+                                  scale, causal, s);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dtype == 0 ? launch_simt_dv<float>(q, k, v, out, lse, BH, group, Sq,

@@ -20,16 +20,17 @@
 //
 // Two variants behind one C entry, chosen by the caller under the rule of
 // K6 (kernels/flash_attention/kernel.py variant()): "wgmma" for bf16 with
-// D == Dv in {64, 128}, "simt" for everything else (f32, whose 2e-5
-// contract TF32 tensor cores would break, and bf16 at other head dims).
+// (D, Dv) in {(64, 64), (128, 128), (192, 128)} (MLA's), "simt" for
+// everything else (f32, whose 2e-5 contract TF32 tensor cores would
+// break, and bf16 at other head dims).
 // The entry refuses a wgmma launch that breaks the rule. Neither uses
 // float atomics: every output element is summed by one thread in a fixed
 // order, so a run repeats bit for bit.
 //
 // simt: all arithmetic in f32 FMAs on the CUDA cores (67 TFLOP/s at
 // best), S and dP recomputed in both passes; the f32 path, every head dim
-// up to 256 (D != Dv too: MLA's 192 / 128), and the yardstick the wgmma
-// variant is timed against.
+// up to 256 (D != Dv too), and the yardstick the wgmma variant is timed
+// against.
 //   (a) attn_bwd_dsum_kernel: one warp per query row, Dsum = sum do * o.
 //   (b) attn_bwd_dkdv_kernel: one block of 256 threads per (kv head, 64-row
 //       key tile), heaviest tiles first. K and V tiles stay in shared
@@ -50,7 +51,10 @@
 //
 // wgmma: every product on the tensor cores (wgmma m64nNk16, bf16 in, f32
 // accumulators in registers), tiles fed by TMA (hopper.cuh, shared with
-// K6), three kernels per call.
+// K6), three kernels per call, templated on (D, Dv). Widths D and Dv are
+// 64-column swizzled blocks (D = 192: three), so a product over D or Dv
+// is D / 16 or Dv / 16 k16 steps, and dK (dQ) at D = 192 is one m64n192
+// product per step.
 //   (a) attn_bwd_prep_kernel: Dv / 8 lanes (16-byte loads) per query row
 //       of a head padded to kRowPad rows: Dsum = sum do * o (0 past Sq) and
 //       lse * log2 e (+inf past Sq, so p = 0 there) into one scratch (2,
@@ -59,8 +63,10 @@
 //       tile), lowest (causally heaviest) key tiles first, of three
 //       warpgroups. Warpgroup 0 is the producer: it lowers its registers
 //       with setmaxnreg and one thread issues the TMA loads, the block's K
-//       and V tiles once, then each 64-row query tile's Q and dO (128-byte
-//       swizzle) and its lse and Dsum slices into a 2-stage ring guarded by
+//       and V tiles once, then each query tile's Q and dO (64 rows; 32 at
+//       D = 192, where a consumer's dK and dV take 160 of its 240
+//       registers and 64-row S^T and dP^T would spill; 128-byte swizzle)
+//       and its lse and Dsum slices into a 2-stage ring guarded by
 //       full (TMA bytes) and empty (consumer release) mbarriers, over the
 //       `group` query heads of the kv head and, under the causal mask, only
 //       the query tiles that reach the block's keys. Warpgroups 1 and 2 own
@@ -81,8 +87,9 @@
 //       tiles that cross the diagonal or the end of Sq or Sk are masked.
 //   (c) attn_bwd_dq_wgmma_kernel: one block per (q head, 128-row query
 //       tile), heaviest first: K6's warpgroups with the Q and dO tiles
-//       loaded once and a 2-stage ring of kDqBK-row K and V tiles up to the
-//       diagonal. Each consumer owns 64 query rows and runs S = Q K^T and
+//       loaded once and a 2-stage ring of K and V tiles (128 rows; 64 at
+//       D = 192, where 128-row tiles would take 241 KB of shared memory)
+//       up to the diagonal. Each consumer owns 64 query rows and runs S = Q K^T and
 //       dP = dO V^T (both from shared memory) and dQ += dS K (dS from
 //       registers, K MN-major), dS again as hi then lo. S and dP are
 //       committed apart, so p is computed while dP runs.
@@ -563,7 +570,8 @@ int launch_dims(const void* q, const void* k, const void* v, const void* o,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant (bf16, D == Dv in {64, 128})
+// The tensor-core variant (bf16, (D, Dv) in {(64, 64), (128, 128), (192,
+// 128)})
 
 constexpr int kRowPad = 128;      // the prep scratch's rows per head: Sq up
                                   // to a multiple of this (kernels/flash_
@@ -576,8 +584,10 @@ constexpr int kWgThreads = 128 * (kConsumers + 1);
 constexpr int kLaunchRegs = 168;
 constexpr int kDkdvBK = 128;      // keys per dK, dV block (64 per consumer)
 constexpr int kDkdvBQ = 64;       // query rows per dK, dV ring tile
+constexpr int kDkdvBQWide = 32;   // the same at D = 192 (DkdvLayout)
 constexpr int kDqBQ = 128;        // query rows per dQ block (64 per consumer)
 constexpr int kDqBK = 128;        // keys per dQ ring tile
+constexpr int kDqBKWide = 64;     // the same at D = 192 (DqLayout)
 constexpr float kMasked = -1e30f; // a masked raw score: p = 2^(-huge) = 0
 
 // (a) Dsum and lse * log2 e of every query row, each head padded to Sp rows
@@ -704,25 +714,35 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
-template <int D>
+// Shared memory of (b). The query rows of a ring tile are 64, or 32 at
+// (192, 128): there a consumer's dK (96 registers) and dV (64) leave no
+// room under its 240 for 64-row S^T and dP^T (32 each) beside the p and ds
+// fragments, and 32-row tiles halve all four.
+template <int D, int Dv>
 struct DkdvLayout {
+  static constexpr int kBQ = D > 128 ? kDkdvBQWide : kDkdvBQ;
   static constexpr int kBlocks = D / 64;                // 64-column blocks
+  static constexpr int kVBlocks = Dv / 64;              // of V and dO
   static constexpr int kKBlock = kDkdvBK * kRowBytes;   // one block of K, V
   static constexpr int kKBytes = kKBlock * kBlocks;
-  static constexpr int kQBlock = kDkdvBQ * kRowBytes;   // one of Q or dO
-  static constexpr int kQBytes = kQBlock * kBlocks;     // one stage of either
-  static constexpr int kVecBytes = kDkdvBQ * 4;         // a tile's lse2, Dsum
+  static constexpr int kVBytes = kKBlock * kVBlocks;
+  static constexpr int kQBlock = kBQ * kRowBytes;       // one of Q or dO
+  static constexpr int kQBytes = kQBlock * kBlocks;     // one stage of Q
+  static constexpr int kDoBytes = kQBlock * kVBlocks;   // one stage of dO
+  static constexpr int kVecBytes = kBQ * 4;             // a tile's lse2, Dsum
   // K, V, the Q ring, the dO ring, the (lse2, Dsum) ring, then the
   // mbarriers full_kv, full[], empty[]; plus 1024 bytes of alignment
-  static constexpr int kQOff = 2 * kKBytes;
+  static constexpr int kQOff = kKBytes + kVBytes;
   static constexpr int kDoOff = kQOff + kStages * kQBytes;
-  static constexpr int kVecOff = kDoOff + kStages * kQBytes;
+  static constexpr int kVecOff = kDoOff + kStages * kDoBytes;
   static constexpr int kBarOffset = kVecOff + kStages * 2 * kVecBytes;
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+  static_assert(kSmem <= kMaxSmem, "K7 (b)'s tiles exceed shared memory");
+  static_assert(kRowPad % kBQ == 0, "a tile's lse2 / Dsum leave the head");
 };
 
 // (b) dK, dV: one block per (kv head, 128-row key tile)
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -734,13 +754,14 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            __nv_bfloat16* __restrict__ dv, int BHkv,
                            int group, int Sq, int Sk, int Sp, float scale,
                            float scale_log2, int causal) {
-  using L = DkdvLayout<D>;
+  using L = DkdvLayout<D, Dv>;
+  constexpr int BQ = L::kBQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sk = aligned_smem(smem_raw);
   uint8_t* const sv = sk + L::kKBytes;
   uint8_t* const sq = sk + L::kQOff;                   // [kStages][kQBytes]
-  uint8_t* const sdo = sk + L::kDoOff;                 // [kStages][kQBytes]
-  float* const svec =                                  // [kStages][2][64]
+  uint8_t* const sdo = sk + L::kDoOff;                 // [kStages][kDoBytes]
+  float* const svec =                                  // [kStages][2][BQ]
       reinterpret_cast<float*>(sk + L::kVecOff);
   uint64_t* const full_kv = reinterpret_cast<uint64_t*>(sk + L::kBarOffset);
   uint64_t* const full = full_kv + 1;
@@ -761,10 +782,10 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // meet the most query tiles
   const int kvh = blockIdx.x % BHkv;
   const int k0 = static_cast<int>(blockIdx.x / BHkv) * kDkdvBK;
-  const int nq = (Sq + kDkdvBQ - 1) / kDkdvBQ;
+  const int nq = (Sq + BQ - 1) / BQ;
   // causal: query tiles before k0's hold only rows < k0, which see none of
   // the block's keys; tiles are walked head by head, the ring running on
-  const int qt0 = causal ? min(k0 / kDkdvBQ, nq) : 0;
+  const int qt0 = causal ? min(k0 / BQ, nq) : 0;
   const int per_head = nq - qt0;
   const int n_tiles = group * per_head;
 
@@ -772,29 +793,32 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full_kv, 2 * L::kKBytes);
+      mbar_expect_tx(full_kv, L::kKBytes + L::kVBytes);
 #pragma unroll
-      for (int b = 0; b < L::kBlocks; ++b) {
+      for (int b = 0; b < L::kBlocks; ++b)
         tma_load(sk + b * L::kKBlock, &tk, full_kv, 64 * b, k0, kvh);
+#pragma unroll
+      for (int b = 0; b < L::kVBlocks; ++b)
         tma_load(sv + b * L::kKBlock, &tv, full_kv, 64 * b, k0, kvh);
-      }
       for (int it = 0; it < n_tiles; ++it) {
         const int bh = kvh * group + it / per_head;
-        const int q0 = (qt0 + it % per_head) * kDkdvBQ;
+        const int q0 = (qt0 + it % per_head) * BQ;
         const int s = it % kStages;
         // the stage's tile before last released (passes at once at first)
         mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(full + s, 2 * L::kQBytes + 2 * L::kVecBytes);
+        mbar_expect_tx(full + s,
+                       L::kQBytes + L::kDoBytes + 2 * L::kVecBytes);
 #pragma unroll
-        for (int b = 0; b < L::kBlocks; ++b) {
+        for (int b = 0; b < L::kBlocks; ++b)
           tma_load(sq + s * L::kQBytes + b * L::kQBlock, &tq, full + s,
                    64 * b, q0, bh);
-          tma_load(sdo + s * L::kQBytes + b * L::kQBlock, &tdo, full + s,
+#pragma unroll
+        for (int b = 0; b < L::kVBlocks; ++b)
+          tma_load(sdo + s * L::kDoBytes + b * L::kQBlock, &tdo, full + s,
                    64 * b, q0, bh);
-        }
         const long long row = static_cast<long long>(bh) * Sp + q0;
-        bulk_load(svec + s * 2 * kDkdvBQ, lse2 + row, L::kVecBytes, full + s);
-        bulk_load(svec + s * 2 * kDkdvBQ + kDkdvBQ, dsum + row, L::kVecBytes,
+        bulk_load(svec + s * 2 * BQ, lse2 + row, L::kVecBytes, full + s);
+        bulk_load(svec + s * 2 * BQ + BQ, dsum + row, L::kVecBytes,
                   full + s);
       }
     }
@@ -822,24 +846,26 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(bar);
   };
 
-  float adk[D / 2], adv[D / 2], st[kDkdvBQ / 2], dpt[kDkdvBQ / 2];
+  float adk[D / 2], adv[Dv / 2], st[BQ / 2], dpt[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) adk[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kDkdvBQ / 2; ++i) st[i] = dpt[i] = 0.f;
-  uint32_t ph[kDkdvBQ / 16][4], pl[kDkdvBQ / 16][4];
-  uint32_t dh[kDkdvBQ / 16][4], dl[kDkdvBQ / 16][4];
+  for (int i = 0; i < Dv / 2; ++i) adv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t ph[BQ / 16][4], pl[BQ / 16][4];
+  uint32_t dh[BQ / 16][4], dl[BQ / 16][4];
 
   mbar_wait(full_kv, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = (qt0 + it % per_head) * kDkdvBQ;
+    const int q0 = (qt0 + it % per_head) * BQ;
     const int s = it % kStages;
     mbar_wait(full + s, (it / kStages) & 1);
     // causal: a tile wholly before this warpgroup's keys adds nothing
-    if (!(causal && q0 + kDkdvBQ <= kb)) {
-      // S^T = K Q^T and dP^T = V dO^T: D/16 steps of k16; a step advances
-      // 32 bytes inside a 128-byte swizzled row, or moves to the next
-      // 64-column block
+    if (!(causal && q0 + BQ <= kb)) {
+      // S^T = K Q^T (D/16 steps of k16) and dP^T = V dO^T (Dv/16): a step
+      // advances 32 bytes inside a 128-byte swizzled row, or moves to the
+      // next 64-column block
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -849,10 +875,10 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_ss(st, dka + (oa >> 4), dqk + (ob >> 4), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < Dv / 16; ++kk) {
         const uint32_t in_row = (kk % 4) * 32;
         const uint32_t oa = (kk / 4) * L::kKBlock + in_row;
-        const uint32_t ob = s * L::kQBytes + (kk / 4) * L::kQBlock + in_row;
+        const uint32_t ob = s * L::kDoBytes + (kk / 4) * L::kQBlock + in_row;
         wgmma_ss(dpt, dva + (oa >> 4), dok + (ob >> 4), kk > 0);
       }
       wgmma_commit();
@@ -861,9 +887,9 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       keep(dpt);
 
       // rows are keys, columns queries: lse and Dsum per column
-      const float* const vec = svec + s * 2 * kDkdvBQ;
+      const float* const vec = svec + s * 2 * BQ;
       const bool edge =
-          (causal && q0 < kb + 63) || kb + 64 > Sk || q0 + kDkdvBQ > Sq;
+          (causal && q0 < kb + 63) || kb + 64 > Sk || q0 + BQ > Sq;
       p_ds_tile(
           st, dpt, ph, pl, dh, dl, edge,
           [&](int j, int e) {
@@ -872,28 +898,26 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             return key >= Sk || qp >= Sq || (causal && key > qp);
           },
           [&](int j, int e) { return -vec[8 * j + 2 * t + (e & 1)]; },
-          [&](int j, int e) {
-            return vec[kDkdvBQ + 8 * j + 2 * t + (e & 1)];
-          },
+          [&](int j, int e) { return vec[BQ + 8 * j + 2 * t + (e & 1)]; },
           scale_log2, scale);
 
       // dV += P^T dO, dK += dS^T Q (each hi, then lo): dO and Q are the
       // MN-major B operands; a k16 step is 16 query rows
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+      for (int kk = 0; kk < BQ / 16; ++kk)
         wgmma_rs(adv, ph[kk],
-                 dom + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+                 dom + ((s * L::kDoBytes + kk * 16 * kRowBytes) >> 4));
 #pragma unroll
-      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+      for (int kk = 0; kk < BQ / 16; ++kk)
         wgmma_rs(adv, pl[kk],
-                 dom + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+                 dom + ((s * L::kDoBytes + kk * 16 * kRowBytes) >> 4));
 #pragma unroll
-      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+      for (int kk = 0; kk < BQ / 16; ++kk)
         wgmma_rs(adk, dh[kk],
                  dqm + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
 #pragma unroll
-      for (int kk = 0; kk < kDkdvBQ / 16; ++kk)
+      for (int kk = 0; kk < BQ / 16; ++kk)
         wgmma_rs(adk, dl[kk],
                  dqm + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
       wgmma_commit();
@@ -908,44 +932,56 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     release(empty + s);
   }
 
+  // dK (D wide) and dV (Dv wide), rounded to bf16 once
   const long long base = static_cast<long long>(kvh) * Sk;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
-    if (key0 < Sk) {
-      const long long r = (base + key0) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + r) =
+    if (key0 < Sk)
+      *reinterpret_cast<__nv_bfloat162*>(dk + (base + key0) * D + col) =
           __floats2bfloat162_rn(adk[4 * j], adk[4 * j + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + r) =
-          __floats2bfloat162_rn(adv[4 * j], adv[4 * j + 1]);
-    }
-    if (key1 < Sk) {
-      const long long r = (base + key1) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + r) =
+    if (key1 < Sk)
+      *reinterpret_cast<__nv_bfloat162*>(dk + (base + key1) * D + col) =
           __floats2bfloat162_rn(adk[4 * j + 2], adk[4 * j + 3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + r) =
+  }
+#pragma unroll
+  for (int j = 0; j < Dv / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (key0 < Sk)
+      *reinterpret_cast<__nv_bfloat162*>(dv + (base + key0) * Dv + col) =
+          __floats2bfloat162_rn(adv[4 * j], adv[4 * j + 1]);
+    if (key1 < Sk)
+      *reinterpret_cast<__nv_bfloat162*>(dv + (base + key1) * Dv + col) =
           __floats2bfloat162_rn(adv[4 * j + 2], adv[4 * j + 3]);
-    }
   }
 }
 
-template <int D>
+// Shared memory of (c). The key rows of a ring tile are 128, or 64 at
+// (192, 128): there Q (48 KB), dO (32 KB) and a 2-stage ring of 128-row K
+// and V tiles (160 KB) would take 241 KB, over the 227 KB a block may
+// have; 64-row tiles take 161 KB.
+template <int D, int Dv>
 struct DqLayout {
+  static constexpr int kBK = D > 128 ? kDqBKWide : kDqBK;
   static constexpr int kBlocks = D / 64;                // 64-column blocks
+  static constexpr int kVBlocks = Dv / 64;              // of V and dO
   static constexpr int kQBlock = kDqBQ * kRowBytes;     // one block of Q, dO
   static constexpr int kQBytes = kQBlock * kBlocks;
-  static constexpr int kKBlock = kDqBK * kRowBytes;     // one of K or V
-  static constexpr int kKBytes = kKBlock * kBlocks;     // one stage of either
+  static constexpr int kDoBytes = kQBlock * kVBlocks;
+  static constexpr int kKBlock = kBK * kRowBytes;       // one of K or V
+  static constexpr int kKBytes = kKBlock * kBlocks;     // one stage of K
+  static constexpr int kVBytes = kKBlock * kVBlocks;    // one stage of V
   // Q, dO, the K ring, the V ring, then the mbarriers full_q, full_k[],
   // full_v[], empty[]; plus 1024 bytes of alignment
-  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kKOff = kQBytes + kDoBytes;
   static constexpr int kVOff = kKOff + kStages * kKBytes;
-  static constexpr int kBarOffset = kVOff + kStages * kKBytes;
+  static constexpr int kBarOffset = kVOff + kStages * kVBytes;
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 3 * kStages);
+  static_assert(kSmem <= kMaxSmem, "K7 (c)'s tiles exceed shared memory");
 };
 
 // (c) dQ: one block per (q head, 128-row query tile)
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -956,12 +992,13 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          __nv_bfloat16* __restrict__ dq, int BH, int group,
                          int Sq, int Sk, int Sp, float scale,
                          float scale_log2, int causal, int nq) {
-  using L = DqLayout<D>;
+  using L = DqLayout<D, Dv>;
+  constexpr int BK = L::kBK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sq = aligned_smem(smem_raw);
   uint8_t* const sdo = sq + L::kQBytes;
   uint8_t* const sk = sq + L::kKOff;                   // [kStages][kKBytes]
-  uint8_t* const sv = sq + L::kVOff;                   // [kStages][kKBytes]
+  uint8_t* const sv = sq + L::kVOff;                   // [kStages][kVBytes]
   uint64_t* const full_q = reinterpret_cast<uint64_t*>(sq + L::kBarOffset);
   uint64_t* const full_k = full_q + 1;
   uint64_t* const full_v = full_k + kStages;
@@ -982,20 +1019,21 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // heaviest (last) query tiles first
   const int bh = blockIdx.x % BH;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kDqBQ;
-  int nk = (Sk + kDqBK - 1) / kDqBK;
-  if (causal) nk = min(nk, (min(q0 + kDqBQ, Sq) - 1) / kDqBK + 1);
+  int nk = (Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (min(q0 + kDqBQ, Sq) - 1) / BK + 1);
 
   if (threadIdx.x < 128) {
     // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
       const int kvh = bh / group;
-      mbar_expect_tx(full_q, 2 * L::kQBytes);
+      mbar_expect_tx(full_q, L::kQBytes + L::kDoBytes);
 #pragma unroll
-      for (int b = 0; b < L::kBlocks; ++b) {
+      for (int b = 0; b < L::kBlocks; ++b)
         tma_load(sq + b * L::kQBlock, &tq, full_q, 64 * b, q0, bh);
+#pragma unroll
+      for (int b = 0; b < L::kVBlocks; ++b)
         tma_load(sdo + b * L::kQBlock, &tdo, full_q, 64 * b, q0, bh);
-      }
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % kStages;
         mbar_wait(empty + s, ((kt / kStages) & 1) ^ 1);
@@ -1003,12 +1041,12 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int b = 0; b < L::kBlocks; ++b)
           tma_load(sk + s * L::kKBytes + b * L::kKBlock, &tk, full_k + s,
-                   64 * b, kt * kDqBK, kvh);
-        mbar_expect_tx(full_v + s, L::kKBytes);
+                   64 * b, kt * BK, kvh);
+        mbar_expect_tx(full_v + s, L::kVBytes);
 #pragma unroll
-        for (int b = 0; b < L::kBlocks; ++b)
-          tma_load(sv + s * L::kKBytes + b * L::kKBlock, &tv, full_v + s,
-                   64 * b, kt * kDqBK, kvh);
+        for (int b = 0; b < L::kVBlocks; ++b)
+          tma_load(sv + s * L::kVBytes + b * L::kKBlock, &tv, full_v + s,
+                   64 * b, kt * BK, kvh);
       }
     }
     return;
@@ -1024,7 +1062,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = ra + 16 * warp + g, r1 = r0 + 8;    // this thread's rows
   // tiles past nk_wg lie wholly above this warpgroup's rows (causal): they
   // are only released
-  const int nk_wg = causal ? min(nk, (ra + 63) / kDqBK + 1) : nk;
+  const int nk_wg = causal ? min(nk, (ra + 63) / BK + 1) : nk;
   // the padded scratch holds rows up to Sp >= q0 + 128
   const long long srow = static_cast<long long>(bh) * Sp;
   const float nl0 = -lse2[srow + r0], nl1 = -lse2[srow + r1];
@@ -1041,22 +1079,22 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(bar);
   };
 
-  float adq[D / 2], sc[kDqBK / 2], dp[kDqBK / 2];
+  float adq[D / 2], sc[BK / 2], dp[BK / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kDqBK / 2; ++i) sc[i] = dp[i] = 0.f;
-  uint32_t dh[kDqBK / 16][4], dl[kDqBK / 16][4];
+  for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t dh[BK / 16][4], dl[BK / 16][4];
 
   mbar_wait(full_q, 0);
   for (int kt = 0; kt < nk_wg; ++kt) {
     const int s = kt % kStages;
     const uint32_t ph = (kt / kStages) & 1;
-    const int k0 = kt * kDqBK;
+    const int k0 = kt * BK;
     mbar_wait(full_k + s, ph);
     mbar_wait(full_v + s, ph);
 
-    // S = Q K^T and dP = dO V^T; p while dP runs
+    // S = Q K^T (D/16 steps) and dP = dO V^T (Dv/16); p while dP runs
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -1067,17 +1105,17 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < Dv / 16; ++kk) {
       const uint32_t in_row = (kk % 4) * 32;
       const uint32_t oa = (kk / 4) * L::kQBlock + in_row;
-      const uint32_t ob = s * L::kKBytes + (kk / 4) * L::kKBlock + in_row;
+      const uint32_t ob = s * L::kVBytes + (kk / 4) * L::kKBlock + in_row;
       wgmma_ss(dp, doa + (oa >> 4), dvb + (ob >> 4), kk > 0);
     }
     wgmma_commit();
 
     // rows are queries, columns keys: lse and Dsum per row
     const bool edge =
-        k0 + kDqBK > Sk || (causal && k0 + kDqBK - 1 > ra) || ra + 64 > Sq;
+        k0 + BK > Sk || (causal && k0 + BK - 1 > ra) || ra + 64 > Sq;
     wgmma_wait<1>();
     keep(sc);
     p_tile(
@@ -1097,11 +1135,11 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // 16 key rows
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDqBK / 16; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_rs(adq, dh[kk],
                dkm + ((s * L::kKBytes + kk * 16 * kRowBytes) >> 4));
 #pragma unroll
-    for (int kk = 0; kk < kDqBK / 16; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_rs(adq, dl[kk],
                dkm + ((s * L::kKBytes + kk * 16 * kRowBytes) >> 4));
     wgmma_commit();
@@ -1148,21 +1186,21 @@ cudaError_t check_regs(Kernel kernel, int* cached) {
   return *cached == kLaunchRegs ? cudaSuccess : cudaErrorInvalidKernelImage;
 }
 
-template <int D>
+template <int D, int Dv>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* scratch,
                  void* dq, void* dk, void* dv, int BH, int group, int Sq,
                  int Sk, float scale, int causal, cudaStream_t stream) {
-  using A = DkdvLayout<D>;
-  using C = DqLayout<D>;
+  using A = DkdvLayout<D, Dv>;
+  using C = DqLayout<D, Dv>;
   const int BHkv = BH / group;
   const int Sp = (Sq + kRowPad - 1) / kRowPad * kRowPad;
   float* const lse2 = scratch;
   float* const dsum = scratch + static_cast<long long>(BH) * Sp;
-  // D / 8 lanes per padded row
-  const long long lanes = static_cast<long long>(BH) * Sp * (D / 8);
-  attn_bwd_prep_kernel<D><<<static_cast<unsigned>(lanes / kThreads),
-                            kThreads, 0, stream>>>(
+  // Dv / 8 lanes per padded row
+  const long long lanes = static_cast<long long>(BH) * Sp * (Dv / 8);
+  attn_bwd_prep_kernel<Dv><<<static_cast<unsigned>(lanes / kThreads),
+                             kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lse2, dsum, BH, Sq, Sp);
   cudaError_t e = cudaGetLastError();
@@ -1171,20 +1209,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   EncodeTiled enc;
   const int rc = get_encoder(&enc);
   if (rc != 0) return rc;
-  CUtensorMap q64, do64, k_dkdv, v_dkdv, q128, do128, k_dq, v_dq;
-  CUresult r = encode(enc, &q64, q, BH, Sq, D, kDkdvBQ);
-  if (r == CUDA_SUCCESS) r = encode(enc, &do64, dout, BH, Sq, D, kDkdvBQ);
-  if (r == CUDA_SUCCESS) r = encode(enc, &k_dkdv, k, BHkv, Sk, D, kDkdvBK);
-  if (r == CUDA_SUCCESS) r = encode(enc, &v_dkdv, v, BHkv, Sk, D, kDkdvBK);
-  if (r == CUDA_SUCCESS) r = encode(enc, &q128, q, BH, Sq, D, kDqBQ);
-  if (r == CUDA_SUCCESS) r = encode(enc, &do128, dout, BH, Sq, D, kDqBQ);
-  if (r == CUDA_SUCCESS) r = encode(enc, &k_dq, k, BHkv, Sk, D, kDqBK);
-  if (r == CUDA_SUCCESS) r = encode(enc, &v_dq, v, BHkv, Sk, D, kDqBK);
+  // (b)'s maps: Q and dO in A::kBQ-row tiles, K and V in kDkdvBK; (c)'s: Q
+  // and dO in kDqBQ, K and V in C::kBK
+  CUtensorMap q_b, do_b, k_b, v_b, q_c, do_c, k_c, v_c;
+  CUresult r = encode(enc, &q_b, q, BH, Sq, D, A::kBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &do_b, dout, BH, Sq, Dv, A::kBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &k_b, k, BHkv, Sk, D, kDkdvBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &v_b, v, BHkv, Sk, Dv, kDkdvBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &q_c, q, BH, Sq, D, kDqBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &do_c, dout, BH, Sq, Dv, kDqBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &k_c, k, BHkv, Sk, D, C::kBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &v_c, v, BHkv, Sk, Dv, C::kBK);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
 
   static int regs_dkdv = -1, regs_dq = -1;
-  auto dkdv_kernel = attn_bwd_dkdv_wgmma_kernel<D>;
-  auto dq_kernel = attn_bwd_dq_wgmma_kernel<D>;
+  auto dkdv_kernel = attn_bwd_dkdv_wgmma_kernel<D, Dv>;
+  auto dq_kernel = attn_bwd_dq_wgmma_kernel<D, Dv>;
   e = check_regs(dkdv_kernel, &regs_dkdv);
   if (e == cudaSuccess) e = check_regs(dq_kernel, &regs_dq);
   if (e == cudaSuccess)
@@ -1200,27 +1240,28 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   const float scale_log2 = scale * kLog2e;
   const int nkt = (Sk + kDkdvBK - 1) / kDkdvBK;
   dkdv_kernel<<<nkt * BHkv, kWgThreads, A::kSmem, stream>>>(
-      q64, k_dkdv, v_dkdv, do64, lse2, dsum, static_cast<__nv_bfloat16*>(dk),
+      q_b, k_b, v_b, do_b, lse2, dsum, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), BHkv, group, Sq, Sk, Sp, scale,
       scale_log2, causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nq = (Sq + kDqBQ - 1) / kDqBQ;
   dq_kernel<<<nq * BH, kWgThreads, C::kSmem, stream>>>(
-      q128, k_dq, v_dq, do128, lse2, dsum, static_cast<__nv_bfloat16*>(dq),
+      q_c, k_c, v_c, do_c, lse2, dsum, static_cast<__nv_bfloat16*>(dq),
       BH, group, Sq, Sk, Sp, scale, scale_log2, causal, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o, do, dq: (BH, Sq, D|Dv); k, v, dk, dv: (BH / group, Sk, D|Dv); lse
-// (BH, Sq) f32. scratch: f32, (BH, Sq) for simt (Dsum); (2, BH, Sp) for
-// wgmma (lse * log2 e and Dsum), Sp = Sq rounded up to a multiple of
-// kRowPad. dtype: 0 = float32, 1 = bfloat16 (every tensor but lse and
-// scratch). variant: 0 = simt (any dtype and head dims up to 128), 1 =
-// wgmma (bf16, D == Dv in {64, 128} only: the rule of kernel.py variant(),
-// which names the variant). Launches (a), (b), (c) in order on `stream`;
+// q, dq: (BH, Sq, D); o, do: (BH, Sq, Dv); k, dk: (BH / group, Sk, D); v,
+// dv: (BH / group, Sk, Dv); lse (BH, Sq) f32. scratch: f32, (BH, Sq) for
+// simt (Dsum); (2, BH, Sp) for wgmma (lse * log2 e and Dsum), Sp = Sq
+// rounded up to a multiple of kRowPad. dtype: 0 = float32, 1 = bfloat16
+// (every tensor but lse and scratch). variant: 0 = simt (any dtype and
+// head dims up to 256), 1 = wgmma (bf16 with (D, Dv) in {(64, 64), (128,
+// 128), (192, 128)} only: the rule of kernel.py variant(), which names the
+// variant). Launches (a), (b), (c) in order on `stream`;
 // returns 0, the first cudaError_t (cudaErrorInvalidKernelImage when a
 // wgmma kernel was not built with the 168 registers its setmaxnreg
 // regrouping needs), or -CUresult when a tensor map cannot be made.
@@ -1245,13 +1286,20 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(scratch);
-  const bool tensor_cores = dtype == 1 && D == Dv && (D == 64 || D == 128);
+  // the rule of kernel.py variant() (tests/test_torch_flash.py reads it)
+  const bool tensor_cores =
+      dtype == 1 && ((D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
+                     (D == 192 && Dv == 128));
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
-    return D == 64 ? launch_wgmma<64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
-                                      group, Sq, Sk, scale, causal, s)
-                   : launch_wgmma<128>(q, k, v, o, dout, l, ds, dq, dk, dv,
-                                       BH, group, Sq, Sk, scale, causal, s);
+    if (D == 64)
+      return launch_wgmma<64, 64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
+                                  group, Sq, Sk, scale, causal, s);
+    if (D == 128)
+      return launch_wgmma<128, 128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
+                                    group, Sq, Sk, scale, causal, s);
+    return launch_wgmma<192, 128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
+                                  group, Sq, Sk, scale, causal, s);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)

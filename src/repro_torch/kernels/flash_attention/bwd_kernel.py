@@ -2,9 +2,10 @@
 (csrc/flash_attention_bwd.cu, K7): the gradient of K6's attention.
 
 The C entry holds two sets of kernels under K6's rule
-(:func:`kernel.variant`): ``"wgmma"`` (tensor cores, bf16 with D == Dv in
-{64, 128}) and ``"simt"`` (f32 FMAs, every other input); the entry
-refuses a ``"wgmma"`` launch that breaks the rule.
+(:func:`kernel.variant`): ``"wgmma"`` (tensor cores, bf16 with (D, Dv) in
+``WGMMA_HEAD_DIMS``: (64, 64), (128, 128) and MLA's (192, 128)) and
+``"simt"`` (f32 FMAs, every other input); the entry refuses a
+``"wgmma"`` launch that breaks the rule.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from repro_torch.kernels.flash_attention.kernel import (DTYPES, VARIANTS,
 MAX_HEAD_DIM = 256
 
 # the wgmma variant's scratch holds each head's rows padded to a multiple
-# of this (kRowPad in csrc/flash_attention_bwd.cu)
+# of this (kRowPad in csrc/flash_attention_bwd.cu), which every query tile
+# of its kernels divides
 ROW_PAD = 128
 
 KERNEL = CudaKernel(
@@ -63,7 +65,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
             raise ValueError(f"unknown variant {force_variant!r}; expected "
                              f"one of {list(VARIANTS)}")
         if force_variant == "wgmma" and chosen != "wgmma":
-            raise ValueError(f"the wgmma kernels take bf16 with D == Dv in "
+            raise ValueError(f"the wgmma kernels take bf16 with (D, Dv) in "
                              f"{WGMMA_HEAD_DIMS}, got {q.dtype} D={D} "
                              f"Dv={Dv}")
         chosen = force_variant

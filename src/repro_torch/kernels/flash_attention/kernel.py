@@ -17,7 +17,9 @@ from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "wgmma": 1}
-WGMMA_HEAD_DIMS = (64, 128)
+# (D, Dv) of the tensor-core instances in bf16: granite's, the larger
+# families' and MLA's (the C entries' tensor_cores test holds the same)
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 KERNEL = CudaKernel(
     "flash_attention",
@@ -30,17 +32,17 @@ KERNEL = CudaKernel(
 
 def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
     """The kernel that runs for these inputs: ``"wgmma"`` (tensor cores)
-    for bf16 with D == Dv in {64, 128}; ``"simt"`` for every other bf16
-    head dim (MLA's D = 192, Dv = 128 among them) and for f32, whose 2e-5
-    contract TF32 would break. Raises ValueError for another dtype or a
-    head dim outside 1..MAX_HEAD_DIM."""
+    for bf16 with (D, Dv) in :data:`WGMMA_HEAD_DIMS` (MLA's D = 192, Dv =
+    128 among them); ``"simt"`` for every other bf16 head dim and for f32,
+    whose 2e-5 contract TF32 would break. Raises ValueError for another
+    dtype or a head dim outside 1..MAX_HEAD_DIM."""
     if dtype not in DTYPES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
                          f"{dtype}")
     if not (0 < D <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM):
         raise ValueError(f"head dims D={D}, Dv={Dv}: the kernel takes 1.."
                          f"{MAX_HEAD_DIM}")
-    if dtype == torch.bfloat16 and D == Dv and D in WGMMA_HEAD_DIMS:
+    if dtype == torch.bfloat16 and (D, Dv) in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
 
@@ -63,7 +65,7 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
             raise ValueError(f"unknown variant {force_variant!r}; expected "
                              f"one of {list(VARIANTS)}")
         if force_variant == "wgmma" and chosen != "wgmma":
-            raise ValueError(f"the wgmma kernel takes bf16 with D == Dv in "
+            raise ValueError(f"the wgmma kernel takes bf16 with (D, Dv) in "
                              f"{WGMMA_HEAD_DIMS}, got {q.dtype} D={D} "
                              f"Dv={Dv}")
         chosen = force_variant

@@ -477,17 +477,28 @@ def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
     (16, 200, 330, 64, 8, False),
     (64, 700, 500, 128, 8, True),
     (8, 1, 77, 64, 1, True),
+    # D = 192 is MLA's (D, Dv) = (192, 128)
+    (512, 1024, 1024, 192, 1, True),    # deepseek-v3's MLA prefill
+    (512, 1024, 1024, 192, 1, False),
+    (8, 200, 330, 192, 2, True),        # Sq < Sk, ragged
+    (8, 200, 330, 192, 2, False),
+    (12, 330, 200, 192, 4, True),       # Sq > Sk, ragged
+    (12, 330, 200, 192, 4, False),
+    (6, 1, 77, 192, 3, True),
 ])
 def test_flash_attention_wgmma_matches_plain(cuda, BH, Sq, Sk, D, group,
                                              causal):
-    """K6's tensor-core variant (bf16, D == Dv in {64, 128}) against the
-    plain version at 2e-2; the launch is counted under "wgmma" and no
+    """K6's tensor-core variant (bf16, (D, Dv) in {(64, 64), (128, 128),
+    (192, 128)}) against the plain version at 2e-2 (MLA's with its scale
+    192 ** -0.5, the default); the launch is counted under "wgmma" and no
     other variant runs."""
+    Dv = 128 if D == 192 else D
     g = torch.Generator().manual_seed(BH * Sq + Sk + D)
     q = torch.randn(BH, Sq, D, generator=g).to(cuda, torch.bfloat16)
     k = torch.randn(BH // group, Sk, D, generator=g).to(cuda, torch.bfloat16)
-    v = torch.randn(BH // group, Sk, D, generator=g).to(cuda, torch.bfloat16)
-    assert AK.variant(q.dtype, D, D) == "wgmma"
+    v = torch.randn(BH // group, Sk, Dv, generator=g).to(cuda,
+                                                         torch.bfloat16)
+    assert AK.variant(q.dtype, D, Dv) == "wgmma"
     before = dict(AK.KERNEL.launches_by_variant)
     got = FA.flash_attention(q, k, v, group=group, causal=causal)
     assert AK.KERNEL.launches_by_variant == {**before,
@@ -495,7 +506,7 @@ def test_flash_attention_wgmma_matches_plain(cuda, BH, Sq, Sk, D, group,
     want = FA.flash_attention(q, k, v, group=group, causal=causal,
                               backend="ref")
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16 and got.shape == (BH, Sq, D)
+    assert got.dtype == torch.bfloat16 and got.shape == (BH, Sq, Dv)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
 
@@ -529,14 +540,17 @@ def test_flash_attention_simt_variant_forced(cuda):
 ])
 def test_flash_attention_wide_head_dims(cuda, dtype, causal, D, Dv, Sq, Sk,
                                         group):
-    """Head dims past 128 (D != Dv) on the SIMT kernel, the only variant
-    that takes them, against the plain version."""
-    assert AK.variant(dtype, D, Dv) == "simt"
+    """Head dims past 128 (D != Dv) against the plain version: bf16 at
+    MLA's (192, 128) on the wgmma kernel, every other case on the SIMT
+    kernel."""
+    want = ("wgmma" if dtype == torch.bfloat16 and (D, Dv) == (192, 128)
+            else "simt")
+    assert AK.variant(dtype, D, Dv) == want
     before = dict(AK.KERNEL.launches_by_variant)
     _attention_case(cuda, 2 * group, Sq, Sk, D, Dv, group, dtype, causal,
                     D + Dv + Sq)
     assert AK.KERNEL.launches_by_variant == {**before,
-                                             "simt": before["simt"] + 1}
+                                             want: before[want] + 1}
 
 
 @pytest.mark.parametrize("D,Dv", [(257, 64), (64, 257), (320, 320)])
@@ -627,14 +641,17 @@ def _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype, seed):
 
 
 @pytest.mark.parametrize("variant,D", [("simt", 64), ("simt", 16),
-                                       ("wgmma", 64), ("wgmma", 128)])
+                                       ("wgmma", 64), ("wgmma", 128),
+                                       ("wgmma", 192)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_lse_matches_plain(cuda, variant, D, causal):
     """K6's logsumexp output (both variants) against the plain
-    logsumexp; f32 for the simt cases, bf16 for wgmma; 1e-4 absolute
-    (lse is O(10): a few f32 ulps plus wgmma's ex2.approx)."""
+    logsumexp; f32 for the simt cases, bf16 for wgmma (D = 192 with MLA's
+    Dv = 128); 1e-4 absolute (lse is O(10): a few f32 ulps plus wgmma's
+    ex2.approx)."""
     dtype = torch.bfloat16 if variant == "wgmma" else torch.float32
-    q, k, v = _qkv(cuda, 16, 333, 333, D, D, 4, dtype, D + causal)
+    Dv = 128 if D == 192 else D
+    q, k, v = _qkv(cuda, 16, 333, 333, D, Dv, 4, dtype, D + causal)
     out, lse = AK.flash_attention_cuda(q, k, v, group=4, causal=causal,
                                        force_variant=variant, with_lse=True)
     want_o, want = FR.flash_attention_lse_ref(q, k, v, group=4,
@@ -679,12 +696,15 @@ _BWD_SHAPES = [
     (12, 129, 257, 128, 32, 4), (4, 3, 65, 64, 64, 1),
     (8, 200, 71, 64, 64, 4), (8, 333, 333, 128, 128, 1),
     (16, 333, 333, 128, 128, 4),
-    # past head dim 128 (simt only): MLA's (192, 128), K7's limit (256,
-    # 256) on its 32-row tiles, and ragged in-between widths
-    (8, 333, 333, 192, 128, 1), (6, 130, 257, 256, 256, 2),
+    # past head dim 128: MLA's (192, 128) (wgmma in bf16; ragged with
+    # group 4 too), K7's limit (256, 256) on its 32-row SIMT tiles, and
+    # ragged in-between widths
+    (8, 333, 333, 192, 128, 1), (12, 257, 129, 192, 128, 4),
+    (6, 130, 257, 256, 256, 2),
     (6, 200, 71, 160, 200, 3), (4, 65, 65, 136, 24, 1)]
 # every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
-# (D == Dv in {64, 128}) runs on wgmma and once more forced to simt
+# ((D, Dv) in {(64, 64), (128, 128), (192, 128)}) runs on wgmma and once
+# more forced to simt
 _BWD_CASES = [
     (dtype, causal, *shape, variant)
     for dtype in (torch.float32, torch.bfloat16)

@@ -6,6 +6,8 @@ kernel runs in interpret mode, as ``tests/test_flash_kernel.py`` runs
 it. Tolerances are that file's: 2e-5 in f32, 2e-2 in bf16 (the two
 frameworks round p to bf16 at the same point but sum in another order).
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,14 +74,17 @@ def test_plain_version_matches_pallas_at_the_mla_head_dims(rng, dtype,
                                                            causal):
     """MLA's prefill shape, D = 128 + 64 = 192 and Dv = 128 (group 1),
     against the Pallas function in interpret mode (its BlockSpecs span the
-    whole D and Dv) at Sq = Sk = 128 with 64-row tiles."""
+    whole D and Dv) at Sq = Sk = 128 with 64-row tiles. On the card bf16
+    runs the wgmma kernel and f32 the SIMT one."""
     BH, S, D, Dv = 2, 128, 192, 128
     qj, qt = _both(rng.standard_normal((BH, S, D)), dtype)
     kj, kt = _both(rng.standard_normal((BH, S, D)), dtype)
     vj, vt = _both(rng.standard_normal((BH, S, Dv)), dtype)
     scale = D ** -0.5
     got = FA.flash_attention(qt, kt, vt, causal=causal, scale=scale)
-    assert got.shape == (BH, S, Dv) and FK.variant(qt.dtype, D, Dv) == "simt"
+    assert got.shape == (BH, S, Dv)
+    assert FK.variant(qt.dtype, D, Dv) == ("wgmma" if dtype == "bfloat16"
+                                           else "simt")
     want = flash_attention_pallas(qj, kj, vj, causal=causal, scale=scale,
                                   bq=64, bk=64)
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
@@ -163,9 +168,13 @@ VARIANT_CASES = [
     (torch.float32, 64, 64, "simt"),         # f32 keeps its 2e-5 contract
     (torch.float32, 128, 128, "simt"),
     (torch.float32, 16, 16, "simt"),
-    # head dims past 128 run SIMT, D != Dv among them
-    (torch.bfloat16, 192, 128, "simt"),      # deepseek-v3's MLA prefill
+    (torch.bfloat16, 192, 128, "wgmma"),     # deepseek-v3's MLA prefill
+    # every other head dim past 128 runs SIMT, D != Dv among them
     (torch.float32, 192, 128, "simt"),
+    (torch.bfloat16, 192, 64, "simt"),
+    (torch.bfloat16, 192, 192, "simt"),
+    (torch.bfloat16, 128, 192, "simt"),
+    (torch.bfloat16, 160, 64, "simt"),
     (torch.bfloat16, 80, 80, "simt"),        # zamba2's head dim
     (torch.bfloat16, 129, 129, "simt"),
     (torch.bfloat16, 256, 256, "simt"),
@@ -177,6 +186,31 @@ VARIANT_CASES = [
 @pytest.mark.parametrize("dtype,D,Dv,want", VARIANT_CASES)
 def test_variant_rule(dtype, D, Dv, want):
     assert FK.variant(dtype, D, Dv) == want
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu",
+                                    "flash_attention_bwd.cu"])
+def test_c_entries_hold_the_variant_rule(source):
+    """The (D, Dv) pairs of each C entry's ``tensor_cores`` test, its
+    bf16-only condition and the wgmma instances it dispatches to are
+    ``variant()``'s: a launch the wrapper names "wgmma" is one the entry
+    takes, and no other."""
+    src = open(FK.__file__.replace("kernels/flash_attention/kernel.py",
+                                   f"csrc/{source}")).read()
+    test = re.search(r"const bool tensor_cores =(.*?);", src, re.S).group(1)
+    pairs = {(int(d), int(dv))
+             for d, dv in re.findall(r"D == (\d+) && Dv == (\d+)", test)}
+    assert pairs == set(FK.WGMMA_HEAD_DIMS)
+    assert re.match(r"\s*dtype == 1 && \(", test)          # bf16 only
+    assert FK.DTYPES[torch.bfloat16] == 1
+    launched = {(int(d), int(dv)) for d, dv in
+                re.findall(r"return launch_wgmma<(\d+), (\d+)>", src)}
+    assert launched == pairs
+    for D in range(1, FK.MAX_HEAD_DIM + 1):
+        for Dv in (D, 64, 128):
+            want = "wgmma" if (D, Dv) in pairs else "simt"
+            assert FK.variant(torch.bfloat16, D, Dv) == want
+            assert FK.variant(torch.float32, D, Dv) == "simt"
 
 
 @pytest.mark.parametrize("dtype,D,Dv,msg", [

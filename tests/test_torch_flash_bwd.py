@@ -164,13 +164,18 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
 
 @pytest.mark.parametrize("dtype,D,Dv,want", [
     (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 192, 128, "wgmma"),
     (torch.bfloat16, 64, 128, "simt"), (torch.bfloat16, 128, 64, "simt"),
     (torch.bfloat16, 16, 16, "simt"), (torch.bfloat16, 96, 96, "simt"),
     (torch.bfloat16, 32, 32, "simt"), (torch.float32, 64, 64, "simt"),
-    (torch.float32, 128, 128, "simt"), (torch.float32, 16, 8, "simt")])
+    (torch.float32, 128, 128, "simt"), (torch.float32, 16, 8, "simt"),
+    (torch.float32, 192, 128, "simt"), (torch.bfloat16, 80, 80, "simt"),
+    (torch.bfloat16, 192, 64, "simt"), (torch.bfloat16, 160, 64, "simt"),
+    (torch.bfloat16, 256, 256, "simt")])
 def test_bwd_variant_choice(dtype, D, Dv, want):
-    """K7 takes K6's rule: ``wgmma`` for bf16 with D == Dv in {64, 128},
-    ``simt`` otherwise. A forced ``"wgmma"`` on inputs that do not
+    """K7 takes K6's rule: ``wgmma`` for bf16 with (D, Dv) in {(64, 64),
+    (128, 128), (192, 128)}, ``simt`` otherwise. A forced ``"wgmma"`` on
+    inputs that do not
     qualify raises before anything is built; on inputs that do, the
     wrapper goes on to its checks (and refuses CPU tensors). The scratch
     is Dsum for simt, lse and Dsum over rows padded to ROW_PAD for
@@ -202,14 +207,17 @@ def test_bwd_variant_choice(dtype, D, Dv, want):
     assert BK.KERNEL.launches == 0
 
 
-@pytest.mark.parametrize("D,Dv", [(192, 128), (129, 129), (64, 192)])
-def test_bwd_still_refuses_head_dims_past_128(D, Dv):
+@pytest.mark.parametrize("D,Dv,want", [(192, 128, "wgmma"),
+                                       (129, 129, "simt"),
+                                       (64, 192, "simt")])
+def test_bwd_takes_head_dims_to_256_and_refuses_past_it(D, Dv, want):
     """K7 takes K6's head dims, up to 256 with D != Dv (MLA's D = 192,
-    Dv = 128 among them): these reach the wrapper's device checks (and
-    CPU tensors are refused there), a head dim of 257 is refused before
-    anything is built or launched, and the limit is the source's."""
+    Dv = 128 among them, on the wgmma kernels in bf16): these reach the
+    wrapper's device checks (and CPU tensors are refused there), a head
+    dim of 257 is refused before anything is built or launched, and the
+    limit is the source's."""
     assert BK.MAX_HEAD_DIM == AK.MAX_HEAD_DIM == 256
-    assert AK.variant(torch.bfloat16, D, Dv) == "simt"
+    assert AK.variant(torch.bfloat16, D, Dv) == want
     q = torch.zeros(4, 9, D, dtype=torch.bfloat16)
     v = torch.zeros(4, 9, Dv, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="on the card"):
@@ -253,13 +261,13 @@ def test_bwd_ref_matches_jax_at_wide_head_dims(rng, D, Dv, group):
 
 
 def test_bwd_row_pad_matches_the_source():
-    """The wrapper's ROW_PAD is the kernel's kRowPad, and the wgmma
-    kernels' tiles divide it (a tile's lse and Dsum slices stay inside a
-    head's padded rows)."""
+    """The wrapper's ROW_PAD is the kernel's kRowPad, and every query tile
+    of the wgmma kernels, those of the D = 192 instance too, divides it (a
+    tile's lse and Dsum slices stay inside a head's padded rows)."""
     src = open(SRC).read()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kRowPad"]) == BK.ROW_PAD
-    for tile in ("kDkdvBQ", "kDqBQ"):
+    for tile in ("kDkdvBQ", "kDkdvBQWide", "kDqBQ"):
         assert BK.ROW_PAD % int(consts[tile]) == 0
 
 
@@ -281,7 +289,8 @@ def _pair(x, split):
 
 def wgmma_model(q, k, v, o, lse, do, *, group, causal, split_p=True,
                 split_ds=True):
-    """The wgmma kernels' arithmetic in plain torch (f32 on bf16 inputs):
+    """The wgmma kernels' arithmetic in plain torch (f32 on bf16 inputs), at
+    any head dims D (q, k) and Dv (v, o, do), scale D ** -0.5:
     S and dP from bf16 operands in f32; p = 2^(s scale log2 e - lse log2
     e); ds = p (dp - Dsum) scale; p enters dV = P^T dO and ds enters
     dK = dS^T Q and dQ = dS K as bf16 hi and lo pairs (a single bf16
@@ -318,14 +327,16 @@ def _grad_err(got, want):
                for a, b in zip(got, want))
 
 
-def _bf16_case(seed, BH, S, D, group, causal):
-    """bf16 q, k, v, do from numpy; o and lse from the plain forward (as
-    K6 gives them); the bf16 and f32 plain gradients."""
+def _bf16_case(seed, BH, S, D, group, causal, Dv=None):
+    """bf16 q, k (head dim D), v, do (Dv, default D) from numpy; o and lse
+    from the plain forward (as K6 gives them, at the scale D ** -0.5); the
+    bf16 and f32 plain gradients."""
+    Dv = D if Dv is None else Dv
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
-    q, do = mk(BH, S, D), mk(BH, S, D)
-    k, v = mk(BH // group, S, D), mk(BH // group, S, D)
+    q, do = mk(BH, S, D), mk(BH, S, Dv)
+    k, v = mk(BH // group, S, D), mk(BH // group, S, Dv)
     o, lse = FR.flash_attention_lse_ref(q, k, v, group=group, causal=causal)
     plain = FR.flash_attention_bwd_ref(q, k, v, o, lse, do, group=group,
                                        causal=causal)
@@ -347,6 +358,23 @@ def test_wgmma_rounding_model_holds_the_bf16_rule(causal, group):
         got = wgmma_model(*args, group=group, causal=causal)
         for a, b in zip(got, plain):
             assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _grad_err(got, f32) <= 1.5 * _grad_err(plain, f32), seed
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2])
+def test_wgmma_rounding_model_holds_the_bf16_rule_at_mla_head_dims(causal,
+                                                                   group):
+    """The same rule over seeds 0-3 at MLA's head dims (D = 192, Dv = 128,
+    scale 192 ** -0.5) on BH 4, S 128: the hi / lo pairs hold it at the
+    widths of the (192, 128) wgmma instances too."""
+    for seed in range(4):
+        args, plain, f32 = _bf16_case(seed, 4, 128, 192, group, causal,
+                                      Dv=128)
+        got = wgmma_model(*args, group=group, causal=causal)
+        for a, b in zip(got, plain):
+            assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert got[2].shape[-1] == 128 and got[0].shape[-1] == 192
         assert _grad_err(got, f32) <= 1.5 * _grad_err(plain, f32), seed
 
 
@@ -374,12 +402,39 @@ def test_wgmma_rounding_model_matches_jax_custom_vjp(causal, group):
     """The rounding model on bf16 inputs against the reference's
     ``_flash_core_bwd`` (``jax.vjp`` of ``chunked_attention``): no further
     from its f32 gradient than its own bf16 gradient is, x1.5."""
-    B, S, D, KH = 2, 128, 64, 4 // group
+    _model_vs_jax(2, 128, 64, 64, 4 // group, group, causal,
+                  11 + group + 2 * causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2])
+def test_wgmma_rounding_model_matches_jax_custom_vjp_at_mla_head_dims(
+        causal, group):
+    """As above at MLA's head dims (D = 192, Dv = 128, the reference's
+    default scale 192 ** -0.5), over seeds, with the model fed the
+    residuals (o, lse) of the reference's own forward, ``_flash_core_fwd``:
+    backward against backward. (With the port's plain forward's o, whose
+    p is rounded after normalising, Dsum = rowsum(do o) shifts against dP
+    and moves the port's plain bf16 gradient and the model alike up to
+    2.2x further from JAX's f32 gradient than JAX's bf16 one on some of
+    these seeds; K6's o is held to the port's plain forward on the
+    card.)"""
+    for seed in (17, 18):
+        _model_vs_jax(2, 64, 192, 128, 2 // group, group, causal, seed,
+                      jax_residuals=True)
+
+
+def _model_vs_jax(B, S, D, Dv, KH, group, causal, seed, jax_residuals=False):
+    """The rounding model on bf16 inputs (q, k of head dim D, v, do of Dv)
+    against ``jax.vjp`` of the reference's ``chunked_attention`` in f32 and
+    in bf16: no further from JAX's f32 gradient than JAX's bf16 gradient
+    is, x1.5. o and lse: the port's plain forward's, or with
+    ``jax_residuals`` those ``_flash_core_fwd`` saves for its backward."""
     H = KH * group
-    rng = np.random.default_rng(11 + group + 2 * causal)
+    rng = np.random.default_rng(seed)
     x = [rng.standard_normal(shape).astype(np.float32)
-         for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D),
-                       (B, S, H, D))]
+         for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, Dv),
+                       (B, S, H, Dv))]
     x = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
          for a in x]                              # bf16-representable
     f = lambda q_, k_, v_: JA.chunked_attention(
@@ -395,6 +450,14 @@ def test_wgmma_rounding_model_matches_jax_custom_vjp(causal, group):
                        for a, n in zip(x, (H, KH, KH, H)))
     o, lse = FR.flash_attention_lse_ref(tq, tk, tv, group=group,
                                         causal=causal)
+    if jax_residuals:
+        a = [jnp.asarray(t, jnp.bfloat16) for t in x[:3]]
+        _, (*_, oj, lj) = JA._flash_core_fwd(
+            a[0].reshape(B, S, KH, group, D), a[1], a[2], causal, 0, 64, 64,
+            D ** -0.5)                        # (B, KH, G, S, Dv), (.., S)
+        o = torch.from_numpy(np.asarray(oj.astype(jnp.float32)).reshape(
+            B * H, S, Dv)).to(torch.bfloat16)
+        lse = torch.from_numpy(np.asarray(lj, np.float32).reshape(B * H, S))
     got = wgmma_model(tq, tk, tv, o, lse, tdo, group=group, causal=causal)
     unflat = lambda t, n: t.float().reshape(B, n, S, -1).transpose(1, 2)
     got = [unflat(g, n).numpy() for g, n in zip(got, (H, KH, KH))]
