@@ -51,7 +51,12 @@ Phases (any failure exits non-zero; nothing is caught):
    (wgmma, twice bit for bit, and simt forced) under the same rules, the
    wgmma kernels timed in turns with the plain version and with the SIMT
    kernels, by their device time (split by kernel), beside the bound and
-   SDPA's backward (or the reason it refuses Dv != D);
+   SDPA's backward (or the reason it refuses Dv != D); K6 and K7 at
+   zamba2-2.7b's attention shape (B = 4 x 32 heads of 80, MHA, 1024
+   tokens, causal) on their SIMT kernels, in bf16 and f32, under the same
+   rules, each timed in turns with its plain version and by its device
+   time beside its bound and SDPA's (the forward; forward + backward minus
+   forward);
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -150,7 +155,14 @@ Phases (any failure exits non-zero; nothing is caught):
 17. [serve qwen3-14b] — qwen3-14b whole (40 layers, 40/8 heads of 128,
    qk-norm, untied 151,936-row vocabulary, bf16) as 16, K6 on its wgmma
    variant; checks (a)-(c) on 8 of its layers;
-18. [train] — granite-3-2b training at full width (40 layers, bf16,
+18. [serve zamba2-2.7b] — zamba2-2.7b whole (54 Mamba2 layers, d 2560, in
+   9 segments each closed by one of 2 shared attention + FFN blocks of 32
+   heads of 80; untied 32,000-row vocabulary; 2,527,532,960 parameters,
+   bf16) as 16, K6 once per segment (9 per prefill) on its SIMT kernel;
+   checks (a)-(c) on 12 layers (2 segments, both shared blocks), (c)
+   holding the decode step, which carries the Mamba2 and conv states,
+   against a forward over P + 1 tokens;
+19. [train] — granite-3-2b training at full width (40 layers, bf16,
    remat="full", AdamW with f32 moments, seeded random weights), B = 4 x
    1024 tokens of data/tokens, 1 warm-up and 4 timed steps, launch counts
    from 0: the loss, gnorm and lr per step, step ms, tokens/s, model
@@ -158,24 +170,29 @@ Phases (any failure exits non-zero; nothing is caught):
    flash_attention (2 x 40: the forward and its remat) and
    flash_attention_bwd (40, all on its wgmma kernels) launches per step,
    no plain attention call, and a 1-step profile;
-19. [train deepseek-v3] — as 18 for deepseek-v3 at full width cut to its
+20. [train deepseek-v3] — as 19 for deepseek-v3 at full width cut to its
    3 dense layers (MLA + the 18432-wide FFN; one MoE layer alone holds
    11.3e9 expert parameters), MTP left out, full untied vocabulary, bf16
    AdamW moments (its config's), 1 warm-up and 2 timed steps: 6 K6 and 3
    K7 launches per step, all wgmma (D = 192, Dv = 128);
-20. [train llama4-scout] — as 19 for llama4-scout cut to 1 of 48 layers
+21. [train llama4-scout] — as 20 for llama4-scout cut to 1 of 48 layers
    (16 experts whole, the shared expert, the 202,048-row untied
    vocabulary, f32 moments; C = 320 slots per expert): 2 K6 and 1 K7
    launches per step, all wgmma (D = 128, group 5), and the share of
    pairs capacity drops;
-21. [train check] — one step's loss and gradients at full width of
-   granite-3-2b with 4 layers and of deepseek-v3's 3 dense layers: bf16
-   with the kernels, bf16 plain, f32 plain on the same weights and batch;
-   the relative error of every gradient leaf against f32, the kernel
-   run's worst no more than 1.5 x the plain run's; and deepseek-v3 at
-   REDUCED width (MoE layers, MLA, MTP) in f32, kernels against plain,
-   every gradient leaf within 1e-4 of its largest element;
-22. [examples] — examples/torch_*.py on the card through their ``run``:
+22. [train zamba2-2.7b] — as 20 for zamba2-2.7b whole (remat, f32
+   moments): 18 K6 and 9 K7 launches per step, all SIMT (head dim 80);
+   the model flops count the Mamba2 projections, the SSD scan's products,
+   the shared blocks once per segment and the unembedding;
+23. [train check] — one step's loss and gradients at full width of
+   granite-3-2b with 4 layers, of deepseek-v3's 3 dense layers and of
+   zamba2-2.7b with 12 layers: bf16 with the kernels, bf16 plain, f32
+   plain on the same weights and batch; the relative error of every
+   gradient leaf against f32, the kernel run's worst no more than 1.5 x
+   the plain run's; and deepseek-v3 at REDUCED width (MoE layers, MLA,
+   MTP) and the zamba2 cut (remat on), each in f32, kernels against
+   plain, every gradient leaf within 1e-4 of its largest element;
+24. [examples] — examples/torch_*.py on the card through their ``run``:
    quickstart, the serving example (accounting balances, with drops), the
    flow classifier (held-out accuracy > 0.85) and LM training (the loss
    falls by more than 0.2).
@@ -1325,6 +1342,152 @@ def check_flash_attention_bwd_mla(dev):
     del q, k, v, o, lse, do, leaves
     torch.cuda.empty_cache()
     return row
+
+
+# K6 at zamba2-2.7b's prefill shape and K7 at its training shape: B = 4 x 32
+# heads of 80, MHA (group 1), 1024 tokens, causal; 80 runs the SIMT kernels
+ZAMBA_HEADS, ZAMBA_D = 32, 80
+
+
+def check_flash_attention_zamba2(dev):
+    """K6 and K7 at zamba2-2.7b's attention shape (q, k, v, o, do (128,
+    1024, 80), group 1, causal), bf16 on the SIMT kernels. K6 held against
+    its plain version in bf16 and f32 (:func:`hold_k6_against_plain`); K7
+    from K6's o and lse (its lse within LSE_TOL of the plain logsumexp) in
+    f32 within BWD_TOL of max |grad| and in bf16 no further from the f32
+    plain gradient than the bf16 plain gradient is, x B_RATIO. Each timed
+    in turns with its plain version and by its device time, beside its
+    bound and SDPA's time on the same inputs (the forward; the forward +
+    backward minus the forward). Returns (K6's entry, K7's entry)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ref as REF
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    BH, S, D = SERVE_B * ZAMBA_HEADS, SERVE_PROMPT, ZAMBA_D
+    require(K.variant(torch.bfloat16, D, D) == "simt",
+            "zamba2's head dim 80 should run K6's and K7's SIMT kernels")
+    shape = f"q/k/v/o ({BH}, {S}, {D}), group 1, causal, bf16 (f32 too)"
+    pairs = attention_pairs(S, S, True) * BH
+    # the bf16 case is timed; the f32 one is only held
+    errs6, ratios6, errs7, lse_errs = {}, {}, {}, {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        q, k, v = attention_inputs(gen, dev, BH, S, S, D, D, 1, dtype)
+        do = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
+        errs6[dt], ratio = hold_k6_against_plain(f"zamba2 {dt}", q, k, v, 1,
+                                                 True, "simt")
+        if ratio is not None:
+            ratios6[dt] = ratio
+        o, lse = K.flash_attention_cuda(q, k, v, with_lse=True)
+        _, want_lse = REF.flash_attention_lse_ref(q, k, v)
+        lse_errs[dt] = float((lse - want_lse).abs().max())
+        require(lse_errs[dt] <= LSE_TOL,
+                f"flash_attention's lse (zamba2, {dt}) differs from the "
+                f"plain logsumexp by {lse_errs[dt]:.3e}")
+        before = dict(BK.KERNEL.launches_by_variant)
+        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+        require(BK.KERNEL.launches_by_variant
+                == {**before, "simt": before["simt"] + 1},
+                f"flash_attention_bwd (zamba2, {dt}) did not count one simt "
+                f"launch")
+        want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(g.float()).all()) for g in got),
+                f"flash_attention_bwd (zamba2, {dt}) gave non-finite "
+                f"gradients")
+        errs7[dt] = grad_err(got, want)
+        if dt == "float32":
+            require(errs7[dt] <= BWD_TOL,
+                    f"flash_attention_bwd (zamba2, f32) differs from its "
+                    f"plain version: {errs7[dt]:.3e} of max |grad| > "
+                    f"{BWD_TOL:g}")
+            del q, k, v, do, o, lse, want_lse, want, got
+            torch.cuda.empty_cache()
+            continue
+        f32 = REF.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), want_lse, do.float())
+        err_k, err_p = grad_err(got, f32), grad_err(want, f32)
+        abs7 = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(got, want))
+        log(f"[kernel] flash_attention_bwd at zamba2's shape, bf16 (simt) "
+            f"vs the f32 plain gradient: kernel {err_k:.3e}, plain bf16 "
+            f"{err_p:.3e} (held: kernel <= {B_RATIO:g} x plain); kernel vs "
+            f"plain bf16 {errs7[dt]:.3e}")
+        require(err_k <= B_RATIO * err_p,
+                "flash_attention_bwd (zamba2, bf16) is further from the f32 "
+                "gradient than the plain bf16 gradient is")
+        del f32, got, want, want_lse
+    torch.cuda.empty_cache()
+    log(f"[kernel] zamba2's attention {shape}: K6 max abs err vs plain "
+        f"{errs6}, bf16 distance ratio {ratios6}; K7 of max |grad| vs plain "
+        f"{ {n: f'{e:.3e}' for n, e in errs7.items()} }; K6's lse vs the "
+        f"plain logsumexp {lse_errs}")
+
+    q4, k4, v4, do4 = (t.view(SERVE_B, ZAMBA_HEADS, S, D)
+                       for t in (q, k, v, do))
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(out, leaves, do4)
+
+    for _ in range(3):                  # its first calls set up
+        sdpa_fwd_bwd()
+        sdpa_fwd()
+    torch.cuda.synchronize()
+    lib_fwd_ms, lib_fwd_us = time_ms(sdpa_fwd, 10), device_us(None, sdpa_fwd)
+    lib_ms = time_ms(sdpa_fwd_bwd, 10) - lib_fwd_ms
+    lib_us = device_us(None, sdpa_fwd_bwd, 5) - lib_fwd_us
+    lib_err = float((sdpa_fwd().reshape(BH, S, D).float()
+                     - o.float()).abs().max())
+
+    entries = []
+    for name, kernel, call, plain, n_ops, n_bytes, lib in (
+            ("flash_attention", K.KERNEL,
+             lambda: ops.flash_attention(q, k, v),
+             lambda: ops.flash_attention(q, k, v, backend="ref"),
+             2 * (D + D) * pairs, (q.numel() * 4) * 2,
+             (lib_fwd_ms, lib_fwd_us,
+              "one scaled_dot_product_attention(is_causal) call; max abs "
+              f"diff to K6 {lib_err:.3e}")),
+            ("flash_attention_bwd", BK.KERNEL,
+             lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do),
+             lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do),
+             2 * (2 * D + 2 * D + D) * pairs,
+             2 * BH * S * (4 * D + 4 * D) + 4 * BH * S,
+             (lib_ms, lib_us,
+              "scaled_dot_product_attention(is_causal) forward + backward "
+              "minus its forward, on the same inputs"))):
+        ms, plain_ms = in_turns(plain, call, 3)
+        dev_time = device_us(kernel, call, 5)
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        entries.append({
+            "shape": shape, "variant": "simt", "ms": ms,
+            "plain_ms": plain_ms, "device_us": dev_time, "bound_ms": b_ms,
+            "bound_by": b_by, "n_bytes": n_bytes, "n_ops": n_ops,
+            "bound_share": b_ms * 1e3 / dev_time, "library_ms": lib[0],
+            "library_device_us": lib[1], "library_note": lib[2],
+            "max_abs_err": (errs6["bfloat16"] if kernel is K.KERNEL
+                            else abs7),
+            "errs": errs6 if kernel is K.KERNEL else errs7})
+        log(f"[kernel] {name} at zamba2's shape {shape}: simt kernel "
+            f"{ms:.5f} ms, device {dev_time:.3f} us, plain {plain_ms:.5f} "
+            f"ms, bound {b_ms * 1e3:.3f} us by {b_by} ({n_bytes / 1e6:.1f} "
+            f"MB, {n_ops:.4g} operations), {100 * b_ms * 1e3 / dev_time:.2f}"
+            f" % of the bound; library {lib[0]:.5f} ms, device "
+            f"{lib[1]:.3f} us: the kernel takes {dev_time / lib[1]:.2f}x "
+            f"its time ({lib[2]})")
+    del q, k, v, o, lse, do, q4, k4, v4, do4, leaves
+    torch.cuda.empty_cache()
+    return entries
 
 
 # -- the unfused path ----------------------------------------------------------
@@ -2634,6 +2797,15 @@ def golden(dev):
 
 # -- phase 15: serving at full width -------------------------------------------
 
+def attention_blocks(cfg) -> int:
+    """Attention calls of one forward: one per layer, or for the hybrid
+    family one per segment (its shared blocks)."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import _plan
+        return _plan(cfg)[0]
+    return cfg.num_layers
+
+
 def generate(model, params, tokens, gen_steps, forced=None):
     """Prefill ``tokens`` (B, P), then ``gen_steps - 1`` decode steps into a
     SERVE_CACHE-row cache: greedy, or fed the tokens of ``forced`` (B,
@@ -2750,10 +2922,12 @@ def logit_checks(tag, cfg, params, prompt, note_b=""):
     (a) the f32 model, kernel run against plain run, prefill and
     teacher-forced decode logits; (b) bf16, each run's distance to the f32
     kernel run; (c) the f32 decode step at position P against a full
-    forward over P + 1 tokens. The f32 prefill must run K6's simt
-    variant once per layer."""
+    forward over P + 1 tokens (for the hybrid family it carries the Mamba2
+    and conv states across the prefill). The f32 prefill must run K6's
+    simt variant once per attention block."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.models import hybrid as HY
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
     from repro_torch.models.registry import Model
@@ -2769,14 +2943,15 @@ def logit_checks(tag, cfg, params, prompt, note_b=""):
     counts = dict(K6.launches_by_variant)
     toks32, lg32 = generate(m32, params32, prompt, SERVE_GEN)
     require(K6.launches_by_variant == {**counts, "simt": counts["simt"]
-                                       + cfg.num_layers},
+                                       + attention_blocks(cfg)},
             f"{tag} the f32 prefill did not run flash_attention's simt "
-            "variant once per layer")
+            "variant once per attention block")
     _, lg32_ref = generate(p32, params32, prompt, SERVE_GEN, forced=toks32)
     _, lgb = generate(model, params, prompt, SERVE_GEN, forced=toks32)
     _, lgb_ref = generate(plain, params, prompt, SERVE_GEN, forced=toks32)
-    h = LM.lm_hidden(params32, {"tokens": torch.cat([prompt, toks32[:, :1]],
-                                                    1)}, cfg32)
+    hidden = HY.hybrid_hidden if cfg.family == "hybrid" else LM.lm_hidden
+    h = hidden(params32, {"tokens": torch.cat([prompt, toks32[:, :1]], 1)},
+               cfg32)
     fwd = L.logits_fn(params32["embed"], h[:, -1:],
                       cfg.tie_embeddings)[:, 0].float()
     r = {"a": (logit_ratio(lg32[:1], lg32_ref[:1]),
@@ -2812,7 +2987,7 @@ def serve_requests(tag, cfg, dev, n_timed: int, variant: str):
     request and ``n_timed`` timed ones of SERVE_B x SERVE_PROMPT-token
     prompts and SERVE_GEN greedy tokens, launch counts from 0 before the
     timed ones, each prefill required to launch flash_attention once per
-    layer, all on ``variant``. Returns (model, params, prompts, runs,
+    attention block (:func:`attention_blocks`), all on ``variant``. Returns (model, params, prompts, runs,
     launches over the timed requests, flash_attention's by variant)."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
@@ -2852,9 +3027,10 @@ def serve_requests(tag, cfg, dev, n_timed: int, variant: str):
     variants = dict(K6.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     for _, _, _, n, n_on in runs:
-        require(n == cfg.num_layers, f"{tag} a request launched "
-                                     f"flash_attention {n} times, expected "
-                                     f"{cfg.num_layers} (one per layer)")
+        require(n == attention_blocks(cfg),
+                f"{tag} a request launched flash_attention {n} times, "
+                f"expected {attention_blocks(cfg)} (one per attention "
+                f"block)")
         require(n_on == n, f"{tag} {n - n_on} of a bf16 prefill's {n} "
                            f"flash_attention launches were not on the "
                            f"{variant} variant")
@@ -2920,7 +3096,7 @@ def serve_phase(dev):
     return launches, variants
 
 
-# -- phases 16-17: deepseek-v3 (MLA, MoE) and qwen3-14b serving -----------------
+# -- phases 16-18: deepseek-v3 (MLA, MoE), qwen3-14b and zamba2-2.7b serving ---
 
 def moe_drops(run):
     """The share of (token, expert) pairs dropped by capacity in each MoE
@@ -2958,9 +3134,9 @@ def serve_arch_phase(dev, tag, cfg, variant, check_cfg):
     toks, lg = generate(model, params, prompts[1], SERVE_GEN)
     _, lg_ref = generate(Model(cfg, device=dev, backend="ref"), params,
                          prompts[1], SERVE_GEN, forced=toks)
-    require(K6.launches == before + cfg.num_layers,
-            f"{tag} expected {cfg.num_layers} flash_attention launches from "
-            "the kernel run's prefill and none from the plain run")
+    require(K6.launches == before + attention_blocks(cfg),
+            f"{tag} expected {attention_blocks(cfg)} flash_attention launches "
+            "from the kernel run's prefill and none from the plain run")
     log(f"{tag} bf16 plain run vs kernel run on the kernel run's tokens: "
         f"max |dlogit| / max |logit| prefill "
         f"{logit_ratio(lg[:1], lg_ref[:1]):.3e}, teacher-forced decode "
@@ -3001,11 +3177,52 @@ def serve_qwen_phase(dev):
                             cfg.replace(num_layers=8))
 
 
-# -- phase 18: training at full width ------------------------------------------
+def serve_zamba2_phase(dev):
+    """zamba2-2.7b whole (54 Mamba2 layers in 9 segments, each closed by
+    one of the 2 shared attention + FFN blocks): K6 once per segment on
+    its SIMT kernel (head dim 80); checks on 12 layers (2 segments, both
+    shared blocks)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-2.7b")
+    return serve_arch_phase(dev, "[serve zamba2-2.7b]", cfg, "simt",
+                            cfg.replace(num_layers=2 * cfg.hybrid.attn_every))
+
+
+# -- phases 19-23: training at full width, and its checks ----------------------
 
 TRAIN_WARMUP, TRAIN_STEPS = 1, 4
 TRAIN_MOE_STEPS = 2          # timed steps of [train deepseek-v3] / [llama4]
 TRAIN_CHECK_LAYERS = 4
+
+
+def hybrid_flops(cfg, B: int, S: int) -> float:
+    """Model flops of one hybrid forward over B x S tokens: 2 per weight of
+    every matrix product per token (each Mamba2 layer's five
+    in-projections and its out-projection; once per segment, the shared
+    block's four attention projections and three FFN products; the
+    unembedding), plus each Mamba2 layer's SSD scan (per chunk of K and
+    group: the intra-chunk scores C.B, 2 N per kept (t, s) pair, and
+    their product with x, 2 P per pair and head; per token and head the
+    chunk state's B x^T and the inter-chunk output C.S, 2 P N each) and
+    each segment's causal attention (2 (D + Dv) per kept pair and
+    head)."""
+    s, d = cfg.ssm, cfg.d_model
+    d_inner = s.expand * d
+    H, P, N, G = d_inner // s.head_dim, s.head_dim, s.state_dim, s.n_groups
+    nseg = attention_blocks(cfg)
+    D = cfg.resolved_head_dim
+    mamba_w = 2 * d * d_inner + 2 * d * G * N + d * H + d_inner * d
+    shared_w = (2 * d * cfg.num_heads * D + 2 * d * cfg.num_kv_heads * D
+                + 3 * d * cfg.d_ff)
+    weights = (cfg.num_layers * mamba_w + nseg * shared_w
+               + d * cfg.vocab_size)
+    K = min(s.chunk_size, S)
+    while S % K:
+        K -= 1
+    scan = B * ((S // K) * attention_pairs(K, K, True)
+                * (2 * N * G + 2 * P * H) + S * H * 4 * P * N)
+    attn = nseg * B * cfg.num_heads * attention_pairs(S, S, True) * 4 * D
+    return 2.0 * weights * B * S + cfg.num_layers * scan + attn
 
 
 def train_flops(cfg, B: int, S: int) -> float:
@@ -3016,7 +3233,10 @@ def train_flops(cfg, B: int, S: int) -> float:
     three each; the unembedding; with multi-token prediction its
     projection, one more block and the unembedding again), plus the
     causal attention's two products (2 (D + Dv) per kept pair and head).
-    Pairs that capacity drops are counted as computed."""
+    Pairs that capacity drops are counted as computed. The hybrid family:
+    :func:`hybrid_flops`."""
+    if cfg.family == "hybrid":
+        return hybrid_flops(cfg, B, S)
     d, H = cfg.d_model, cfg.num_heads
     if cfg.mla:
         m = cfg.mla
@@ -3081,9 +3301,9 @@ def train_run(dev, tag, cfg, variant, steps, drops=False):
     ``steps`` timed steps, launch counts from 0 before the timed ones:
     the loss, gnorm and lr per step, step ms, tokens/s, model flops over
     step time as a share of 989 TFLOP/s, max_memory_allocated, and a
-    1-step profile. Each step must launch K6 for every block's forward
-    and again for its remat, K7 once per block, all on ``variant``, and
-    no plain attention. ``drops``: also the share of pairs each MoE layer
+    1-step profile. Each step must launch K6 for every attention block's
+    forward (:func:`attention_blocks`) and again for its remat, K7 once
+    per block, all on ``variant``, and no plain attention. ``drops``: also the share of pairs each MoE layer
     drops by capacity. Returns the launch counts over the timed steps and
     K7's by variant."""
     import torch
@@ -3125,10 +3345,7 @@ def train_run(dev, tag, cfg, variant, steps, drops=False):
     kernels = all_kernels()
     for k in kernels:
         k.reset_counts()
-    # the MTP block is not rematerialised: one K6 launch under remat too
-    mtp = 1 if cfg.mtp_depth else 0
-    want6 = (2 if cfg.remat == "full" else 1) * cfg.num_layers + mtp
-    want7 = cfg.num_layers + mtp
+    want6, want7 = want_launches(cfg)
     rows = []
     with PlainCalls() as plain_calls:
         for i, b in enumerate(batches[TRAIN_WARMUP:-1]):
@@ -3209,6 +3426,20 @@ def train_deepseek_phase(dev):
                      TRAIN_MOE_STEPS)
 
 
+def train_zamba2_phase(dev):
+    """zamba2-2.7b training at full width, not cut (54 Mamba2 layers, the 2
+    shared blocks called 9 times, untied vocabulary): remat, f32 moments,
+    K6 (2 x 9: the forward and its remat) and K7 (9) per step on their
+    SIMT kernels (head dim 80)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-2.7b")
+    require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
+            "[train zamba2-2.7b] zamba2-2.7b should train under "
+            "remat='full' with f32 moments")
+    return train_run(dev, "[train zamba2-2.7b]", cfg, "simt",
+                     TRAIN_MOE_STEPS)
+
+
 def train_llama4_phase(dev):
     """llama4-scout at full width cut to 1 of its 48 layers: all 16
     experts whole, the shared expert, the full untied 202,048-row
@@ -3286,28 +3517,32 @@ def bf16_step_check(dev, cfg):
 MOE_GRAD_TOL = 1e-4   # f32 gradient leaves, kernels vs plain, of max |g|
 
 
-def moe_step_check(dev):
-    """deepseek-v3 at REDUCED width with its MoE layers and MTP block, in
-    f32 (a bf16 rounding moves tokens between experts): one step's loss
-    and gradients with the kernels against the plain versions, every
-    gradient leaf within MOE_GRAD_TOL of its largest element; K6 and K7
-    launch once per layer and once for the MTP block (no remat), and no
-    plain attention runs."""
+def want_launches(cfg):
+    """(K6, K7) launches of one training step of ``cfg``: K6 for every
+    attention block's forward and again for its remat, K7 once per block;
+    the MTP block, not rematerialised, adds one each."""
+    mtp = 1 if cfg.mtp_depth else 0
+    blocks = attention_blocks(cfg)
+    return (2 if cfg.remat == "full" else 1) * blocks + mtp, blocks + mtp
+
+
+def f32_step_check(dev, cfg, seed: int, what: str):
+    """One step's loss and gradients of the f32 ``cfg`` with the kernels
+    against the plain versions on the same weights and batch: the loss
+    within 1e-5 relative, every gradient leaf within MOE_GRAD_TOL of its
+    largest element; K6 and K7 launch as :func:`want_launches` says, and
+    no plain attention runs."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data import tokens as DATA
     from repro_torch.kernels.flash_attention.bwd_kernel import KERNEL as K7
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
     from repro_torch.launch import steps as ST
     from repro_torch.models.registry import Model
 
-    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
-        dtype="float32", param_dtype="float32")
-    require(cfg.remat == "none", f"[train check] REDUCED {cfg.name} should "
-                                 "not rematerialise")
     model = Model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(4))
-    batch = DATA.batch_at(0, cfg, TRAIN_B, TRAIN_S, seed=2, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = DATA.batch_at(0, cfg, TRAIN_B, TRAIN_S, seed=seed - 2,
+                          device=dev)
     n6, n7 = K6.launches, K7.launches
     with PlainCalls() as plain:
         loss, grads = ST.loss_and_grads(model, params, batch)
@@ -3316,29 +3551,58 @@ def moe_step_check(dev):
                                       params, batch)
     errs = leaf_errs(grads, pgrads)
     worst = max(errs, key=errs.get)
-    log(f"[train check] {cfg.name} (MoE, MLA, MTP) in f32, B={TRAIN_B} x "
-        f"{TRAIN_S}: loss kernels {float(loss):.7f}, plain "
-        f"{float(ploss):.7f}; flash_attention, flash_attention_bwd "
+    want = want_launches(cfg)
+    log(f"[train check] {cfg.name} ({what}) in f32, {cfg.num_layers} "
+        f"layers, B={TRAIN_B} x {TRAIN_S}: loss kernels {float(loss):.7f}, "
+        f"plain {float(ploss):.7f}; flash_attention, flash_attention_bwd "
         f"launches {launched}, plain attention calls {plain.calls}; worst "
         f"gradient leaf {worst} {errs[worst]:.3e} of its max (held <= "
         f"{MOE_GRAD_TOL:g})")
-    blocks = cfg.num_layers + 1
-    require(launched == (blocks, blocks) and plain.calls == 0,
+    require(launched == want and plain.calls == 0,
             f"[train check] {cfg.name} launched flash_attention and "
             f"flash_attention_bwd {launched} times with {plain.calls} plain "
-            f"attention calls, expected ({blocks}, {blocks}) and none")
+            f"attention calls, expected {want} and none")
     require(abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss)),
             f"[train check] {cfg.name}: the kernel loss differs from the "
             "plain loss")
     require(errs[worst] <= MOE_GRAD_TOL, f"[train check] {cfg.name}: a "
                                        "gradient leaf differs from the "
                                        "plain one")
+    del params, grads, pgrads
+    torch.cuda.empty_cache()
+
+
+def moe_step_check(dev):
+    """deepseek-v3 at REDUCED width with its MoE layers and MTP block, in
+    f32 (a bf16 rounding moves tokens between experts), by
+    :func:`f32_step_check`: K6 and K7 launch once per layer and once for
+    the MTP block (no remat)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    require(cfg.remat == "none", f"[train check] REDUCED {cfg.name} should "
+                                 "not rematerialise")
+    f32_step_check(dev, cfg, 4, "MoE, MLA, MTP")
+
+
+def zamba2_step_checks(dev):
+    """zamba2-2.7b at full width cut to 12 layers (2 segments, both shared
+    blocks): in bf16 by :func:`bf16_step_check`, and in f32, remat on,
+    kernels against plain per gradient leaf by :func:`f32_step_check`."""
+    from repro_torch.configs import get_config
+    zamba = get_config("zamba2-2.7b")
+    zamba = zamba.replace(num_layers=2 * zamba.hybrid.attn_every)
+    bf16_step_check(dev, zamba)
+    f32_step_check(dev, zamba.replace(dtype="float32",
+                                      param_dtype="float32"), 5,
+                   "hybrid, remat, head dim 80")
 
 
 def train_check_phase(dev):
-    """granite-3-2b with 4 layers and deepseek-v3's 3 dense layers, both
-    at full width, by :func:`bf16_step_check`; the moe family with MTP at
-    REDUCED width by :func:`moe_step_check`."""
+    """granite-3-2b with 4 layers and deepseek-v3's 3 dense layers, at
+    full width, by :func:`bf16_step_check`; the moe family with MTP at
+    REDUCED width by :func:`moe_step_check`; the zamba2 cut by
+    :func:`zamba2_step_checks`."""
     from repro_torch.configs import get_config
     bf16_step_check(dev, get_config("granite-3-2b").replace(
         num_layers=TRAIN_CHECK_LAYERS))
@@ -3346,9 +3610,10 @@ def train_check_phase(dev):
     bf16_step_check(dev, ds.replace(num_layers=ds.moe.first_moe_layer,
                                     mtp_depth=0))
     moe_step_check(dev)
+    zamba2_step_checks(dev)
 
 
-# -- phase 20: the four examples on the card -----------------------------------
+# -- phase 24: the four examples on the card -----------------------------------
 
 def load_example(name: str):
     import importlib.util
@@ -3477,6 +3742,8 @@ def main() -> int:
     checks.append(check_flash_attention_bwd(dev))
     torch.cuda.empty_cache()
     checks[-1]["mla"] = check_flash_attention_bwd_mla(dev)
+    checks[-2]["zamba2"], checks[-1]["zamba2"] = \
+        check_flash_attention_zamba2(dev)
     for c in checks:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
@@ -3557,26 +3824,31 @@ def main() -> int:
     serve_launches, serve_variants = serve_phase(dev)
     torch.cuda.empty_cache()
 
-    # 16.-17. deepseek-v3 (MLA + MoE) and qwen3-14b serving (launch counts
-    # start at 0 again for each)
+    # 16.-18. deepseek-v3 (MLA + MoE), qwen3-14b and zamba2-2.7b (hybrid)
+    # serving (launch counts start at 0 again for each)
     deepseek_launches, deepseek_variants = serve_deepseek_phase(dev)
     qwen_launches, qwen_variants = serve_qwen_phase(dev)
+    zamba_launches, zamba_variants = serve_zamba2_phase(dev)
     k6_row = next(c for c in checks if c["kernel"].name == "flash_attention")
     k6_row["variants_by_path"] = {"serve": serve_variants,
                                   "serve_deepseek": deepseek_variants,
-                                  "serve_qwen": qwen_variants}
+                                  "serve_qwen": qwen_variants,
+                                  "serve_zamba2": zamba_variants}
     k7_row = next(c for c in checks
                   if c["kernel"].name == "flash_attention_bwd")
 
-    # 18.-20. training at full width: granite-3-2b, deepseek-v3's dense
-    # layers, a llama4-scout MoE layer (launch counts start at 0 again for
-    # each); 21. steps against the plain versions and f32; 22. the examples
+    # 19.-22. training at full width: granite-3-2b, deepseek-v3's dense
+    # layers, a llama4-scout MoE layer, zamba2-2.7b (launch counts start at
+    # 0 again for each); 23. steps against the plain versions and f32;
+    # 24. the examples
     train_launches, train_variants = train_phase(dev)
     train_ds_launches, train_ds_variants = train_deepseek_phase(dev)
     train_l4_launches, train_l4_variants = train_llama4_phase(dev)
+    train_z_launches, train_z_variants = train_zamba2_phase(dev)
     k7_row["variants_by_path"] = {"train": train_variants,
                                   "train_deepseek": train_ds_variants,
-                                  "train_llama4": train_l4_variants}
+                                  "train_llama4": train_l4_variants,
+                                  "train_zamba2": train_z_variants}
     train_check_phase(dev)
     examples_phase(dev)
 
@@ -3587,9 +3859,11 @@ def main() -> int:
                  "serving_mesh": serving_mesh_launches,
                  "elastic": elastic_launches, "serve": serve_launches,
                  "serve_deepseek": deepseek_launches,
-                 "serve_qwen": qwen_launches, "train": train_launches,
+                 "serve_qwen": qwen_launches,
+                 "serve_zamba2": zamba_launches, "train": train_launches,
                  "train_deepseek": train_ds_launches,
-                 "train_llama4": train_l4_launches},
+                 "train_llama4": train_l4_launches,
+                 "train_zamba2": train_z_launches},
         {"flash_attention": serve_variants,
          "flash_attention_bwd": train_variants})}))
     print(smi)
@@ -3642,7 +3916,7 @@ def kernel_rows(checks, by_path, by_variant):
                          "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms",
                          "simt_note", "abs_errs", "lse_errs", "mla",
-                         "variants_by_path")
+                         "zamba2", "variants_by_path")
                         if key in c}})
     return rows
 

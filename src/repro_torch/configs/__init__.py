@@ -6,19 +6,21 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import (DFAConfig, MLAConfig, MoEConfig,
-                                     ModelConfig, TrainConfig)
+from repro_torch.configs.base import (DFAConfig, HybridConfig, MLAConfig,
+                                     MoEConfig, ModelConfig, SSMConfig,
+                                     TrainConfig)
 from repro_torch.configs.dfa import (PAPER, REDUCED, REDUCED_INFER,
                                      REDUCED_MULTIPOD, REDUCED_MULTIPOD_V2,
                                      REDUCED_OVERLAP, REDUCED_V2_WIDE)
 
 # arch id -> module name, in the reference's order; its other
-# architectures (zamba2, llava, whisper, rwkv) are ROADMAP §1 item 14c
+# architectures (llava, whisper, rwkv) are ROADMAP §1 item 14c
 _ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "qwen1.5-32b": "qwen15_32b",
     "qwen3-14b": "qwen3_14b",
     "granite-20b": "granite_20b",
+    "zamba2-2.7b": "zamba2_2p7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
@@ -36,6 +38,8 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["DFAConfig", "MLAConfig", "MoEConfig", "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
+__all__ = ["DFAConfig", "HybridConfig", "MLAConfig", "MoEConfig",
+           "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
            "REDUCED_MULTIPOD", "REDUCED_MULTIPOD_V2", "REDUCED_OVERLAP",
-           "REDUCED_V2_WIDE", "TrainConfig", "get_config", "list_archs"]
+           "REDUCED_V2_WIDE", "SSMConfig", "TrainConfig", "get_config",
+           "list_archs"]

@@ -5,8 +5,9 @@ Field names, defaults and meanings are those of the reference
 both packages. Only the fields the port reads (or refuses) are carried;
 the tuning knob arrives with the slice that implements it (ROADMAP §1
 item 12). ``MoEConfig`` and ``MLAConfig`` carry every field of the
-reference's; its SSM, hybrid, encoder-decoder and vision sub-configs
-arrive with their families (ROADMAP §1 item 14c).
+reference's, and so do ``SSMConfig`` and ``HybridConfig`` (the hybrid
+family's); its encoder-decoder and vision sub-configs arrive with their
+families (ROADMAP §1 item 14c).
 """
 from __future__ import annotations
 
@@ -160,13 +161,35 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2/SSD block configuration (zamba2) or RWKV6 time-mix options."""
+
+    state_dim: int = 64               # N — SSM state size per head
+    head_dim: int = 64                # P — channels per head
+    expand: int = 2                   # d_inner = expand * d_model
+    conv_width: int = 4               # causal conv1d kernel size
+    chunk_size: int = 128             # SSD chunked-scan block length
+    n_groups: int = 1                 # B/C groups (mamba2)
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Hybrid block schedule (zamba2: Mamba2 trunk + shared attention)."""
+
+    attn_every: int = 6               # full attention block every k layers
+    shared_attn: bool = True          # attention blocks share one weight set
+    num_shared_blocks: int = 2        # zamba2 has 2 alternating shared blocks
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """One model architecture (the port's own copy of the reference's
-    ``ModelConfig``, the fields of the dense and moe families).
+    ``ModelConfig``, the fields of the dense, moe and hybrid families).
 
-    Families: ``"dense"`` (decoder-only GQA/MQA/MHA transformer) and
-    ``"moe"`` (decoder-only with MoE FFNs, optionally MLA attention) are
-    ported; the reference's hybrid / ssm / encdec / vlm families and their
+    Families: ``"dense"`` (decoder-only GQA/MQA/MHA transformer), ``"moe"``
+    (decoder-only with MoE FFNs, optionally MLA attention) and
+    ``"hybrid"`` (a Mamba2 trunk with interleaved shared attention blocks)
+    are ported; the reference's ssm / encdec / vlm families and their
     sub-configs are ROADMAP §1 item 14c.
     """
 
@@ -187,6 +210,8 @@ class ModelConfig:
     act: str = "silu"                 # FFN activation (gated)
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     # multi-token-prediction depth (deepseek): 1 adds the MTP block and
     # its loss (weight 0.3) to lm_loss; serving never reads it
     mtp_depth: int = 0

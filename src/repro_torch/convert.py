@@ -11,7 +11,8 @@ reference's dtypes and shapes, so the two can be compared leaf by leaf.
 ``head_params_from_numpy`` loads the reference head's ``{"w", "b"}`` / ``{"w1", "b1", "w2", "b2"}``
 into a :class:`~repro_torch.models.flow_head.FlowHead`.
 ``lm_params_from_numpy`` builds the port's language-model parameters from
-the reference's materialised ones (``Model.init``), as numpy.
+the reference's materialised ones (``Model.init``), as numpy, for any
+family ``Model`` runs.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.core.pipeline import DFAState
 from repro_torch.core.reporter import ReporterState
 from repro_torch.core.translator import TranslatorState
 from repro_torch.device import on_card_or_cpu
-from repro_torch.models import lm as LM
+from repro_torch.models import registry
 from repro_torch.models.param import ParamDesc, torch_dtype
 
 _GROUPS = (("reporter", ReporterState), ("translator", TranslatorState),
@@ -84,9 +85,11 @@ def head_params_from_numpy(head: torch.nn.Module,
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
-    """The reference's dense-LM parameters (nested dicts of numpy arrays,
-    bf16 as ml_dtypes ``bfloat16``) -> the port's, in the dtypes of
-    ``models.lm.lm_descs(cfg)``. bf16 crosses through f32, which holds it
+    """The reference's model parameters (nested dicts of numpy arrays,
+    bf16 as ml_dtypes ``bfloat16``) -> the port's, in the dtypes of the
+    family's descriptors (``models.registry.param_descs(cfg)``: the dense
+    and moe families' or the hybrid's, whose stacked trunk and shared
+    blocks cross whole). bf16 crosses through f32, which holds it
     exactly. Raises on a missing or extra leaf or a shape that differs.
     The parameters land on ``device`` (the card unless the caller asks for
     ``"cpu"``)."""
@@ -106,4 +109,4 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
             raise ValueError(f"{path}: leaves {sorted(node)} != "
                              f"{sorted(descs)}")
         return {k: rec(descs[k], node[k], f"{path}/{k}") for k in descs}
-    return rec(LM.lm_descs(cfg), tree, "params")
+    return rec(registry.param_descs(cfg), tree, "params")

@@ -56,9 +56,9 @@ def batch_at(step: int, cfg: ModelConfig, batch: int, seq: int,
 
 def add_modality_stub(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                       step: int, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """The dense family takes the batch unchanged; the vlm and encdec
-    stubs (patches, frames) come with their families (ROADMAP §1 item
-    14c)."""
+    """The dense, moe and hybrid families take the batch unchanged; the vlm
+    and encdec stubs (patches, frames) come with their families (ROADMAP
+    §1 item 14c)."""
     if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's modality stub is not ported yet "

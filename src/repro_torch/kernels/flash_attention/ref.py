@@ -36,8 +36,14 @@ def flash_attention_lse_ref(q, k, v, *, group: int = 1, causal: bool = True,
                             scale=None):
     """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (out (BH, Sq, Dv)
     in q's dtype, lse (BH, Sq) f32: each row's logsumexp of the scaled
-    scores, natural log). Scores and the p·v product accumulate in f32; p
-    is rounded to v's dtype before p·v, as the TPU kernel does."""
+    scores, natural log). Scores and the p·v product accumulate in f32;
+    the normalised softmax p is rounded to v's dtype before p·v. K6, the
+    TPU kernel and the reference's model path round the unnormalised
+    exp(s - m) instead and divide by the row sum at the end; in bf16 the
+    two differ by rounding only, and the port's whole bf16 attention (this
+    forward, then :func:`flash_attention_bwd_ref`) holds the x1.5 rule
+    against the reference's bf16 forward and VJP
+    (``tests/test_torch_flash_bwd.py``)."""
     s, _ = _scores(q, k, group, causal, scale)
     vv = v[torch.arange(q.shape[0], device=q.device) // group]
     lse = torch.logsumexp(s, dim=-1)

@@ -1,12 +1,13 @@
 """Batched serving: prefill + greedy decode loop (the port of
-``repro.launch.serve``, dense and moe families).
+``repro.launch.serve``, dense, moe and hybrid families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --reduced --batch 4 --prompt 32 --gen 16 --device cpu
 
 ``--arch`` takes any id of ``configs.list_archs()``: granite-3-2b,
-qwen1.5-32b, qwen3-14b, granite-20b, deepseek-v3-671b (MLA, whose decode
-cache is the latent ``{"ckv", "kr"}``) and llama4-scout-17b-a16e. Runs on
+qwen1.5-32b, qwen3-14b, granite-20b, zamba2-2.7b (hybrid: Mamba2 states and
+the shared blocks' K/V), deepseek-v3-671b (MLA, whose decode cache is the
+latent ``{"ckv", "kr"}``) and llama4-scout-17b-a16e. Runs on
 the CUDA card by default (``--device cuda``), where the prefill attention
 launches the flash_attention kernel. Weights and the prompt are random,
 from ``--seed``. Reports tokens/s.
@@ -26,12 +27,18 @@ from repro_torch.models.registry import Model
 
 def build_cache(model, prefill_cache, B, S_cache):
     """Splice a prefill cache into a zero decode cache of length S_cache,
-    layer by layer and name by name (``{"k", "v"}`` or MLA's ``{"ckv",
-    "kr"}``), along the sequence axis."""
+    layer (or hybrid segment) by layer and name by name (``{"k", "v"}``,
+    MLA's ``{"ckv", "kr"}``, the hybrid's ``{"attn_k", "attn_v"}``), along
+    the sequence axis; the hybrid's recurrent Mamba2 states (``"mamba"``)
+    cross whole."""
     big = PM.materialize(model.cache_descs(B, S_cache), None, model.device)
     for layer, part in zip(big, prefill_cache):
         for name, t in part.items():
-            layer[name][:, :t.shape[1]] = t.to(layer[name].dtype)
+            if name == "mamba":
+                layer[name] = {n: s.to(layer[name][n].dtype)
+                               for n, s in t.items()}
+            else:
+                layer[name][:, :t.shape[1]] = t.to(layer[name].dtype)
     return big
 
 

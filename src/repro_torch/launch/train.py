@@ -4,9 +4,10 @@
         --reduced --steps 100 --batch 8 --seq 128 --device cpu
 
 Every ported id trains, the moe family (``--arch deepseek-v3-671b``,
-with its multi-token-prediction loss, or ``llama4-scout-17b-a16e``)
-included; AdamW keeps its moments in ``cfg.opt_state_dtype`` (bf16 under
-deepseek-v3's full config).
+with its multi-token-prediction loss, or ``llama4-scout-17b-a16e``) and
+the hybrid family (``--arch zamba2-2.7b``) included; AdamW keeps its
+moments in ``cfg.opt_state_dtype`` (bf16 under deepseek-v3's full
+config).
 
 Runs on the CUDA card by default (``--device cuda``), where attention
 launches the flash_attention kernels (K6 forward, K7 backward). What it

@@ -37,10 +37,14 @@ FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
+    """This module's guard: the decoder-only LM families. The hybrid family
+    runs through ``models.hybrid`` (``Model`` dispatches); the ssm, encdec
+    and vlm families are ROADMAP §1 item 14c."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP §1 item "
-            f"14c); the port runs the {' and '.join(FAMILIES)} families")
+            f"models.lm runs the {' and '.join(FAMILIES)} families, not "
+            f"{cfg.family!r} (the hybrid family runs through models.hybrid; "
+            f"the others are ROADMAP §1 item 14c)")
 
 
 def block_descs(cfg: ModelConfig, kind: str) -> Tree:
@@ -178,7 +182,7 @@ def lm_loss(params, batch, cfg: ModelConfig,
     the MTP block."""
     check_family(cfg)
     x = lm_hidden(params, batch, cfg, backend=backend)
-    mask = _mask(batch)
+    mask = loss_mask(batch)
     loss = L.chunked_ce_loss(params["embed"], x, batch["targets"], mask,
                              cfg.tie_embeddings, cfg.loss_chunk)
     if cfg.mtp_depth and "mtp" in params:
@@ -186,7 +190,8 @@ def lm_loss(params, batch, cfg: ModelConfig,
     return loss
 
 
-def _mask(batch) -> torch.Tensor:
+def loss_mask(batch) -> torch.Tensor:
+    """The batch's "mask", or f32 ones over its targets."""
     mask = batch.get("mask")
     if mask is None:
         targets = batch["targets"]

@@ -701,7 +701,9 @@ _BWD_SHAPES = [
     # ragged in-between widths
     (8, 333, 333, 192, 128, 1), (12, 257, 129, 192, 128, 4),
     (6, 130, 257, 256, 256, 2),
-    (6, 200, 71, 160, 200, 3), (4, 65, 65, 136, 24, 1)]
+    (6, 200, 71, 160, 200, 3), (4, 65, 65, 136, 24, 1),
+    # zamba2's head dim 80 (SIMT): MHA, and ragged with group 4
+    (8, 333, 333, 80, 80, 1), (12, 257, 129, 80, 80, 4)]
 # every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
 # ((D, Dv) in {(64, 64), (128, 128), (192, 128)}) runs on wgmma and once
 # more forced to simt
@@ -897,6 +899,77 @@ def test_reduced_moe_train_step_kernels_equal_plain(cuda, arch):
         scale = (top if cfg.moe.top_k == 1 and path[-1] == "router"
                  else float(y.abs().max()))
         assert float((x - y).abs().max()) <= 1e-4 * scale, path
+
+
+def test_reduced_hybrid_train_step_kernels_equal_plain(cuda):
+    """One REDUCED zamba2 loss and gradient (f32, remat on) on the card
+    through K6 and K7 against the plain versions: loss 1e-5 relative,
+    every gradient leaf 1e-4 of its largest element. K6 launches twice
+    per shared-block call (the forward and its recomputation) and K7
+    once: each of the 2 segments calls one."""
+    from repro_torch.data import tokens as DATA
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    cfg = get_config("zamba2-2.7b", reduced=True).replace(
+        dtype="float32", param_dtype="float32", remat="full")
+    model = Model(cfg, device=cuda)
+    params = model.init(0)
+    batch = DATA.batch_at(0, cfg, 4, 100, device=cuda)
+    AK.KERNEL.reset_counts()
+    BK.KERNEL.reset_counts()
+    loss, grads = ST.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    assert (AK.KERNEL.launches, BK.KERNEL.launches) == (4, 2)
+    ploss, pgrads = ST.loss_and_grads(Model(cfg, device=cuda, backend="ref"),
+                                      params, batch)
+    assert (AK.KERNEL.launches, BK.KERNEL.launches) == (4, 2)
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    for path, x, y in zip(adamw.paths(grads), adamw.leaves(grads),
+                          adamw.leaves(pgrads)):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), \
+            path
+
+
+def test_reduced_hybrid_serving_kernels_equal_plain(cuda):
+    """REDUCED zamba2 in f32 on the card: a 100-token prefill (K6 once per
+    segment) and 3 greedy decode steps, the plain run fed the kernel run's
+    tokens; logits within 1e-5 of the plain run's largest logit, and
+    every Mamba2 state and K/V leaf of the cache within 1e-5 of its
+    largest element."""
+    from repro_torch.launch.serve import build_cache
+    cfg = get_config("zamba2-2.7b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    params = Model(cfg, device=cuda).init(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 100),
+                           generator=torch.Generator().manual_seed(2)).to(cuda)
+
+    def run(model, forced=None):
+        AK.KERNEL.reset_counts()
+        logits, pcache = model.prefill(params, {"tokens": tokens})
+        launched = AK.KERNEL.launches
+        cache = build_cache(model, pcache, 4, 112)
+        seen, toks = [logits], []
+        pos = torch.full((4,), 100, device=cuda)
+        for i in range(3):
+            toks.append(logits.argmax(-1)[:, None] if forced is None
+                        else forced[i])
+            logits, cache = model.decode(params, toks[-1], pos, cache)
+            seen.append(logits)
+            pos = pos + 1
+        return seen, toks, cache, launched
+
+    got, toks, cache, launched = run(Model(cfg, device=cuda))
+    want, _, pcache, plain_launched = run(
+        Model(cfg, device=cuda, backend="ref"), toks)
+    assert (launched, plain_launched) == (2, 0)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for seg, pseg in zip(cache, pcache):
+        pairs = [(seg[n], pseg[n]) for n in ("attn_k", "attn_v")] + [
+            (seg["mamba"][n], pseg["mamba"][n]) for n in seg["mamba"]]
+        for x, y in pairs:
+            assert float((x - y).abs().max()) <= 1e-5 * float(
+                y.abs().max())
 
 
 # -- the serving slice on the card ---------------------------------------------

@@ -413,23 +413,42 @@ def test_wgmma_rounding_model_matches_jax_custom_vjp_at_mla_head_dims(
     """As above at MLA's head dims (D = 192, Dv = 128, the reference's
     default scale 192 ** -0.5), over seeds, with the model fed the
     residuals (o, lse) of the reference's own forward, ``_flash_core_fwd``:
-    backward against backward. (With the port's plain forward's o, whose
-    p is rounded after normalising, Dsum = rowsum(do o) shifts against dP
-    and moves the port's plain bf16 gradient and the model alike up to
-    2.2x further from JAX's f32 gradient than JAX's bf16 one on some of
-    these seeds; K6's o is held to the port's plain forward on the
-    card.)"""
+    backward against backward. The port's whole attention, its plain
+    forward's o and lse then its plain backward, is held to the same rule
+    on these seeds by
+    :func:`test_port_bf16_attention_matches_jax_at_mla_head_dims`."""
     for seed in (17, 18):
         _model_vs_jax(2, 64, 192, 128, 2 // group, group, causal, seed,
                       jax_residuals=True)
 
 
-def _model_vs_jax(B, S, D, Dv, KH, group, causal, seed, jax_residuals=False):
-    """The rounding model on bf16 inputs (q, k of head dim D, v, do of Dv)
-    against ``jax.vjp`` of the reference's ``chunked_attention`` in f32 and
-    in bf16: no further from JAX's f32 gradient than JAX's bf16 gradient
-    is, x1.5. o and lse: the port's plain forward's, or with
-    ``jax_residuals`` those ``_flash_core_fwd`` saves for its backward."""
+@pytest.mark.parametrize("group", [1, 2])
+def test_port_bf16_attention_matches_jax_at_mla_head_dims(group):
+    """The port's whole bf16 attention at MLA's head dims (D = 192, Dv =
+    128, the reference's scale 192 ** -0.5, causal): its own plain forward
+    (o and lse, ``flash_attention_lse_ref``) and then its own plain
+    backward (``flash_attention_bwd_ref``), against ``jax.vjp`` of the
+    reference's ``chunked_attention``, on seeds 17 and 18: no further from
+    JAX's f32 gradient than JAX's bf16 gradient is, x1.5. The plain
+    forward rounds the normalised p to bf16 before p.v, where K6 and the
+    reference round the unnormalised exp(s - rowmax); the ratios measured
+    here (seed 17, 18) are 1.476, 1.000 at group 1 and 1.079, 1.038 at
+    group 2, inside the rule, so the plain forward keeps its rounding."""
+    for seed in (17, 18):
+        ratio = _model_vs_jax(2, 64, 192, 128, 2 // group, group, True, seed,
+                              backward=FR.flash_attention_bwd_ref)
+        print(f"group {group} seed {seed}: the port's bf16 gradient is "
+              f"{ratio:.3f} x JAX's bf16 distance from JAX's f32 one")
+
+
+def _model_vs_jax(B, S, D, Dv, KH, group, causal, seed, jax_residuals=False,
+                  backward=None):
+    """The rounding model (or ``backward``, a function of K7's signature)
+    on bf16 inputs (q, k of head dim D, v, do of Dv) against ``jax.vjp`` of
+    the reference's ``chunked_attention`` in f32 and in bf16: no further
+    from JAX's f32 gradient than JAX's bf16 gradient is, x1.5. o and lse:
+    the port's plain forward's, or with ``jax_residuals`` those
+    ``_flash_core_fwd`` saves for its backward."""
     H = KH * group
     rng = np.random.default_rng(seed)
     x = [rng.standard_normal(shape).astype(np.float32)
@@ -458,11 +477,14 @@ def _model_vs_jax(B, S, D, Dv, KH, group, causal, seed, jax_residuals=False):
         o = torch.from_numpy(np.asarray(oj.astype(jnp.float32)).reshape(
             B * H, S, Dv)).to(torch.bfloat16)
         lse = torch.from_numpy(np.asarray(lj, np.float32).reshape(B * H, S))
-    got = wgmma_model(tq, tk, tv, o, lse, tdo, group=group, causal=causal)
+    got = (backward or wgmma_model)(tq, tk, tv, o, lse, tdo, group=group,
+                                    causal=causal)
     unflat = lambda t, n: t.float().reshape(B, n, S, -1).transpose(1, 2)
     got = [unflat(g, n).numpy() for g, n in zip(got, (H, KH, KH))]
 
     def err(a, b):
         return max(float(np.abs(u - w).max()) / float(np.abs(w).max())
                    for u, w in zip(a, b))
-    assert err(got, jax32) <= 1.5 * err(jax16, jax32)
+    ratio = err(got, jax32) / err(jax16, jax32)
+    assert ratio <= 1.5
+    return ratio

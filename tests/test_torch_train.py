@@ -253,13 +253,18 @@ def test_training_refusals():
     """What training still refuses (gradient compression and the families
     of ROADMAP §1 item 14c), and what it no longer does: the moe family's
     loss and multi-token prediction run (they are held against JAX in
-    tests/test_torch_train_moe.py)."""
+    tests/test_torch_train_moe.py), and so does the hybrid family's
+    through ``Model`` (tests/test_torch_hybrid.py); ``lm_loss`` stays the
+    dense and moe families' and refuses the rest."""
     with pytest.raises(NotImplementedError, match="14c"):
         TrainConfig(grad_compression="int8_ef")
     cfg = get_config(ARCH, reduced=True)
     for family in ("vlm", "hybrid", "ssm", "encdec"):
         with pytest.raises(NotImplementedError, match="14c"):
             LM.lm_loss({}, {}, cfg.replace(family=family))
+    for family in ("vlm", "ssm", "encdec"):
+        with pytest.raises(NotImplementedError, match="14c"):
+            Model(cfg.replace(family=family), device="cpu")
     tokens = torch.randint(0, 256, (2, 8), generator=torch.Generator()
                            .manual_seed(0))
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
