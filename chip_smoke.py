@@ -56,7 +56,10 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens, causal) on their SIMT kernels, in bf16 and f32, under the same
    rules, each timed in turns with its plain version and by its device
    time beside its bound and SDPA's (the forward; forward + backward minus
-   forward);
+   forward); K6 and K7 without a mask at whisper-tiny's encoder shapes
+   (K6: B = 4 x 6 heads over its 1500 frames, head dim 64, group 1; K7: B
+   = 8 x 6 heads) on their wgmma kernels in bf16 and SIMT in f32, under
+   the same rules and timed the same way;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -162,6 +165,22 @@ Phases (any failure exits non-zero; nothing is caught):
    checks (a)-(c) on 12 layers (2 segments, both shared blocks), (c)
    holding the decode step, which carries the Mamba2 and conv states,
    against a forward over P + 1 tokens;
+18a. [serve rwkv6-3b] — rwkv6-3b whole (32 attention-free layers, d
+   2560, 40 heads of 64; untied 65,536-row vocabulary; 3,094,620,160
+   parameters, bf16) as 16: no K6 launch and no plain attention call;
+   then on 4 of its layers with fresh seeded weights: (i) the card's f32
+   prefill logits and every state leaf against the CPU's run of the same
+   parameters (2 x 256 tokens), within 1e-4 of the largest element; (ii)
+   the card's bf16 logits no further from the CPU's f32 logits than the
+   CPU's bf16 logits are, x1.5; (iii) in f32 on the card, a prefill over
+   1025 tokens (chunks of 41) against a prefill over 1024 (chunks of
+   128) plus one decode step, logits and state within 1e-3;
+18b. [serve whisper-tiny] — whisper-tiny whole (4 encoder + 4 decoder
+   layers, d 384, 6 heads of 64, 1500 stub frames, 58,528,512 parameters,
+   bf16) as 16 with B = 4 x 416-token prompts and 32 greedy tokens (its
+   448-token text context): each prefill launches K6 4 times without a
+   mask (the encoder) and 4 times causal, all wgmma; the encoder's time
+   alone; checks (a)-(c) on the whole model;
 19. [train] — granite-3-2b training at full width (40 layers, bf16,
    remat="full", AdamW with f32 moments, seeded random weights), B = 4 x
    1024 tokens of data/tokens, 1 warm-up and 4 timed steps, launch counts
@@ -182,8 +201,15 @@ Phases (any failure exits non-zero; nothing is caught):
    pairs capacity drops;
 22. [train zamba2-2.7b] — as 20 for zamba2-2.7b whole (remat, f32
    moments): 18 K6 and 9 K7 launches per step, all SIMT (head dim 80);
-   the model flops count the Mamba2 projections, the SSD scan's products,
+   the Mamba2 projections, the SSD scan's products,
    the shared blocks once per segment and the unembedding;
+22a. [train rwkv6-3b] — as 20 for rwkv6-3b whole (remat, f32 moments):
+   no K6 or K7 launch; the model flops count the time and channel mixes'
+   projections and LoRAs, the wkv scan's products and the unembedding;
+22b. [train whisper-tiny] — as 20 for whisper-tiny whole, B = 8 x 448
+   tokens with 1500 stub frames each (remat on the decoder, f32 moments):
+   K6 4 times without a mask (the encoder, not rematerialised) and 8
+   times causal, K7 4 + 4, all wgmma, per step by mask;
 23. [train check] — one step's loss and gradients at full width of
    granite-3-2b with 4 layers, of deepseek-v3's 3 dense layers and of
    zamba2-2.7b with 12 layers: bf16 with the kernels, bf16 plain, f32
@@ -191,7 +217,8 @@ Phases (any failure exits non-zero; nothing is caught):
    gradient leaf against f32, the kernel run's worst no more than 1.5 x
    the plain run's; and deepseek-v3 at REDUCED width (MoE layers, MLA,
    MTP) and the zamba2 cut (remat on), each in f32, kernels against
-   plain, every gradient leaf within 1e-4 of its largest element;
+   plain, every gradient leaf within 1e-4 of its largest element; and
+   whisper-tiny whole, both ways;
 24. [examples] — examples/torch_*.py on the card through their ``run``:
    quickstart, the serving example (accounting balances, with drops), the
    flow classifier (held-out accuracy > 0.85) and LM training (the loss
@@ -1351,14 +1378,41 @@ ZAMBA_HEADS, ZAMBA_D = 32, 80
 
 def check_flash_attention_zamba2(dev):
     """K6 and K7 at zamba2-2.7b's attention shape (q, k, v, o, do (128,
-    1024, 80), group 1, causal), bf16 on the SIMT kernels. K6 held against
-    its plain version in bf16 and f32 (:func:`hold_k6_against_plain`); K7
-    from K6's o and lse (its lse within LSE_TOL of the plain logsumexp) in
-    f32 within BWD_TOL of max |grad| and in bf16 no further from the f32
-    plain gradient than the bf16 plain gradient is, x B_RATIO. Each timed
-    in turns with its plain version and by its device time, beside its
-    bound and SDPA's time on the same inputs (the forward; the forward +
-    backward minus the forward). Returns (K6's entry, K7's entry)."""
+    1024, 80), group 1, causal), bf16 on the SIMT kernels, by
+    :func:`check_attention_at`. Returns (K6's entry, K7's entry)."""
+    return check_attention_at(dev, "zamba2", SERVE_B * ZAMBA_HEADS,
+                              SERVE_B * ZAMBA_HEADS, SERVE_PROMPT, ZAMBA_D,
+                              True, "simt", 31)
+
+
+# K6 at whisper-tiny's encoder prefill shape (B = 4 x 6 heads over its 1500
+# frames, head dim 64, group 1, full attention) and K7 at its encoder
+# training shape (B = 8 x 6 heads)
+WHISPER_HEADS, WHISPER_FRAMES, WHISPER_D = 6, 1500, 64
+WHISPER_TRAIN_B = 8
+
+
+def check_flash_attention_whisper(dev):
+    """K6 and K7 non-causal at whisper-tiny's encoder shapes (K6: q, k, v
+    (24, 1500, 64); K7: (48, 1500, 64); group 1), bf16 on the wgmma
+    kernels, by :func:`check_attention_at`. Returns (K6's entry, K7's
+    entry)."""
+    return check_attention_at(dev, "whisper", SERVE_B * WHISPER_HEADS,
+                              WHISPER_TRAIN_B * WHISPER_HEADS,
+                              WHISPER_FRAMES, WHISPER_D, False, "wgmma", 37)
+
+
+def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed):
+    """K6 at (bh6, S, D) and K7 at (bh7, S, D) (q, k, v, o, do, group 1,
+    ``causal``), bf16 on ``variant``'s kernels. K6 held against its plain
+    version in bf16 and f32 (:func:`hold_k6_against_plain`; K6 runs on
+    the first bh6 heads of K7's inputs); K7 from K6's o and lse (its lse
+    within LSE_TOL of the plain logsumexp) in f32 within BWD_TOL of max
+    |grad| and in bf16 no further from the f32 plain gradient than the
+    bf16 plain gradient is, x B_RATIO. Each timed in turns with its plain
+    version and by its device time, beside its bound and SDPA's time on
+    the same inputs (the forward; the forward + backward minus the
+    forward). Returns (K6's entry, K7's entry)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
@@ -1366,111 +1420,132 @@ def check_flash_attention_zamba2(dev):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention import ref as REF
 
-    gen = torch.Generator(device=dev).manual_seed(31)
-    BH, S, D = SERVE_B * ZAMBA_HEADS, SERVE_PROMPT, ZAMBA_D
-    require(K.variant(torch.bfloat16, D, D) == "simt",
-            "zamba2's head dim 80 should run K6's and K7's SIMT kernels")
-    shape = f"q/k/v/o ({BH}, {S}, {D}), group 1, causal, bf16 (f32 too)"
-    pairs = attention_pairs(S, S, True) * BH
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    require(K.variant(torch.bfloat16, D, D) == variant,
+            f"{tag}'s head dim {D} should run K6's and K7's {variant} "
+            f"kernels in bf16")
+    mask = "causal" if causal else "full (non-causal)"
+    shape6 = f"q/k/v/o ({bh6}, {S}, {D}), group 1, {mask}, bf16 (f32 too)"
+    shape7 = f"q/k/v/o/do ({bh7}, {S}, {D}), group 1, {mask}, bf16 (f32 too)"
+    pairs = attention_pairs(S, S, causal)
     # the bf16 case is timed; the f32 one is only held
     errs6, ratios6, errs7, lse_errs = {}, {}, {}, {}
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
-        q, k, v = attention_inputs(gen, dev, BH, S, S, D, D, 1, dtype)
-        do = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
-        errs6[dt], ratio = hold_k6_against_plain(f"zamba2 {dt}", q, k, v, 1,
-                                                 True, "simt")
+        want_v = variant if dt == "bfloat16" else "simt"
+        q, k, v = attention_inputs(gen, dev, bh7, S, S, D, D, 1, dtype)
+        do = torch.randn(bh7, S, D, generator=gen, device=dev).to(dtype)
+        q6, k6, v6 = q[:bh6], k[:bh6], v[:bh6]
+        errs6[dt], ratio = hold_k6_against_plain(f"{tag} {dt}", q6, k6, v6,
+                                                 1, causal, want_v)
         if ratio is not None:
             ratios6[dt] = ratio
-        o, lse = K.flash_attention_cuda(q, k, v, with_lse=True)
-        _, want_lse = REF.flash_attention_lse_ref(q, k, v)
+        o, lse = K.flash_attention_cuda(q, k, v, causal=causal,
+                                        with_lse=True)
+        _, want_lse = REF.flash_attention_lse_ref(q, k, v, causal=causal)
         lse_errs[dt] = float((lse - want_lse).abs().max())
         require(lse_errs[dt] <= LSE_TOL,
-                f"flash_attention's lse (zamba2, {dt}) differs from the "
+                f"flash_attention's lse ({tag}, {dt}) differs from the "
                 f"plain logsumexp by {lse_errs[dt]:.3e}")
         before = dict(BK.KERNEL.launches_by_variant)
-        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
         require(BK.KERNEL.launches_by_variant
-                == {**before, "simt": before["simt"] + 1},
-                f"flash_attention_bwd (zamba2, {dt}) did not count one simt "
-                f"launch")
-        want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do)
+                == {**before, want_v: before[want_v] + 1},
+                f"flash_attention_bwd ({tag}, {dt}) did not count one "
+                f"{want_v} launch")
+        want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
+                                           causal=causal)
         torch.cuda.synchronize()
         require(all(bool(torch.isfinite(g.float()).all()) for g in got),
-                f"flash_attention_bwd (zamba2, {dt}) gave non-finite "
+                f"flash_attention_bwd ({tag}, {dt}) gave non-finite "
                 f"gradients")
         errs7[dt] = grad_err(got, want)
         if dt == "float32":
             require(errs7[dt] <= BWD_TOL,
-                    f"flash_attention_bwd (zamba2, f32) differs from its "
+                    f"flash_attention_bwd ({tag}, f32) differs from its "
                     f"plain version: {errs7[dt]:.3e} of max |grad| > "
                     f"{BWD_TOL:g}")
-            del q, k, v, do, o, lse, want_lse, want, got
+            del q, k, v, q6, k6, v6, do, o, lse, want_lse, want, got
             torch.cuda.empty_cache()
             continue
         f32 = REF.flash_attention_bwd_ref(
-            *(t.float() for t in (q, k, v, o)), want_lse, do.float())
+            *(t.float() for t in (q, k, v, o)), want_lse, do.float(),
+            causal=causal)
         err_k, err_p = grad_err(got, f32), grad_err(want, f32)
         abs7 = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(got, want))
-        log(f"[kernel] flash_attention_bwd at zamba2's shape, bf16 (simt) "
-            f"vs the f32 plain gradient: kernel {err_k:.3e}, plain bf16 "
-            f"{err_p:.3e} (held: kernel <= {B_RATIO:g} x plain); kernel vs "
-            f"plain bf16 {errs7[dt]:.3e}")
+        log(f"[kernel] flash_attention_bwd at {tag}'s shape, bf16 "
+            f"({variant}) vs the f32 plain gradient: kernel {err_k:.3e}, "
+            f"plain bf16 {err_p:.3e} (held: kernel <= {B_RATIO:g} x "
+            f"plain); kernel vs plain bf16 {errs7[dt]:.3e}")
         require(err_k <= B_RATIO * err_p,
-                "flash_attention_bwd (zamba2, bf16) is further from the f32 "
+                f"flash_attention_bwd ({tag}, bf16) is further from the f32 "
                 "gradient than the plain bf16 gradient is")
         del f32, got, want, want_lse
     torch.cuda.empty_cache()
-    log(f"[kernel] zamba2's attention {shape}: K6 max abs err vs plain "
-        f"{errs6}, bf16 distance ratio {ratios6}; K7 of max |grad| vs plain "
-        f"{ {n: f'{e:.3e}' for n, e in errs7.items()} }; K6's lse vs the "
-        f"plain logsumexp {lse_errs}")
+    log(f"[kernel] {tag}'s attention, K6 {shape6}, K7 {shape7}: K6 max abs "
+        f"err vs plain {errs6}, bf16 distance ratio {ratios6}; K7 of max "
+        f"|grad| vs plain { {n: f'{e:.3e}' for n, e in errs7.items()} }; "
+        f"K6's lse vs the plain logsumexp {lse_errs}")
 
-    q4, k4, v4, do4 = (t.view(SERVE_B, ZAMBA_HEADS, S, D)
-                       for t in (q, k, v, do))
-    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    def sdpa(bh, backward):
+        """SDPA on the first ``bh`` heads: the forward, or the forward +
+        backward."""
+        leaves = [t[:bh].detach().clone().view(1, bh, S, D)
+                  .requires_grad_() for t in (q, k, v)]
+        grad_out = do[:bh].view(1, bh, S, D)
+        if not backward:
+            def fwd():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(*leaves,
+                                                          is_causal=causal)
+            return fwd
 
-    def sdpa_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(*leaves, is_causal=True)
+        def fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            torch.autograd.grad(out, leaves, grad_out)
+        return fwd_bwd
 
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-        torch.autograd.grad(out, leaves, do4)
-
+    fwd6, fwd7, fwd_bwd7 = sdpa(bh6, False), sdpa(bh7, False), sdpa(bh7,
+                                                                     True)
     for _ in range(3):                  # its first calls set up
-        sdpa_fwd_bwd()
-        sdpa_fwd()
+        fwd_bwd7()
+        fwd7()
+        fwd6()
     torch.cuda.synchronize()
-    lib_fwd_ms, lib_fwd_us = time_ms(sdpa_fwd, 10), device_us(None, sdpa_fwd)
-    lib_ms = time_ms(sdpa_fwd_bwd, 10) - lib_fwd_ms
-    lib_us = device_us(None, sdpa_fwd_bwd, 5) - lib_fwd_us
-    lib_err = float((sdpa_fwd().reshape(BH, S, D).float()
-                     - o.float()).abs().max())
+    lib6_ms, lib6_us = time_ms(fwd6, 10), device_us(None, fwd6)
+    lib7_ms = time_ms(fwd_bwd7, 10) - time_ms(fwd7, 10)
+    lib7_us = device_us(None, fwd_bwd7, 5) - device_us(None, fwd7)
+    lib_err = float((fwd6().reshape(bh6, S, D).float()
+                     - o[:bh6].float()).abs().max())
+    sdpa_call = ("scaled_dot_product_attention(is_causal)" if causal else
+                 "scaled_dot_product_attention (no mask)")
+    q6, k6, v6 = q[:bh6], k[:bh6], v[:bh6]
 
     entries = []
-    for name, kernel, call, plain, n_ops, n_bytes, lib in (
-            ("flash_attention", K.KERNEL,
-             lambda: ops.flash_attention(q, k, v),
-             lambda: ops.flash_attention(q, k, v, backend="ref"),
-             2 * (D + D) * pairs, (q.numel() * 4) * 2,
-             (lib_fwd_ms, lib_fwd_us,
-              "one scaled_dot_product_attention(is_causal) call; max abs "
-              f"diff to K6 {lib_err:.3e}")),
-            ("flash_attention_bwd", BK.KERNEL,
-             lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do),
-             lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do),
-             2 * (2 * D + 2 * D + D) * pairs,
-             2 * BH * S * (4 * D + 4 * D) + 4 * BH * S,
-             (lib_ms, lib_us,
-              "scaled_dot_product_attention(is_causal) forward + backward "
-              "minus its forward, on the same inputs"))):
+    for name, kernel, shape, call, plain, n_ops, n_bytes, lib in (
+            ("flash_attention", K.KERNEL, shape6,
+             lambda: ops.flash_attention(q6, k6, v6, causal=causal),
+             lambda: ops.flash_attention(q6, k6, v6, causal=causal,
+                                         backend="ref"),
+             2 * (D + D) * pairs * bh6, (q6.numel() * 4) * 2,
+             (lib6_ms, lib6_us,
+              f"one {sdpa_call} call; max abs diff to K6 {lib_err:.3e}")),
+            ("flash_attention_bwd", BK.KERNEL, shape7,
+             lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                 causal=causal),
+             lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                 causal=causal),
+             2 * (2 * D + 2 * D + D) * pairs * bh7,
+             2 * bh7 * S * (4 * D + 4 * D) + 4 * bh7 * S,
+             (lib7_ms, lib7_us,
+              f"{sdpa_call} forward + backward minus its forward, on the "
+              f"same inputs"))):
         ms, plain_ms = in_turns(plain, call, 3)
         dev_time = device_us(kernel, call, 5)
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
         entries.append({
-            "shape": shape, "variant": "simt", "ms": ms,
+            "shape": shape, "variant": variant, "ms": ms,
             "plain_ms": plain_ms, "device_us": dev_time, "bound_ms": b_ms,
             "bound_by": b_by, "n_bytes": n_bytes, "n_ops": n_ops,
             "bound_share": b_ms * 1e3 / dev_time, "library_ms": lib[0],
@@ -1478,14 +1553,14 @@ def check_flash_attention_zamba2(dev):
             "max_abs_err": (errs6["bfloat16"] if kernel is K.KERNEL
                             else abs7),
             "errs": errs6 if kernel is K.KERNEL else errs7})
-        log(f"[kernel] {name} at zamba2's shape {shape}: simt kernel "
+        log(f"[kernel] {name} at {tag}'s shape {shape}: {variant} kernel "
             f"{ms:.5f} ms, device {dev_time:.3f} us, plain {plain_ms:.5f} "
             f"ms, bound {b_ms * 1e3:.3f} us by {b_by} ({n_bytes / 1e6:.1f} "
             f"MB, {n_ops:.4g} operations), {100 * b_ms * 1e3 / dev_time:.2f}"
             f" % of the bound; library {lib[0]:.5f} ms, device "
             f"{lib[1]:.3f} us: the kernel takes {dev_time / lib[1]:.2f}x "
             f"its time ({lib[2]})")
-    del q, k, v, o, lse, do, q4, k4, v4, do4, leaves
+    del q, k, v, q6, k6, v6, o, lse, do
     torch.cuda.empty_cache()
     return entries
 
@@ -2798,25 +2873,41 @@ def golden(dev):
 # -- phase 15: serving at full width -------------------------------------------
 
 def attention_blocks(cfg) -> int:
-    """Attention calls of one forward: one per layer, or for the hybrid
-    family one per segment (its shared blocks)."""
+    """Attention calls of one forward: one per layer, for the hybrid
+    family one per segment (its shared blocks), for the encdec family one
+    per encoder and one per decoder layer (cross attention is plain), and
+    none for the ssm family."""
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import _plan
         return _plan(cfg)[0]
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return cfg.encdec.num_encoder_layers + cfg.num_layers
     return cfg.num_layers
 
 
-def generate(model, params, tokens, gen_steps, forced=None):
-    """Prefill ``tokens`` (B, P), then ``gen_steps - 1`` decode steps into a
-    SERVE_CACHE-row cache: greedy, or fed the tokens of ``forced`` (B,
-    gen_steps). Returns (tokens (B, gen_steps), [prefill logits, then each
-    decode step's logits] in f32)."""
+def blocks_by_kind(cfg) -> dict:
+    """:func:`attention_blocks` by mask: {"causal": n, "full": n}; only
+    the encdec family's encoder attends without a mask."""
+    full = cfg.encdec.num_encoder_layers if cfg.family == "encdec" else 0
+    return {"causal": attention_blocks(cfg) - full, "full": full}
+
+
+def generate(model, params, tokens, gen_steps, forced=None, extra=None,
+             cache_len=None):
+    """Prefill ``tokens`` (B, P) (with ``extra``, e.g. whisper's frames, in
+    the batch), then ``gen_steps - 1`` decode steps into a ``cache_len``-row
+    cache (default SERVE_CACHE): greedy, or fed the tokens of ``forced``
+    (B, gen_steps). Returns (tokens (B, gen_steps), [prefill logits, then
+    each decode step's logits] in f32)."""
     import torch
     from repro_torch.launch.serve import build_cache
 
     B, P = tokens.shape
-    logits, pcache = model.prefill(params, {"tokens": tokens})
-    cache = build_cache(model, pcache, B, SERVE_CACHE)
+    logits, pcache = model.prefill(params, {"tokens": tokens,
+                                            **(extra or {})})
+    cache = build_cache(model, pcache, B, cache_len or SERVE_CACHE)
     del pcache
     pos = torch.full((B,), P, dtype=torch.int64, device=tokens.device)
     out, seen = [], [logits.float()]
@@ -2915,21 +3006,33 @@ def upcast(params):
             for k, v in params.items()}
 
 
-def logit_checks(tag, cfg, params, prompt, note_b=""):
+def hidden_fn(cfg):
+    """The full forward to the final hidden states of ``cfg``'s family:
+    (params, batch, cfg) -> (B, S, d)."""
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import lm as LM
+    from repro_torch.models import rwkv_lm as RW
+    from repro_torch.models import whisper as WH
+    return {"hybrid": HY.hybrid_hidden, "ssm": RW.rwkv_hidden,
+            "encdec": WH.whisper_hidden}.get(cfg.family, LM.lm_hidden)
+
+
+def logit_checks(tag, cfg, params, prompt, note_b="", extra=None,
+                 cache_len=None):
     """Checks (a)-(c) of a bf16 model ``cfg`` with ``params`` on one token
-    stream, the f32 kernel run's greedy tokens from ``prompt``, all
-    measured and printed here and held by :func:`require_logit_checks`:
-    (a) the f32 model, kernel run against plain run, prefill and
-    teacher-forced decode logits; (b) bf16, each run's distance to the f32
-    kernel run; (c) the f32 decode step at position P against a full
-    forward over P + 1 tokens (for the hybrid family it carries the Mamba2
-    and conv states across the prefill). The f32 prefill must run K6's
-    simt variant once per attention block."""
+    stream, the f32 kernel run's greedy tokens from ``prompt`` (with
+    ``extra`` in the batch, e.g. whisper's frames, which the f32 runs get
+    in f32), all measured and printed here and held by
+    :func:`require_logit_checks`: (a) the f32 model, kernel run against
+    plain run, prefill and teacher-forced decode logits; (b) bf16, each
+    run's distance to the f32 kernel run; (c) the f32 decode step at
+    position P against a full forward over P + 1 tokens (for the hybrid
+    family it carries the Mamba2 and conv states across the prefill). The
+    f32 prefill must run K6's simt variant once per attention block.
+    SERVE_GEN greedy tokens into ``cache_len`` rows."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
-    from repro_torch.models import hybrid as HY
     from repro_torch.models import layers as L
-    from repro_torch.models import lm as LM
     from repro_torch.models.registry import Model
 
     dev = prompt.device
@@ -2940,18 +3043,24 @@ def logit_checks(tag, cfg, params, prompt, note_b=""):
     m32, p32 = Model(cfg32, device=dev), Model(cfg32, device=dev,
                                                backend="ref")
     P = prompt.shape[1]
+    gen = SERVE_GEN
+    extra = extra or {}
+    extra32 = {n: t.float() for n, t in extra.items()}
+    run = dict(cache_len=cache_len)
     counts = dict(K6.launches_by_variant)
-    toks32, lg32 = generate(m32, params32, prompt, SERVE_GEN)
+    toks32, lg32 = generate(m32, params32, prompt, gen, extra=extra32, **run)
     require(K6.launches_by_variant == {**counts, "simt": counts["simt"]
                                        + attention_blocks(cfg)},
             f"{tag} the f32 prefill did not run flash_attention's simt "
             "variant once per attention block")
-    _, lg32_ref = generate(p32, params32, prompt, SERVE_GEN, forced=toks32)
-    _, lgb = generate(model, params, prompt, SERVE_GEN, forced=toks32)
-    _, lgb_ref = generate(plain, params, prompt, SERVE_GEN, forced=toks32)
-    hidden = HY.hybrid_hidden if cfg.family == "hybrid" else LM.lm_hidden
-    h = hidden(params32, {"tokens": torch.cat([prompt, toks32[:, :1]], 1)},
-               cfg32)
+    _, lg32_ref = generate(p32, params32, prompt, gen, forced=toks32,
+                           extra=extra32, **run)
+    _, lgb = generate(model, params, prompt, gen, forced=toks32,
+                      extra=extra, **run)
+    _, lgb_ref = generate(plain, params, prompt, gen, forced=toks32,
+                          extra=extra, **run)
+    h = hidden_fn(cfg)(params32, {
+        "tokens": torch.cat([prompt, toks32[:, :1]], 1), **extra32}, cfg32)
     fwd = L.logits_fn(params32["embed"], h[:, -1:],
                       cfg.tie_embeddings)[:, 0].float()
     r = {"a": (logit_ratio(lg32[:1], lg32_ref[:1]),
@@ -2963,7 +3072,7 @@ def logit_checks(tag, cfg, params, prompt, note_b=""):
          "model": model, "plain": plain, "m32": m32, "params32": params32}
     log(f"{tag} (a) f32 kernel vs plain: max |dlogit| / max |logit| "
         f"prefill {r['a'][0]:.3e}, teacher-forced decode over "
-        f"{SERVE_GEN - 1} steps {r['a'][1]:.3e} (tolerance {A_TOL:g})")
+        f"{gen - 1} steps {r['a'][1]:.3e} (tolerance {A_TOL:g})")
     log(f"{tag} (b) bf16 kernel vs plain: prefill {r['b'][0]:.3e}, decode "
         f"{r['b'][1]:.3e}; each bf16 run against the f32 run: kernel "
         f"{r['err_k']:.3e}, plain {r['err_p']:.3e} (held: kernel <= "
@@ -2982,19 +3091,33 @@ def require_logit_checks(tag, r) -> None:
     require(r["c"] <= A_TOL, f"{tag} (c) decode disagrees with the forward")
 
 
-def serve_requests(tag, cfg, dev, n_timed: int, variant: str):
+def request_batch(cfg, tokens, i: int):
+    """Request ``i``'s batch: its tokens and, for the encdec family, the
+    stub frames ``data.tokens.add_modality_stub`` draws for step ``i``."""
+    from repro_torch.data import tokens as DATA
+    return DATA.add_modality_stub({"tokens": tokens}, cfg, i)
+
+
+def serve_requests(tag, cfg, dev, n_timed: int, variant,
+                   prompt_len=SERVE_PROMPT, cache_len=SERVE_CACHE):
     """``cfg``'s model on the card with seeded random weights: one warm-up
-    request and ``n_timed`` timed ones of SERVE_B x SERVE_PROMPT-token
-    prompts and SERVE_GEN greedy tokens, launch counts from 0 before the
-    timed ones, each prefill required to launch flash_attention once per
-    attention block (:func:`attention_blocks`), all on ``variant``. Returns (model, params, prompts, runs,
-    launches over the timed requests, flash_attention's by variant)."""
+    request and ``n_timed`` timed ones of SERVE_B x ``prompt_len``-token
+    prompts (for the encdec family with the stub frames of
+    :func:`request_batch`) and SERVE_GEN greedy tokens into ``cache_len``
+    rows,
+    launch counts from 0 before the timed ones, each prefill required to
+    launch flash_attention once per attention block
+    (:func:`attention_blocks`), by mask as :func:`blocks_by_kind` says,
+    all on ``variant`` (None for a model without attention). Returns
+    (model, params, prompts, runs, launches over the timed requests,
+    flash_attention's by variant)."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
     from repro_torch.launch.serve import serve
     from repro_torch.models.param import count_params
     from repro_torch.models.registry import Model
 
+    P, G, C = prompt_len, SERVE_GEN, cache_len
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -3004,53 +3127,61 @@ def serve_requests(tag, cfg, dev, n_timed: int, variant: str):
         f"{cfg.num_kv_heads} heads, {cfg.dtype}) made on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompts = [torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+    prompts = [torch.randint(0, cfg.vocab_size, (SERVE_B, P),
                              generator=gen, device=dev)
                for _ in range(n_timed + 1)]
-    args = (SERVE_PROMPT, SERVE_GEN, SERVE_CACHE)
+    args = (P, G, C)
 
-    serve(model, params, {"tokens": prompts[0]}, *args)          # warm-up
+    serve(model, params, request_batch(cfg, prompts[0], 0), *args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
     for k in kernels:
         k.reset_counts()
+    variant_count = lambda: K6.launches_by_variant[variant] if variant else 0
     runs = []
-    for prompt in prompts[1:]:
+    for i, prompt in enumerate(prompts[1:], 1):
+        batch = request_batch(cfg, prompt, i)
         before, stats = K6.launches, {}
-        on_variant = K6.launches_by_variant[variant]
-        toks, tps = serve(model, params, {"tokens": prompt}, *args,
-                          stats=stats)
+        on_variant = variant_count()
+        kinds = dict(K6.launches_by_kind)
+        toks, tps = serve(model, params, batch, *args, stats=stats)
         runs.append((toks, tps, stats, K6.launches - before,
-                     K6.launches_by_variant[variant] - on_variant))
+                     variant_count() - on_variant,
+                     {n: K6.launches_by_kind[n] - kinds[n] for n in kinds}))
     launches = {k.name: k.launches for k in kernels}
     variants = dict(K6.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
-    for _, _, _, n, n_on in runs:
+    for _, _, _, n, n_on, by_kind in runs:
         require(n == attention_blocks(cfg),
                 f"{tag} a request launched flash_attention {n} times, "
                 f"expected {attention_blocks(cfg)} (one per attention "
                 f"block)")
-        require(n_on == n, f"{tag} {n - n_on} of a bf16 prefill's {n} "
+        require(by_kind == blocks_by_kind(cfg),
+                f"{tag} a request launched flash_attention {by_kind} by "
+                f"mask, expected {blocks_by_kind(cfg)}")
+        require(variant is None or n_on == n,
+                f"{tag} {n - n_on} of a bf16 prefill's {n} "
                            f"flash_attention launches were not on the "
                            f"{variant} variant")
     prefill_ms = [r[2]["prefill_s"] * 1e3 for r in runs]
-    step_ms = [r[2]["decode_s"] * 1e3 / (SERVE_GEN - 1) for r in runs]
+    step_ms = [r[2]["decode_s"] * 1e3 / (G - 1) for r in runs]
     total_s = [r[2]["prefill_s"] + r[2]["decode_s"] for r in runs]
     log(f"{tag} {len(runs)} timed requests of B={SERVE_B} x "
-        f"{SERVE_PROMPT}-token prompts, {SERVE_GEN} greedy tokens, cache "
-        f"{SERVE_CACHE}: prefill ms {[round(x, 3) for x in prefill_ms]}, "
+        f"{P}-token prompts, {G} greedy tokens, cache "
+        f"{C}: prefill ms {[round(x, 3) for x in prefill_ms]}, "
         f"decode ms/step {[round(x, 4) for x in step_ms]}")
     log(f"{tag} mean prefill {np.mean(prefill_ms):.3f} ms "
-        f"({SERVE_B * SERVE_PROMPT / np.mean(prefill_ms) * 1e3:.1f} prefill "
+        f"({SERVE_B * P / np.mean(prefill_ms) * 1e3:.1f} prefill "
         f"tok/s), decode {np.mean(step_ms):.4f} ms/step, generated "
         f"{np.mean([r[1] for r in runs]):.2f} tok/s "
-        f"({SERVE_B * SERVE_GEN / np.mean(total_s):.2f} from the mean "
+        f"({SERVE_B * G / np.mean(total_s):.2f} from the mean "
         f"request); max_memory_allocated {peak} B; flash_attention launches "
         f"per request {[r[3] for r in runs]} ({variant} "
-        f"{[r[4] for r in runs]}); launches {launches}")
+        f"{[r[4] for r in runs]}; by mask {[r[5] for r in runs]}); "
+        f"launches {launches}")
     for toks, *_ in runs:
-        require(toks.shape == (SERVE_B, SERVE_GEN)
+        require(toks.shape == (SERVE_B, G)
                 and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
                 f"{tag} generated tokens out of range")
     return model, params, prompts, runs, launches, variants
@@ -3188,6 +3319,164 @@ def serve_zamba2_phase(dev):
                             cfg.replace(num_layers=2 * cfg.hybrid.attn_every))
 
 
+# -- rwkv6-3b (ssm) and whisper-tiny (encdec) serving --------------------------
+
+RWKV_CHECK_LAYERS = 4
+# the card against the CPU: B x P tokens, two chunks of 128
+RWKV_CPU_B, RWKV_CPU_P = 2, 256
+CPU_TOL = 1e-4     # f32 logits and state leaves, card vs CPU, of their max
+# whisper's 448-token text context: 416-token prompts and 32 greedy tokens
+WHISPER_PROMPT, WHISPER_CACHE = 416, 448
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, on the CPU in f32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def serve_rwkv_phase(dev):
+    """rwkv6-3b whole (32 layers, d 2560, 40 heads of 64, vocabulary 65536;
+    3,094,620,160 parameters, bf16) served as :func:`serve_requests` does,
+    2 timed requests: no attention, so no K6 launch and no plain attention
+    call; then :func:`rwkv_checks` on a 4-layer cut with fresh seeded
+    weights. Returns the launch counts over the timed requests and
+    flash_attention's by variant."""
+    import torch
+    from repro_torch.configs import get_config
+    tag = "[serve rwkv6-3b]"
+    cfg = get_config("rwkv6-3b")
+    with PlainCalls() as plain:
+        model, params, prompts, runs, launches, variants = serve_requests(
+            tag, cfg, dev, 2, None)
+    log(f"{tag} plain attention calls {plain.calls}")
+    require(plain.calls == 0 and not any(launches.values()),
+            f"{tag} the attention-free model launched {launches} and made "
+            f"{plain.calls} plain attention calls")
+    del model, params, prompts, runs
+    torch.cuda.empty_cache()
+    rwkv_checks(dev, tag, cfg.replace(num_layers=RWKV_CHECK_LAYERS))
+    torch.cuda.empty_cache()
+    return launches, variants
+
+
+def rwkv_checks(dev, tag, cfg):
+    """On ``cfg`` (rwkv6-3b cut to a few layers) with seeded weights: (i)
+    the card's f32 prefill logits and every state leaf against the CPU's
+    run of the same parameters (RWKV_CPU_B x RWKV_CPU_P tokens), within
+    CPU_TOL of the largest element; (ii) bf16 on the same weights rounded:
+    the card's logits no further from the CPU's f32 logits than the CPU's
+    bf16 logits are, x B_RATIO; (iii) on the card in f32 at SERVE_B x
+    SERVE_PROMPT, a prefill over P + 1 tokens (its chunk falls to 41)
+    against a prefill over P (chunks of 128) plus one decode step: the
+    logits within A_TOL of the largest logit and every state leaf within
+    A_TOL of its largest element."""
+    import torch
+    from repro_torch.launch.serve import build_cache
+    from repro_torch.models.registry import Model
+    from repro_torch.optim import adamw
+
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(2))
+    params32 = upcast(params)
+    tokens = torch.randint(0, cfg.vocab_size, (RWKV_CPU_B, RWKV_CPU_P),
+                           generator=torch.Generator().manual_seed(3))
+    cpu = torch.device("cpu")
+    on_cpu = lambda tree: adamw.tree_map(lambda t: t.to(cpu), tree)
+    runs = {}
+    for name, c, p, d in (("card f32", cfg32, params32, dev),
+                          ("cpu f32", cfg32, on_cpu(params32), cpu),
+                          ("card bf16", cfg, params, dev),
+                          ("cpu bf16", cfg, on_cpu(params), cpu)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            runs[name] = Model(c, device=d).prefill(p, {"tokens":
+                                                        tokens.to(d)})
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"{tag} {name} prefill of {RWKV_CPU_B} x {RWKV_CPU_P} tokens "
+            f"on {cfg.num_layers} layers: {time.perf_counter() - t0:.2f} s")
+    (lg, st), (lg_cpu, st_cpu) = runs["card f32"], runs["cpu f32"]
+    errs = {"logits": rel_err(lg, lg_cpu),
+            **{n: rel_err(st[n], st_cpu[n]) for n in st_cpu}}
+    err_card = rel_err(runs["card bf16"][0], lg_cpu)
+    err_cpu = rel_err(runs["cpu bf16"][0], lg_cpu)
+    log(f"{tag} (i) card vs CPU in f32, of each leaf's max: "
+        f"{ {n: f'{e:.3e}' for n, e in errs.items()} } (tolerance "
+        f"{CPU_TOL:g})")
+    log(f"{tag} (ii) bf16 logits against the CPU's f32: card {err_card:.3e}"
+        f", CPU {err_cpu:.3e} (held: card <= {B_RATIO:g} x CPU)")
+    require(max(errs.values()) <= CPU_TOL,
+            f"{tag} (i) the card's f32 prefill differs from the CPU's")
+    require(err_card <= B_RATIO * err_cpu,
+            f"{tag} (ii) the card's bf16 logits are further from f32 than "
+            "the CPU's bf16 logits are")
+    del runs, params
+    torch.cuda.empty_cache()
+
+    m32 = Model(cfg32, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT + 1),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(4), device=dev)
+    with torch.no_grad():
+        full, fstate = m32.prefill(params32, {"tokens": prompt})
+        _, pcache = m32.prefill(params32, {"tokens": prompt[:, :-1]})
+        cache = build_cache(m32, pcache, SERVE_B, SERVE_CACHE)
+        pos = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int64,
+                         device=dev)
+        step, cache = m32.decode(params32, prompt[:, -1:], pos, cache)
+    errs = {"logits": rel_err(step, full),
+            **{n: rel_err(cache[n], fstate[n]) for n in fstate}}
+    log(f"{tag} (iii) f32 prefill over {SERVE_PROMPT} tokens + one decode "
+        f"step vs a prefill over {SERVE_PROMPT + 1}, of each leaf's max: "
+        f"{ {n: f'{e:.3e}' for n, e in errs.items()} } (tolerance "
+        f"{A_TOL:g})")
+    require(max(errs.values()) <= A_TOL,
+            f"{tag} (iii) the decode step disagrees with the prefill over "
+            "P + 1 tokens")
+    del params32, full, fstate, pcache, cache
+    torch.cuda.empty_cache()
+
+
+def serve_whisper_phase(dev):
+    """whisper-tiny whole (4 encoder + 4 decoder layers, d 384, 6 heads of
+    64, 1500 stub frames, vocabulary 51865; 58,528,512 parameters, bf16)
+    served as :func:`serve_requests` does, B = SERVE_B, 416-token prompts
+    and 32 greedy tokens into its 448-token text context, 2 timed
+    requests: each prefill launches K6 4 times without a mask (the
+    encoder) and 4 times causal (the decoder), all wgmma; no plain
+    attention call; the encoder's time alone; then checks (a)-(c) on the
+    whole model. Returns the launch counts over the timed requests,
+    flash_attention's by variant and by mask."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.models import whisper as WH
+    tag = "[serve whisper-tiny]"
+    cfg = get_config("whisper-tiny")
+    with PlainCalls() as plain:
+        model, params, prompts, runs, launches, variants = serve_requests(
+            tag, cfg, dev, 2, "wgmma", WHISPER_PROMPT, WHISPER_CACHE)
+    kinds = dict(K6.launches_by_kind)
+    require(plain.calls == 0, f"{tag} {plain.calls} plain attention calls")
+    batch = request_batch(cfg, prompts[1], 1)
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: WH.encode(params, batch["frames"], cfg), 5)
+    log(f"{tag} the encoder alone over B={SERVE_B} x "
+        f"{cfg.encdec.num_frames} frames: {enc_ms:.3f} ms; K6 launches by "
+        f"mask over the timed requests {kinds}, by variant {variants}; "
+        f"plain attention calls {plain.calls}")
+    r = logit_checks(tag, cfg, params, prompts[1],
+                     extra={"frames": batch["frames"]},
+                     cache_len=WHISPER_CACHE)
+    require_logit_checks(tag, r)
+    del model, params, prompts, runs, r, batch
+    torch.cuda.empty_cache()
+    return launches, variants, kinds
+
+
 # -- phases 19-23: training at full width, and its checks ----------------------
 
 TRAIN_WARMUP, TRAIN_STEPS = 1, 4
@@ -3225,6 +3514,54 @@ def hybrid_flops(cfg, B: int, S: int) -> float:
     return 2.0 * weights * B * S + cfg.num_layers * scan + attn
 
 
+def ssm_flops(cfg, B: int, S: int) -> float:
+    """Model flops of one rwkv6 forward over B x S tokens: 2 per weight of
+    every matrix product per token (each layer's five d x d time-mix
+    projections r, k, v, g, out; its ddlerp LoRA, d x 5R and 5 x R x d,
+    and decay LoRA, d x R and R x d; the channel mix's d x d_ff pair and
+    its d x d receptance; the unembedding), plus each layer's wkv scan
+    (per chunk of K and head: the intra-chunk scores a . b, 2 D per kept
+    (t, s) pair, the diagonal's bonus counted with them, and their
+    product with v, 2 D per pair; per token and head the chunk state's
+    k v^T and the inter-chunk output a . S, 2 D^2 each)."""
+    from repro_torch.models.rwkv import LORA_R, MIX_R
+    d = cfg.d_model
+    D = cfg.resolved_head_dim
+    H = d // D
+    layer_w = (5 * d * d + 10 * MIX_R * d + 2 * LORA_R * d
+               + 2 * d * cfg.d_ff + d * d)
+    K = min(cfg.ssm.chunk_size, S)
+    while S % K:
+        K -= 1
+    scan = B * H * ((S // K) * attention_pairs(K, K, True) * 4 * D
+                    + S * 4 * D * D)
+    return (2.0 * (cfg.num_layers * layer_w + d * cfg.vocab_size) * B * S
+            + cfg.num_layers * scan)
+
+
+def encdec_flops(cfg, B: int, S: int) -> float:
+    """Model flops of one whisper forward over B x F frames and B x S
+    tokens: 2 per weight of every matrix product per frame or token (each
+    encoder layer's four attention projections and two FFN products per
+    frame; each decoder layer's four self-attention projections, the
+    cross attention's q and o, its two FFN products and the unembedding
+    per token, and the cross attention's k and v per frame), plus the
+    attention's two products (2 (D + Dv) per pair and head): the encoder
+    over all F^2 pairs, the decoder's causal self-attention and its cross
+    attention over S x F pairs."""
+    d, H, D = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    F, n_enc, n_dec = (cfg.encdec.num_frames, cfg.encdec.num_encoder_layers,
+                       cfg.num_layers)
+    attn_w = 4 * d * H * D
+    ffn_w = 2 * d * cfg.d_ff
+    per_frame = n_enc * (attn_w + ffn_w) + n_dec * 2 * d * H * D
+    per_token = n_dec * (attn_w + 2 * d * H * D + ffn_w) + d * cfg.vocab_size
+    pairs = (n_enc * attention_pairs(F, F, False)
+             + n_dec * (attention_pairs(S, S, True)
+                        + attention_pairs(S, F, False)))
+    return 2.0 * (per_frame * F + per_token * S) * B + B * H * pairs * 4 * D
+
+
 def train_flops(cfg, B: int, S: int) -> float:
     """Model flops of one forward over B x S tokens: 2 per weight of every
     matrix product a token goes through per token (attention's
@@ -3233,10 +3570,15 @@ def train_flops(cfg, B: int, S: int) -> float:
     three each; the unembedding; with multi-token prediction its
     projection, one more block and the unembedding again), plus the
     causal attention's two products (2 (D + Dv) per kept pair and head).
-    Pairs that capacity drops are counted as computed. The hybrid family:
-    :func:`hybrid_flops`."""
+    Pairs that capacity drops are counted as computed. The hybrid, ssm and
+    encdec families: :func:`hybrid_flops`, :func:`ssm_flops`,
+    :func:`encdec_flops`."""
     if cfg.family == "hybrid":
         return hybrid_flops(cfg, B, S)
+    if cfg.family == "ssm":
+        return ssm_flops(cfg, B, S)
+    if cfg.family == "encdec":
+        return encdec_flops(cfg, B, S)
     d, H = cfg.d_model, cfg.num_heads
     if cfg.mla:
         m = cfg.mla
@@ -3273,39 +3615,46 @@ def train_flops(cfg, B: int, S: int) -> float:
 
 class PlainCalls:
     """Counts calls of flash attention's plain forward and backward while
-    active (the training path must make none on the card)."""
+    active (the training and serving paths must make none on the card)."""
+
+    NAMES = ("flash_attention_ref", "flash_attention_lse_ref",
+             "flash_attention_bwd_ref")
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ref as REF
         self.ref, self.calls = REF, 0
-        self.saved = (REF.flash_attention_lse_ref, REF.flash_attention_bwd_ref)
+        self.saved = {n: getattr(REF, n) for n in self.NAMES}
 
         def counted(fn):
             def wrapper(*a, **k):
                 self.calls += 1
                 return fn(*a, **k)
             return wrapper
-        REF.flash_attention_lse_ref = counted(self.saved[0])
-        REF.flash_attention_bwd_ref = counted(self.saved[1])
+        for n, fn in self.saved.items():
+            setattr(REF, n, counted(fn))
         return self
 
     def __exit__(self, *exc):
-        (self.ref.flash_attention_lse_ref,
-         self.ref.flash_attention_bwd_ref) = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.ref, n, fn)
 
 
-def train_run(dev, tag, cfg, variant, steps, drops=False):
+def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
+              seq=TRAIN_S):
     """``cfg`` trained at full width with seeded random weights: AdamW with
     the reference's defaults and moments in ``cfg.opt_state_dtype``, B =
-    TRAIN_B x TRAIN_S tokens of data/tokens, TRAIN_WARMUP warm-up and
+    ``batch`` x ``seq`` tokens of data/tokens (for the encdec family with
+    the stub frames of ``add_modality_stub``), TRAIN_WARMUP warm-up and
     ``steps`` timed steps, launch counts from 0 before the timed ones:
     the loss, gnorm and lr per step, step ms, tokens/s, model flops over
     step time as a share of 989 TFLOP/s, max_memory_allocated, and a
     1-step profile. Each step must launch K6 for every attention block's
     forward (:func:`attention_blocks`) and again for its remat, K7 once
-    per block, all on ``variant``, and no plain attention. ``drops``: also the share of pairs each MoE layer
-    drops by capacity. Returns the launch counts over the timed steps and
-    K7's by variant."""
+    per block, all on ``variant`` (None for a model without attention),
+    by mask as :func:`want_kinds` says, and no plain attention.
+    ``drops``: also the share of pairs each MoE layer drops by capacity.
+    Returns the launch counts over the timed steps, K7's by variant, and
+    K6's and K7's by mask."""
     import torch
     from repro_torch.data import tokens as DATA
     from repro_torch.configs import TrainConfig
@@ -3328,7 +3677,10 @@ def train_run(dev, tag, cfg, variant, steps, drops=False):
         f"optimizer state made on the card in {time.perf_counter() - t0:.2f} "
         f"s; {torch.cuda.memory_allocated()} B allocated")
     step = ST.make_train_step(model, tcfg)
-    batches = [DATA.batch_at(i, cfg, TRAIN_B, TRAIN_S, device=dev)
+    B, S = batch, seq
+    on_variant = lambda k: k.launches_by_variant[variant] if variant else 0
+    batches = [DATA.add_modality_stub(DATA.batch_at(i, cfg, B, S,
+                                                    device=dev), cfg, i)
                for i in range(TRAIN_WARMUP + steps + 1)]
     for b in batches[:TRAIN_WARMUP]:
         state, _ = step(state, b)
@@ -3339,19 +3691,20 @@ def train_run(dev, tag, cfg, variant, steps, drops=False):
             shares = moe_drops(lambda: model.loss(state["params"],
                                                   batches[-1]))
         log(f"{tag} pairs dropped by capacity (C = "
-            f"{M.capacity(cfg, TRAIN_B * TRAIN_S)} per expert over "
-            f"{TRAIN_B * TRAIN_S} tokens x top-{cfg.moe.top_k}) per MoE "
+            f"{M.capacity(cfg, B * S)} per expert over "
+            f"{B * S} tokens x top-{cfg.moe.top_k}) per MoE "
             f"layer of a step: {[f'{x:.4%}' for x in shares]}")
     kernels = all_kernels()
     for k in kernels:
         k.reset_counts()
     want6, want7 = want_launches(cfg)
+    kinds6, kinds7 = want_kinds(cfg)
     rows = []
     with PlainCalls() as plain_calls:
         for i, b in enumerate(batches[TRAIN_WARMUP:-1]):
             n6, n7 = K6.launches, K7.launches
-            v6, v7 = (K6.launches_by_variant[variant],
-                      K7.launches_by_variant[variant])
+            v6, v7 = on_variant(K6), on_variant(K7)
+            c6, c7 = dict(K6.launches_by_kind), dict(K7.launches_by_kind)
             t0 = time.perf_counter()
             state, m = step(state, b)
             torch.cuda.synchronize()
@@ -3359,19 +3712,22 @@ def train_run(dev, tag, cfg, variant, steps, drops=False):
             rows.append((dt, float(m["loss"]), float(m["gnorm"]),
                          float(m["lr"]), K6.launches - n6,
                          K7.launches - n7,
-                         K6.launches_by_variant[variant] - v6,
-                         K7.launches_by_variant[variant] - v7))
+                         on_variant(K6) - v6, on_variant(K7) - v7,
+                         {n: K6.launches_by_kind[n] - c6[n] for n in c6},
+                         {n: K7.launches_by_kind[n] - c7[n] for n in c7}))
     launches = {k.name: k.launches for k in kernels}
     variants = dict(K7.launches_by_variant)
+    kinds = {"flash_attention": dict(K6.launches_by_kind),
+             "flash_attention_bwd": dict(K7.launches_by_kind)}
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_B * TRAIN_S
-    fwd = train_flops(cfg, TRAIN_B, TRAIN_S)
+    tokens = B * S
+    fwd = train_flops(cfg, B, S)
     step_s = float(np.mean([r[0] for r in rows]))
-    for i, (dt, loss, gnorm, lr, n6, n7, w6, w7) in enumerate(rows):
+    for i, (dt, loss, gnorm, lr, n6, n7, w6, w7, k6, k7) in enumerate(rows):
         log(f"{tag} step {TRAIN_WARMUP + i}: loss {loss:.5f} gnorm "
             f"{gnorm:.5f} lr {lr:.3e}, {dt * 1e3:.3f} ms, flash_attention "
-            f"{n6} launches ({w6} {variant}), flash_attention_bwd {n7} "
-            f"({w7} {variant})")
+            f"{n6} launches ({w6} {variant}; by mask {k6}), "
+            f"flash_attention_bwd {n7} ({w7} {variant}; by mask {k7})")
         require(np.isfinite(loss) and np.isfinite(gnorm),
                 f"{tag} non-finite loss or gradient norm")
         require(n6 == want6 and n7 == want7,
@@ -3379,14 +3735,18 @@ def train_run(dev, tag, cfg, variant, steps, drops=False):
                 f"flash_attention_bwd {n7} times, expected {want6} "
                 f"(forward{' + remat' if want6 > want7 else ''}) and "
                 f"{want7}")
-        require(w6 == n6 and w7 == n7,
+        require(variant is None or (w6 == n6 and w7 == n7),
                 f"{tag} {n6 - w6} of a step's {n6} flash_attention and "
                 f"{n7 - w7} of its {n7} flash_attention_bwd launches did "
                 f"not run the {variant} kernels")
+        require(k6 == kinds6 and k7 == kinds7,
+                f"{tag} a step launched flash_attention {k6} and "
+                f"flash_attention_bwd {k7} by mask, expected {kinds6} and "
+                f"{kinds7}")
     require(plain_calls.calls == 0, f"{tag} {plain_calls.calls} calls of "
                                     "the plain attention on the card")
     share = lambda flops: 100 * flops / step_s / BF16_OPS_PER_S
-    log(f"{tag} {steps} timed steps of B={TRAIN_B} x {TRAIN_S} "
+    log(f"{tag} {steps} timed steps of B={B} x {S} "
         f"tokens: mean {step_s * 1e3:.3f} ms per step, "
         f"{tokens / step_s:.1f} tokens/s; model flops per step "
         f"{3 * fwd:.4e} (forward + backward: {share(3 * fwd):.2f} % of "
@@ -3397,7 +3757,7 @@ def train_run(dev, tag, cfg, variant, steps, drops=False):
                    lambda: step(state, batches[-1]), 1, "step")
     del state, batches
     torch.cuda.empty_cache()
-    return launches, variants
+    return launches, variants, kinds
 
 
 def train_phase(dev):
@@ -3440,6 +3800,36 @@ def train_zamba2_phase(dev):
                      TRAIN_MOE_STEPS)
 
 
+def train_rwkv_phase(dev):
+    """rwkv6-3b training at full width, not cut (32 layers, untied
+    vocabulary): remat, f32 moments, no attention, so no K6 or K7 launch
+    and no plain attention call."""
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6-3b")
+    require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
+            "[train rwkv6-3b] rwkv6-3b should train under remat='full' "
+            "with f32 moments")
+    return train_run(dev, "[train rwkv6-3b]", cfg, None,
+                     TRAIN_MOE_STEPS)
+
+
+def train_whisper_phase(dev):
+    """whisper-tiny training at full width, not cut: B = 8 x 448 tokens
+    with 1500 stub frames each, remat on the decoder, f32 moments: K6 4
+    times without a mask (the encoder, not rematerialised) and 2 x 4
+    causal (the decoder's forward and its remat), K7 4 + 4, all wgmma.
+    Returns the launch counts, K7's by variant and K6's and K7's by
+    mask."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-tiny")
+    require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
+            "[train whisper-tiny] whisper-tiny should train under "
+            "remat='full' with f32 moments")
+    return train_run(dev, "[train whisper-tiny]", cfg, "wgmma",
+                     TRAIN_MOE_STEPS, batch=WHISPER_TRAIN_B,
+                     seq=WHISPER_CACHE)
+
+
 def train_llama4_phase(dev):
     """llama4-scout at full width cut to 1 of its 48 layers: all 16
     experts whole, the shared expert, the full untied 202,048-row
@@ -3461,14 +3851,14 @@ def leaf_errs(grads, ref):
                                adamw.leaves(ref)) if b.numel()}
 
 
-def bf16_step_check(dev, cfg):
-    """One step's loss and gradients of the bf16 ``cfg`` at full width:
-    with the kernels, plain (backend="ref"), and an f32 copy on the plain
-    versions, on the same weights and batch; each bf16 run's gradients
-    are held against the f32 ones as soon as they exist, so at most one
-    bf16 gradient tree lives beside the f32 one. The kernel run must be
-    no further from f32 than the plain run is (x1.5), over the gradient
-    leaves' worst relative error."""
+def bf16_step_check(dev, cfg, batch=TRAIN_B, seq=TRAIN_S):
+    """One step's loss and gradients of the bf16 ``cfg`` at full width on
+    ``batch`` x ``seq`` tokens: with the kernels, plain (backend="ref"),
+    and an f32 copy on the plain versions, on the same weights and batch;
+    each bf16 run's gradients are held against the f32 ones as soon as
+    they exist, so at most one bf16 gradient tree lives beside the f32
+    one. The kernel run must be no further from f32 than the plain run is
+    (x1.5), over the gradient leaves' worst relative error."""
     import torch
     from repro_torch.data import tokens as DATA
     from repro_torch.launch import steps as ST
@@ -3479,7 +3869,9 @@ def bf16_step_check(dev, cfg):
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(3))
     params32 = adamw.tree_map(lambda t: t.float(), params)
-    batch = DATA.batch_at(0, cfg, TRAIN_B, TRAIN_S, seed=1, device=dev)
+    B, S = batch, seq
+    batch = DATA.add_modality_stub(
+        DATA.batch_at(0, cfg, B, S, seed=1, device=dev), cfg, 0, seed=1)
     loss = {}
     loss["f32"], ref = ST.loss_and_grads(
         Model(cfg32, device=dev, backend="ref"), params32, batch)
@@ -3494,7 +3886,7 @@ def bf16_step_check(dev, cfg):
         torch.cuda.empty_cache()
     loss = {run: float(x) for run, x in loss.items()}
     log(f"[train check] {cfg.name} at full width, {cfg.num_layers} layers, "
-        f"B={TRAIN_B} x {TRAIN_S}: loss kernels {loss['kernels']:.6f}, "
+        f"B={B} x {S}: loss kernels {loss['kernels']:.6f}, "
         f"plain {loss['plain']:.6f}, f32 {loss['f32']:.6f}")
     log("[train check] gradient leaves, max |g - g_f32| / max |g_f32| "
         "(kernels, plain): " + ", ".join(
@@ -3517,21 +3909,32 @@ def bf16_step_check(dev, cfg):
 MOE_GRAD_TOL = 1e-4   # f32 gradient leaves, kernels vs plain, of max |g|
 
 
-def want_launches(cfg):
-    """(K6, K7) launches of one training step of ``cfg``: K6 for every
-    attention block's forward and again for its remat, K7 once per block;
-    the MTP block, not rematerialised, adds one each."""
+def want_kinds(cfg):
+    """(K6's, K7's) launches of one training step of ``cfg`` by mask: K6
+    for every attention block's forward and again for its remat, K7 once
+    per block; the MTP block and whisper's encoder (the only unmasked
+    attention), not rematerialised, launch each once."""
     mtp = 1 if cfg.mtp_depth else 0
-    blocks = attention_blocks(cfg)
-    return (2 if cfg.remat == "full" else 1) * blocks + mtp, blocks + mtp
+    kinds = blocks_by_kind(cfg)
+    remat = 2 if cfg.remat == "full" else 1
+    return ({"causal": remat * kinds["causal"] + mtp, "full": kinds["full"]},
+            {"causal": kinds["causal"] + mtp, "full": kinds["full"]})
 
 
-def f32_step_check(dev, cfg, seed: int, what: str):
+def want_launches(cfg):
+    """(K6, K7) launches of one training step of ``cfg``
+    (:func:`want_kinds` summed)."""
+    k6, k7 = want_kinds(cfg)
+    return sum(k6.values()), sum(k7.values())
+
+
+def f32_step_check(dev, cfg, seed: int, what: str, batch=TRAIN_B,
+                   seq=TRAIN_S):
     """One step's loss and gradients of the f32 ``cfg`` with the kernels
-    against the plain versions on the same weights and batch: the loss
-    within 1e-5 relative, every gradient leaf within MOE_GRAD_TOL of its
-    largest element; K6 and K7 launch as :func:`want_launches` says, and
-    no plain attention runs."""
+    against the plain versions on the same weights and ``batch`` x ``seq``
+    tokens: the loss within 1e-5 relative, every gradient leaf within
+    MOE_GRAD_TOL of its largest element; K6 and K7 launch as
+    :func:`want_launches` says, and no plain attention runs."""
     import torch
     from repro_torch.data import tokens as DATA
     from repro_torch.kernels.flash_attention.bwd_kernel import KERNEL as K7
@@ -3541,8 +3944,10 @@ def f32_step_check(dev, cfg, seed: int, what: str):
 
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    batch = DATA.batch_at(0, cfg, TRAIN_B, TRAIN_S, seed=seed - 2,
-                          device=dev)
+    B, S = batch, seq
+    batch = DATA.add_modality_stub(
+        DATA.batch_at(0, cfg, B, S, seed=seed - 2, device=dev),
+        cfg, 0, seed=seed - 2)
     n6, n7 = K6.launches, K7.launches
     with PlainCalls() as plain:
         loss, grads = ST.loss_and_grads(model, params, batch)
@@ -3553,7 +3958,7 @@ def f32_step_check(dev, cfg, seed: int, what: str):
     worst = max(errs, key=errs.get)
     want = want_launches(cfg)
     log(f"[train check] {cfg.name} ({what}) in f32, {cfg.num_layers} "
-        f"layers, B={TRAIN_B} x {TRAIN_S}: loss kernels {float(loss):.7f}, "
+        f"layers, B={B} x {S}: loss kernels {float(loss):.7f}, "
         f"plain {float(ploss):.7f}; flash_attention, flash_attention_bwd "
         f"launches {launched}, plain attention calls {plain.calls}; worst "
         f"gradient leaf {worst} {errs[worst]:.3e} of its max (held <= "
@@ -3598,11 +4003,27 @@ def zamba2_step_checks(dev):
                    "hybrid, remat, head dim 80")
 
 
+def whisper_step_checks(dev):
+    """whisper-tiny whole at its training shape (WHISPER_TRAIN_B x
+    WHISPER_CACHE tokens, 1500 stub frames each: the decoder's causal tiles
+    ragged at 448): in bf16 by :func:`bf16_step_check`, and in f32, remat
+    on, kernels against plain per gradient leaf by :func:`f32_step_check`
+    (K6 4 + 2 x 4, K7 4 + 4: the encoder's unmasked attention among
+    them)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-tiny")
+    shape = dict(batch=WHISPER_TRAIN_B, seq=WHISPER_CACHE)
+    bf16_step_check(dev, cfg, **shape)
+    f32_step_check(dev, cfg.replace(dtype="float32", param_dtype="float32"),
+                   6, "encdec, remat, non-causal encoder", **shape)
+
+
 def train_check_phase(dev):
     """granite-3-2b with 4 layers and deepseek-v3's 3 dense layers, at
     full width, by :func:`bf16_step_check`; the moe family with MTP at
     REDUCED width by :func:`moe_step_check`; the zamba2 cut by
-    :func:`zamba2_step_checks`."""
+    :func:`zamba2_step_checks`; whisper-tiny by
+    :func:`whisper_step_checks`."""
     from repro_torch.configs import get_config
     bf16_step_check(dev, get_config("granite-3-2b").replace(
         num_layers=TRAIN_CHECK_LAYERS))
@@ -3611,6 +4032,7 @@ def train_check_phase(dev):
                                     mtp_depth=0))
     moe_step_check(dev)
     zamba2_step_checks(dev)
+    whisper_step_checks(dev)
 
 
 # -- phase 24: the four examples on the card -----------------------------------
@@ -3744,6 +4166,8 @@ def main() -> int:
     checks[-1]["mla"] = check_flash_attention_bwd_mla(dev)
     checks[-2]["zamba2"], checks[-1]["zamba2"] = \
         check_flash_attention_zamba2(dev)
+    checks[-2]["whisper"], checks[-1]["whisper"] = \
+        check_flash_attention_whisper(dev)
     for c in checks:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
@@ -3829,11 +4253,18 @@ def main() -> int:
     deepseek_launches, deepseek_variants = serve_deepseek_phase(dev)
     qwen_launches, qwen_variants = serve_qwen_phase(dev)
     zamba_launches, zamba_variants = serve_zamba2_phase(dev)
+    # rwkv6-3b (ssm, no attention) and whisper-tiny (encdec: K6 without a
+    # mask in the encoder) serving (launch counts start at 0 for each)
+    rwkv_launches, rwkv_variants = serve_rwkv_phase(dev)
+    whisper_launches, whisper_variants, whisper_kinds = \
+        serve_whisper_phase(dev)
     k6_row = next(c for c in checks if c["kernel"].name == "flash_attention")
     k6_row["variants_by_path"] = {"serve": serve_variants,
                                   "serve_deepseek": deepseek_variants,
                                   "serve_qwen": qwen_variants,
-                                  "serve_zamba2": zamba_variants}
+                                  "serve_zamba2": zamba_variants,
+                                  "serve_rwkv": rwkv_variants,
+                                  "serve_whisper": whisper_variants}
     k7_row = next(c for c in checks
                   if c["kernel"].name == "flash_attention_bwd")
 
@@ -3841,14 +4272,24 @@ def main() -> int:
     # layers, a llama4-scout MoE layer, zamba2-2.7b (launch counts start at
     # 0 again for each); 23. steps against the plain versions and f32;
     # 24. the examples
-    train_launches, train_variants = train_phase(dev)
-    train_ds_launches, train_ds_variants = train_deepseek_phase(dev)
-    train_l4_launches, train_l4_variants = train_llama4_phase(dev)
-    train_z_launches, train_z_variants = train_zamba2_phase(dev)
+    train_launches, train_variants, _ = train_phase(dev)
+    train_ds_launches, train_ds_variants, _ = train_deepseek_phase(dev)
+    train_l4_launches, train_l4_variants, _ = train_llama4_phase(dev)
+    train_z_launches, train_z_variants, _ = train_zamba2_phase(dev)
+    train_r_launches, train_r_variants, _ = train_rwkv_phase(dev)
+    train_w_launches, train_w_variants, train_w_kinds = \
+        train_whisper_phase(dev)
     k7_row["variants_by_path"] = {"train": train_variants,
                                   "train_deepseek": train_ds_variants,
                                   "train_llama4": train_l4_variants,
-                                  "train_zamba2": train_z_variants}
+                                  "train_zamba2": train_z_variants,
+                                  "train_rwkv": train_r_variants,
+                                  "train_whisper": train_w_variants}
+    k6_row["kinds_by_path"] = {
+        "serve_whisper": whisper_kinds,
+        "train_whisper": train_w_kinds["flash_attention"]}
+    k7_row["kinds_by_path"] = {
+        "train_whisper": train_w_kinds["flash_attention_bwd"]}
     train_check_phase(dev)
     examples_phase(dev)
 
@@ -3860,10 +4301,14 @@ def main() -> int:
                  "elastic": elastic_launches, "serve": serve_launches,
                  "serve_deepseek": deepseek_launches,
                  "serve_qwen": qwen_launches,
-                 "serve_zamba2": zamba_launches, "train": train_launches,
+                 "serve_zamba2": zamba_launches,
+                 "serve_rwkv": rwkv_launches,
+                 "serve_whisper": whisper_launches, "train": train_launches,
                  "train_deepseek": train_ds_launches,
                  "train_llama4": train_l4_launches,
-                 "train_zamba2": train_z_launches},
+                 "train_zamba2": train_z_launches,
+                 "train_rwkv": train_r_launches,
+                 "train_whisper": train_w_launches},
         {"flash_attention": serve_variants,
          "flash_attention_bwd": train_variants})}))
     print(smi)
@@ -3916,7 +4361,8 @@ def kernel_rows(checks, by_path, by_variant):
                          "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms",
                          "simt_note", "abs_errs", "lse_errs", "mla",
-                         "zamba2", "variants_by_path")
+                         "zamba2", "whisper", "variants_by_path",
+                         "kinds_by_path")
                         if key in c}})
     return rows
 

@@ -6,15 +6,15 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import (DFAConfig, HybridConfig, MLAConfig,
-                                     MoEConfig, ModelConfig, SSMConfig,
-                                     TrainConfig)
+from repro_torch.configs.base import (DFAConfig, EncDecConfig,
+                                     HybridConfig, MLAConfig, MoEConfig,
+                                     ModelConfig, SSMConfig, TrainConfig)
 from repro_torch.configs.dfa import (PAPER, REDUCED, REDUCED_INFER,
                                      REDUCED_MULTIPOD, REDUCED_MULTIPOD_V2,
                                      REDUCED_OVERLAP, REDUCED_V2_WIDE)
 
 # arch id -> module name, in the reference's order; its other
-# architectures (llava, whisper, rwkv) are ROADMAP §1 item 14c
+# architecture (llava) is ROADMAP §1 item 14c
 _ARCH_MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "qwen1.5-32b": "qwen15_32b",
@@ -23,6 +23,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "zamba2-2.7b": "zamba2_2p7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "whisper-tiny": "whisper_tiny",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 
@@ -38,7 +40,7 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["DFAConfig", "HybridConfig", "MLAConfig", "MoEConfig",
+__all__ = ["DFAConfig", "EncDecConfig", "HybridConfig", "MLAConfig", "MoEConfig",
            "ModelConfig", "PAPER", "REDUCED", "REDUCED_INFER",
            "REDUCED_MULTIPOD", "REDUCED_MULTIPOD_V2", "REDUCED_OVERLAP",
            "REDUCED_V2_WIDE", "SSMConfig", "TrainConfig", "get_config",

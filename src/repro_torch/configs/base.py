@@ -5,9 +5,9 @@ Field names, defaults and meanings are those of the reference
 both packages. Only the fields the port reads (or refuses) are carried;
 the tuning knob arrives with the slice that implements it (ROADMAP §1
 item 12). ``MoEConfig`` and ``MLAConfig`` carry every field of the
-reference's, and so do ``SSMConfig`` and ``HybridConfig`` (the hybrid
-family's); its encoder-decoder and vision sub-configs arrive with their
-families (ROADMAP §1 item 14c).
+reference's, and so do ``SSMConfig`` (the hybrid and ssm families'),
+``HybridConfig`` and ``EncDecConfig`` (the encdec family's); the vision
+sub-config arrives with the vlm family (ROADMAP §1 item 14c).
 """
 from __future__ import annotations
 
@@ -182,15 +182,27 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder split (whisper). The conv frontend is a STUB: the
+    data pipeline provides precomputed frame embeddings
+    (``data.tokens.add_modality_stub``)."""
+
+    num_encoder_layers: int = 4
+    num_frames: int = 1500            # whisper 30 s @ 50 Hz after conv stride 2
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """One model architecture (the port's own copy of the reference's
-    ``ModelConfig``, the fields of the dense, moe and hybrid families).
+    ``ModelConfig``, the fields of the dense, moe, hybrid, ssm and encdec
+    families).
 
     Families: ``"dense"`` (decoder-only GQA/MQA/MHA transformer), ``"moe"``
-    (decoder-only with MoE FFNs, optionally MLA attention) and
-    ``"hybrid"`` (a Mamba2 trunk with interleaved shared attention blocks)
-    are ported; the reference's ssm / encdec / vlm families and their
-    sub-configs are ROADMAP §1 item 14c.
+    (decoder-only with MoE FFNs, optionally MLA attention), ``"hybrid"``
+    (a Mamba2 trunk with interleaved shared attention blocks), ``"ssm"``
+    (attention-free, rwkv6) and ``"encdec"`` (encoder-decoder, whisper)
+    are ported; the reference's vlm family and its vision sub-config are
+    ROADMAP §1 item 14c.
     """
 
     name: str
@@ -212,6 +224,7 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
     # multi-token-prediction depth (deepseek): 1 adds the MTP block and
     # its loss (weight 0.3) to lm_loss; serving never reads it
     mtp_depth: int = 0

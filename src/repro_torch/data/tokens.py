@@ -20,6 +20,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.param import torch_dtype
 
 MOTIF = 8
 
@@ -56,11 +57,22 @@ def batch_at(step: int, cfg: ModelConfig, batch: int, seq: int,
 
 def add_modality_stub(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                       step: int, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """The dense, moe and hybrid families take the batch unchanged; the vlm
-    and encdec stubs (patches, frames) come with their families (ROADMAP
-    §1 item 14c)."""
-    if cfg.family in ("vlm", "encdec"):
+    """The encdec family's stub frontend: ``batch["frames"]``, 0.02 x
+    N(0, 1) frame embeddings (B, num_frames, d_model) in ``cfg.dtype`` on
+    the tokens' device, from a CPU generator keyed by (seed + 7, step) as
+    the reference keys its draw (the draws themselves differ, as the
+    tokens' do). The dense, moe, hybrid and ssm families take the batch
+    unchanged; the vlm stub (patches) comes with its family (ROADMAP §1
+    item 14c(d))."""
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"the {cfg.family!r} family's modality stub is not ported yet "
-            "(ROADMAP §1 item 14c)")
+            "the 'vlm' family's modality stub is not ported yet (ROADMAP "
+            "§1 item 14c(d))")
+    if cfg.family == "encdec":
+        tokens = batch["tokens"]
+        shape = (tokens.shape[0], cfg.encdec.num_frames, cfg.d_model)
+        frames = 0.02 * torch.randn(shape, generator=_generator(seed + 7,
+                                                                step))
+        batch["frames"] = frames.to(device=tokens.device,
+                                    dtype=torch_dtype(cfg.dtype))
     return batch

@@ -103,13 +103,17 @@ class CudaKernel:
     ``__global__`` functions one call launches, which is how a profiler
     trace tells this kernel's device time apart. An entry that chooses
     between kernels names them in ``variants``; ``launches_by_variant``
-    then counts each launch under the variant it ran. ``symbol`` names
+    then counts each launch under the variant it ran; an entry whose
+    launches differ in kind (attention's causal or full mask) names the
+    kinds in ``kinds``, and ``launches_by_kind`` counts each launch under
+    the kind it was given. ``symbol`` names
     another C entry of the same library (default: ``name``); only
     ring_scatter's empty-kernel floor and its round size use it."""
 
     def __init__(self, name: str, argtypes: List, replaces: str,
                  device_fns: Tuple[str, ...],
-                 variants: Tuple[str, ...] = (), symbol: str = ""):
+                 variants: Tuple[str, ...] = (), symbol: str = "",
+                 kinds: Tuple[str, ...] = ()):
         self.name = name
         self.symbol = symbol or name
         self.argtypes = argtypes
@@ -118,12 +122,14 @@ class CudaKernel:
         self.source = f"src/repro_torch/csrc/{name}.cu"
         self.launches = 0
         self.launches_by_variant = {v: 0 for v in variants}
+        self.launches_by_kind = {k: 0 for k in kinds}
         self._fn = None
 
     def reset_counts(self) -> None:
         """Set every launch count to 0."""
         self.launches = 0
         self.launches_by_variant = dict.fromkeys(self.launches_by_variant, 0)
+        self.launches_by_kind = dict.fromkeys(self.launches_by_kind, 0)
 
     def load(self, build_dir: Optional[Path] = None):
         if self._fn is None:
@@ -134,10 +140,12 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args, variant: Optional[str] = None) -> None:
+    def launch(self, *args, variant: Optional[str] = None,
+               kind: Optional[str] = None) -> None:
         """Call the C entry; raise if it reports an error: a positive
         return is a ``cudaError_t``, a negative one a driver ``CUresult``
-        (negated). Counts the launch, under ``variant`` too if given."""
+        (negated). Counts the launch, under ``variant`` and ``kind`` too
+        if given."""
         rc = self.load()(*args)
         if rc > 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
@@ -148,6 +156,8 @@ class CudaKernel:
         self.launches += 1
         if variant is not None:
             self.launches_by_variant[variant] += 1
+        if kind is not None:
+            self.launches_by_kind[kind] += 1
 
 
 def check_args(dev, checks) -> None:

@@ -14,9 +14,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
-from repro_torch.kernels.flash_attention.kernel import (DTYPES, VARIANTS,
+from repro_torch.kernels.flash_attention.kernel import (DTYPES, MASK_KINDS,
+                                                        VARIANTS,
                                                         WGMMA_HEAD_DIMS,
-                                                        variant)
+                                                        mask_kind, variant)
 
 # K7's head-dim limit (kMaxHeadDim in csrc/flash_attention_bwd.cu), K6's:
 # the SIMT kernels take D and Dv up to 256 (MLA's 192 / 128 among them)
@@ -35,7 +36,7 @@ KERNEL = CudaKernel(
     device_fns=("attn_bwd_dsum_kernel", "attn_bwd_dkdv_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_prep_kernel",
                 "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel"),
-    variants=tuple(VARIANTS))
+    variants=tuple(VARIANTS), kinds=MASK_KINDS)
 
 
 def scratch_numel(chosen: str, BH: int, Sq: int) -> int:
@@ -92,5 +93,5 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
                   ptr(scratch), ptr(dq), ptr(dk), ptr(dv), BH, group, Sq, Sk,
                   D, Dv, scale, int(causal), DTYPES[dt], VARIANTS[chosen],
-                  stream_ptr(dev), variant=chosen)
+                  stream_ptr(dev), variant=chosen, kind=mask_kind(causal))
     return dq, dk, dv

@@ -20,6 +20,14 @@ VARIANTS = {"simt": 0, "wgmma": 1}
 # (D, Dv) of the tensor-core instances in bf16: granite's, the larger
 # families' and MLA's (the C entries' tensor_cores test holds the same)
 WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# the kinds ``KERNEL.launches_by_kind`` counts (K7's counter too): a
+# causal (top-left) mask or none
+MASK_KINDS = ("causal", "full")
+
+
+def mask_kind(causal: bool) -> str:
+    """The launch-count kind of a launch with this ``causal`` flag."""
+    return MASK_KINDS[0] if causal else MASK_KINDS[1]
 
 KERNEL = CudaKernel(
     "flash_attention",
@@ -27,7 +35,7 @@ KERNEL = CudaKernel(
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     replaces="src/repro/kernels/flash_attention/kernel.py:65",
     device_fns=("flash_attention_kernel", "flash_attention_wgmma_kernel"),
-    variants=tuple(VARIANTS))
+    variants=tuple(VARIANTS), kinds=MASK_KINDS)
 
 
 def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
@@ -86,5 +94,5 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
                   ctypes.c_void_p(None if lse is None else lse.data_ptr()),
                   BH, group, Sq, Sk, D, Dv, scale, int(causal),
                   DTYPES[q.dtype], VARIANTS[chosen], stream_ptr(dev),
-                  variant=chosen)
+                  variant=chosen, kind=mask_kind(causal))
     return (out, lse) if with_lse else out

@@ -1,5 +1,5 @@
 """Batched serving: prefill + greedy decode loop (the port of
-``repro.launch.serve``, dense, moe and hybrid families).
+``repro.launch.serve``, dense, moe, hybrid, ssm and encdec families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --reduced --batch 4 --prompt 32 --gen 16 --device cpu
@@ -7,7 +7,9 @@
 ``--arch`` takes any id of ``configs.list_archs()``: granite-3-2b,
 qwen1.5-32b, qwen3-14b, granite-20b, zamba2-2.7b (hybrid: Mamba2 states and
 the shared blocks' K/V), deepseek-v3-671b (MLA, whose decode cache is the
-latent ``{"ckv", "kr"}``) and llama4-scout-17b-a16e. Runs on
+latent ``{"ckv", "kr"}``), llama4-scout-17b-a16e, whisper-tiny (encdec:
+the prompt carries stub frames from ``data.tokens.add_modality_stub``) and
+rwkv6-3b (ssm: the recurrent state is the cache). Runs on
 the CUDA card by default (``--device cuda``), where the prefill attention
 launches the flash_attention kernel. Weights and the prompt are random,
 from ``--seed``. Reports tokens/s.
@@ -21,25 +23,42 @@ from typing import Optional
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data import tokens as DATA
 from repro_torch.models import param as PM
 from repro_torch.models.registry import Model
+
+
+# names of a layer's cache that cross whole from the prefill: the hybrid's
+# recurrent Mamba2 states and whisper's cross-attention K/V over the frames
+WHOLE = ("mamba", "xk", "xv")
 
 
 def build_cache(model, prefill_cache, B, S_cache):
     """Splice a prefill cache into a zero decode cache of length S_cache,
     layer (or hybrid segment) by layer and name by name (``{"k", "v"}``,
     MLA's ``{"ckv", "kr"}``, the hybrid's ``{"attn_k", "attn_v"}``), along
-    the sequence axis; the hybrid's recurrent Mamba2 states (``"mamba"``)
-    cross whole."""
+    the sequence axis; the names of :data:`WHOLE` cross whole. The ssm
+    family's cache is its recurrent state (one dict of stacked states),
+    which crosses whole."""
+    if model.cfg.family == "ssm":
+        descs = model.cache_descs(B, S_cache)
+        return {n: t.to(PM.torch_dtype(descs[n].dtype))
+                for n, t in prefill_cache.items()}
     big = PM.materialize(model.cache_descs(B, S_cache), None, model.device)
     for layer, part in zip(big, prefill_cache):
         for name, t in part.items():
-            if name == "mamba":
-                layer[name] = {n: s.to(layer[name][n].dtype)
-                               for n, s in t.items()}
+            if name in WHOLE:
+                layer[name] = _cast_like(t, layer[name])
             else:
                 layer[name][:, :t.shape[1]] = t.to(layer[name].dtype)
     return big
+
+
+def _cast_like(t, like):
+    """``t`` (a tensor or a dict of them) in ``like``'s dtypes."""
+    if isinstance(t, dict):
+        return {n: _cast_like(s, like[n]) for n, s in t.items()}
+    return t.to(like.dtype)
 
 
 def _sync(device) -> None:
@@ -98,6 +117,7 @@ def main(argv=None):
     prompt = {"tokens": torch.randint(0, cfg.vocab_size,
                                       (args.batch, args.prompt),
                                       generator=gen).to(model.device)}
+    prompt = DATA.add_modality_stub(prompt, cfg, 0, args.seed)
     toks, tps = serve(model, params, prompt, args.prompt, args.gen,
                       args.cache)
     print(f"[serve] {args.arch}: generated {tuple(toks.shape)} at "

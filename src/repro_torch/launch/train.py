@@ -5,7 +5,10 @@
 
 Every ported id trains, the moe family (``--arch deepseek-v3-671b``,
 with its multi-token-prediction loss, or ``llama4-scout-17b-a16e``) and
-the hybrid family (``--arch zamba2-2.7b``) included; AdamW keeps its
+the hybrid family (``--arch zamba2-2.7b``), the ssm family (``--arch
+rwkv6-3b``, attention-free) and the encdec family (``--arch
+whisper-tiny``, whose batches carry stub frames from
+``data.tokens.add_modality_stub``) included; AdamW keeps its
 moments in ``cfg.opt_state_dtype`` (bf16 under deepseek-v3's full
 config).
 

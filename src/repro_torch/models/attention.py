@@ -1,18 +1,20 @@
 """Attention: GQA/MQA/MHA with RoPE, qk-norm and biases, and MLA
 (deepseek-v3) (the port of ``repro.models.attention``).
 
-Two execution paths:
-  * train/prefill — :func:`chunked_attention`, causal flash attention
-    through the flash_attention kernel family (K6 on the card); MLA's
-    prefill (:func:`mla_train`) expands the latent to per-head K/V of head
-    dim nope + rope = 192 and Dv = 128 at full width.
+Three execution paths:
+  * train/prefill — :func:`chunked_attention`, causal or full (whisper's
+    encoder) flash attention through the flash_attention kernel family
+    (K6 on the card); MLA's prefill (:func:`mla_train`) expands the
+    latent to per-head K/V of head dim nope + rope = 192 and Dv = 128 at
+    full width.
   * decode       — :func:`flash_decode` (one token against the KV cache)
     and :func:`mla_decode` (the absorbed form over the latent cache), in
     plain PyTorch: the reference's are pure JAX under ``shard_map``, and
     on one device their pmax/psum combine is the identity.
-
-The reference's cross attention (whisper) is not ported (ROADMAP §1
-item 14c).
+  * cross        — :func:`full_attention` (whisper's cross attention),
+    plain PyTorch as the reference's is a plain einsum outside any Pallas
+    kernel: it rounds the normalised p to v's dtype before p . v, where
+    K6 rounds the unnormalised exp(s - m).
 """
 from __future__ import annotations
 
@@ -44,14 +46,14 @@ def attn_descs(cfg: ModelConfig) -> Tree:
     return t
 
 
-def chunked_attention(q, k, v, *, q_offset: int = 0,
+def chunked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                       scale: Optional[float] = None,
                       backend: Optional[str] = None) -> torch.Tensor:
-    """Causal flash attention. q: (B,Sq,H,D); k: (B,Sk,KH,D); v:
-    (B,Sk,KH,Dv) -> (B,Sq,H,Dv). Query head h reads kv head h // (H // KH), as in the
-    reference; ``scale`` defaults to D ** -0.5. The kernel keeps the TPU
-    kernel's top-left causal mask, so a query offset is refused rather
-    than added."""
+    """Flash attention, causal or (``causal=False``) full. q: (B,Sq,H,D);
+    k: (B,Sk,KH,D); v: (B,Sk,KH,Dv) -> (B,Sq,H,Dv). Query head h reads kv
+    head h // (H // KH), as in the reference; ``scale`` defaults to
+    D ** -0.5. The kernel keeps the TPU kernel's top-left causal mask, so
+    a query offset is refused rather than added."""
     if q_offset:
         raise NotImplementedError(
             "q_offset != 0: the flash kernel masks top-left (query i sees "
@@ -63,9 +65,25 @@ def chunked_attention(q, k, v, *, q_offset: int = 0,
     qf = q.transpose(1, 2).reshape(B * H, Sq, D)
     kf = k.transpose(1, 2).reshape(B * KH, Sk, D)
     vf = v.transpose(1, 2).reshape(B * KH, Sk, Dv)
-    o = flash_attention(qf, kf, vf, group=H // KH, scale=scale,
-                        backend=backend)
+    o = flash_attention(qf, kf, vf, group=H // KH, causal=causal,
+                        scale=scale, backend=backend)
     return o.reshape(B, H, Sq, Dv).transpose(1, 2)
+
+
+def full_attention(q, k, v, *, scale: Optional[float] = None
+                   ) -> torch.Tensor:
+    """Small unmasked attention (cross attention), as the reference
+    computes it: f32 scores, softmax, p rounded to v's dtype, then p . v
+    in v's dtype. q: (B,Sq,H,D); k/v: (B,Sk,KH,D) -> (B,Sq,H,D)."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else D ** -0.5
+    qr = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qr.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqc,bckd->bqkgd", p, v)
+    return o.reshape(B, Sq, H, D)
 
 
 def _update_rows(cache, new, pos) -> None:
@@ -111,8 +129,9 @@ def flash_decode(q, k_cache, v_cache, k_new, v_new, pos):
     return out.reshape(B, H, D), k_cache, v_cache
 
 
-def project_qkv(params, x, cfg: ModelConfig, positions):
-    """x: (B,S,d) -> q (B,S,H,D), k/v (B,S,KH,D) with rope + qk-norm."""
+def project_qkv(params, x, cfg: ModelConfig, positions, rope: bool = True):
+    """x: (B,S,d) -> q (B,S,H,D), k/v (B,S,KH,D) with qk-norm and (unless
+    ``rope`` is False) rope."""
     B, S, _ = x.shape
     D = cfg.resolved_head_dim
     q = L.linear(params["q"], x).reshape(B, S, cfg.num_heads, D)
@@ -121,16 +140,21 @@ def project_qkv(params, x, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = L.rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = L.rms_norm(params["k_norm"], k, cfg.norm_eps)
+    if not rope:
+        return q, k, v
     cos, sin = L.rotary(positions, D, cfg.rope_theta)
     return L.apply_rotary(q, cos, sin), L.apply_rotary(k, cos, sin), v
 
 
-def attn_train(params, x, cfg: ModelConfig, *, return_kv: bool = False,
+def attn_train(params, x, cfg: ModelConfig, *, causal: bool = True,
+               rope: bool = True, return_kv: bool = False,
                backend: Optional[str] = None):
-    """Causal self-attention over positions 0..S-1 of x: (B,S,d)."""
+    """Self-attention over positions 0..S-1 of x: (B,S,d), causal or
+    (``causal=False``) full, with rope unless ``rope`` is False."""
     B, S, _ = x.shape
-    q, k, v = project_qkv(params, x, cfg, torch.arange(S, device=x.device))
-    o = chunked_attention(q, k, v, backend=backend)
+    q, k, v = project_qkv(params, x, cfg, torch.arange(S, device=x.device),
+                          rope=rope)
+    o = chunked_attention(q, k, v, causal=causal, backend=backend)
     y = L.linear(params["o"], o.reshape(B, S, -1))
     if return_kv:
         return y, (k, v)

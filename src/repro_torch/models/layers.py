@@ -10,6 +10,7 @@ vocab-sharded branch of its ``chunked_ce_loss``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
@@ -25,8 +26,7 @@ def stack_descs(descs: Tree, n: int) -> Tree:
     """Prepend a layer dimension to every leaf (the reference scans over
     it; the port loops)."""
     return tree_map_descs(
-        lambda p, d: ParamDesc((n,) + d.shape, d.dtype, d.init, d.scale),
-        descs)
+        lambda p, d: dataclasses.replace(d, shape=(n,) + d.shape), descs)
 
 
 # ---------------------------------------------------------------- norms ----
@@ -41,6 +41,22 @@ def rms_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = x.square().mean(-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].float()).to(dtype)
+
+
+def layer_norm_descs(dim: int, dtype: str) -> Tree:
+    return {"scale": ParamDesc((dim,), dtype, init="ones"),
+            "bias": ParamDesc((dim,), dtype, init="zeros")}
+
+
+def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance over the last axis, scale and bias, all in f32;
+    the result in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * params["scale"].float() + params["bias"].float()).to(dtype)
 
 
 # --------------------------------------------------------------- linear ----

@@ -37,14 +37,15 @@ FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """This module's guard: the decoder-only LM families. The hybrid family
-    runs through ``models.hybrid`` (``Model`` dispatches); the ssm, encdec
-    and vlm families are ROADMAP §1 item 14c."""
+    """This module's guard: the decoder-only LM families. The hybrid, ssm
+    and encdec families run through ``models.hybrid``, ``models.rwkv_lm``
+    and ``models.whisper`` (``Model`` dispatches); the vlm family is
+    ROADMAP §1 item 14c."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"models.lm runs the {' and '.join(FAMILIES)} families, not "
-            f"{cfg.family!r} (the hybrid family runs through models.hybrid; "
-            f"the others are ROADMAP §1 item 14c)")
+            f"{cfg.family!r} (the hybrid, ssm and encdec families run "
+            f"through Model; vlm is ROADMAP §1 item 14c)")
 
 
 def block_descs(cfg: ModelConfig, kind: str) -> Tree:

@@ -4,8 +4,8 @@ tensors on a device.
 
 The init rules are the reference's (``repro.models.param._init_leaf``):
 "normal" is N(0, 1) times ``min(scale, 1/sqrt(fan_in))`` with ``fan_in``
-the leaf's first dimension; "embed" is N(0, 1) times ``scale``; "ones"
-and "zeros" are what they say. The random bits come from the
+the leaf's first dimension; "embed" is N(0, 1) times ``scale``; "ones",
+"zeros" and "const" (every element ``const``) are what they say. The random bits come from the
 caller's ``torch.Generator`` and do not reproduce JAX's (the reference
 folds a per-process salted ``hash`` of the path into its key); weights
 cross from the reference as numpy (``repro_torch.convert``).
@@ -36,8 +36,9 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamDesc:
     shape: Tuple[int, ...]
     dtype: str = "bfloat16"
-    init: str = "normal"      # normal | zeros | ones | embed
+    init: str = "normal"      # normal | zeros | ones | embed | const
     scale: float = 0.02
+    const: float = 0.0        # the value of an init="const" leaf
 
 
 def tree_map_descs(fn: Callable[[Tuple[str, ...], ParamDesc], Any],
@@ -64,6 +65,8 @@ def _init_leaf(d: ParamDesc, generator: torch.Generator,
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "const":
+        return torch.full(d.shape, d.const, dtype=dtype, device=device)
     if d.init == "embed":
         scale = d.scale
     elif d.init == "normal":

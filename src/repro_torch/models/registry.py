@@ -1,19 +1,22 @@
 """Model registry: family dispatch and the public ``Model`` facade of the
 training and serving paths (the port of ``repro.models.registry``:
 the dense and moe families through ``models.lm``, the hybrid family
-through ``models.hybrid``).
+through ``models.hybrid``, the ssm family (rwkv6) through
+``models.rwkv_lm`` and the encdec family (whisper) through
+``models.whisper``; the vlm family is ROADMAP §1 item 14c(d)).
 
 ``Model(cfg)`` runs on the CUDA card unless the caller passes
 ``device="cpu"``; on the card the attention launches the flash_attention
 kernel (K6) and, in the training backward, its gradient (K7); on the CPU
-their plain versions run.
+their plain versions run. The ssm family has no attention and launches
+neither.
 ``backend="ref"`` forces the plain version on any device
 (``repro_torch.kernels.dispatch``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -23,16 +26,18 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import hybrid as HY
 from repro_torch.models import lm as LM
 from repro_torch.models import param as PM
+from repro_torch.models import rwkv_lm as RW
+from repro_torch.models import whisper as WH
 
 Tree = Any
-FAMILIES = LM.FAMILIES + ("hybrid",)
+FAMILIES = LM.FAMILIES + ("hybrid", "ssm", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP §1 item "
-            f"14c); the port runs the {', '.join(FAMILIES)} families")
+            f"14c(d)); the port runs the {', '.join(FAMILIES)} families")
 
 
 def param_descs(cfg: ModelConfig) -> Tree:
@@ -40,6 +45,10 @@ def param_descs(cfg: ModelConfig) -> Tree:
     check_family(cfg)
     if cfg.family == "hybrid":
         return HY.hybrid_descs(cfg)
+    if cfg.family == "ssm":
+        return RW.rwkv_lm_descs(cfg)
+    if cfg.family == "encdec":
+        return WH.whisper_descs(cfg)
     return LM.lm_descs(cfg)
 
 
@@ -53,7 +62,6 @@ class Model:
         self.device = on_card_or_cpu(self.device, "Model")
         self.backend = dispatch.check_backend(self.backend)
         check_family(self.cfg)
-        self._hybrid = self.cfg.family == "hybrid"
 
     # ---- parameters -----------------------------------------------------
     def param_descs(self) -> Tree:
@@ -71,27 +79,52 @@ class Model:
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy, plus the multi-token-prediction
         loss where the config has one (``lm.lm_loss``,
-        ``hybrid.hybrid_loss``), f32 0-d."""
-        if self._hybrid:
-            return HY.hybrid_loss(params, batch, self.cfg,
-                                  backend=self.backend)
-        return LM.lm_loss(params, batch, self.cfg, backend=self.backend)
+        ``hybrid.hybrid_loss``, ``rwkv_lm.rwkv_loss``,
+        ``whisper.whisper_loss``, which reads ``batch["frames"]``), f32
+        0-d."""
+        cfg, be = self.cfg, self.backend
+        fam = cfg.family
+        if fam == "hybrid":
+            return HY.hybrid_loss(params, batch, cfg, backend=be)
+        if fam == "ssm":
+            return RW.rwkv_loss(params, batch, cfg)
+        if fam == "encdec":
+            return WH.whisper_loss(params, batch, cfg, backend=be)
+        return LM.lm_loss(params, batch, cfg, backend=be)
 
     # ---- serving --------------------------------------------------------
-    def cache_descs(self, batch: int, seq: int) -> List[Tree]:
-        if self._hybrid:
-            return HY.hybrid_cache_descs(self.cfg, batch, seq)
-        return LM.cache_descs(self.cfg, batch, seq)
+    def cache_descs(self, batch: int, seq: int) -> Tree:
+        """The decode cache's descriptors: a list per layer (or hybrid
+        segment), or for the ssm family one dict of stacked states."""
+        cfg = self.cfg
+        fam = cfg.family
+        if fam == "hybrid":
+            return HY.hybrid_cache_descs(cfg, batch, seq)
+        if fam == "ssm":
+            return RW.rwkv_cache_descs(cfg, batch, seq)
+        if fam == "encdec":
+            return WH.whisper_cache_descs(cfg, batch, seq)
+        return LM.cache_descs(cfg, batch, seq)
 
-    def prefill(self, params, batch) -> Tuple[torch.Tensor, List[Tree]]:
-        if self._hybrid:
-            return HY.hybrid_prefill(params, batch, self.cfg,
-                                     backend=self.backend)
-        return LM.lm_prefill(params, batch, self.cfg, backend=self.backend)
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, Tree]:
+        cfg, be = self.cfg, self.backend
+        fam = cfg.family
+        if fam == "hybrid":
+            return HY.hybrid_prefill(params, batch, cfg, backend=be)
+        if fam == "ssm":
+            return RW.rwkv_prefill(params, batch, cfg)
+        if fam == "encdec":
+            return WH.whisper_prefill(params, batch, cfg, backend=be)
+        return LM.lm_prefill(params, batch, cfg, backend=be)
 
-    def decode(self, params, token, pos, cache
-               ) -> Tuple[torch.Tensor, List[Tree]]:
+    def decode(self, params, token, pos, cache) -> Tuple[torch.Tensor, Tree]:
         """One decode step; the cache's tensors are updated in place."""
-        if self._hybrid:
-            return HY.hybrid_decode(params, token, pos, cache, self.cfg)
-        return LM.lm_decode(params, token, pos, cache, self.cfg)
+        cfg = self.cfg
+        fam = cfg.family
+        if fam == "hybrid":
+            return HY.hybrid_decode(params, token, pos, cache, cfg)
+        if fam == "ssm":
+            return RW.rwkv_decode(params, token, pos, cache, cfg)
+        if fam == "encdec":
+            return WH.whisper_decode(params, token, pos, cache, cfg)
+        return LM.lm_decode(params, token, pos, cache, cfg)

@@ -437,8 +437,11 @@ def _attention_case(cuda, BH, Sq, Sk, D, Dv, group, dtype, causal, seed):
     k = torch.randn(BH // group, Sk, D, generator=g).to(cuda, dtype)
     v = torch.randn(BH // group, Sk, Dv, generator=g).to(cuda, dtype)
     before = AK.KERNEL.launches
+    kinds = dict(AK.KERNEL.launches_by_kind)
     got = FA.flash_attention(q, k, v, group=group, causal=causal)
     assert AK.KERNEL.launches == before + 1
+    kind = AK.mask_kind(causal)
+    assert AK.KERNEL.launches_by_kind == {**kinds, kind: kinds[kind] + 1}
     want = FA.flash_attention(q, k, v, group=group, causal=causal,
                               backend="ref")
     torch.cuda.synchronize()
@@ -472,6 +475,7 @@ def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
     (8, 1000, 1000, 64, 4, True),
     (8, 1000, 1000, 128, 4, True),
     (8, 1000, 1000, 64, 1, False),
+    (24, 1500, 1500, 64, 1, False),     # whisper-tiny's encoder prefill
     (24, 200, 330, 128, 3, True),       # Sq < Sk, ragged
     (24, 330, 200, 64, 3, True),        # Sq > Sk, ragged
     (16, 200, 330, 64, 8, False),
@@ -703,7 +707,9 @@ _BWD_SHAPES = [
     (6, 130, 257, 256, 256, 2),
     (6, 200, 71, 160, 200, 3), (4, 65, 65, 136, 24, 1),
     # zamba2's head dim 80 (SIMT): MHA, and ragged with group 4
-    (8, 333, 333, 80, 80, 1), (12, 257, 129, 80, 80, 4)]
+    (8, 333, 333, 80, 80, 1), (12, 257, 129, 80, 80, 4),
+    # whisper-tiny's encoder over its 1500 frames (non-causal on its path)
+    (24, 1500, 1500, 64, 64, 1)]
 # every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
 # ((D, Dv) in {(64, 64), (128, 128), (192, 128)}) runs on wgmma and once
 # more forced to simt
@@ -970,6 +976,128 @@ def test_reduced_hybrid_serving_kernels_equal_plain(cuda):
         for x, y in pairs:
             assert float((x - y).abs().max()) <= 1e-5 * float(
                 y.abs().max())
+
+
+def test_reduced_rwkv_serving_matches_cpu(cuda):
+    """REDUCED rwkv6 in f32 on the card against the CPU's run of the same
+    parameters: a 100-token prefill (chunks of 25) and 3 greedy decode
+    steps, the CPU run fed the card's tokens; logits within 1e-4 of the
+    CPU's largest logit, every state leaf within 1e-4 of its largest
+    element, and no kernel launches (the family has no attention)."""
+    from repro_torch.launch.serve import build_cache
+    from repro_torch.optim import adamw
+    cfg = get_config("rwkv6-3b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    params = Model(cfg, device=cuda).init(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 100),
+                           generator=torch.Generator().manual_seed(2))
+
+    def run(device, forced=None):
+        model = Model(cfg, device=device)
+        p = adamw.tree_map(lambda t: t.to(device), params)
+        logits, pcache = model.prefill(p, {"tokens": tokens.to(device)})
+        cache = build_cache(model, pcache, 4, 112)
+        seen, toks = [logits], []
+        pos = torch.full((4,), 100, device=device)
+        for i in range(3):
+            toks.append(logits.argmax(-1)[:, None] if forced is None
+                        else forced[i].to(device))
+            logits, cache = model.decode(p, toks[-1], pos, cache)
+            seen.append(logits)
+            pos = pos + 1
+        return seen, toks, cache
+
+    AK.KERNEL.reset_counts()
+    got, toks, cache = run(cuda)
+    assert AK.KERNEL.launches == 0
+    want, _, ccache = run(torch.device("cpu"), toks)
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    for n, x in cache.items():
+        y = ccache[n]
+        assert float((x.cpu() - y).abs().max()) <= 1e-4 * float(
+            y.abs().max()), n
+
+
+def _whisper_batch(cfg, cuda, B, S, seed):
+    from repro_torch.data import tokens as DATA
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed))
+    return DATA.add_modality_stub({"tokens": tokens.to(cuda)}, cfg, seed)
+
+
+def test_reduced_whisper_serving_kernels_equal_plain(cuda):
+    """REDUCED whisper in f32 on the card: a 40-token prefill over 32 stub
+    frames (K6 twice without a mask, the encoder, and twice causal, the
+    decoder) and 3 greedy decode steps, the plain run fed the kernel
+    run's tokens; logits within 1e-5 of the plain run's largest logit, and
+    every k, v, xk, xv leaf of the cache within 1e-5 of its largest
+    element."""
+    from repro_torch.launch.serve import build_cache
+    cfg = get_config("whisper-tiny", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    params = Model(cfg, device=cuda).init(1)
+    batch = _whisper_batch(cfg, cuda, 4, 40, 2)
+
+    def run(model, forced=None):
+        AK.KERNEL.reset_counts()
+        logits, pcache = model.prefill(params, batch)
+        launched = dict(AK.KERNEL.launches_by_kind)
+        cache = build_cache(model, pcache, 4, 48)
+        seen, toks = [logits], []
+        pos = torch.full((4,), 40, device=cuda)
+        for i in range(3):
+            toks.append(logits.argmax(-1)[:, None] if forced is None
+                        else forced[i])
+            logits, cache = model.decode(params, toks[-1], pos, cache)
+            seen.append(logits)
+            pos = pos + 1
+        return seen, toks, cache, launched
+
+    got, toks, cache, launched = run(Model(cfg, device=cuda))
+    want, _, pcache, plain_launched = run(
+        Model(cfg, device=cuda, backend="ref"), toks)
+    assert launched == {"causal": 2, "full": 2}
+    assert plain_launched == {"causal": 0, "full": 0}
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for layer, player in zip(cache, pcache):
+        for n in ("k", "v", "xk", "xv"):
+            x, y = layer[n], player[n]
+            assert float((x - y).abs().max()) <= 1e-5 * float(
+                y.abs().max()), n
+
+
+def test_reduced_whisper_train_step_kernels_equal_plain(cuda):
+    """One REDUCED whisper loss and gradient (f32, remat on) on the card
+    through K6 and K7 against the plain versions: loss 1e-5 relative,
+    every gradient leaf 1e-4 of its largest element. K6 launches once per
+    encoder layer without a mask and twice per decoder layer causal (the
+    forward and its recomputation); K7 once per layer of each."""
+    from repro_torch.data import tokens as DATA
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    cfg = get_config("whisper-tiny", reduced=True).replace(
+        dtype="float32", param_dtype="float32", remat="full")
+    model = Model(cfg, device=cuda)
+    params = model.init(0)
+    batch = DATA.add_modality_stub(DATA.batch_at(0, cfg, 4, 100,
+                                                 device=cuda), cfg, 0)
+    AK.KERNEL.reset_counts()
+    BK.KERNEL.reset_counts()
+    loss, grads = ST.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    kinds = (AK.KERNEL.launches_by_kind, BK.KERNEL.launches_by_kind)
+    assert kinds == ({"causal": 4, "full": 2}, {"causal": 2, "full": 2})
+    ploss, pgrads = ST.loss_and_grads(Model(cfg, device=cuda, backend="ref"),
+                                      params, batch)
+    assert (AK.KERNEL.launches, BK.KERNEL.launches) == (6, 4)
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    for path, x, y in zip(adamw.paths(grads), adamw.leaves(grads),
+                          adamw.leaves(pgrads)):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), \
+            path
 
 
 # -- the serving slice on the card ---------------------------------------------

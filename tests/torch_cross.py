@@ -8,9 +8,17 @@ Leaves the reference initialises to all zeros or all ones (the
 ``qkv_bias`` biases, the rms-norm scales, the sigmoid router's ``bias``)
 would hide a port that drops or misplaces them, so :func:`perturbed`
 moves each by N(0, 0.1^2) noise from one numpy seed before both packages
-get the same arrays.
+get the same arrays. :func:`numpy_params` draws a family's tree with
+numpy from the reference's descriptors instead, and
+:func:`reference_inits` runs the reference's own init under several
+``PYTHONHASHSEED`` salts, one process each (the hybrid, ssm and encdec
+tests).
 """
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +26,7 @@ import numpy as np
 import torch
 
 from repro.configs import get_config as jax_config
+from repro.models.param import tree_map_descs as jax_tree_map_descs
 from repro.models.registry import get_model as jax_model
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
@@ -84,3 +93,92 @@ def to_np(x):
 
 def close(got, want, tol):
     np.testing.assert_allclose(to_np(got), to_np(want), rtol=tol, atol=tol)
+
+
+def numpy_params(descs, seed: int = 0):
+    """The reference's parameter tree of the descriptors ``descs`` (its
+    family's ``*_descs(cfg)``) drawn with numpy at its init scales:
+    "normal" N(0, 1) times min(scale, fan_in ** -0.5), "embed" times
+    scale, and the unit and constant leaves (zeros, ones, A_log's 0,
+    rwkv6's decay_base -4) moved by N(0, 0.1^2) noise, so a port that
+    drops one shows. (The reference's own init salts its keys with a
+    per-process ``hash``, so its draws change from run to run.)"""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, d):
+        a = rng.standard_normal(d.shape).astype(np.float32)
+        if d.init == "normal":
+            fan_in = d.shape[0] if len(d.shape) >= 2 else 1
+            return a * min(d.scale or 1.0, fan_in ** -0.5)
+        if d.init == "embed":
+            return a * d.scale
+        base = {"ones": 1.0, "zeros": 0.0, "const": d.const}[d.init]
+        return base + 0.1 * a
+    return jax_tree_map_descs(draw, descs)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def jax_params(jm, tree):
+    """The numpy ``tree`` as the reference's parameters of ``jm``, each
+    leaf in its descriptor's dtype."""
+    return jax_tree_map_descs(
+        lambda path, d: jnp.asarray(_at(tree, path), d.dtype),
+        jm.param_descs())
+
+
+_INIT = """
+import importlib, os, sys
+os.nice(10)      # yield the cores to the test processes running beside it
+import jax, numpy as np
+from repro.configs import get_config
+from repro.models.param import materialize
+mod, fn = sys.argv[2].split(":")
+descs = getattr(importlib.import_module(mod), fn)
+cfg = get_config(sys.argv[1], reduced=True).replace(
+    dtype="float32", param_dtype="float32")
+flat = {}
+def walk(node, path):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            walk(v, path + (k,))
+    else:
+        flat["/".join(path)] = np.asarray(node)
+walk(materialize(descs(cfg), jax.random.key(0)), ())
+np.savez(sys.argv[3], **flat)
+"""
+
+
+def reference_inits(arch: str, descs: str, out_dir, seeds):
+    """Start the reference's own f32 init of ``arch`` at REDUCED width
+    (``materialize`` of ``descs``, "module:function" of its family's
+    descriptors, key 0) in one process per PYTHONHASHSEED of ``seeds``,
+    all at once: its init folds the per-process ``hash`` of each leaf's
+    path into the leaf's key, so each salt is another draw. Returns a
+    function that waits for them and gives {seed: nested numpy tree}."""
+    import repro.models.param as jax_param
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(Path(jax_param.__file__).parents[2]))
+    runs = {s: subprocess.Popen(
+        [sys.executable, "-c", _INIT, arch, descs,
+         str(Path(out_dir) / f"{s}.npz")],
+        env=dict(env, PYTHONHASHSEED=str(s))) for s in seeds}
+
+    def collect():
+        trees = {}
+        for s, run in runs.items():
+            assert run.wait(timeout=300) == 0, s
+            tree = trees[s] = {}
+            with np.load(Path(out_dir) / f"{s}.npz") as z:
+                for name in z.files:
+                    *head, last = name.split("/")
+                    node = tree
+                    for k in head:
+                        node = node.setdefault(k, {})
+                    node[last] = z[name]
+        return trees
+    return collect
