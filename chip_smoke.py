@@ -59,7 +59,11 @@ Phases (any failure exits non-zero; nothing is caught):
    forward); K6 and K7 without a mask at whisper-tiny's encoder shapes
    (K6: B = 4 x 6 heads over its 1500 frames, head dim 64, group 1; K7: B
    = 8 x 6 heads) on their wgmma kernels in bf16 and SIMT in f32, under
-   the same rules and timed the same way;
+   the same rules and timed the same way; K6 and K7 causal at
+   llava-next-mistral-7b's shapes (B = 4 x 32 heads of 128, group 4, over
+   2880 patches + 1024 tokens = 3904 positions, ragged last tiles) on their
+   wgmma kernels in bf16 and SIMT in f32, the same way, SDPA with
+   enable_gqa;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -181,6 +185,14 @@ Phases (any failure exits non-zero; nothing is caught):
    448-token text context): each prefill launches K6 4 times without a
    mask (the encoder) and 4 times causal, all wgmma; the encoder's time
    alone; checks (a)-(c) on the whole model;
+18c. [serve llava-next-mistral-7b] — llava-next-mistral-7b whole (32
+   layers, d 4096, 32/8 heads of 128, untied 32,000-row vocabulary;
+   7,241,732,096 parameters, bf16) as 16 with 2880 stub patches
+   (``add_modality_stub``) before each 1024-token prompt and decoding from
+   position 3904 into a 3936-row cache: each prefill launches K6 32 times,
+   causal, all wgmma; no plain attention call; checks (a)-(c) on 4 of its
+   layers with the same prefix ((c) against a forward over 3905
+   positions);
 19. [train] — granite-3-2b training at full width (40 layers, bf16,
    remat="full", AdamW with f32 moments, seeded random weights), B = 4 x
    1024 tokens of data/tokens, 1 warm-up and 4 timed steps, launch counts
@@ -210,6 +222,11 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens with 1500 stub frames each (remat on the decoder, f32 moments):
    K6 4 times without a mask (the encoder, not rematerialised) and 8
    times causal, K7 4 + 4, all wgmma, per step by mask;
+22c. [train llava-next-mistral-7b] — as 20 for llava-next-mistral-7b at
+   full width cut to 12 of 32 layers (f32 moments, remat), B = 4 x 1024
+   text tokens, each after its 2880 stub patches: 24 K6 and 12 K7
+   launches per step, causal, all wgmma; the model flops count all 3904
+   positions, the unembedding the text only;
 23. [train check] — one step's loss and gradients at full width of
    granite-3-2b with 4 layers, of deepseek-v3's 3 dense layers and of
    zamba2-2.7b with 12 layers: bf16 with the kernels, bf16 plain, f32
@@ -217,8 +234,16 @@ Phases (any failure exits non-zero; nothing is caught):
    gradient leaf against f32, the kernel run's worst no more than 1.5 x
    the plain run's; and deepseek-v3 at REDUCED width (MoE layers, MLA,
    MTP) and the zamba2 cut (remat on), each in f32, kernels against
-   plain, every gradient leaf within 1e-4 of its largest element; and
-   whisper-tiny whole, both ways;
+   plain, every gradient leaf within 1e-4 of its largest element;
+   whisper-tiny whole, both ways; llava-next-mistral-7b cut to 4 layers
+   in bf16 at B = 2 x (2880 patches + 1024 tokens); on the same cut in
+   f32, ``compressed_psum`` over 4 emulated ranks of a ("pod", "data") =
+   (2, 2) mesh (each rank one batch's gradients, two rounds, residuals
+   carried: every mean within scale / 2 of the exact mean, every residual
+   x - q * scale rounded once); and ``pipeline_apply`` on that mesh, 2
+   microbatches, 2 of llava's blocks per stage, bf16, B = 8 x 1024
+   tokens: equal to the blocks per microbatch bit for bit, to the whole
+   batch within 2e-2, 16 K6 launches;
 24. [examples] — examples/torch_*.py on the card through their ``run``:
    quickstart, the serving example (accounting balances, with drops), the
    flow classifier (held-out accuracy > 0.85) and LM training (the loss
@@ -1402,11 +1427,32 @@ def check_flash_attention_whisper(dev):
                               WHISPER_FRAMES, WHISPER_D, False, "wgmma", 37)
 
 
-def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed):
-    """K6 at (bh6, S, D) and K7 at (bh7, S, D) (q, k, v, o, do, group 1,
-    ``causal``), bf16 on ``variant``'s kernels. K6 held against its plain
+# K6 at llava-next-mistral-7b's prefill shape and K7 at its training shape:
+# B = 4 x 32 heads of 128 (8 kv heads) over its 2880 stub patches and 1024
+# text tokens, causal
+LLAVA_HEADS, LLAVA_GROUP, LLAVA_D = 32, 4, 128
+LLAVA_PATCHES = 2880
+LLAVA_S = LLAVA_PATCHES + SERVE_PROMPT
+
+
+def check_flash_attention_llava(dev):
+    """K6 and K7 causal at llava-next-mistral-7b's shapes (q, o, do (128,
+    3904, 128), k, v (32, 3904, 128), group 4; 3904 = 30.5 tiles of 128,
+    so the last query and key tiles are ragged), bf16 on the wgmma
+    kernels, by :func:`check_attention_at`. Returns (K6's entry, K7's
+    entry)."""
+    return check_attention_at(dev, "llava", SERVE_B * LLAVA_HEADS,
+                              TRAIN_B * LLAVA_HEADS, LLAVA_S, LLAVA_D, True,
+                              "wgmma", 41, group=LLAVA_GROUP)
+
+
+def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
+                       group=1):
+    """K6 at (bh6, S, D) and K7 at (bh7, S, D) (q, o, do; k, v with
+    ``group`` query heads each; ``causal``), bf16 on ``variant``'s
+    kernels. K6 held against its plain
     version in bf16 and f32 (:func:`hold_k6_against_plain`; K6 runs on
-    the first bh6 heads of K7's inputs); K7 from K6's o and lse (its lse
+    the first bh6 query heads of K7's inputs); K7 from K6's o and lse (its lse
     within LSE_TOL of the plain logsumexp) in f32 within BWD_TOL of max
     |grad| and in bf16 no further from the f32 plain gradient than the
     bf16 plain gradient is, x B_RATIO. Each timed in turns with its plain
@@ -1425,36 +1471,40 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed):
             f"{tag}'s head dim {D} should run K6's and K7's {variant} "
             f"kernels in bf16")
     mask = "causal" if causal else "full (non-causal)"
-    shape6 = f"q/k/v/o ({bh6}, {S}, {D}), group 1, {mask}, bf16 (f32 too)"
-    shape7 = f"q/k/v/o/do ({bh7}, {S}, {D}), group 1, {mask}, bf16 (f32 too)"
+    shape6 = (f"q/o ({bh6}, {S}, {D}), k/v ({bh6 // group}, {S}, {D}), "
+              f"group {group}, {mask}, bf16 (f32 too)")
+    shape7 = (f"q/o/do ({bh7}, {S}, {D}), k/v ({bh7 // group}, {S}, {D}), "
+              f"group {group}, {mask}, bf16 (f32 too)")
     pairs = attention_pairs(S, S, causal)
     # the bf16 case is timed; the f32 one is only held
     errs6, ratios6, errs7, lse_errs = {}, {}, {}, {}
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         want_v = variant if dt == "bfloat16" else "simt"
-        q, k, v = attention_inputs(gen, dev, bh7, S, S, D, D, 1, dtype)
+        q, k, v = attention_inputs(gen, dev, bh7, S, S, D, D, group, dtype)
         do = torch.randn(bh7, S, D, generator=gen, device=dev).to(dtype)
-        q6, k6, v6 = q[:bh6], k[:bh6], v[:bh6]
+        q6, k6, v6 = q[:bh6], k[:bh6 // group], v[:bh6 // group]
         errs6[dt], ratio = hold_k6_against_plain(f"{tag} {dt}", q6, k6, v6,
-                                                 1, causal, want_v)
+                                                 group, causal, want_v)
         if ratio is not None:
             ratios6[dt] = ratio
-        o, lse = K.flash_attention_cuda(q, k, v, causal=causal,
+        o, lse = K.flash_attention_cuda(q, k, v, group=group, causal=causal,
                                         with_lse=True)
-        _, want_lse = REF.flash_attention_lse_ref(q, k, v, causal=causal)
+        _, want_lse = REF.flash_attention_lse_ref(q, k, v, group=group,
+                                                  causal=causal)
         lse_errs[dt] = float((lse - want_lse).abs().max())
         require(lse_errs[dt] <= LSE_TOL,
                 f"flash_attention's lse ({tag}, {dt}) differs from the "
                 f"plain logsumexp by {lse_errs[dt]:.3e}")
         before = dict(BK.KERNEL.launches_by_variant)
-        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=group,
+                                          causal=causal)
         require(BK.KERNEL.launches_by_variant
                 == {**before, want_v: before[want_v] + 1},
                 f"flash_attention_bwd ({tag}, {dt}) did not count one "
                 f"{want_v} launch")
         want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
-                                           causal=causal)
+                                           group=group, causal=causal)
         torch.cuda.synchronize()
         require(all(bool(torch.isfinite(g.float()).all()) for g in got),
                 f"flash_attention_bwd ({tag}, {dt}) gave non-finite "
@@ -1470,7 +1520,7 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed):
             continue
         f32 = REF.flash_attention_bwd_ref(
             *(t.float() for t in (q, k, v, o)), want_lse, do.float(),
-            causal=causal)
+            group=group, causal=causal)
         err_k, err_p = grad_err(got, f32), grad_err(want, f32)
         abs7 = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(got, want))
@@ -1489,20 +1539,20 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed):
         f"K6's lse vs the plain logsumexp {lse_errs}")
 
     def sdpa(bh, backward):
-        """SDPA on the first ``bh`` heads: the forward, or the forward +
-        backward."""
-        leaves = [t[:bh].detach().clone().view(1, bh, S, D)
-                  .requires_grad_() for t in (q, k, v)]
+        """SDPA on the first ``bh`` query heads (GQA over their kv heads):
+        the forward, or the forward + backward."""
+        leaves = [t[:n].detach().clone().view(1, n, S, D).requires_grad_()
+                  for t, n in ((q, bh), (k, bh // group), (v, bh // group))]
         grad_out = do[:bh].view(1, bh, S, D)
+        kw = dict(is_causal=causal, enable_gqa=group > 1)
         if not backward:
             def fwd():
                 with torch.no_grad():
-                    return F.scaled_dot_product_attention(*leaves,
-                                                          is_causal=causal)
+                    return F.scaled_dot_product_attention(*leaves, **kw)
             return fwd
 
         def fwd_bwd():
-            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            out = F.scaled_dot_product_attention(*leaves, **kw)
             torch.autograd.grad(out, leaves, grad_out)
         return fwd_bwd
 
@@ -1518,26 +1568,29 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed):
     lib7_us = device_us(None, fwd_bwd7, 5) - device_us(None, fwd7)
     lib_err = float((fwd6().reshape(bh6, S, D).float()
                      - o[:bh6].float()).abs().max())
-    sdpa_call = ("scaled_dot_product_attention(is_causal)" if causal else
-                 "scaled_dot_product_attention (no mask)")
-    q6, k6, v6 = q[:bh6], k[:bh6], v[:bh6]
+    sdpa_call = ("scaled_dot_product_attention(is_causal" if causal else
+                 "scaled_dot_product_attention (no mask")
+    sdpa_call += ", enable_gqa)" if group > 1 else ")"
+    q6, k6, v6 = q[:bh6], k[:bh6 // group], v[:bh6 // group]
 
     entries = []
     for name, kernel, shape, call, plain, n_ops, n_bytes, lib in (
             ("flash_attention", K.KERNEL, shape6,
-             lambda: ops.flash_attention(q6, k6, v6, causal=causal),
-             lambda: ops.flash_attention(q6, k6, v6, causal=causal,
-                                         backend="ref"),
-             2 * (D + D) * pairs * bh6, (q6.numel() * 4) * 2,
+             lambda: ops.flash_attention(q6, k6, v6, group=group,
+                                         causal=causal),
+             lambda: ops.flash_attention(q6, k6, v6, group=group,
+                                         causal=causal, backend="ref"),
+             2 * (D + D) * pairs * bh6,
+             (2 * q6.numel() + k6.numel() + v6.numel()) * 2,
              (lib6_ms, lib6_us,
               f"one {sdpa_call} call; max abs diff to K6 {lib_err:.3e}")),
             ("flash_attention_bwd", BK.KERNEL, shape7,
              lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                 causal=causal),
+                                                 group=group, causal=causal),
              lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                                 causal=causal),
+                                                 group=group, causal=causal),
              2 * (2 * D + 2 * D + D) * pairs * bh7,
-             2 * bh7 * S * (4 * D + 4 * D) + 4 * bh7 * S,
+             2 * S * D * (4 * bh7 + 4 * (bh7 // group)) + 4 * bh7 * S,
              (lib7_ms, lib7_us,
               f"{sdpa_call} forward + backward minus its forward, on the "
               f"same inputs"))):
@@ -2894,22 +2947,30 @@ def blocks_by_kind(cfg) -> dict:
     return {"causal": attention_blocks(cfg) - full, "full": full}
 
 
+def prefix_len(batch) -> int:
+    """The positions a batch puts before its tokens: the vlm family's
+    patches."""
+    return batch["patches"].shape[1] if "patches" in batch else 0
+
+
 def generate(model, params, tokens, gen_steps, forced=None, extra=None,
              cache_len=None):
-    """Prefill ``tokens`` (B, P) (with ``extra``, e.g. whisper's frames, in
-    the batch), then ``gen_steps - 1`` decode steps into a ``cache_len``-row
-    cache (default SERVE_CACHE): greedy, or fed the tokens of ``forced``
+    """Prefill ``tokens`` (B, P) (with ``extra``, e.g. whisper's frames or
+    llava's patches, in the batch), then ``gen_steps - 1`` decode steps into
+    a ``cache_len``-row cache (default SERVE_CACHE), the first at position
+    P after any patch prefix: greedy, or fed the tokens of ``forced``
     (B, gen_steps). Returns (tokens (B, gen_steps), [prefill logits, then
     each decode step's logits] in f32)."""
     import torch
     from repro_torch.launch.serve import build_cache
 
     B, P = tokens.shape
-    logits, pcache = model.prefill(params, {"tokens": tokens,
-                                            **(extra or {})})
+    batch = {"tokens": tokens, **(extra or {})}
+    logits, pcache = model.prefill(params, batch)
     cache = build_cache(model, pcache, B, cache_len or SERVE_CACHE)
     del pcache
-    pos = torch.full((B,), P, dtype=torch.int64, device=tokens.device)
+    pos = torch.full((B,), prefix_len(batch) + P, dtype=torch.int64,
+                     device=tokens.device)
     out, seen = [], [logits.float()]
     for i in range(gen_steps):
         tok = (logits.argmax(-1)[:, None] if forced is None
@@ -3029,7 +3090,8 @@ def logit_checks(tag, cfg, params, prompt, note_b="", extra=None,
     position P against a full forward over P + 1 tokens (for the hybrid
     family it carries the Mamba2 and conv states across the prefill). The
     f32 prefill must run K6's simt variant once per attention block.
-    SERVE_GEN greedy tokens into ``cache_len`` rows."""
+    SERVE_GEN greedy tokens into ``cache_len`` rows; with llava's patches
+    in ``extra`` the decode positions and (c)'s forward count them."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
     from repro_torch.models import layers as L
@@ -3077,8 +3139,9 @@ def logit_checks(tag, cfg, params, prompt, note_b="", extra=None,
         f"{r['b'][1]:.3e}; each bf16 run against the f32 run: kernel "
         f"{r['err_k']:.3e}, plain {r['err_p']:.3e} (held: kernel <= "
         f"{B_RATIO:g} x plain){note_b}")
-    log(f"{tag} (c) decode logits at position {P} vs a full forward over "
-        f"{P + 1} tokens (f32): {r['c']:.3e} (tolerance {A_TOL:g})")
+    n = prefix_len(extra) + P
+    log(f"{tag} (c) decode logits at position {n} vs a full forward over "
+        f"{n + 1} positions (f32): {r['c']:.3e} (tolerance {A_TOL:g})")
     return r
 
 
@@ -3092,8 +3155,9 @@ def require_logit_checks(tag, r) -> None:
 
 
 def request_batch(cfg, tokens, i: int):
-    """Request ``i``'s batch: its tokens and, for the encdec family, the
-    stub frames ``data.tokens.add_modality_stub`` draws for step ``i``."""
+    """Request ``i``'s batch: its tokens and, for the encdec and vlm
+    families, the stub frames or patches ``data.tokens.add_modality_stub``
+    draws for step ``i``."""
     from repro_torch.data import tokens as DATA
     return DATA.add_modality_stub({"tokens": tokens}, cfg, i)
 
@@ -3102,9 +3166,9 @@ def serve_requests(tag, cfg, dev, n_timed: int, variant,
                    prompt_len=SERVE_PROMPT, cache_len=SERVE_CACHE):
     """``cfg``'s model on the card with seeded random weights: one warm-up
     request and ``n_timed`` timed ones of SERVE_B x ``prompt_len``-token
-    prompts (for the encdec family with the stub frames of
-    :func:`request_batch`) and SERVE_GEN greedy tokens into ``cache_len``
-    rows,
+    prompts (for the encdec and vlm families with the stub frames or
+    patches of :func:`request_batch`; decoding starts after the patches)
+    and SERVE_GEN greedy tokens into ``cache_len`` rows,
     launch counts from 0 before the timed ones, each prefill required to
     launch flash_attention once per attention block
     (:func:`attention_blocks`), by mask as :func:`blocks_by_kind` says,
@@ -3130,7 +3194,8 @@ def serve_requests(tag, cfg, dev, n_timed: int, variant,
     prompts = [torch.randint(0, cfg.vocab_size, (SERVE_B, P),
                              generator=gen, device=dev)
                for _ in range(n_timed + 1)]
-    args = (P, G, C)
+    n_prefix = cfg.vision.num_patches if cfg.family == "vlm" else 0
+    args = (n_prefix + P, G, C)
 
     serve(model, params, request_batch(cfg, prompts[0], 0), *args)
     torch.cuda.synchronize()
@@ -3168,12 +3233,16 @@ def serve_requests(tag, cfg, dev, n_timed: int, variant,
     step_ms = [r[2]["decode_s"] * 1e3 / (G - 1) for r in runs]
     total_s = [r[2]["prefill_s"] + r[2]["decode_s"] for r in runs]
     log(f"{tag} {len(runs)} timed requests of B={SERVE_B} x "
+        f"{f'{n_prefix} patches + ' if n_prefix else ''}"
         f"{P}-token prompts, {G} greedy tokens, cache "
         f"{C}: prefill ms {[round(x, 3) for x in prefill_ms]}, "
         f"decode ms/step {[round(x, 4) for x in step_ms]}")
-    log(f"{tag} mean prefill {np.mean(prefill_ms):.3f} ms "
-        f"({SERVE_B * P / np.mean(prefill_ms) * 1e3:.1f} prefill "
-        f"tok/s), decode {np.mean(step_ms):.4f} ms/step, generated "
+    rate = f"{SERVE_B * P / np.mean(prefill_ms) * 1e3:.1f} prefill tok/s"
+    if n_prefix:
+        rate += (f", {SERVE_B * (n_prefix + P) / np.mean(prefill_ms) * 1e3:.1f}"
+                 " positions/s with the patches")
+    log(f"{tag} mean prefill {np.mean(prefill_ms):.3f} ms ({rate}), decode "
+        f"{np.mean(step_ms):.4f} ms/step, generated "
         f"{np.mean([r[1] for r in runs]):.2f} tok/s "
         f"({SERVE_B * G / np.mean(total_s):.2f} from the mean "
         f"request); max_memory_allocated {peak} B; flash_attention launches "
@@ -3477,6 +3546,74 @@ def serve_whisper_phase(dev):
     return launches, variants, kinds
 
 
+# -- llava-next-mistral-7b (vlm) serving ----------------------------------------
+
+LLAVA_CHECK_LAYERS = 4
+# the decode cache: the 2880 patches, the 1024-token prompt, 32 tokens
+LLAVA_CACHE = LLAVA_PATCHES + SERVE_PROMPT + SERVE_GEN
+
+
+def serve_llava_phase(dev):
+    """llava-next-mistral-7b whole (32 layers, d 4096, 32 / 8 heads of 128,
+    untied 32,000-row vocabulary; 7,241,732,096 parameters, bf16) served as
+    :func:`serve_requests` does, B = SERVE_B x (2880 stub patches + a
+    1024-token prompt), 32 greedy tokens from position 3904, 2 timed
+    requests: each prefill launches K6 32 times, causal, all wgmma, over
+    3904 positions; no plain attention call; the bf16 plain run's logit
+    gap to the kernel run on its tokens; then checks (a)-(c) on 4 of its
+    layers with fresh seeded weights and the same prefix ((c) at position
+    3904 against a forward over 3905 positions, the patches included).
+    Returns the launch counts over the timed requests, flash_attention's
+    by variant and by mask."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.models.registry import Model
+    tag = "[serve llava-next-mistral-7b]"
+    cfg = get_config("llava-next-mistral-7b")
+    require(cfg.vision.num_patches == LLAVA_PATCHES,
+            f"{tag} expected {LLAVA_PATCHES} stub patches")
+    with PlainCalls() as plain:
+        model, params, prompts, runs, launches, variants = serve_requests(
+            tag, cfg, dev, 2, "wgmma", SERVE_PROMPT, LLAVA_CACHE)
+    kinds = dict(K6.launches_by_kind)
+    require(plain.calls == 0, f"{tag} {plain.calls} plain attention calls")
+    extra = {"patches": request_batch(cfg, prompts[1], 1)["patches"]}
+    before = K6.launches
+    toks, lg = generate(model, params, prompts[1], SERVE_GEN, extra=extra,
+                        cache_len=LLAVA_CACHE)
+    _, lg_ref = generate(Model(cfg, device=dev, backend="ref"), params,
+                         prompts[1], SERVE_GEN, forced=toks, extra=extra,
+                         cache_len=LLAVA_CACHE)
+    require(K6.launches == before + attention_blocks(cfg),
+            f"{tag} expected {attention_blocks(cfg)} flash_attention launches "
+            "from the kernel run's prefill and none from the plain run")
+    log(f"{tag} K6 launches by mask over the timed requests {kinds}, by "
+        f"variant {variants}; plain attention calls {plain.calls}; bf16 "
+        f"plain run vs kernel run on the kernel run's tokens: max |dlogit| "
+        f"/ max |logit| prefill {logit_ratio(lg[:1], lg_ref[:1]):.3e}, "
+        f"teacher-forced decode {logit_ratio(lg[1:], lg_ref[1:]):.3e}")
+    del model, params, prompts, runs, lg, lg_ref, extra
+    torch.cuda.empty_cache()
+
+    ccfg = cfg.replace(num_layers=LLAVA_CHECK_LAYERS)
+    cparams = Model(ccfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(2))
+    prompt = torch.randint(0, ccfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(3), device=dev)
+    patches = request_batch(ccfg, prompt, 0)["patches"]
+    log(f"{tag} checks (a)-(c) on {ccfg.num_layers} layers (seeded weights, "
+        f"bf16 and an f32 copy, {LLAVA_PATCHES} patches + {SERVE_PROMPT} "
+        "tokens)")
+    r = logit_checks(tag, ccfg, cparams, prompt, extra={"patches": patches},
+                     cache_len=LLAVA_CACHE)
+    require_logit_checks(tag, r)
+    del cparams, r, patches
+    torch.cuda.empty_cache()
+    return launches, variants, kinds
+
+
 # -- phases 19-23: training at full width, and its checks ----------------------
 
 TRAIN_WARMUP, TRAIN_STEPS = 1, 4
@@ -3570,9 +3707,15 @@ def train_flops(cfg, B: int, S: int) -> float:
     three each; the unembedding; with multi-token prediction its
     projection, one more block and the unembedding again), plus the
     causal attention's two products (2 (D + Dv) per kept pair and head).
-    Pairs that capacity drops are counted as computed. The hybrid, ssm and
-    encdec families: :func:`hybrid_flops`, :func:`ssm_flops`,
-    :func:`encdec_flops`."""
+    Pairs that capacity drops are counted as computed. The vlm family: the
+    dense model's over all num_patches + S positions, the unembedding over
+    the S text positions only. The hybrid, ssm and encdec families:
+    :func:`hybrid_flops`, :func:`ssm_flops`, :func:`encdec_flops`."""
+    if cfg.family == "vlm":
+        n = cfg.vision.num_patches
+        dense = cfg.replace(family="dense", vision=None)
+        return (train_flops(dense, B, n + S)
+                - 2.0 * cfg.d_model * cfg.vocab_size * B * n)
     if cfg.family == "hybrid":
         return hybrid_flops(cfg, B, S)
     if cfg.family == "ssm":
@@ -3830,6 +3973,28 @@ def train_whisper_phase(dev):
                      seq=WHISPER_CACHE)
 
 
+LLAVA_TRAIN_LAYERS = 12      # of 32: whole, with f32 moments, ~87 GB
+
+
+def train_llava_phase(dev):
+    """llava-next-mistral-7b at full width cut to 12 of its 32 layers (the
+    whole model's weights, gradients and f32 moments would take ~87 GB),
+    the full untied 32,000-row vocabulary, f32 moments (its config's),
+    remat; B = 4 x 1024 text tokens, each after its 2880 stub patches: K6
+    2 x 12 (the forward and its remat) and K7 12 per step, causal, all
+    wgmma over 3904 positions; the model flops count every position, the
+    unembedding the text only. Returns the launch counts, K7's by variant
+    and K6's and K7's by mask."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llava-next-mistral-7b")
+    require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
+            "[train llava-next-mistral-7b] llava should train under "
+            "remat='full' with f32 moments")
+    return train_run(dev, "[train llava-next-mistral-7b]",
+                     cfg.replace(num_layers=LLAVA_TRAIN_LAYERS), "wgmma",
+                     TRAIN_MOE_STEPS)
+
+
 def train_llama4_phase(dev):
     """llama4-scout at full width cut to 1 of its 48 layers: all 16
     experts whole, the shared expert, the full untied 202,048-row
@@ -4018,12 +4183,192 @@ def whisper_step_checks(dev):
                    6, "encdec, remat, non-causal encoder", **shape)
 
 
+# [train check]'s pipeline: ("pod", "data") = (2, 2), 2 microbatches, 2
+# blocks per stage, B = 8 x 1024 tokens
+PIPE_MESH, PIPE_MICRO, PIPE_B = (2, 2), 2, 8
+
+
+def llava_step_checks(dev):
+    """llava-next-mistral-7b at full width cut to 4 layers: in bf16 by
+    :func:`bf16_step_check` at B = 2 x 1024 tokens after the 2880 patches;
+    then :func:`compression_check` and :func:`pipeline_check` on the same
+    cut."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llava-next-mistral-7b").replace(
+        num_layers=TRAIN_CHECK_LAYERS)
+    bf16_step_check(dev, cfg, batch=2)
+    compression_check(dev, cfg.replace(dtype="float32",
+                                       param_dtype="float32"))
+    pipeline_check(dev, cfg)
+
+
+def compression_check(dev, cfg):
+    """``optim.compression.compressed_psum`` over the 4 emulated ranks of a
+    ("pod", "data") = (2, 2) mesh, on the f32 gradients of ``cfg`` (llava
+    cut to 4 layers, f32) from 4 batches of 1 x 1024 tokens after their
+    patches, one per rank, leaf by leaf; two rounds, the second on the
+    next 4 batches with the first round's residuals carried in.
+    Every element of a round's mean lies within scale / 2 of the exact
+    (f64) mean of g + err, plus the f32 rounding of x / scale (127 x 2^-23
+    x scale) and of the mean (2 x 2^-23 of its largest element); every
+    residual equals x - q * scale (x = g + err, q = round(x / scale))
+    rounded once; every rank gets the same mean."""
+    import torch
+    from repro_torch.data import tokens as DATA
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import EmulatedMesh
+    from repro_torch.models.registry import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compression as C
+
+    tag = "[train check] compression"
+    mesh = EmulatedMesh(("pod", "data"), PIPE_MESH, dev)
+    ranks = mesh.size
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(7))
+
+    def grads(step):
+        out = []
+        for r in range(step * ranks, (step + 1) * ranks):
+            b = DATA.add_modality_stub(DATA.batch_at(
+                r, cfg, 1, SERVE_PROMPT, seed=9, device=dev), cfg, r, seed=9)
+            out.append(adamw.leaves(ST.loss_and_grads(model, params, b)[1]))
+        return out
+
+    names = ["/".join(p) for p in adamw.paths(params)]
+    err = [None] * len(names)            # each leaf's residuals, on the host
+    worst = {}
+    eps = float(torch.finfo(torch.float32).eps)
+    t0 = time.perf_counter()
+    for rnd in range(2):
+        per_rank = grads(rnd)
+        for i, name in enumerate(names):
+            g = torch.stack([leaves[i] for leaves in per_rank])
+            for leaves in per_rank:
+                leaves[i] = None
+            e = (C.init_error(g) if err[i] is None
+                 else err[i].to(dev, non_blocking=True))
+            mean, resid = C.compressed_psum({"g": g}, {"g": e}, mesh,
+                                            ("pod", "data"))
+            mean, resid = mean["g"], resid["g"]
+            scale = torch.clamp((g.float() + e).abs().max(), min=1e-12) / 127.0
+            require(all(torch.equal(m, mean[0]) for m in mean),
+                    f"{tag} round {rnd} {name}: the ranks' means differ")
+            # the exact mean and x - q * scale rounded once, slice by slice
+            gap, same, biggest = 0.0, True, 0.0
+            flat = lambda t: t.reshape(ranks, -1)
+            for j in range(0, flat(g).shape[1], C.CHUNK):
+                sl = slice(j, j + C.CHUNK)
+                x = flat(g)[:, sl].float() + flat(e)[:, sl]
+                exact = x.double().mean(0)
+                gap = max(gap, float((flat(mean)[0, sl].double() - exact)
+                                     .abs().max()))
+                biggest = max(biggest, float(exact.abs().max()))
+                q = torch.clamp(torch.round(x / scale), -127, 127)
+                same &= torch.equal(flat(resid)[:, sl], (
+                    x.double() - q.double() * scale.double()).float())
+            slack = eps * (127 * float(scale) + 2 * biggest)
+            require(gap <= float(scale) / 2 + slack,
+                    f"{tag} round {rnd} {name}: the mean is {gap:.3e} from "
+                    f"the exact mean, past scale / 2 = {float(scale) / 2:.3e}")
+            require(same, f"{tag} round {rnd} {name}: a residual is not x - "
+                          "q * scale rounded once")
+            worst[name] = max(worst.get(name, 0.0), gap / float(scale))
+            err[i] = resid.cpu()
+            del g, e, mean, resid
+        del per_rank
+    top = [(n, f"{worst[n]:.4f}")
+           for n in sorted(worst, key=worst.get, reverse=True)[:3]]
+    log(f"{tag}: compressed_psum over {ranks} emulated ranks of {PIPE_MESH} "
+        f"(\"pod\", \"data\"), {len(names)} f32 gradient leaves of "
+        f"{cfg.name} at {cfg.num_layers} layers, two rounds (residuals "
+        f"carried): worst |mean - exact mean| / scale {top} (held <= 0.5 + "
+        f"f32 rounding); every residual x - q * scale rounded once; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, err
+    torch.cuda.empty_cache()
+
+
+def pipeline_check(dev, cfg):
+    """``distributed.pipeline.pipeline_apply`` on an emulated ("pod",
+    "data") = (2, 2) mesh with 2 microbatches, in bf16, at B = 8 x 1024
+    tokens (their embeddings): ``stage_fn`` runs 2 of ``cfg``'s full-width
+    blocks per stage. The output equals the 4 blocks applied in order to
+    each microbatch, bit for bit, and to the whole batch at once within
+    2e-2 of its largest element; K6 launches 2 data shards x 2
+    microbatches x 2 stages x 2 blocks = 16 times, all wgmma."""
+    import torch
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
+    from repro_torch.launch.mesh import EmulatedMesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models.registry import Model
+    from repro_torch.optim import adamw
+
+    tag = "[train check] pipeline"
+    mesh = EmulatedMesh(("pod", "data"), PIPE_MESH, dev)
+    stages, shards = mesh.shape["pod"], mesh.shape["data"]
+    per_stage = cfg.num_layers // stages
+    params = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(8))
+    stack = params["stack_0_dense"]
+    staged = adamw.tree_map(
+        lambda a: a.reshape(stages, per_stage, *a.shape[1:]), stack)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_B, SERVE_PROMPT),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(9), device=dev)
+
+    def stage_fn(p, h, sid):
+        for lp in LM.unstack(p, per_stage):
+            h = LM.block_train(lp, h, cfg)
+        return h
+
+    def blocks(h):
+        for lp in LM.unstack(stack, cfg.num_layers):
+            h = LM.block_train(lp, h, cfg)
+        return h
+
+    with torch.no_grad():
+        x = L.embed(params["embed"], tokens)
+        n6, w6 = K6.launches, K6.launches_by_variant["wgmma"]
+        with PlainCalls() as plain:
+            t0 = time.perf_counter()
+            got = pipeline_apply(stage_fn, staged, x, mesh, axis="pod",
+                                 num_micro=PIPE_MICRO)
+            torch.cuda.synchronize()
+            pipe_ms = (time.perf_counter() - t0) * 1e3
+        launched = (K6.launches - n6, K6.launches_by_variant["wgmma"] - w6)
+        micro = PIPE_B // shards // PIPE_MICRO
+        each = torch.cat([blocks(m) for m in x.split(micro)])
+        whole = blocks(x)
+    want = shards * PIPE_MICRO * stages * per_stage
+    gap = float((got.float() - whole.float()).abs().max()) / float(
+        whole.float().abs().max())
+    log(f"{tag}: pipeline_apply over {PIPE_MESH} (\"pod\", \"data\"), "
+        f"{PIPE_MICRO} microbatches of {micro} rows, {per_stage} of "
+        f"{cfg.name}'s blocks per stage, B={PIPE_B} x {SERVE_PROMPT} tokens, "
+        f"bf16: {pipe_ms:.1f} ms; == the blocks per microbatch bit for bit "
+        f"{torch.equal(got, each)}; vs the whole batch at once "
+        f"{gap:.3e} of its max (held <= 2e-2); K6 launches {launched[0]} "
+        f"({launched[1]} wgmma; expected {want}), plain attention calls "
+        f"{plain.calls}")
+    require(torch.equal(got, each), f"{tag}: the pipeline differs from the "
+                                    "blocks applied per microbatch")
+    require(gap <= 2e-2, f"{tag}: the pipeline differs from the whole batch")
+    require(launched == (want, want) and plain.calls == 0,
+            f"{tag}: K6 launched {launched} (all, wgmma), expected {want}")
+    del params, stack, staged, x, got, each, whole
+    torch.cuda.empty_cache()
+
+
 def train_check_phase(dev):
     """granite-3-2b with 4 layers and deepseek-v3's 3 dense layers, at
     full width, by :func:`bf16_step_check`; the moe family with MTP at
     REDUCED width by :func:`moe_step_check`; the zamba2 cut by
     :func:`zamba2_step_checks`; whisper-tiny by
-    :func:`whisper_step_checks`."""
+    :func:`whisper_step_checks`; llava's 4-layer cut, compression and the
+    pipeline by :func:`llava_step_checks`."""
     from repro_torch.configs import get_config
     bf16_step_check(dev, get_config("granite-3-2b").replace(
         num_layers=TRAIN_CHECK_LAYERS))
@@ -4033,6 +4378,7 @@ def train_check_phase(dev):
     moe_step_check(dev)
     zamba2_step_checks(dev)
     whisper_step_checks(dev)
+    llava_step_checks(dev)
 
 
 # -- phase 24: the four examples on the card -----------------------------------
@@ -4168,6 +4514,8 @@ def main() -> int:
         check_flash_attention_zamba2(dev)
     checks[-2]["whisper"], checks[-1]["whisper"] = \
         check_flash_attention_whisper(dev)
+    checks[-2]["llava"], checks[-1]["llava"] = \
+        check_flash_attention_llava(dev)
     for c in checks:
         log(f"[kernel] {c['kernel'].name} at {c['shape']}: {c['check']} ok; "
             f"kernel {c['ms']:.5f} ms, device {c['device_us']:.3f} us, "
@@ -4258,13 +4606,16 @@ def main() -> int:
     rwkv_launches, rwkv_variants = serve_rwkv_phase(dev)
     whisper_launches, whisper_variants, whisper_kinds = \
         serve_whisper_phase(dev)
+    # llava-next-mistral-7b (vlm: 2880 patches before each prompt)
+    llava_launches, llava_variants, llava_kinds = serve_llava_phase(dev)
     k6_row = next(c for c in checks if c["kernel"].name == "flash_attention")
     k6_row["variants_by_path"] = {"serve": serve_variants,
                                   "serve_deepseek": deepseek_variants,
                                   "serve_qwen": qwen_variants,
                                   "serve_zamba2": zamba_variants,
                                   "serve_rwkv": rwkv_variants,
-                                  "serve_whisper": whisper_variants}
+                                  "serve_whisper": whisper_variants,
+                                  "serve_llava": llava_variants}
     k7_row = next(c for c in checks
                   if c["kernel"].name == "flash_attention_bwd")
 
@@ -4279,17 +4630,23 @@ def main() -> int:
     train_r_launches, train_r_variants, _ = train_rwkv_phase(dev)
     train_w_launches, train_w_variants, train_w_kinds = \
         train_whisper_phase(dev)
+    train_v_launches, train_v_variants, train_v_kinds = \
+        train_llava_phase(dev)
     k7_row["variants_by_path"] = {"train": train_variants,
                                   "train_deepseek": train_ds_variants,
                                   "train_llama4": train_l4_variants,
                                   "train_zamba2": train_z_variants,
                                   "train_rwkv": train_r_variants,
-                                  "train_whisper": train_w_variants}
+                                  "train_whisper": train_w_variants,
+                                  "train_llava": train_v_variants}
     k6_row["kinds_by_path"] = {
         "serve_whisper": whisper_kinds,
-        "train_whisper": train_w_kinds["flash_attention"]}
+        "train_whisper": train_w_kinds["flash_attention"],
+        "serve_llava": llava_kinds,
+        "train_llava": train_v_kinds["flash_attention"]}
     k7_row["kinds_by_path"] = {
-        "train_whisper": train_w_kinds["flash_attention_bwd"]}
+        "train_whisper": train_w_kinds["flash_attention_bwd"],
+        "train_llava": train_v_kinds["flash_attention_bwd"]}
     train_check_phase(dev)
     examples_phase(dev)
 
@@ -4303,12 +4660,14 @@ def main() -> int:
                  "serve_qwen": qwen_launches,
                  "serve_zamba2": zamba_launches,
                  "serve_rwkv": rwkv_launches,
-                 "serve_whisper": whisper_launches, "train": train_launches,
+                 "serve_whisper": whisper_launches,
+                 "serve_llava": llava_launches, "train": train_launches,
                  "train_deepseek": train_ds_launches,
                  "train_llama4": train_l4_launches,
                  "train_zamba2": train_z_launches,
                  "train_rwkv": train_r_launches,
-                 "train_whisper": train_w_launches},
+                 "train_whisper": train_w_launches,
+                 "train_llava": train_v_launches},
         {"flash_attention": serve_variants,
          "flash_attention_bwd": train_variants})}))
     print(smi)
@@ -4361,7 +4720,7 @@ def kernel_rows(checks, by_path, by_variant):
                          "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms",
                          "simt_note", "abs_errs", "lse_errs", "mla",
-                         "zamba2", "whisper", "variants_by_path",
+                         "zamba2", "whisper", "llava", "variants_by_path",
                          "kinds_by_path")
                         if key in c}})
     return rows

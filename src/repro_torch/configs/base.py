@@ -6,8 +6,8 @@ both packages. Only the fields the port reads (or refuses) are carried;
 the tuning knob arrives with the slice that implements it (ROADMAP §1
 item 12). ``MoEConfig`` and ``MLAConfig`` carry every field of the
 reference's, and so do ``SSMConfig`` (the hybrid and ssm families'),
-``HybridConfig`` and ``EncDecConfig`` (the encdec family's); the vision
-sub-config arrives with the vlm family (ROADMAP §1 item 14c).
+``HybridConfig``, ``EncDecConfig`` (the encdec family's) and
+``VisionStubConfig`` (the vlm family's).
 """
 from __future__ import annotations
 
@@ -192,17 +192,26 @@ class EncDecConfig:
 
 
 @dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM frontend stub (llava-next). The batches carry precomputed patch
+    embeddings already projected to d_model
+    (``data.tokens.add_modality_stub``); anyres tiling is upstream."""
+
+    num_patches: int = 2880           # anyres 5 tiles x 576 patches
+    patch_embed_dim: int = 0          # 0 => already projected to d_model
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """One model architecture (the port's own copy of the reference's
-    ``ModelConfig``, the fields of the dense, moe, hybrid, ssm and encdec
-    families).
+    ``ModelConfig``, every family's fields).
 
-    Families: ``"dense"`` (decoder-only GQA/MQA/MHA transformer), ``"moe"``
-    (decoder-only with MoE FFNs, optionally MLA attention), ``"hybrid"``
-    (a Mamba2 trunk with interleaved shared attention blocks), ``"ssm"``
-    (attention-free, rwkv6) and ``"encdec"`` (encoder-decoder, whisper)
-    are ported; the reference's vlm family and its vision sub-config are
-    ROADMAP §1 item 14c.
+    Families, all six of the reference's: ``"dense"`` (decoder-only
+    GQA/MQA/MHA transformer), ``"moe"`` (decoder-only with MoE FFNs,
+    optionally MLA attention), ``"hybrid"`` (a Mamba2 trunk with
+    interleaved shared attention blocks), ``"ssm"`` (attention-free,
+    rwkv6), ``"encdec"`` (encoder-decoder, whisper) and ``"vlm"``
+    (decoder-only with a vision-prefix stub, llava-next: ``vision``).
     """
 
     name: str
@@ -225,6 +234,7 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     encdec: Optional[EncDecConfig] = None
+    vision: Optional[VisionStubConfig] = None
     # multi-token-prediction depth (deepseek): 1 adds the MTP block and
     # its loss (weight 0.3) to lm_loss; serving never reads it
     mtp_depth: int = 0
@@ -253,8 +263,11 @@ class TrainConfig:
     """Training-driver configuration (the reference's ``TrainConfig``).
 
     ``donate_state``: the train step updates the parameters and moments
-    in place (the reference donates them to ``jit``). Gradient
-    compression is not ported: anything but ``"none"`` raises."""
+    in place (the reference donates them to ``jit``).
+    ``grad_compression``: only ``"none"``. The reference's train step
+    never reads the field, and a one-card step has no data-parallel
+    reduction to compress; the int8 error-feedback functions are
+    ``optim.compression``."""
 
     learning_rate: float = 3e-4
     warmup_steps: int = 100
@@ -272,14 +285,16 @@ class TrainConfig:
     keep_checkpoints: int = 3
     async_checkpoint: bool = True
     # distributed optimization
-    grad_compression: str = "none"    # "none" only (int8_ef: item 14c)
+    grad_compression: str = "none"    # "none" only (see the docstring)
     donate_state: bool = True
 
     def __post_init__(self):
         if self.grad_compression != "none":
             raise NotImplementedError(
-                f"grad_compression={self.grad_compression!r}: gradient "
-                "compression (optim/compression) is not ported yet "
-                "(ROADMAP §1 item 14c)")
+                f"grad_compression={self.grad_compression!r}: a one-card "
+                "train step has no data-parallel reduction to compress, and "
+                "the reference's train step never reads this field; the "
+                "int8 error-feedback functions are optim.compression "
+                "(init_error, quantize, dequantize, compressed_psum)")
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum={self.grad_accum} must be >= 1")

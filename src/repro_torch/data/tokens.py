@@ -57,22 +57,19 @@ def batch_at(step: int, cfg: ModelConfig, batch: int, seq: int,
 
 def add_modality_stub(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                       step: int, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """The encdec family's stub frontend: ``batch["frames"]``, 0.02 x
-    N(0, 1) frame embeddings (B, num_frames, d_model) in ``cfg.dtype`` on
-    the tokens' device, from a CPU generator keyed by (seed + 7, step) as
-    the reference keys its draw (the draws themselves differ, as the
-    tokens' do). The dense, moe, hybrid and ssm families take the batch
-    unchanged; the vlm stub (patches) comes with its family (ROADMAP §1
-    item 14c(d))."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "the 'vlm' family's modality stub is not ported yet (ROADMAP "
-            "§1 item 14c(d))")
-    if cfg.family == "encdec":
+    """The stub frontends: for the vlm family ``batch["patches"]``, 0.02 x
+    N(0, 1) patch embeddings (B, num_patches, d_model), for the encdec
+    family ``batch["frames"]``, the same at (B, num_frames, d_model); in
+    ``cfg.dtype`` on the tokens' device, from a CPU generator keyed by
+    (seed + 7, step) as the reference keys its draw (the draws themselves
+    differ, as the tokens' do). The dense, moe, hybrid and ssm families
+    take the batch unchanged."""
+    if cfg.family in ("vlm", "encdec"):
+        name, n = (("patches", cfg.vision.num_patches) if cfg.family == "vlm"
+                   else ("frames", cfg.encdec.num_frames))
         tokens = batch["tokens"]
-        shape = (tokens.shape[0], cfg.encdec.num_frames, cfg.d_model)
-        frames = 0.02 * torch.randn(shape, generator=_generator(seed + 7,
-                                                                step))
-        batch["frames"] = frames.to(device=tokens.device,
-                                    dtype=torch_dtype(cfg.dtype))
+        shape = (tokens.shape[0], n, cfg.d_model)
+        draw = 0.02 * torch.randn(shape, generator=_generator(seed + 7, step))
+        batch[name] = draw.to(device=tokens.device,
+                              dtype=torch_dtype(cfg.dtype))
     return batch

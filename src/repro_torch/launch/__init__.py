@@ -1,2 +1,3 @@
 """Launchers: the serving loop (``serving``), elastic pod loss and join
-(``elastic``) and the LM serving launcher (``serve``)."""
+(``elastic``), the LM serving launcher (``serve``) and the emulated
+meshes (``mesh``)."""

@@ -1,12 +1,16 @@
 """Batched serving: prefill + greedy decode loop (the port of
-``repro.launch.serve``, dense, moe, hybrid, ssm and encdec families).
+``repro.launch.serve``, all six families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --reduced --batch 4 --prompt 32 --gen 16 --device cpu
 
 ``--arch`` takes any id of ``configs.list_archs()``: granite-3-2b,
 qwen1.5-32b, qwen3-14b, granite-20b, zamba2-2.7b (hybrid: Mamba2 states and
-the shared blocks' K/V), deepseek-v3-671b (MLA, whose decode cache is the
+the shared blocks' K/V), llava-next-mistral-7b (vlm: the prompt carries
+stub patch embeddings from ``data.tokens.add_modality_stub`` before its
+tokens, so the cache needs ``--cache`` >= patches + prompt + gen rows and
+decoding starts at position patches + prompt), deepseek-v3-671b (MLA,
+whose decode cache is the
 latent ``{"ckv", "kr"}``), llama4-scout-17b-a16e, whisper-tiny (encdec:
 the prompt carries stub frames from ``data.tokens.add_modality_stub``) and
 rwkv6-3b (ssm: the recurrent state is the cache). Runs on
@@ -34,7 +38,8 @@ WHOLE = ("mamba", "xk", "xv")
 
 
 def build_cache(model, prefill_cache, B, S_cache):
-    """Splice a prefill cache into a zero decode cache of length S_cache,
+    """Splice a prefill cache (for the vlm family, over the patch prefix
+    and the prompt) into a zero decode cache of length S_cache,
     layer (or hybrid segment) by layer and name by name (``{"k", "v"}``,
     MLA's ``{"ckv", "kr"}``, the hybrid's ``{"attn_k", "attn_v"}``), along
     the sequence axis; the names of :data:`WHOLE` cross whole. The ssm
@@ -118,8 +123,9 @@ def main(argv=None):
                                       (args.batch, args.prompt),
                                       generator=gen).to(model.device)}
     prompt = DATA.add_modality_stub(prompt, cfg, 0, args.seed)
-    toks, tps = serve(model, params, prompt, args.prompt, args.gen,
-                      args.cache)
+    n_prefix = cfg.vision.num_patches if cfg.family == "vlm" else 0
+    toks, tps = serve(model, params, prompt, args.prompt + n_prefix,
+                      args.gen, args.cache)
     print(f"[serve] {args.arch}: generated {tuple(toks.shape)} at "
           f"{tps:.1f} tok/s on {model.device}")
     assert int(toks.min()) >= 0

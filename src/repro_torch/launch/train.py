@@ -6,9 +6,11 @@
 Every ported id trains, the moe family (``--arch deepseek-v3-671b``,
 with its multi-token-prediction loss, or ``llama4-scout-17b-a16e``) and
 the hybrid family (``--arch zamba2-2.7b``), the ssm family (``--arch
-rwkv6-3b``, attention-free) and the encdec family (``--arch
+rwkv6-3b``, attention-free), the encdec family (``--arch
 whisper-tiny``, whose batches carry stub frames from
-``data.tokens.add_modality_stub``) included; AdamW keeps its
+``data.tokens.add_modality_stub``) and the vlm family (``--arch
+llava-next-mistral-7b``, whose batches carry stub patch embeddings before
+the tokens; the loss is over the tokens) included; AdamW keeps its
 moments in ``cfg.opt_state_dtype`` (bf16 under deepseek-v3's full
 config).
 
@@ -19,8 +21,11 @@ keeps from the reference:
   * periodic and SIGTERM checkpoints (atomic, keep-k, asynchronous;
     ``checkpoint.save`` / ``restore``), ``--resume`` from the newest,
   * the straggler watchdog (``StepMonitor``) and a heartbeat file.
-The reference's gradient compression and pipeline stages need a mesh
-(ROADMAP §1 item 14c).
+The reference's gradient compression and pipeline stages act across
+devices: one card has no data-parallel reduction to compress
+(``TrainConfig`` refuses ``grad_compression``); their functions are
+``optim.compression`` and ``distributed.pipeline``, over emulated ranks
+(``launch.mesh.EmulatedMesh``).
 """
 from __future__ import annotations
 

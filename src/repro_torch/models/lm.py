@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, dense and moe families (the port of
-``repro.models.lm``).
+"""Decoder-only LM assembly, the dense, vlm and moe families (the port
+of ``repro.models.lm``).
 
 The parameters keep the reference's layout: per contiguous run of one
 block kind (:func:`_segments`) a stacked ``(L, ...)`` tree under
@@ -17,7 +17,11 @@ the multi-token-prediction loss (:func:`_mtp_loss`) added at weight 0.3
 when the tree holds ``mtp``; under ``cfg.remat == "full"`` each block of
 the stacks is recomputed in the backward (``torch.utils.checkpoint``,
 the reference's ``jax.checkpoint`` of the scan body), the MTP block is
-not. The vlm family is ROADMAP §1 item 14c.
+not. The vlm family is the dense one with a prefix: ``batch["patches"]``
+(B, n_prefix, d_model), precomputed patch embeddings, go before the
+token embeddings (:func:`_embed_input`), so the forward and the prefill
+run over n_prefix + S positions and RoPE numbers them from 0; the loss
+drops the prefix's rows, and a decode step's ``pos`` counts them.
 """
 from __future__ import annotations
 
@@ -33,19 +37,18 @@ from repro_torch.models import moe as M
 from repro_torch.models.param import ParamDesc
 
 Tree = Any
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "vlm", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
     """This module's guard: the decoder-only LM families. The hybrid, ssm
     and encdec families run through ``models.hybrid``, ``models.rwkv_lm``
-    and ``models.whisper`` (``Model`` dispatches); the vlm family is
-    ROADMAP §1 item 14c."""
+    and ``models.whisper`` (``Model`` dispatches)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"models.lm runs the {' and '.join(FAMILIES)} families, not "
+            f"models.lm runs the {', '.join(FAMILIES)} families, not "
             f"{cfg.family!r} (the hybrid, ssm and encdec families run "
-            f"through Model; vlm is ROADMAP §1 item 14c)")
+            f"through Model)")
 
 
 def block_descs(cfg: ModelConfig, kind: str) -> Tree:
@@ -159,12 +162,25 @@ def block_decode(params, x, cfg: ModelConfig, cache, pos,
 
 # ------------------------------------------------------------ assembly -----
 
+def _embed_input(params, batch, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, int]:
+    """The token embeddings, after the patch prefix when the batch has
+    ``"patches"`` (cast to the embeddings' dtype): (x (B, n_prefix + S,
+    d), n_prefix)."""
+    x = L.embed(params["embed"], batch["tokens"])
+    patches = batch.get("patches")
+    if patches is None:
+        return x, 0
+    return torch.cat([patches.to(x.dtype), x], 1), patches.shape[1]
+
+
 def lm_hidden(params, batch, cfg: ModelConfig,
               backend: Optional[str] = None) -> torch.Tensor:
-    """Full forward to the final hidden states (B, S, d). Under
-    ``cfg.remat == "full"`` and autograd, each block keeps only its input
-    and runs again in the backward."""
-    x = L.embed(params["embed"], batch["tokens"])
+    """Full forward to the final hidden states (B, n_prefix + S, d), the
+    patch prefix's rows first. Under ``cfg.remat == "full"`` and
+    autograd, each block keeps only its input and runs again in the
+    backward."""
+    x, _ = _embed_input(params, batch, cfg)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for kind, lp in layers(params, cfg):
         if remat:
@@ -178,11 +194,12 @@ def lm_hidden(params, batch, cfg: ModelConfig,
 def lm_loss(params, batch, cfg: ModelConfig,
             backend: Optional[str] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets"}
-    and an optional "mask", all (B, S)), f32 0-d; plus 0.3 x
-    :func:`_mtp_loss` when ``cfg.mtp_depth`` is set and the tree holds
-    the MTP block."""
+    and an optional "mask", all (B, S); for the vlm family "patches"),
+    over the text's positions, f32 0-d; plus 0.3 x :func:`_mtp_loss` when
+    ``cfg.mtp_depth`` is set and the tree holds the MTP block."""
     check_family(cfg)
     x = lm_hidden(params, batch, cfg, backend=backend)
+    x = x[:, x.shape[1] - batch["tokens"].shape[1]:]     # drop the prefix
     mask = loss_mask(batch)
     loss = L.chunked_ce_loss(params["embed"], x, batch["targets"], mask,
                              cfg.tie_embeddings, cfg.loss_chunk)
@@ -243,10 +260,10 @@ def cache_descs(cfg: ModelConfig, batch: int, seq: int) -> List[Tree]:
 def lm_prefill(params, batch, cfg: ModelConfig,
                backend: Optional[str] = None
                ) -> Tuple[torch.Tensor, List[Tree]]:
-    """Returns (last-token logits (B, V), per-layer cache of the prompt:
-    a list of ``{"k", "v"}`` of shape (B, S, KH, D), or of ``{"ckv",
-    "kr"}`` under MLA)."""
-    x = L.embed(params["embed"], batch["tokens"])
+    """Returns (last-token logits (B, V), per-layer cache of the prompt
+    and its patch prefix: a list of ``{"k", "v"}`` of shape (B, n_prefix
+    + S, KH, D), or of ``{"ckv", "kr"}`` under MLA)."""
+    x, _ = _embed_input(params, batch, cfg)
     names = ("ckv", "kr") if cfg.mla else ("k", "v")
     cache = []
     for kind, lp in layers(params, cfg):
@@ -260,8 +277,9 @@ def lm_prefill(params, batch, cfg: ModelConfig,
 
 def lm_decode(params, token, pos, cache, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, List[Tree]]:
-    """token: (B,1) int; pos: (B,) int; cache from :func:`cache_descs`,
-    whose tensors are updated in place. Returns (logits (B, V), cache')."""
+    """token: (B,1) int; pos: (B,) int, counting a patch prefix; cache
+    from :func:`cache_descs`, whose tensors are updated in place. Returns
+    (logits (B, V), cache')."""
     x = L.embed(params["embed"], token)
     new_cache = list(cache)
     for layer, (kind, lp) in enumerate(layers(params, cfg)):

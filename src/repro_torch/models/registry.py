@@ -1,9 +1,10 @@
 """Model registry: family dispatch and the public ``Model`` facade of the
-training and serving paths (the port of ``repro.models.registry``:
-the dense and moe families through ``models.lm``, the hybrid family
-through ``models.hybrid``, the ssm family (rwkv6) through
-``models.rwkv_lm`` and the encdec family (whisper) through
-``models.whisper``; the vlm family is ROADMAP §1 item 14c(d)).
+training and serving paths (the port of ``repro.models.registry``),
+for all six of the reference's families: the dense, vlm (llava-next:
+the dense model after a patch prefix) and moe families through
+``models.lm``, the hybrid family through ``models.hybrid``, the ssm
+family (rwkv6) through ``models.rwkv_lm`` and the encdec family
+(whisper) through ``models.whisper``.
 
 ``Model(cfg)`` runs on the CUDA card unless the caller passes
 ``device="cpu"``; on the card the attention launches the flash_attention
@@ -36,8 +37,8 @@ FAMILIES = LM.FAMILIES + ("hybrid", "ssm", "encdec")
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP §1 item "
-            f"14c(d)); the port runs the {', '.join(FAMILIES)} families")
+            f"{cfg.family!r} is not a model family of the reference; the "
+            f"port runs all of them: {', '.join(FAMILIES)}")
 
 
 def param_descs(cfg: ModelConfig) -> Tree:
@@ -78,7 +79,8 @@ class Model:
     # ---- training -------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy, plus the multi-token-prediction
-        loss where the config has one (``lm.lm_loss``,
+        loss where the config has one (``lm.lm_loss``, which reads the vlm
+        family's ``batch["patches"]``,
         ``hybrid.hybrid_loss``, ``rwkv_lm.rwkv_loss``,
         ``whisper.whisper_loss``, which reads ``batch["frames"]``), f32
         0-d."""

@@ -476,6 +476,8 @@ def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
     (8, 1000, 1000, 128, 4, True),
     (8, 1000, 1000, 64, 1, False),
     (24, 1500, 1500, 64, 1, False),     # whisper-tiny's encoder prefill
+    # llava's 2880 patches + 1024 tokens: 30.5 tiles of 128, ragged
+    (32, 3904, 3904, 128, 4, True),
     (24, 200, 330, 128, 3, True),       # Sq < Sk, ragged
     (24, 330, 200, 64, 3, True),        # Sq > Sk, ragged
     (16, 200, 330, 64, 8, False),
@@ -709,7 +711,9 @@ _BWD_SHAPES = [
     # zamba2's head dim 80 (SIMT): MHA, and ragged with group 4
     (8, 333, 333, 80, 80, 1), (12, 257, 129, 80, 80, 4),
     # whisper-tiny's encoder over its 1500 frames (non-causal on its path)
-    (24, 1500, 1500, 64, 64, 1)]
+    (24, 1500, 1500, 64, 64, 1),
+    # llava's 3904 positions (2880 patches + 1024 tokens), group 4
+    (8, 3904, 3904, 128, 128, 4)]
 # every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
 # ((D, Dv) in {(64, 64), (128, 128), (192, 128)}) runs on wgmma and once
 # more forced to simt
@@ -1098,6 +1102,139 @@ def test_reduced_whisper_train_step_kernels_equal_plain(cuda):
                           adamw.leaves(pgrads)):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), \
             path
+
+
+def _vlm_batch(cfg, cuda, B, S, seed):
+    """Random tokens on the card and the stub patches of step ``seed``."""
+    from repro_torch.data import tokens as DATA
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed))
+    return DATA.add_modality_stub({"tokens": tokens.to(cuda)}, cfg, seed)
+
+
+def test_reduced_vlm_serving_kernels_equal_plain(cuda):
+    """REDUCED llava in f32 on the card: a prefill over 16 stub patches + 40
+    tokens (K6 once per layer, causal, over 56 positions) and 3 greedy
+    decode steps from position 56, the plain run fed the kernel run's
+    tokens; logits within 1e-5 of the plain run's largest logit, every k, v
+    leaf of the cache within 1e-5 of its largest element; the last step
+    equals a full forward over the patches and 43 tokens within 1e-4."""
+    from repro_torch.launch.serve import build_cache
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    cfg = get_config("llava-next-mistral-7b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    params = Model(cfg, device=cuda).init(1)
+    batch = _vlm_batch(cfg, cuda, 4, 40, 2)
+    n = cfg.vision.num_patches + 40
+
+    def run(model, forced=None):
+        AK.KERNEL.reset_counts()
+        logits, pcache = model.prefill(params, batch)
+        launched = dict(AK.KERNEL.launches_by_kind)
+        cache = build_cache(model, pcache, 4, n + 8)
+        seen, toks = [logits], []
+        pos = torch.full((4,), n, device=cuda)
+        for i in range(3):
+            toks.append(logits.argmax(-1)[:, None] if forced is None
+                        else forced[i])
+            logits, cache = model.decode(params, toks[-1], pos, cache)
+            seen.append(logits)
+            pos = pos + 1
+        return seen, toks, cache, launched
+
+    got, toks, cache, launched = run(Model(cfg, device=cuda))
+    want, _, pcache, plain_launched = run(
+        Model(cfg, device=cuda, backend="ref"), toks)
+    assert launched == {"causal": 2, "full": 0}
+    assert plain_launched == {"causal": 0, "full": 0}
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for layer, player in zip(cache, pcache):
+        for name in ("k", "v"):
+            x, y = layer[name], player[name]
+            assert float((x - y).abs().max()) <= 1e-5 * float(
+                y.abs().max()), name
+    full = {"patches": batch["patches"],
+            "tokens": torch.cat([batch["tokens"]] + toks, 1)}
+    h = LM.lm_hidden(params, full, cfg)
+    last = L.logits_fn(params["embed"], h[:, -1:], False)[:, 0]
+    assert float((got[-1] - last).abs().max()) <= 1e-4 * float(
+        last.abs().max())
+
+
+def test_reduced_vlm_train_step_kernels_equal_plain(cuda):
+    """One REDUCED llava loss and gradient (f32, remat on) on the card over
+    16 stub patches + 100 tokens, through K6 and K7 against the plain
+    versions: loss 1e-5 relative, every gradient leaf 1e-4 of its largest
+    element; K6 twice per layer (the forward and its recomputation), K7
+    once, all causal."""
+    from repro_torch.data import tokens as DATA
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    cfg = get_config("llava-next-mistral-7b", reduced=True).replace(
+        dtype="float32", param_dtype="float32", remat="full")
+    model = Model(cfg, device=cuda)
+    params = model.init(0)
+    batch = DATA.add_modality_stub(DATA.batch_at(0, cfg, 4, 100,
+                                                 device=cuda), cfg, 0)
+    AK.KERNEL.reset_counts()
+    BK.KERNEL.reset_counts()
+    loss, grads = ST.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    kinds = (AK.KERNEL.launches_by_kind, BK.KERNEL.launches_by_kind)
+    assert kinds == ({"causal": 4, "full": 0}, {"causal": 2, "full": 0})
+    ploss, pgrads = ST.loss_and_grads(Model(cfg, device=cuda, backend="ref"),
+                                      params, batch)
+    assert (AK.KERNEL.launches, BK.KERNEL.launches) == (4, 2)
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    for path, x, y in zip(adamw.paths(grads), adamw.leaves(grads),
+                          adamw.leaves(pgrads)):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), \
+            path
+
+
+def test_compression_and_pipeline_on_card_equal_cpu(cuda):
+    """``compressed_psum`` over 4 emulated ranks on the card equals the
+    CPU's bit for bit (means and residuals), and ``pipeline_apply`` of
+    REDUCED llava blocks (f32, 2 per stage) on a (2, 2) ("pod", "data")
+    mesh on the card equals the blocks applied per microbatch bit for bit,
+    launching K6 2 x 2 x 2 x 2 = 16 times."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import EmulatedMesh
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compression as C
+    g = torch.Generator().manual_seed(4)
+    grads = {"w": torch.randn(4, 33, 65, generator=g) * 0.01,
+             "b": torch.randn(4, 7, generator=g)}
+    err = adamw.tree_map(lambda t: torch.randn(t.shape, generator=g) * 1e-4,
+                         grads)
+    axes = ("pod", "data")
+    outs = [C.compressed_psum(adamw.tree_map(lambda t: t.to(d), grads),
+                              adamw.tree_map(lambda t: t.to(d), err),
+                              EmulatedMesh(axes, (2, 2), torch.device(d)),
+                              axes) for d in (cuda, "cpu")]
+    for a, b in zip(*(adamw.leaves(o[0]) + adamw.leaves(o[1]) for o in outs)):
+        assert torch.equal(a.cpu(), b)
+    cfg = get_config("llava-next-mistral-7b", reduced=True).replace(
+        dtype="float32", param_dtype="float32", num_layers=4)
+    stack = Model(cfg, device=cuda).init(3)["stack_0_dense"]
+    staged = adamw.tree_map(lambda a: a.reshape(2, 2, *a.shape[1:]), stack)
+    x = torch.randn(8, 40, cfg.d_model, generator=g).to(cuda)
+
+    def blocks(h, p, n):
+        for lp in LM.unstack(p, n):
+            h = LM.block_train(lp, h, cfg)
+        return h
+
+    AK.KERNEL.reset_counts()
+    with torch.no_grad():
+        got = pipeline_apply(lambda p, h, s: blocks(h, p, 2), staged, x,
+                             EmulatedMesh(axes, (2, 2), cuda), num_micro=2)
+        assert AK.KERNEL.launches == 16
+        each = torch.cat([blocks(m, stack, 4) for m in x.split(2)])
+    assert torch.equal(got, each)
 
 
 # -- the serving slice on the card ---------------------------------------------

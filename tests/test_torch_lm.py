@@ -245,22 +245,24 @@ def test_serve_cli_and_registry_on_the_cpu(capsys):
     assert tuple(toks.shape) == (2, 3)
     assert "generated (2, 3)" in capsys.readouterr().out
     assert list_archs() == [ARCH, "qwen1.5-32b", "qwen3-14b", "granite-20b",
-                            "zamba2-2.7b", "deepseek-v3-671b",
-                            "llama4-scout-17b-a16e", "whisper-tiny",
-                            "rwkv6-3b"]
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("llava-next-mistral-7b")
+                            "zamba2-2.7b", "llava-next-mistral-7b",
+                            "deepseek-v3-671b", "llama4-scout-17b-a16e",
+                            "whisper-tiny", "rwkv6-3b"]
+    with pytest.raises(KeyError, match="unknown arch 'llava'"):
+        get_config("llava")
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.d_ff, full.vocab_size) == (
         40, 2048, 32, 8, 64, 8192, 49155)
     assert count_params(Model(full, device="cpu").param_descs()) == (
         2_533_531_648)
-    unported = ModelConfig(name="m", family="vlm", num_layers=1,
-                           d_model=8, num_heads=2, num_kv_heads=1,
-                           d_ff=8, vocab_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(unported, device="cpu")
+    unknown = ModelConfig(name="m", family="vision-encoder", num_layers=1,
+                          d_model=8, num_heads=2, num_kv_heads=1,
+                          d_ff=8, vocab_size=8)
+    with pytest.raises(NotImplementedError, match="not a model family of "
+                                                  "the reference") as err:
+        Model(unknown, device="cpu")
+    assert "dense, vlm, moe, hybrid, ssm, encdec" in str(err.value)
 
 
 @pytest.mark.parametrize("init,shape", [("normal", (300, 7)),

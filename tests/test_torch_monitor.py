@@ -1,6 +1,6 @@
 """The port's fault-tolerance monitor (``repro_torch.distributed.monitor``)
 against the cases of tests/test_monitor.py (the pod-axis pipeline guard
-is not ported: ``distributed/pipeline.py`` is ROADMAP §1 item 14), plus
+is held in tests/test_torch_dist.py), plus
 one roster read across the two packages: beat files written by either
 package's ``Heartbeat`` give the same dead peers by pod in both."""
 import dataclasses

@@ -245,26 +245,33 @@ def test_token_batches_follow_the_reference_recipe():
     assert int(full.max()) < cfg.vocab_size and int(full.min()) >= 0
     assert torch.equal(a["mask"], torch.ones(3, 70))
     assert DATA.add_modality_stub(a, cfg, 5) is a
-    with pytest.raises(NotImplementedError, match="14c"):
-        DATA.add_modality_stub(a, cfg.replace(family="vlm"), 5)
+    llava = get_config("llava-next-mistral-7b", reduced=True)
+    patches = DATA.add_modality_stub(dict(a), llava, 5)["patches"]
+    assert tuple(patches.shape) == (3, llava.vision.num_patches,
+                                    llava.d_model)
 
 
 def test_training_refusals():
-    """What training still refuses (gradient compression and the vlm
-    family, ROADMAP §1 item 14c), and what it no longer does: the moe
-    family's loss and multi-token prediction run (they are held against
-    JAX in tests/test_torch_train_moe.py), and so do the hybrid, ssm and
-    encdec families' through ``Model`` (tests/test_torch_hybrid.py,
+    """What training still refuses (gradient compression in the train
+    step: a one-card step has no data-parallel reduction, and the
+    reference's step never reads the field), and what it no longer does:
+    the moe family's loss and multi-token prediction run (they are held
+    against JAX in tests/test_torch_train_moe.py), the vlm family's loss
+    is ``lm_loss`` (tests/test_torch_vlm.py), and so do the hybrid, ssm
+    and encdec families' through ``Model`` (tests/test_torch_hybrid.py,
     test_torch_rwkv.py, test_torch_whisper.py); ``lm_loss`` stays the
-    dense and moe families' and refuses the rest."""
-    with pytest.raises(NotImplementedError, match="14c"):
+    dense, vlm and moe families' and refuses the rest."""
+    with pytest.raises(NotImplementedError,
+                       match="no data-parallel reduction") as err:
         TrainConfig(grad_compression="int8_ef")
+    assert "optim.compression" in str(err.value)
+    assert "not ported" not in str(err.value)
     cfg = get_config(ARCH, reduced=True)
-    for family in ("vlm", "hybrid", "ssm", "encdec"):
-        with pytest.raises(NotImplementedError, match="14c"):
+    for family in ("hybrid", "ssm", "encdec"):
+        with pytest.raises(NotImplementedError, match="through Model"):
             LM.lm_loss({}, {}, cfg.replace(family=family))
-    with pytest.raises(NotImplementedError, match="14c"):
-        Model(cfg.replace(family="vlm"), device="cpu")
+    llava = get_config("llava-next-mistral-7b", reduced=True)
+    assert Model(llava, device="cpu").cfg.family == "vlm"
     tokens = torch.randint(0, 256, (2, 8), generator=torch.Generator()
                            .manual_seed(0))
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}

@@ -407,8 +407,8 @@ def test_modality_stub_frames():
     """``add_modality_stub`` gives the encdec family frames of the
     reference's shape and dtype at the stub's scale, on the tokens'
     device; the same (seed, step) draws the same frames, another step
-    other ones; the ssm family takes the batch unchanged and vlm is
-    refused."""
+    other ones; the ssm family takes the batch unchanged and the vlm
+    family gets patches, not frames."""
     for dtype in ("float32", "bfloat16"):
         jcfg, cfg = configs(ARCH, dtype)
         tokens = torch.zeros(3, 5, dtype=torch.int64)
@@ -428,9 +428,9 @@ def test_modality_stub_frames():
     rwkv = get_config("rwkv6-3b", reduced=True)
     assert set(DATA.add_modality_stub({"tokens": tokens}, rwkv, 0)) == {
         "tokens"}
-    with pytest.raises(NotImplementedError, match="14c"):
-        DATA.add_modality_stub({"tokens": tokens}, cfg.replace(family="vlm"),
-                               0)
+    llava = get_config("llava-next-mistral-7b", reduced=True)
+    assert set(DATA.add_modality_stub({"tokens": tokens}, llava, 0)) == {
+        "tokens", "patches"}
 
 
 def test_serve_and_train_clis_on_the_cpu(tmp_path, capsys):

@@ -3,7 +3,7 @@
 card, each with chip_smoke's checks, printing the card and its power
 limit, each phase's lines and its wall seconds.
 
-    python3 tools/family_phases.py                  # hybrid, ssm, encdec
+    python3 tools/family_phases.py                  # every family below
     python3 tools/family_phases.py ssm encdec       # from the repository root
 
 hybrid (zamba2-2.7b): K6 and K7 at its attention shape, ``[serve
@@ -11,7 +11,10 @@ zamba2-2.7b]``, ``[train zamba2-2.7b]`` and ``[train check]``'s zamba2
 cut; ssm (rwkv6-3b): ``[serve rwkv6-3b]`` with its card-vs-CPU checks
 and ``[train rwkv6-3b]``; encdec (whisper-tiny): K6 and K7 non-causal at
 its encoder shapes, ``[serve whisper-tiny]``, ``[train whisper-tiny]`` and
-``[train check]``'s whisper run.
+``[train check]``'s whisper run; vlm (llava-next-mistral-7b): K6 and K7
+at its 3904-position shapes, ``[serve llava-next-mistral-7b]``, ``[train
+llava-next-mistral-7b]`` and ``[train check]``'s llava cut with the
+compression and pipeline checks.
 
 The quick rerun of a family's slice on the card (the whole script takes
 minutes more). Stops at the first failed check; exits 1 without a CUDA
@@ -42,13 +45,18 @@ def phases(CS, dev):
             ("kernel", lambda: CS.check_flash_attention_whisper(dev)),
             ("serve", lambda: CS.serve_whisper_phase(dev)),
             ("train", lambda: CS.train_whisper_phase(dev)),
-            ("train check", lambda: CS.whisper_step_checks(dev))]}
+            ("train check", lambda: CS.whisper_step_checks(dev))],
+        "vlm": [
+            ("kernel", lambda: CS.check_flash_attention_llava(dev)),
+            ("serve", lambda: CS.serve_llava_phase(dev)),
+            ("train", lambda: CS.train_llava_phase(dev)),
+            ("train check", lambda: CS.llava_step_checks(dev))]}
 
 
 def main(argv=None) -> int:
     import torch
     families = list(argv if argv is not None else sys.argv[1:]) or [
-        "hybrid", "ssm", "encdec"]
+        "hybrid", "ssm", "encdec", "vlm"]
     if not torch.cuda.is_available():
         print("family_phases: no CUDA device", file=sys.stderr)
         return 1
