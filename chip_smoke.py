@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught). Each timed phase
+from 3 on is bracketed by two ``[clocks]`` lines, the card's SM and memory
+clocks, power draw and temperature as ``nvidia-smi`` reads them:
 
 1. device — the card's name, count, power limit; TF32 off;
 2. build — the seven CUDA kernels from src/repro_torch/csrc, one nvcc per
@@ -70,6 +72,15 @@ Phases (any failure exits non-zero; nothing is caught):
    warm-up and 8 timed periods with every kernel launch counted, then
    the same periods on the plain versions (backend="ref"), which must
    give the same integer state bit for bit and the same features;
+4a. [tune] — K1 at E = 2^20 on the main path's sorted stream at event
+   tiles 64, 128 and 256, timed by its device time (a window that saw one
+   launch per call) beside its bound, all three recorded in a
+   ``kernels.tuning.TuningRegistry`` (the fastest kept) saved to
+   build/repro_torch_tuning.json; one main-path period with
+   ``REPRO_TUNING_REGISTRY`` at that file and one at a registry forcing
+   tile 64, each launching K1 once with its tile and equal to the untuned
+   period bit for bit (state, features, preds); a registry armed at a
+   malformed file raises;
 5. unfused path at PAPER — :func:`unfused_step` (multipass ingest
    through flow_moments, staged placement, history gather +
    derived_features) over the main path's first periods: one warm-up
@@ -227,6 +238,17 @@ Phases (any failure exits non-zero; nothing is caught):
    text tokens, each after its 2880 stub patches: 24 K6 and 12 K7
    launches per step, causal, all wgmma; the model flops count all 3904
    positions, the unembedding the text only;
+22d. [dryrun] — ``launch.dryrun`` on meta tensors, in a process of its
+   own that sees no card, started after 14 and read here: granite-3-2b
+   train_4k on 16 x 16, deepseek-v3 decode_32k on 2 x 16 x 16 and
+   zamba2-2.7b long_500k on 16 x 16 (the reference's ``[dryrun] ... OK``
+   lines, JSON under build/dryrun/, no collective term); then the
+   one-card mesh at B = 4 x 1024: granite-3-2b whole and
+   llava-next-mistral-7b's 12-layer cut must fit the card's HBM (their
+   FLOPs per step, step-time lower bound and predicted peak beside 19's
+   and 22c's measured step ms, reckoned model flops and
+   max_memory_allocated, with the ratios), llava whole and deepseek-v3
+   whole must not;
 23. [train check] — one step's loss and gradients at full width of
    granite-3-2b with 4 layers, of deepseek-v3's 3 dense layers and of
    zamba2-2.7b with 12 layers: bf16 with the kernels, bf16 plain, f32
@@ -3796,8 +3818,10 @@ def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
     per block, all on ``variant`` (None for a model without attention),
     by mask as :func:`want_kinds` says, and no plain attention.
     ``drops``: also the share of pairs each MoE layer drops by capacity.
-    Returns the launch counts over the timed steps, K7's by variant, and
-    K6's and K7's by mask."""
+    Returns the launch counts over the timed steps, K7's by variant, K6's
+    and K7's by mask, and the measured step (mean ms, max_memory_allocated
+    bytes, the reckoned model flops per step without and with the remat
+    forward, B, S) that ``[dryrun]`` holds its predictions against."""
     import torch
     from repro_torch.data import tokens as DATA
     from repro_torch.configs import TrainConfig
@@ -3900,7 +3924,10 @@ def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
                    lambda: step(state, batches[-1]), 1, "step")
     del state, batches
     torch.cuda.empty_cache()
-    return launches, variants, kinds
+    measured = {"step_ms": step_s * 1e3, "peak_bytes": peak,
+                "model_flops": 3 * fwd, "model_flops_remat": 4 * fwd,
+                "batch": B, "seq": S}
+    return launches, variants, kinds, measured
 
 
 def train_phase(dev):
@@ -4436,6 +4463,315 @@ def examples_phase(dev):
         f"{first:.4f} -> {last:.4f} ({time.perf_counter() - t0:.2f} s)")
 
 
+# -- card clocks around each timed phase --------------------------------------
+
+def clocks(tag: str, when: str) -> None:
+    """Log the card's SM and memory clocks, power draw and temperature as
+    ``nvidia-smi`` reads them (``[clocks] <tag> start|end: ...``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[clocks] {tag} {when}: {out}")
+
+
+def phase(tag: str, fn, *args):
+    """``fn(*args)`` between two :func:`clocks` lines."""
+    clocks(tag, "start")
+    out = fn(*args)
+    clocks(tag, "end")
+    return out
+
+
+# -- [tune]: K1's event tile on the main path's stream --------------------------
+
+TUNE_TILES = (64, 128, 256)
+TUNING_FILE = ROOT / "build" / "repro_torch_tuning.json"
+TUNE_FORCED = 64                     # a registry that forces this tile
+
+
+def one_period(system, events, nows, t: int = 0):
+    """``dfa_step`` on period ``t`` of the main path's traffic from a fresh
+    state, launch counts from 0; returns (outputs, K1's launches by
+    kind)."""
+    import torch
+    from repro_torch.kernels.ingest_update.kernel import KERNEL as K1
+    K1.reset_counts()
+    out = system.dfa_step(system.init_state(),
+                          {k: v[t] for k, v in events.items()}, nows[t])
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in K1.launches_by_kind.items() if n}
+
+
+def require_outputs_identical(a, b, tag):
+    """Every state leaf, the features and the preds, bit for bit."""
+    import torch
+    require_states_equal(a.state, b.state, tag)
+    for name in ("enriched", "flow_ids", "mask", "preds"):
+        x, y = getattr(a, name), getattr(b, name)
+        require(torch.equal(x.view(torch.int32) if x.is_floating_point()
+                            else x,
+                            y.view(torch.int32) if y.is_floating_point()
+                            else y), f"[{tag}] {name} differs")
+
+
+def tune_phase(dev, system, events, nows):
+    """K1 at E = 2^20 on the main path's sorted stream (``check_ingest``'s)
+    at event tiles 64, 128 and 256, timed by its device time in a
+    profiler window that saw one K1 launch per call, each beside its
+    bound; all three recorded in a ``TuningRegistry`` (which keeps the
+    fastest) saved to build/repro_torch_tuning.json. Then one main-path
+    period with ``REPRO_TUNING_REGISTRY`` at that file, and one at a
+    registry that forces tile 64: each launches K1 once with its tile
+    (``KERNEL.launches_by_kind``) and gives the untuned period's state,
+    features and preds bit for bit; ``describe()`` names the armed file.
+    A registry armed at a malformed file must raise."""
+    import os
+    import torch
+    from repro_torch.configs import PAPER
+    from repro_torch.configs import env as ENV
+    from repro_torch.core import reporter as REP
+    from repro_torch.data import packets as PK
+    from repro_torch.kernels import tuning as TU
+    from repro_torch.kernels.ingest_update import kernel as K
+    from repro_torch.kernels.ingest_update import ops
+
+    flows = PK.gen_flows(PAPER.flows_per_shard, seed=0)
+    ev = PK.events_to_torch(PK.gen_events(flows, 0, 20_000, EVENTS, seed=1),
+                            dev)
+    st = REP.init_state(PAPER, dev)
+    slots = REP.hash_slot(ev["five_tuple"], PAPER.flows_per_shard)
+    n_lut = 1 << PAPER.logstar_bits
+    reg = TU.TuningRegistry()
+    knob = "ingest_update.event_tile"
+    for tile in TUNE_TILES:
+        s = K.stream_prep(st.last_ts, st.keys, st.active, slots, ev["ts"],
+                          ev["size"], ev["five_tuple"], ev["valid"], tile)
+        require(s.tile == tile, f"[tune] stream_prep took tile {s.tile}, "
+                                f"asked {tile}")
+        args = (s.s_slot, s.s_ts, s.s_ps, s.base_ts,
+                s.first.to(torch.int32))
+        kw = dict(bits=PAPER.logstar_bits, tile=tile)
+        got = ops.segment_sums(*args, **kw)
+        want = ops.segment_sums(*args, **kw, backend="ref")
+        require(torch.equal(got, want), f"[tune] K1 at tile {tile} differs "
+                                        f"from its plain version")
+        # a profiler window can lose device events (ROADMAP §3): keep only
+        # a window that saw K1 once per call, or the registry would record
+        # a time from a fraction of the launches
+        for attempt in range(3):
+            us, n = device_profile(K.KERNEL,
+                                   lambda: ops.segment_sums(*args, **kw))
+            if n == 1:
+                break
+            log(f"[tune] attempt {attempt + 1} at tile {tile}: the profiler "
+                f"saw {n:g} device launches per call; profiling again")
+        require(n == 1, f"[tune] no profiler window saw K1 once per call at "
+                        f"tile {tile}")
+        Ep = s.s_slot.shape[0]
+        b_ms, b_by = bound(Ep * (5 * 4 + 8 * 4) + 2 * n_lut * 4,
+                           Ep * (4 * 30 + 7 * max(1, tile.bit_length() - 1)))
+        stored = reg.record(knob, "cuda", (EVENTS,), tile, us,
+                            source="chip_smoke [tune]")
+        log(f"[tune] K1 at E={EVENTS}, tile {tile}: device {us:.3f} us "
+            f"({n:g} device launches per call), bound {b_ms * 1e3:.2f} us "
+            f"({b_by}), {100 * b_ms * 1e3 / us:.1f} % of the bound; "
+            f"{'the fastest so far' if stored else 'slower'}")
+    TUNING_FILE.parent.mkdir(parents=True, exist_ok=True)
+    reg.save(str(TUNING_FILE))
+    best = reg.lookup(knob, "cuda", (EVENTS,))
+    log(f"[tune] tile {best} written to "
+        f"{TUNING_FILE.relative_to(ROOT)}: {TUNING_FILE.read_text()!r}")
+
+    forced = TUNING_FILE.with_name("repro_torch_tuning_forced.json")
+    f_reg = TU.TuningRegistry()
+    f_reg.record(knob, "cuda", (EVENTS,), TUNE_FORCED, 0.0,
+                 source="chip_smoke [tune], forced")
+    f_reg.save(str(forced))
+    bad = TUNING_FILE.with_name("repro_torch_tuning_bad.json")
+    bad.write_text('{"schema": "repro-tuning-v1", "entries": [{"knob": ')
+
+    var = ENV.TUNING_REGISTRY.name
+    before = os.environ.pop(var, None)
+    try:
+        base, base_tiles = one_period(system, events, nows)
+        log(f"[tune] untuned period: K1 launches by tile {base_tiles}")
+        for path, tile in ((TUNING_FILE, best), (forced, TUNE_FORCED)):
+            os.environ[var] = str(path)
+            out, tiles = one_period(system, events, nows)
+            desc = system.describe()
+            require(tiles == {f"tile {tile}": 1},
+                    f"[tune] the period armed at {path.name} launched K1 "
+                    f"by tile {tiles}, expected tile {tile} once")
+            require(desc["tuning_registry"] == str(path),
+                    f"[tune] describe() names {desc['tuning_registry']}")
+            require_outputs_identical(out, base, f"tune {path.name}")
+            log(f"[tune] period armed at {path.relative_to(ROOT)}: K1 "
+                f"launches by tile {tiles}; state, features and preds "
+                f"equal to the untuned period bit for bit; describe() "
+                f"tuning_registry {desc['tuning_registry']!r}")
+        os.environ[var] = str(bad)
+        try:
+            one_period(system, events, nows)
+        except ValueError as e:
+            log(f"[tune] a registry armed at a malformed file raises: "
+                f"{type(e).__name__}: {str(e)[:120]}")
+        else:
+            require(False, "[tune] a malformed registry did not raise")
+    finally:
+        if before is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = before
+
+
+# -- [dryrun]: the dry run on meta tensors, held against the card ----------------
+
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+# production cells: (arch, shape, on the 2 x 16 x 16 multi-pod mesh)
+DRYRUN_PRODUCTION = (("granite-3-2b", "train_4k", False),
+                     ("deepseek-v3-671b", "decode_32k", True),
+                     ("zamba2-2.7b", "long_500k", False))
+# one-card training cells at B = TRAIN_B x TRAIN_S: (arch, layers (None =
+# whole), whether it must fit the card)
+DRYRUN_CARD = (("granite-3-2b", None, True),
+               ("llava-next-mistral-7b", LLAVA_TRAIN_LAYERS, True),
+               ("llava-next-mistral-7b", None, False),
+               ("deepseek-v3-671b", None, False))
+DRYRUN_SHAPE = ("train_b4_s1024", "train", TRAIN_S, TRAIN_B)
+
+
+def dryrun_cells(hbm_bytes: int, hbm_source: str) -> None:
+    """[dryrun]'s host work, run by :class:`DryrunJob` in a process that
+    sees no card: the production cells and the one-card cells through
+    ``launch.dryrun.run_cell`` on meta tensors, each cell's JSON under
+    build/dryrun/, all of them in build/dryrun/chip_cells.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh
+
+    hbm = (hbm_bytes, hbm_source)
+    out = {"production": [], "card": []}
+    for arch, shape, multi_pod in DRYRUN_PRODUCTION:
+        out["production"].append(D.run_cell(arch, shape, multi_pod,
+                                            str(DRYRUN_DIR), hbm=hbm))
+        print(D.summary(out["production"][-1], f"{arch} {shape}"),
+              flush=True)
+    shape = ShapeConfig(*DRYRUN_SHAPE)
+    mesh = make_local_mesh(1, device="meta")
+    for arch, layers, _ in DRYRUN_CARD:
+        cfg = get_config(arch)
+        out["card"].append(D.run_cell(
+            arch, shape.name, False, str(DRYRUN_DIR),
+            cfg=cfg.replace(num_layers=layers or cfg.num_layers),
+            shape=shape, mesh=mesh, hbm=hbm))
+        print(D.summary(out["card"][-1], f"{arch} {layers or 'whole'}"),
+              flush=True)
+    (DRYRUN_DIR / "chip_cells.json").write_text(json.dumps(out))
+
+
+class DryrunJob:
+    """:func:`dryrun_cells` in a child process with no card visible
+    (``CUDA_VISIBLE_DEVICES=""``: it allocates nothing on the card and
+    launches no kernel), its output in build/dryrun/child.log, against
+    the card's HBM as read here; stopped at exit if still running."""
+
+    def __init__(self):
+        import atexit
+        import os
+        from repro_torch.launch import dryrun as D
+        hbm, source = D.hbm_budget()
+        DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+        self.log_path = DRYRUN_DIR / "child.log"
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; chip_smoke.dryrun_cells({hbm}, "
+                f"{source!r})")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as f:
+            self.proc = subprocess.Popen([sys.executable, "-c", code],
+                                         stdout=f, stderr=subprocess.STDOUT,
+                                         cwd=str(ROOT), env=env)
+        atexit.register(self.stop)
+        log(f"[dryrun] host process {self.proc.pid} started on meta "
+            f"tensors (HBM budget {hbm} B, {source})")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self, timeout: float):
+        t0 = time.perf_counter()
+        rc = self.proc.wait(timeout=timeout)
+        log(f"[dryrun] host process exit {rc} after "
+            f"{time.perf_counter() - self.t0:.1f} s (waited "
+            f"{time.perf_counter() - t0:.1f} s for it)")
+        for line in self.log_path.read_text().splitlines():
+            log(f"[dryrun] (host) {line}")
+        require(rc == 0, f"[dryrun] the host process exited {rc}")
+        return json.loads((DRYRUN_DIR / "chip_cells.json").read_text())
+
+
+def dryrun_phase(job: DryrunJob, measured) -> None:
+    """The dry run's cells (:func:`dryrun_cells`): the three production
+    cells' reference-style lines (no collective term: every mesh is
+    emulated on one device), then the one-card cells: ``fits_hbm`` true
+    for granite-3-2b whole and llava-next-mistral-7b's 12-layer cut,
+    false for llava whole and deepseek-v3 whole; for the two cuts the
+    card trained (``measured``: arch -> train_run's numbers), the dry
+    run's FLOPs per step, step-time lower bound and predicted peak beside
+    the measured step ms, the reckoned model flops and
+    max_memory_allocated, with their ratios (no tolerance: remat's forward
+    and the plain attention's score chunks on meta are explained in
+    PERF.md)."""
+    from repro_torch.launch import dryrun as D
+    cells = job.result(timeout=900)
+    for res in cells["production"]:
+        log(D.summary(res, f"{res['arch']} {res['shape']} "
+                           f"pod{2 if res['multi_pod'] else 1}"))
+        require(not res["skipped"] and res["roofline"]["collective_s"] is None,
+                f"[dryrun] {res['arch']} {res['shape']}: skipped, or a "
+                "collective term on an emulated mesh")
+        m, r = res["memory"], res["roofline"]
+        log(f"[dryrun] {res['arch']} {res['shape']} on {res['mesh']}: "
+            f"per device argument {m['argument_bytes']} B, temp "
+            f"{m['temp_bytes']} B, output {m['output_bytes']} B, alias "
+            f"{m['alias_bytes']} B; {res['cost']['flops_per_device']:.4e} "
+            f"FLOP and {res['cost']['bytes_per_device']:.4e} B per device; "
+            f"model flops {r['model_flops_total']:.4e}, useful share "
+            f"{r['useful_flops_ratio']:.3f}; {r['collective_note']}")
+    for (arch, layers, fits), res in zip(DRYRUN_CARD, cells["card"]):
+        m, r = res["memory"], res["roofline"]
+        what = f"{arch} {'whole' if layers is None else f'{layers} layers'}"
+        log(D.summary(res, f"{what} B={TRAIN_B} x {TRAIN_S} one card"))
+        require(m["fits_hbm"] == fits,
+                f"[dryrun] {what}: fits_hbm {m['fits_hbm']}, expected "
+                f"{fits} ({m['hbm_used_bytes']} of {m['hbm_budget_bytes']} "
+                "B)")
+        meas = measured.get(arch)
+        if meas is None or not fits:
+            continue
+        flops, peak = res["cost"]["flops_per_device"], m["hbm_used_bytes"]
+        step_ms = meas["step_ms"]
+        log(f"[dryrun] {what} predicted: {flops:.4e} FLOP per step, "
+            f"step >= {r['step_time_lower_bound_s'] * 1e3:.3f} ms "
+            f"({r['dominant']}: compute {r['compute_s'] * 1e3:.3f} ms, "
+            f"memory {r['memory_s'] * 1e3:.3f} ms), peak {peak} B "
+            f"(arguments {m['argument_bytes']}, temp {m['temp_bytes']}); "
+            f"measured: {step_ms:.3f} ms per step, model flops "
+            f"{meas['model_flops']:.4e} ({meas['model_flops_remat']:.4e} "
+            f"with the remat forward), max_memory_allocated "
+            f"{meas['peak_bytes']} B")
+        log(f"[dryrun] {what} ratios: predicted / measured peak "
+            f"{peak / meas['peak_bytes']:.4f}; counted / reckoned flops "
+            f"{flops / meas['model_flops_remat']:.4f} (with remat), "
+            f"{flops / meas['model_flops']:.4f} (without); lower bound / "
+            f"measured step {r['step_time_lower_bound_s'] * 1e3 / step_ms:.4f}")
+
+
 def ptxas_lines(report: str):
     """(function, line) for each register and spill line of an
     ``nvcc -Xptxas -v`` report; the function is the entry being compiled,
@@ -4493,6 +4829,7 @@ def main() -> int:
             log(f"[ptxas] {kname} {fn}: {line}")
 
     # 3. per-kernel checks at the paths' shapes
+    clocks("kernel", "start")
     from repro_torch.configs import PAPER
     from repro_torch.data import packets as PK
     gen = torch.Generator().manual_seed(0)
@@ -4555,59 +4892,77 @@ def main() -> int:
                 f"{w['gbps']:.1f} GB/s, {100 * w['bound_share']:.1f} % of "
                 f"the bound")
 
+    clocks("kernel", "end")
+
     # 4. main path (launch counts start at 0 here)
     system, events, nows = paper_system(dev)
-    main_launches, v1_anomalies = main_path(system, events, nows)
+    main_launches, v1_anomalies = phase("main", main_path, system, events,
+                                        nows)
+
+    # 4a. K1's event tile tuned on the main path's stream, recorded in a
+    # tuning registry and consulted by one period
+    phase("tune", tune_phase, dev, system, events, nows)
 
     # 5. unfused path (launch counts start at 0 again)
-    unfused_launches = unfused_path(system, events, nows)
+    unfused_launches = phase("unfused", unfused_path, system, events, nows)
 
     # 6.-9. the online serving slice at PAPER under V2: the V2 main path,
     # the overlapped driver, fault injection, the serving loop (launch
     # counts start at 0 again for the serving loop)
-    v2_phase(dev, events, nows, v1_anomalies)
-    overlap_phase(dev, events, nows)
-    faults_phase(dev, events, nows)
+    phase("v2", v2_phase, dev, events, nows, v1_anomalies)
+    phase("overlap", overlap_phase, dev, events, nows)
+    phase("faults", faults_phase, dev, events, nows)
 
     # 9.-10. the emulated meshes (launch counts start at 0 for each)
-    mesh1d_launches = mesh1d_phase(dev)
+    mesh1d_launches = phase("mesh1d", mesh1d_phase, dev)
     torch.cuda.empty_cache()
-    mesh2d_launches, mesh_ev, mesh_nows = mesh2d_phase(dev)
+    mesh2d_launches, mesh_ev, mesh_nows = phase("mesh2d", mesh2d_phase, dev)
     host_ev = {k: v.cpu() for k, v in mesh_ev.items()}
     del mesh_ev
     torch.cuda.empty_cache()
 
     # 11. the serving loop (launch counts start at 0 again)
-    serving_launches = serving_phase(dev, events, nows)
+    serving_launches = phase("serving", serving_phase, dev, events, nows)
     del system, events, nows
 
     # 12.-13. the serving loop on the (2,2) mesh over [mesh2d]'s trace;
     # elastic pod loss and join (launch counts start at 0 for each)
-    serving_mesh_launches = serving_mesh_phase(dev, host_ev, mesh_nows)
+    serving_mesh_launches = phase("serving mesh", serving_mesh_phase, dev,
+                                  host_ev, mesh_nows)
     torch.cuda.empty_cache()
-    elastic_launches = elastic_phase(dev, host_ev, mesh_nows)
+    elastic_launches = phase("elastic", elastic_phase, dev, host_ev,
+                             mesh_nows)
     del host_ev
     torch.cuda.empty_cache()
 
     # 14. goldens
-    golden(dev)
+    phase("golden", golden, dev)
+
+    # the dry run's host work, on meta tensors in a process of its own
+    # beside the model phases; [dryrun] reads it after the training phases
+    dry = DryrunJob()
 
     # 15. serving at full width (launch counts start at 0 again)
-    serve_launches, serve_variants = serve_phase(dev)
+    serve_launches, serve_variants = phase("serve", serve_phase, dev)
     torch.cuda.empty_cache()
 
     # 16.-18. deepseek-v3 (MLA + MoE), qwen3-14b and zamba2-2.7b (hybrid)
     # serving (launch counts start at 0 again for each)
-    deepseek_launches, deepseek_variants = serve_deepseek_phase(dev)
-    qwen_launches, qwen_variants = serve_qwen_phase(dev)
-    zamba_launches, zamba_variants = serve_zamba2_phase(dev)
+    deepseek_launches, deepseek_variants = phase(
+        "serve deepseek-v3", serve_deepseek_phase, dev)
+    qwen_launches, qwen_variants = phase("serve qwen3-14b",
+                                         serve_qwen_phase, dev)
+    zamba_launches, zamba_variants = phase("serve zamba2-2.7b",
+                                           serve_zamba2_phase, dev)
     # rwkv6-3b (ssm, no attention) and whisper-tiny (encdec: K6 without a
     # mask in the encoder) serving (launch counts start at 0 for each)
-    rwkv_launches, rwkv_variants = serve_rwkv_phase(dev)
-    whisper_launches, whisper_variants, whisper_kinds = \
-        serve_whisper_phase(dev)
+    rwkv_launches, rwkv_variants = phase("serve rwkv6-3b", serve_rwkv_phase,
+                                         dev)
+    whisper_launches, whisper_variants, whisper_kinds = phase(
+        "serve whisper-tiny", serve_whisper_phase, dev)
     # llava-next-mistral-7b (vlm: 2880 patches before each prompt)
-    llava_launches, llava_variants, llava_kinds = serve_llava_phase(dev)
+    llava_launches, llava_variants, llava_kinds = phase(
+        "serve llava-next-mistral-7b", serve_llava_phase, dev)
     k6_row = next(c for c in checks if c["kernel"].name == "flash_attention")
     k6_row["variants_by_path"] = {"serve": serve_variants,
                                   "serve_deepseek": deepseek_variants,
@@ -4623,15 +4978,20 @@ def main() -> int:
     # layers, a llama4-scout MoE layer, zamba2-2.7b (launch counts start at
     # 0 again for each); 23. steps against the plain versions and f32;
     # 24. the examples
-    train_launches, train_variants, _ = train_phase(dev)
-    train_ds_launches, train_ds_variants, _ = train_deepseek_phase(dev)
-    train_l4_launches, train_l4_variants, _ = train_llama4_phase(dev)
-    train_z_launches, train_z_variants, _ = train_zamba2_phase(dev)
-    train_r_launches, train_r_variants, _ = train_rwkv_phase(dev)
-    train_w_launches, train_w_variants, train_w_kinds = \
-        train_whisper_phase(dev)
-    train_v_launches, train_v_variants, train_v_kinds = \
-        train_llava_phase(dev)
+    train_launches, train_variants, _, train_measured = \
+        phase("train", train_phase, dev)
+    train_ds_launches, train_ds_variants, _, _ = \
+        phase("train deepseek-v3", train_deepseek_phase, dev)
+    train_l4_launches, train_l4_variants, _, _ = \
+        phase("train llama4-scout", train_llama4_phase, dev)
+    train_z_launches, train_z_variants, _, _ = \
+        phase("train zamba2-2.7b", train_zamba2_phase, dev)
+    train_r_launches, train_r_variants, _, _ = \
+        phase("train rwkv6-3b", train_rwkv_phase, dev)
+    train_w_launches, train_w_variants, train_w_kinds, _ = \
+        phase("train whisper-tiny", train_whisper_phase, dev)
+    train_v_launches, train_v_variants, train_v_kinds, llava_measured = \
+        phase("train llava-next-mistral-7b", train_llava_phase, dev)
     k7_row["variants_by_path"] = {"train": train_variants,
                                   "train_deepseek": train_ds_variants,
                                   "train_llama4": train_l4_variants,
@@ -4647,8 +5007,12 @@ def main() -> int:
     k7_row["kinds_by_path"] = {
         "train_whisper": train_w_kinds["flash_attention_bwd"],
         "train_llava": train_v_kinds["flash_attention_bwd"]}
-    train_check_phase(dev)
-    examples_phase(dev)
+    # 22d. the dry run against the training phases just measured
+    phase("dryrun", dryrun_phase, dry, {"granite-3-2b": train_measured,
+                                        "llava-next-mistral-7b":
+                                        llava_measured})
+    phase("train check", train_check_phase, dev)
+    phase("examples", examples_phase, dev)
 
     print(json.dumps({"kernels": kernel_rows(
         checks, {"main": main_launches, "unfused": unfused_launches,

@@ -2,9 +2,8 @@
 
 Field names, defaults and meanings are those of the reference
 ``DFAConfig`` and ``ModelConfig`` so a configuration reads the same in
-both packages. Only the fields the port reads (or refuses) are carried;
-the tuning knob arrives with the slice that implements it (ROADMAP §1
-item 12). ``MoEConfig`` and ``MLAConfig`` carry every field of the
+both packages. Only the fields the port reads (or refuses) are carried.
+``MoEConfig`` and ``MLAConfig`` carry every field of the
 reference's, and so do ``SSMConfig`` (the hybrid and ssm families'),
 ``HybridConfig``, ``EncDecConfig`` (the encdec family's) and
 ``VisionStubConfig`` (the vlm family's).
@@ -41,6 +40,10 @@ class DFAConfig:
     # sorted-event tile of the fused ingest (segment sums are cut at tile
     # boundaries); clamped to 256 and to the block's event count
     event_tile: int = 256
+    # tuned-config registry JSON (repro_torch.kernels.tuning); "" = off.
+    # REPRO_TUNING_REGISTRY beats it. A tuned K1 event tile for the exact
+    # event count beats event_tile
+    tuning_registry: str = ""
     # streaming driver: software-pipeline the period stream so period t's
     # enrich(+inference) half runs in the same loop body as period t+1's
     # ingest half (pipeline.run_periods_overlapped); output-identical to

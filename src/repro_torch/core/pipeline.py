@@ -203,7 +203,8 @@ class DFASystem:
     def __init__(self, cfg: DFAConfig, device="cuda", infer_params=None,
                  n_shards: int = 1):
         device = on_card_or_cpu(device, "DFASystem")
-        backend = dispatch.check_backend(cfg.kernel_backend)
+        backend = dispatch.resolve_backend(None, cfg)
+        dispatch.check_variants()
         if backend == "cuda" and device.type != "cuda":
             raise RuntimeError("kernel_backend='cuda' needs device='cuda'")
         self.wire = WIRE.resolve(cfg)
@@ -734,21 +735,29 @@ class DFASystem:
         wire, the ingest event tile, the ring's bytes, the mesh (shards,
         flow home, pods, ports, the per-port and exchange capacities, the
         home node roster), the overlap and head switches, the snapshot and
-        serving knobs, the fault spec and the re-homing collision policy.
+        serving knobs, the fault spec, the re-homing collision policy and
+        the armed tuning registry (``"none"`` when off). ``event_tile`` is
+        the tile a block of ``cfg.event_block`` events runs K1 (or its
+        plain version) with: a tuned value for that count beats
+        ``cfg.event_tile``.
 
         Left out, against the reference's ``describe()``: the TPU-only
         keys (``gather_variant``, ``ingest_variant``, ``ingest_vmem_bytes``,
         ``gather_vmem_bytes``, ``vmem_budget_bytes`` — VMEM budgets and
         the kernel variants they choose; the CUDA kernels have one
-        variant each on this path) and ``tuning_registry`` (ROADMAP §1
-        item 12)."""
+        variant each on this path)."""
+        from repro_torch.kernels import tuning
         from repro_torch.kernels.ingest_update.kernel import clamp_tile
         cfg = self.cfg
+        route = ("cuda" if self.device.type == "cuda" and self.backend != "ref"
+                 else "ref")
+        tile = dispatch.resolve_event_tile(cfg, cfg.event_block, route)
         return {
             "device": str(self.device),
             "kernel_backend": self.backend,
             "wire_format": self.wire.name,
-            "event_tile": clamp_tile(cfg.event_tile, cfg.event_block),
+            "event_tile": clamp_tile(tile, cfg.event_block),
+            "tuning_registry": tuning.resolve_path(cfg) or "none",
             "ring_region_bytes": cfg.ring_region_bytes(),
             "n_shards": self.n_shards,
             "flow_home": cfg.flow_home,

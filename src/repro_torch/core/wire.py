@@ -14,24 +14,25 @@ word (14) and its covered set (0-13 and 15) are the same in both.
 Field helpers take u32 words as int32 bit patterns or widened int64
 values (``repro_torch.u32``) and return widened int64 values.
 
-Resolution of the active format: ``REPRO_WIRE_FORMAT`` env var >
-``DFAConfig.wire_format`` > ``"v1"``; unknown names raise.
+Resolution of the active format: ``REPRO_WIRE_FORMAT`` env var (read
+through ``repro_torch.configs.env``) > ``DFAConfig.wire_format`` >
+``"v1"``; unknown names raise.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch import u32 as U
+from repro_torch.configs import env as ENV
 
 # flow-id value marking a padding row in emitted flow-id streams
 PAD_FLOW_ID = 0xFFFFFFFF
 # sort key of a padding row in the home translator's canonical order
 PAD_SORT_KEY = 0xFFFFFFFF
-ENV_VAR = "REPRO_WIRE_FORMAT"
+ENV_VAR = ENV.WIRE_FORMAT.name
 
 
 @dataclass(frozen=True)
@@ -226,7 +227,7 @@ def get(name: str) -> WireFormat:
 def resolve(cfg=None) -> WireFormat:
     """The active format: ``REPRO_WIRE_FORMAT`` > ``cfg.wire_format`` >
     ``"v1"``. Unset, empty or ``"auto"`` env values defer."""
-    raw = os.environ.get(ENV_VAR, "").strip().lower()
-    if raw in ("", "auto"):
-        raw = getattr(cfg, "wire_format", "v1") or "v1"
-    return get(raw)
+    name = ENV.read_choice(ENV_VAR)
+    if name is None:
+        name = getattr(cfg, "wire_format", "v1") or "v1"
+    return get(name)

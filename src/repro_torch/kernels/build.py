@@ -106,7 +106,8 @@ class CudaKernel:
     then counts each launch under the variant it ran; an entry whose
     launches differ in kind (attention's causal or full mask) names the
     kinds in ``kinds``, and ``launches_by_kind`` counts each launch under
-    the kind it was given. ``symbol`` names
+    the kind it was given (a kind not named in ``kinds``, such as K1's
+    ``"tile 128"``, gets its count at its first launch). ``symbol`` names
     another C entry of the same library (default: ``name``); only
     ring_scatter's empty-kernel floor and its round size use it."""
 
@@ -157,7 +158,8 @@ class CudaKernel:
         if variant is not None:
             self.launches_by_variant[variant] += 1
         if kind is not None:
-            self.launches_by_kind[kind] += 1
+            self.launches_by_kind[kind] = self.launches_by_kind.get(kind,
+                                                                    0) + 1
 
 
 def check_args(dev, checks) -> None:

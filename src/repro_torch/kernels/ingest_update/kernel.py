@@ -169,5 +169,6 @@ def segment_sums_cuda(s_slot, s_ts, s_ps, base_ts, first_i32, log_lut,
     out = torch.empty(Ep, REG_PAD, dtype=torch.int32, device=s_slot.device)
     KERNEL.launch(ptr(s_slot), ptr(s_ts), ptr(s_ps), ptr(base_ts),
                   ptr(first_i32), ptr(log_lut), ptr(exp_lut), ptr(out),
-                  Ep, tile, bits, stream_ptr(s_slot.device))
+                  Ep, tile, bits, stream_ptr(s_slot.device),
+                  kind=f"tile {tile}")
     return out

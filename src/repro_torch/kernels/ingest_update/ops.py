@@ -4,7 +4,11 @@
 plain version (``ref.segment_sums_ref``) for CPU tensors or under
 ``backend="ref"`` (see ``kernels.dispatch``). ``ingest_update`` picks the
 multipass oracle for ``backend="ref"`` and the fused sort-once path
-otherwise; both are bitwise equal.
+otherwise; both are bitwise equal. The fused path's event tile is
+``dispatch.resolve_event_tile``'s: a tuned value for the block's event
+count (``kernels.tuning``) beats ``cfg.event_tile``. Every tile gives the
+same state bit for bit: a run's sum cut at a tile boundary is merged
+again by the scatter-add.
 """
 from __future__ import annotations
 
@@ -35,8 +39,10 @@ def ingest_update_fused(regs, last_ts, keys, active, collisions, slots, ts,
     scatter-add per segment."""
     if slots.shape[0] == 0:
         return regs, last_ts, keys, active, collisions
+    tile = dispatch.resolve_event_tile(cfg, slots.shape[0],
+                                       dispatch.route(slots, backend))
     st = K.stream_prep(last_ts, keys, active, slots, ts, ps, five_tuple,
-                       valid, cfg.event_tile)
+                       valid, tile)
     sums = segment_sums(st.s_slot, st.s_ts, st.s_ps, st.base_ts,
                         st.first.to(torch.int32), bits=cfg.logstar_bits,
                         tile=st.tile, backend=backend)
@@ -53,7 +59,7 @@ def ingest_update(regs, last_ts, keys, active, collisions, slots, ts, ps,
     """(F, ·) reporter registers + one (E,) event block -> the five
     updated register arrays. ``backend="ref"`` runs the multipass oracle,
     anything else the fused path."""
-    b = dispatch.check_backend(backend or cfg.kernel_backend)
+    b = dispatch.resolve_backend(backend, cfg)
     if slots.shape[0] == 0:
         return regs, last_ts, keys, active, collisions
     if b == "ref":

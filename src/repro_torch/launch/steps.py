@@ -1,10 +1,16 @@
-"""The train step (the port of ``repro.launch.steps``, training part).
+"""The train step and the state layouts (the port of
+``repro.launch.steps``).
 
 The reference's sharding helpers (``train_state_shardings``,
-``cache_shardings``, ``serve_param_shardings``) lay state out over a
-mesh and have nothing to do on one device; its prefill and decode step
+``cache_shardings``, ``serve_param_shardings``) become
+:func:`train_state_specs`, :func:`cache_specs` and
+:func:`serve_param_specs`: the same partition specs over an
+``EmulatedMesh``, which the dry run (``launch.dryrun``) reads for each
+device's share of the state; every mesh of the port lives on one device,
+so nothing is laid out by them. :func:`abstract_train_state` is the
+state on ``meta`` tensors. The reference's prefill and decode step
 builders are ``Model.prefill`` / ``Model.decode`` themselves (see
-``launch.serve``). Neither is ported.
+``launch.serve``).
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.models.registry import Model
+from repro_torch.models import param as PM
+from repro_torch.models.registry import Model, decode_axes
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import lr_at
 
@@ -87,3 +94,39 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed=0) -> Dict:
     params = model.init(seed)
     opt = adamw.init(params, tcfg, model.cfg.opt_state_dtype)
     return {"params": params, "opt": opt}
+
+
+def abstract_train_state(model: Model, tcfg: TrainConfig) -> Dict:
+    """The train state on ``meta`` tensors: the parameters and AdamW
+    moments in ``cfg.opt_state_dtype``, no storage."""
+    params = model.abstract_params()
+    opt = adamw.init(params, tcfg, model.cfg.opt_state_dtype)
+    return {"params": params, "opt": opt}
+
+
+def train_state_specs(model: Model, tcfg: TrainConfig, mesh) -> Dict:
+    """The train state's partition specs over ``mesh``: the moments laid
+    out as their parameters, the step replicated."""
+    specs = model.param_specs(mesh)
+    return {"params": specs,
+            "opt": adamw.OptState(step=(), mu=specs, nu=specs)}
+
+
+def cache_specs(model: Model, mesh, batch: int, seq: int) -> Tree:
+    """The decode cache's specs, consistent with ``decode_axes``: the
+    batch over its batch axes, the cached sequence over the rest."""
+    baxes, saxes = decode_axes(mesh, batch, seq)
+    rules = PM.default_rules(mesh).replace(batch=baxes, kv_seq=saxes)
+    return PM.partition_specs(model.cache_descs(batch, seq), rules)
+
+
+def serve_param_specs(model: Model, mesh, batch: int) -> Tree:
+    """The decode-time parameter layout: MoE experts over the wide EP
+    axes of ``moe.decode_ep_axes``, so no per-layer FSDP weight gathers
+    (the reference's ``serve_param_shardings``)."""
+    from repro_torch.models import moe as M
+    rules = PM.default_rules(mesh)
+    if model.cfg.moe is not None:
+        rules = rules.replace(
+            experts=M.decode_ep_axes(model.cfg, mesh, batch))
+    return model.param_specs(mesh, rules)

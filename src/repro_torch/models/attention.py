@@ -33,13 +33,12 @@ NEG_INF = -1e30
 def attn_descs(cfg: ModelConfig) -> Tree:
     D = cfg.resolved_head_dim
     dt = cfg.param_dtype
-    t = {"q": L.linear_descs(cfg.d_model, cfg.num_heads * D, dt,
-                             bias=cfg.qkv_bias),
-         "k": L.linear_descs(cfg.d_model, cfg.num_kv_heads * D, dt,
-                             bias=cfg.qkv_bias),
-         "v": L.linear_descs(cfg.d_model, cfg.num_kv_heads * D, dt,
-                             bias=cfg.qkv_bias),
-         "o": L.linear_descs(cfg.num_heads * D, cfg.d_model, dt)}
+    qkv = dict(bias=cfg.qkv_bias, in_axis="embed", out_axis="model")
+    t = {"q": L.linear_descs(cfg.d_model, cfg.num_heads * D, dt, **qkv),
+         "k": L.linear_descs(cfg.d_model, cfg.num_kv_heads * D, dt, **qkv),
+         "v": L.linear_descs(cfg.d_model, cfg.num_kv_heads * D, dt, **qkv),
+         "o": L.linear_descs(cfg.num_heads * D, cfg.d_model, dt,
+                             in_axis="model", out_axis="embed")}
     if cfg.qk_norm:
         t["q_norm"] = L.rms_norm_descs(D, dt)
         t["k_norm"] = L.rms_norm_descs(D, dt)
@@ -180,15 +179,21 @@ def mla_descs(cfg: ModelConfig) -> Tree:
     H = cfg.num_heads
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "q_down": L.linear_descs(cfg.d_model, m.q_lora_rank, dt),
+        "q_down": L.linear_descs(cfg.d_model, m.q_lora_rank, dt,
+                                 in_axis="embed"),
         "q_norm": L.rms_norm_descs(m.q_lora_rank, dt),
-        "q_up": L.linear_descs(m.q_lora_rank, H * qk_dim, dt),
+        "q_up": L.linear_descs(m.q_lora_rank, H * qk_dim, dt,
+                               out_axis="model"),
         "kv_down": L.linear_descs(cfg.d_model,
-                                  m.kv_lora_rank + m.qk_rope_head_dim, dt),
+                                  m.kv_lora_rank + m.qk_rope_head_dim, dt,
+                                  in_axis="embed"),
         "kv_norm": L.rms_norm_descs(m.kv_lora_rank, dt),
-        "k_up": L.linear_descs(m.kv_lora_rank, H * m.qk_nope_head_dim, dt),
-        "v_up": L.linear_descs(m.kv_lora_rank, H * m.v_head_dim, dt),
-        "o": L.linear_descs(H * m.v_head_dim, cfg.d_model, dt),
+        "k_up": L.linear_descs(m.kv_lora_rank, H * m.qk_nope_head_dim, dt,
+                               out_axis="model"),
+        "v_up": L.linear_descs(m.kv_lora_rank, H * m.v_head_dim, dt,
+                               out_axis="model"),
+        "o": L.linear_descs(H * m.v_head_dim, cfg.d_model, dt,
+                            in_axis="model", out_axis="embed"),
     }
 
 

@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.lm import loss_mask, unstack
+from repro_torch.models.lm import kv_axes, loss_mask, unstack
 from repro_torch.models.param import ParamDesc
 
 Tree = Any
@@ -132,8 +132,8 @@ def hybrid_cache_descs(cfg: ModelConfig, batch: int, seq: int) -> List[Tree]:
     nseg, per = _plan(cfg)
     kv = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     return [{"mamba": L.stack_descs(S.mamba2_state_descs(cfg, batch), per),
-             "attn_k": ParamDesc(kv, cfg.dtype, init="zeros"),
-             "attn_v": ParamDesc(kv, cfg.dtype, init="zeros")}
+             "attn_k": ParamDesc(kv, cfg.dtype, kv_axes(kv), init="zeros"),
+             "attn_v": ParamDesc(kv, cfg.dtype, kv_axes(kv), init="zeros")}
             for _ in range(nseg)]
 
 

@@ -23,16 +23,18 @@ Tree = Any
 
 
 def stack_descs(descs: Tree, n: int) -> Tree:
-    """Prepend a layer dimension to every leaf (the reference scans over
-    it; the port loops)."""
+    """Prepend an unsharded layer dimension to every leaf (the reference
+    scans over it; the port loops)."""
     return tree_map_descs(
-        lambda p, d: dataclasses.replace(d, shape=(n,) + d.shape), descs)
+        lambda p, d: dataclasses.replace(
+            d, shape=(n,) + d.shape,
+            axes=(None,) + tuple(d.axes or (None,) * len(d.shape))), descs)
 
 
 # ---------------------------------------------------------------- norms ----
 
 def rms_norm_descs(dim: int, dtype: str) -> Tree:
-    return {"scale": ParamDesc((dim,), dtype, init="ones")}
+    return {"scale": ParamDesc((dim,), dtype, (None,), init="ones")}
 
 
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -44,8 +46,8 @@ def rms_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def layer_norm_descs(dim: int, dtype: str) -> Tree:
-    return {"scale": ParamDesc((dim,), dtype, init="ones"),
-            "bias": ParamDesc((dim,), dtype, init="zeros")}
+    return {"scale": ParamDesc((dim,), dtype, (None,), init="ones"),
+            "bias": ParamDesc((dim,), dtype, (None,), init="zeros")}
 
 
 def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -61,11 +63,12 @@ def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 # --------------------------------------------------------------- linear ----
 
-def linear_descs(d_in: int, d_out: int, dtype: str, *,
-                 bias: bool = False) -> Tree:
-    t = {"w": ParamDesc((d_in, d_out), dtype)}
+def linear_descs(d_in: int, d_out: int, dtype: str, *, bias: bool = False,
+                 in_axis: Optional[str] = None,
+                 out_axis: Optional[str] = None) -> Tree:
+    t = {"w": ParamDesc((d_in, d_out), dtype, (in_axis, out_axis))}
     if bias:
-        t["b"] = ParamDesc((d_out,), dtype, init="zeros")
+        t["b"] = ParamDesc((d_out,), dtype, (out_axis,), init="zeros")
     return t
 
 
@@ -111,11 +114,16 @@ def ffn_descs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Tree:
     ``cfg.d_ff``)."""
     d_ff, dt = d_ff or cfg.d_ff, cfg.param_dtype
     if cfg.act == "gelu":                   # non-gated MLP with bias
-        return {"up": linear_descs(cfg.d_model, d_ff, dt, bias=True),
-                "down": linear_descs(d_ff, cfg.d_model, dt, bias=True)}
-    return {"gate": linear_descs(cfg.d_model, d_ff, dt),
-            "up": linear_descs(cfg.d_model, d_ff, dt),
-            "down": linear_descs(d_ff, cfg.d_model, dt)}
+        return {"up": linear_descs(cfg.d_model, d_ff, dt, bias=True,
+                                   in_axis="embed", out_axis="model"),
+                "down": linear_descs(d_ff, cfg.d_model, dt, bias=True,
+                                     in_axis="model", out_axis="embed")}
+    return {"gate": linear_descs(cfg.d_model, d_ff, dt,
+                                 in_axis="embed", out_axis="model"),
+            "up": linear_descs(cfg.d_model, d_ff, dt,
+                               in_axis="embed", out_axis="model"),
+            "down": linear_descs(d_ff, cfg.d_model, dt,
+                                 in_axis="model", out_axis="embed")}
 
 
 def ffn(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -131,10 +139,11 @@ def ffn(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 def embed_descs(cfg: ModelConfig) -> Tree:
     t = {"tok": ParamDesc((cfg.vocab_size, cfg.d_model), cfg.param_dtype,
-                          init="embed")}
+                          ("vocab", "embed"), init="embed")}
     if not cfg.tie_embeddings:
         t["unembed"] = ParamDesc((cfg.d_model, cfg.vocab_size),
-                                 cfg.param_dtype, init="normal")
+                                 cfg.param_dtype, ("embed", "vocab"),
+                                 init="normal")
     return t
 
 

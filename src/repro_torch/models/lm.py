@@ -92,7 +92,7 @@ def lm_descs(cfg: ModelConfig) -> Tree:
     if cfg.mtp_depth:
         t["mtp"] = {
             "proj": L.linear_descs(2 * cfg.d_model, cfg.d_model,
-                                   cfg.param_dtype),
+                                   cfg.param_dtype, in_axis="embed"),
             "norm_h": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
             "norm_e": L.rms_norm_descs(cfg.d_model, cfg.param_dtype),
             "block": block_descs(cfg, "moe" if cfg.moe else "dense"),
@@ -253,8 +253,14 @@ def cache_descs(cfg: ModelConfig, batch: int, seq: int) -> List[Tree]:
     else:
         shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         shapes = {"k": shape, "v": shape}
-    return [{n: ParamDesc(s, cfg.dtype, init="zeros")
+    return [{n: ParamDesc(s, cfg.dtype, kv_axes(s), init="zeros")
              for n, s in shapes.items()} for _ in range(cfg.num_layers)]
+
+
+def kv_axes(shape) -> Tuple[Optional[str], ...]:
+    """A self-attention cache leaf's logical axes: batch, then the cached
+    sequence, then the rest unsharded."""
+    return ("batch", "kv_seq") + (None,) * (len(shape) - 2)
 
 
 def lm_prefill(params, batch, cfg: ModelConfig,

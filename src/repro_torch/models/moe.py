@@ -13,10 +13,11 @@ other pairs.
 The reference runs :func:`_expert_gather_compute` on each expert-parallel
 rank's share of the experts (``E_loc`` of them from ``my_first``) and sums
 the shares with a psum; on one device the share is every expert and the
-psum is the identity. Its ``decode_ep_axes`` picks mesh axes for that
-sharding and has no meaning on one device, so it is not ported. The
-expert products are plain ``torch.einsum``: the reference computes them
-outside any Pallas kernel.
+psum is the identity. :func:`decode_ep_axes` picks the mesh axes of that
+sharding, as the reference's does, for the dry run's serving layout
+(``launch.steps.serve_param_specs``). The expert products are plain
+``torch.einsum``: the reference computes them outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -37,18 +38,38 @@ def moe_descs(cfg: ModelConfig) -> Tree:
     m = cfg.moe
     dt = cfg.param_dtype
     E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
-    t = {"router": ParamDesc((d, E), "float32"),
-         "gate": ParamDesc((E, d, f), dt),
-         "up": ParamDesc((E, d, f), dt),
-         "down": ParamDesc((E, f, d), dt)}
+    t = {"router": ParamDesc((d, E), "float32", ("embed", None)),
+         "gate": ParamDesc((E, d, f), dt, ("experts", "embed", None)),
+         "up": ParamDesc((E, d, f), dt, ("experts", "embed", None)),
+         "down": ParamDesc((E, f, d), dt, ("experts", None, "embed"))}
     if m.score_func == "sigmoid":
-        t["bias"] = ParamDesc((E,), "float32", init="zeros")
+        t["bias"] = ParamDesc((E,), "float32", (None,), init="zeros")
     if m.num_shared_experts:
         f_sh = m.d_ff_shared * m.num_shared_experts
-        t["shared"] = {"gate": L.linear_descs(d, f_sh, dt),
-                       "up": L.linear_descs(d, f_sh, dt),
-                       "down": L.linear_descs(f_sh, d, dt)}
+        t["shared"] = {"gate": L.linear_descs(d, f_sh, dt, in_axis="embed",
+                                              out_axis="model"),
+                       "up": L.linear_descs(d, f_sh, dt, in_axis="embed",
+                                            out_axis="model"),
+                       "down": L.linear_descs(f_sh, d, dt, in_axis="model",
+                                              out_axis="embed")}
     return t
+
+
+def decode_ep_axes(cfg: ModelConfig, mesh, tokens: int) -> Tuple[str, ...]:
+    """Expert-parallel axes of the serving layout over ``mesh`` (an
+    ``EmulatedMesh``): EP widens over ("model", "data", "pod") while the
+    expert count divides and the replicated token activations stay
+    small (decode: ~128 tokens), else ("model",)."""
+    sizes = mesh.shape
+    axes = []
+    prod = 1
+    for ax in ("model", "data", "pod"):
+        if ax in sizes and cfg.moe.num_experts % (prod * sizes[ax]) == 0:
+            axes.append(ax)
+            prod *= sizes[ax]
+    if tokens * cfg.d_model * 2 > 64 * 2**20:
+        return ("model",)
+    return tuple(axes) if axes else ("model",)
 
 
 def route(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,6 +1,19 @@
 """Parameter descriptors: one tree of ``ParamDesc`` gives each parameter's
-shape, dtype and initializer, and :func:`materialize` turns it into
-tensors on a device.
+shape, dtype, logical sharding axes and initializer. From that one tree
+come random tensors on a device (:func:`materialize`), ``meta`` stand-ins
+of each leaf's shape and dtype for the dry run (:func:`abstract`), and
+each leaf's partition spec over a mesh (:func:`partition_specs`).
+
+Logical axes map to mesh axes by :class:`LogicalRules`, the reference's
+rules (``repro.models.param``): a mapping that does not divide the
+dimension evenly is dropped, so that dimension is replicated. There is
+no ``NamedSharding`` in torch: where the reference returns shardings,
+the port returns the specs, one tuple per leaf with one entry per
+dimension (``None``, one mesh-axis name, or a tuple of names: the
+entries of the reference's ``PartitionSpec``). Every mesh of the port is
+emulated on one device (``launch.mesh.EmulatedMesh``), so the specs lay
+nothing out; the dry run reads them for each device's share of the
+bytes.
 
 The init rules are the reference's (``repro.models.param._init_leaf``):
 "normal" is N(0, 1) times ``min(scale, 1/sqrt(fan_in))`` with ``fan_in``
@@ -12,13 +25,18 @@ cross from the reference as numpy (``repro_torch.convert``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 Tree = Any
+AxisName = Optional[str]
+# one dimension's entry of a partition spec: replicated, one mesh axis, or
+# several
+SpecEntry = Union[None, str, Tuple[str, ...]]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # elements of the largest f32 draw :func:`materialize` makes at once
@@ -36,9 +54,29 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamDesc:
     shape: Tuple[int, ...]
     dtype: str = "bfloat16"
+    axes: Tuple[AxisName, ...] = ()
     init: str = "normal"      # normal | zeros | ones | embed | const
     scale: float = 0.02
     const: float = 0.0        # the value of an init="const" leaf
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} rank != shape {self.shape}")
+
+
+def leaf_paths(tree: Tree, prefix=()):
+    """(path, desc) of every leaf, dict keys in sorted order (the
+    reference's ``_leaf_paths``)."""
+    if isinstance(tree, ParamDesc):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, prefix + (str(i),))
+    elif tree is not None:
+        raise TypeError(f"bad desc tree node {type(tree)}")
 
 
 def tree_map_descs(fn: Callable[[Tuple[str, ...], ParamDesc], Any],
@@ -97,7 +135,94 @@ def materialize(descs: Tree, generator: torch.Generator, device) -> Tree:
                           descs)
 
 
+def abstract(descs: Tree) -> Tree:
+    """A ``meta`` tensor of each leaf's shape and dtype (no storage): the
+    counterpart of the reference's ``ShapeDtypeStruct`` stand-ins."""
+    return tree_map_descs(
+        lambda p, d: torch.empty(d.shape, dtype=torch_dtype(d.dtype),
+                                 device="meta"), descs)
+
+
+@dataclass(frozen=True)
+class LogicalRules:
+    """logical axis -> tuple of mesh axes (in order of preference)."""
+
+    rules: Dict[str, Tuple[str, ...]]
+    mesh_axis_sizes: Dict[str, int]
+
+    def spec_for(self, d: ParamDesc) -> Tuple[SpecEntry, ...]:
+        """One entry per dimension of ``d``; ``()`` for a leaf without
+        axes (replicated), as the reference's ``P()``. A mesh axis shards
+        a dimension only if the product so far divides it, and each mesh
+        axis is used once per leaf."""
+        if not d.axes:
+            return ()
+        parts = []
+        used: set = set()
+        for dim, ax in zip(d.shape, d.axes):
+            if ax is None or ax not in self.rules:
+                parts.append(None)
+                continue
+            assigned = []
+            prod = 1
+            for mesh_ax in self.rules[ax]:
+                if mesh_ax in used or mesh_ax not in self.mesh_axis_sizes:
+                    continue
+                sz = self.mesh_axis_sizes[mesh_ax]
+                if dim % (prod * sz) == 0:
+                    assigned.append(mesh_ax)
+                    prod *= sz
+            used.update(assigned)
+            parts.append(assigned[0] if len(assigned) == 1
+                         else tuple(assigned) if assigned else None)
+        return tuple(parts)
+
+    def replace(self, **rules: Tuple[str, ...]) -> "LogicalRules":
+        """These rules with some logical axes mapped anew."""
+        return LogicalRules({**self.rules, **rules}, self.mesh_axis_sizes)
+
+
+def default_rules(mesh) -> LogicalRules:
+    """The reference's rules over ``mesh`` (an ``EmulatedMesh``): batch
+    over (pod, data), FSDP over data (and pod), tensor parallelism,
+    vocabulary, experts and the decode cache's sequence over model."""
+    sizes = mesh.shape
+    batch_axes = ("pod", "data") if "pod" in sizes else ("data",)
+    return LogicalRules(
+        rules={
+            "batch": batch_axes,
+            "embed": ("data", "pod"),      # FSDP dims for params (zero-3)
+            "embed_pod": ("pod", "data"),  # FSDP over pod too (XXL models)
+            "model": ("model",),           # TP dim (flattened heads*dim / ff)
+            "vocab": ("model",),
+            "experts": ("model",),
+            "kv_seq": ("model",),          # decode cache sequence sharding
+            "seq": (),                     # unsharded by default in train
+        },
+        mesh_axis_sizes=sizes,
+    )
+
+
+def partition_specs(descs: Tree, rules: LogicalRules) -> Tree:
+    return tree_map_descs(lambda p, d: rules.spec_for(d), descs)
+
+
+def shard_shape(shape: Tuple[int, ...], spec: Tuple[SpecEntry, ...],
+                mesh_axis_sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """The per-device block of a leaf of ``shape`` laid out by ``spec``."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else entry
+        out[i] //= math.prod(mesh_axis_sizes[n] for n in names)
+    return tuple(out)
+
+
 def count_params(descs: Tree) -> int:
-    n = []
-    tree_map_descs(lambda p, d: n.append(int(np.prod(d.shape))), descs)
-    return sum(n)
+    return sum(int(np.prod(d.shape)) for _, d in leaf_paths(descs))
+
+
+def bytes_of(descs: Tree) -> int:
+    return sum(int(np.prod(d.shape)) * torch_dtype(d.dtype).itemsize
+               for _, d in leaf_paths(descs))

@@ -11,17 +11,26 @@ family (rwkv6) through ``models.rwkv_lm`` and the encdec family
 kernel (K6) and, in the training backward, its gradient (K7); on the CPU
 their plain versions run. The ssm family has no attention and launches
 neither.
-``backend="ref"`` forces the plain version on any device
-(``repro_torch.kernels.dispatch``).
+``backend="ref"`` forces the plain version on any device; otherwise
+``dispatch.resolve_backend`` applies the reference's precedence
+(argument > ``REPRO_KERNEL_BACKEND`` > ``cfg.kernel_backend`` > auto;
+a model config has no ``kernel_backend``, so the variable decides).
+
+The mesh helpers (:func:`train_batch_axes`, :func:`decode_axes`,
+:func:`input_specs`, ``Model.param_specs``) take a
+``launch.mesh.EmulatedMesh`` and give the reference's axes and partition
+specs; the dry run (``launch.dryrun``) reads them.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.device import on_card_or_cpu
 from repro_torch.kernels import dispatch
 from repro_torch.models import hybrid as HY
@@ -39,6 +48,70 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.family!r} is not a model family of the reference; the "
             f"port runs all of them: {', '.join(FAMILIES)}")
+
+
+def train_batch_axes(mesh, global_batch: int) -> Tuple[str, ...]:
+    """Longest prefix of (pod, data) whose product divides the batch."""
+    sizes = mesh.shape
+    axes = []
+    prod = 1
+    for ax in ("pod", "data"):
+        if ax in sizes and global_batch % (prod * sizes[ax]) == 0:
+            axes.append(ax)
+            prod *= sizes[ax]
+    return tuple(axes)
+
+
+def decode_axes(mesh, batch: int, seq: int
+                ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(batch_axes, seq_axes) of a sequence-sharded decode cache: the
+    mesh axes the batch does not take shard the cached sequence, dropped
+    from the left until their product divides it."""
+    sizes = mesh.shape
+    batch_axes = train_batch_axes(mesh, batch)
+    seq_axes = tuple(ax for ax in mesh.axis_names if ax not in batch_axes)
+    while seq_axes and seq % math.prod(sizes[a] for a in seq_axes):
+        seq_axes = seq_axes[1:]
+    return batch_axes, seq_axes
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
+    """``meta`` stand-ins and partition specs for every input of the
+    step of ``shape.kind``: the token batch (with the vlm family's
+    patches and the encdec family's frames) for train and prefill, one
+    token and its position for decode (the cache's specs come from
+    ``launch.steps.cache_specs``). Tokens are int64, the port's
+    (``data.tokens``); the reference's are int32."""
+    B, S = shape.global_batch, shape.seq_len
+    ba = train_batch_axes(mesh, B) or None
+    act = PM.torch_dtype(cfg.dtype)
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return ({"token": meta((B, 1), torch.int64),
+                 "pos": meta((B,), torch.int64)},
+                {"token": (ba, None), "pos": (ba,)})
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    n_text = S
+    if shape.kind == "prefill" and cfg.family == "vlm":
+        n_text = S - cfg.vision.num_patches
+    batch = {"tokens": meta((B, n_text), torch.int64)}
+    specs = {"tokens": (ba, None)}
+    if shape.kind == "train":
+        batch["targets"] = meta((B, S), torch.int64)
+        batch["mask"] = meta((B, S), torch.float32)
+        specs["targets"] = specs["mask"] = (ba, None)
+    if cfg.family == "vlm":
+        batch["patches"] = meta((B, cfg.vision.num_patches, cfg.d_model), act)
+        specs["patches"] = (ba, None, None)
+    if cfg.family == "encdec":
+        batch["frames"] = meta((B, cfg.encdec.num_frames, cfg.d_model), act)
+        specs["frames"] = (ba, None, None)
+    return batch, specs
 
 
 def param_descs(cfg: ModelConfig) -> Tree:
@@ -61,7 +134,7 @@ class Model:
 
     def __post_init__(self):
         self.device = on_card_or_cpu(self.device, "Model")
-        self.backend = dispatch.check_backend(self.backend)
+        self.backend = dispatch.resolve_backend(self.backend)
         check_family(self.cfg)
 
     # ---- parameters -----------------------------------------------------
@@ -75,6 +148,17 @@ class Model:
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
         return PM.materialize(self.param_descs(), gen, self.device)
+
+    def abstract_params(self) -> Tree:
+        """``meta`` tensors of every parameter's shape and dtype."""
+        return PM.abstract(self.param_descs())
+
+    def param_specs(self, mesh, rules: Optional[PM.LogicalRules] = None
+                    ) -> Tree:
+        """Each parameter's partition spec over ``mesh`` (the reference's
+        ``param_shardings``), under ``rules`` or the default rules."""
+        return PM.partition_specs(self.param_descs(),
+                                  rules or PM.default_rules(mesh))
 
     # ---- training -------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:

@@ -49,34 +49,36 @@ def rwkv6_descs(cfg: ModelConfig) -> Tree:
     d = cfg.d_model
     dt = cfg.param_dtype
     H, D = _heads(cfg)
+    proj_in = dict(in_axis="embed", out_axis="model")
+    proj_out = dict(in_axis="model", out_axis="embed")
     return {
         "ln1": L.layer_norm_descs(d, dt),
         "ln2": L.layer_norm_descs(d, dt),
         "tm": {  # time mix
             # base token-shift lerp coefficients for (w,k,v,r,g) + ddlerp
-            "maa_x": ParamDesc((d,), dt, init="zeros"),
-            "maa_wkvrg": ParamDesc((5, d), dt, init="zeros"),
-            "maa_w1": ParamDesc((d, 5 * MIX_R), dt),
-            "maa_w2": ParamDesc((5, MIX_R, d), dt),
-            "decay_base": ParamDesc((H, D), "float32", init="const",
-                                    const=-4.0),
-            "decay_w1": ParamDesc((d, LORA_R), dt),
-            "decay_w2": ParamDesc((LORA_R, d), dt),
-            "bonus": ParamDesc((H, D), "float32", scale=1.0),
-            "r": L.linear_descs(d, d, dt),
-            "k": L.linear_descs(d, d, dt),
-            "v": L.linear_descs(d, d, dt),
-            "g": L.linear_descs(d, d, dt),
-            "out": L.linear_descs(d, d, dt),
-            "gn_scale": ParamDesc((d,), dt, init="ones"),
-            "gn_bias": ParamDesc((d,), dt, init="zeros"),
+            "maa_x": ParamDesc((d,), dt, (None,), init="zeros"),
+            "maa_wkvrg": ParamDesc((5, d), dt, (None, None), init="zeros"),
+            "maa_w1": ParamDesc((d, 5 * MIX_R), dt, ("embed", None)),
+            "maa_w2": ParamDesc((5, MIX_R, d), dt, (None, None, "embed")),
+            "decay_base": ParamDesc((H, D), "float32", (None, None),
+                                    init="const", const=-4.0),
+            "decay_w1": ParamDesc((d, LORA_R), dt, ("embed", None)),
+            "decay_w2": ParamDesc((LORA_R, d), dt, (None, "embed")),
+            "bonus": ParamDesc((H, D), "float32", (None, None), scale=1.0),
+            "r": L.linear_descs(d, d, dt, **proj_in),
+            "k": L.linear_descs(d, d, dt, **proj_in),
+            "v": L.linear_descs(d, d, dt, **proj_in),
+            "g": L.linear_descs(d, d, dt, **proj_in),
+            "out": L.linear_descs(d, d, dt, **proj_out),
+            "gn_scale": ParamDesc((d,), dt, (None,), init="ones"),
+            "gn_bias": ParamDesc((d,), dt, (None,), init="zeros"),
         },
         "cm": {  # channel mix
-            "maa_k": ParamDesc((d,), dt, init="zeros"),
-            "maa_r": ParamDesc((d,), dt, init="zeros"),
-            "k": L.linear_descs(d, cfg.d_ff, dt),
-            "v": L.linear_descs(cfg.d_ff, d, dt),
-            "r": L.linear_descs(d, d, dt),
+            "maa_k": ParamDesc((d,), dt, (None,), init="zeros"),
+            "maa_r": ParamDesc((d,), dt, (None,), init="zeros"),
+            "k": L.linear_descs(d, cfg.d_ff, dt, **proj_in),
+            "v": L.linear_descs(cfg.d_ff, d, dt, **proj_out),
+            "r": L.linear_descs(d, d, dt, **proj_in),
         },
     }
 
@@ -207,9 +209,10 @@ def rwkv6_state_descs(cfg: ModelConfig, batch: int) -> Tree:
     """One layer's decode state, f32 zeros: the time and channel mixes'
     last inputs and the (batch, H, D, D) wkv state."""
     H, D = _heads(cfg)
-    z = lambda *shape: ParamDesc(shape, "float32", init="zeros")
-    return {"tm_x": z(batch, cfg.d_model), "cm_x": z(batch, cfg.d_model),
-            "wkv": z(batch, H, D, D)}
+    z = lambda shape, axes: ParamDesc(shape, "float32", axes, init="zeros")
+    return {"tm_x": z((batch, cfg.d_model), ("batch", None)),
+            "cm_x": z((batch, cfg.d_model), ("batch", None)),
+            "wkv": z((batch, H, D, D), ("batch", None, None, None))}
 
 
 def rwkv6_block_train(params, x, cfg: ModelConfig,

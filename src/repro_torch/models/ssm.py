@@ -46,23 +46,26 @@ def mamba2_descs(cfg: ModelConfig) -> Tree:
     dt = cfg.param_dtype
     d = cfg.d_model
     d_inner, H, gn = _dims(cfg)
-    conv = lambda c: {"w": ParamDesc((s.conv_width, c), dt, init="normal",
-                                     scale=0.5),
-                      "b": ParamDesc((c,), dt, init="zeros")}
+    conv = lambda c, ax: {"w": ParamDesc((s.conv_width, c), dt, (None, ax),
+                                         init="normal", scale=0.5),
+                          "b": ParamDesc((c,), dt, (ax,), init="zeros")}
     return {
-        "in_z": L.linear_descs(d, d_inner, dt),
-        "in_x": L.linear_descs(d, d_inner, dt),
-        "in_b": L.linear_descs(d, gn, dt),
-        "in_c": L.linear_descs(d, gn, dt),
-        "in_dt": L.linear_descs(d, H, dt),
-        "conv_x": conv(d_inner),
-        "conv_b": conv(gn),
-        "conv_c": conv(gn),
-        "A_log": ParamDesc((H,), "float32", init="zeros"),
-        "D": ParamDesc((H,), "float32", init="ones"),
-        "dt_bias": ParamDesc((H,), "float32", init="zeros"),
+        "in_z": L.linear_descs(d, d_inner, dt, in_axis="embed",
+                               out_axis="model"),
+        "in_x": L.linear_descs(d, d_inner, dt, in_axis="embed",
+                               out_axis="model"),
+        "in_b": L.linear_descs(d, gn, dt, in_axis="embed"),
+        "in_c": L.linear_descs(d, gn, dt, in_axis="embed"),
+        "in_dt": L.linear_descs(d, H, dt, in_axis="embed"),
+        "conv_x": conv(d_inner, "model"),
+        "conv_b": conv(gn, None),
+        "conv_c": conv(gn, None),
+        "A_log": ParamDesc((H,), "float32", (None,), init="zeros"),
+        "D": ParamDesc((H,), "float32", (None,), init="ones"),
+        "dt_bias": ParamDesc((H,), "float32", (None,), init="zeros"),
         "norm": L.rms_norm_descs(d_inner, dt),
-        "out": L.linear_descs(d_inner, d, dt),
+        "out": L.linear_descs(d_inner, d, dt, in_axis="model",
+                              out_axis="embed"),
     }
 
 
@@ -183,11 +186,12 @@ def mamba2_state_descs(cfg: ModelConfig, batch: int) -> Tree:
     s = cfg.ssm
     d_inner, H, gn = _dims(cfg)
     W = s.conv_width
-    z = lambda *shape: ParamDesc(shape, "float32", init="zeros")
-    return {"ssm": z(batch, H, s.head_dim, s.state_dim),
-            "conv_x": z(batch, W - 1, d_inner),
-            "conv_b": z(batch, W - 1, gn),
-            "conv_c": z(batch, W - 1, gn)}
+    z = lambda shape, axes: ParamDesc(shape, "float32", axes, init="zeros")
+    return {"ssm": z((batch, H, s.head_dim, s.state_dim),
+                     ("batch", None, None, None)),
+            "conv_x": z((batch, W - 1, d_inner), ("batch", None, "model")),
+            "conv_b": z((batch, W - 1, gn), ("batch", None, None)),
+            "conv_c": z((batch, W - 1, gn), ("batch", None, None))}
 
 
 def mamba2_decode(params, x, cfg: ModelConfig, state: Dict[str, torch.Tensor]):

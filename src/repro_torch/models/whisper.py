@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.lm import loss_mask, unstack
+from repro_torch.models.lm import kv_axes, loss_mask, unstack
 from repro_torch.models.param import ParamDesc
 
 Tree = Any
@@ -51,9 +51,10 @@ def whisper_descs(cfg: ModelConfig) -> Tree:
     return {
         "embed": L.embed_descs(cfg),
         "pos_dec": ParamDesc((4096 if cfg.vocab_size > 1000 else 64,
-                              cfg.d_model), cfg.param_dtype, init="embed"),
-        "pos_enc": ParamDesc((e.num_frames, cfg.d_model), cfg.param_dtype,
+                              cfg.d_model), cfg.param_dtype, (None, "embed"),
                              init="embed"),
+        "pos_enc": ParamDesc((e.num_frames, cfg.d_model), cfg.param_dtype,
+                             (None, "embed"), init="embed"),
         "encoder": L.stack_descs(_enc_block_descs(cfg), e.num_encoder_layers),
         "enc_norm": L.layer_norm_descs(cfg.d_model, cfg.param_dtype),
         "decoder": L.stack_descs(_dec_block_descs(cfg), cfg.num_layers),
@@ -156,10 +157,11 @@ def whisper_cache_descs(cfg: ModelConfig, batch: int, seq: int) -> List[Tree]:
     D = cfg.resolved_head_dim
     kv = (batch, seq, cfg.num_kv_heads, D)
     xkv = (batch, cfg.encdec.num_frames, cfg.num_kv_heads, D)
-    return [{"k": ParamDesc(kv, cfg.dtype, init="zeros"),
-             "v": ParamDesc(kv, cfg.dtype, init="zeros"),
-             "xk": ParamDesc(xkv, cfg.dtype, init="zeros"),
-             "xv": ParamDesc(xkv, cfg.dtype, init="zeros")}
+    cross = ("batch", None, None, None)
+    return [{"k": ParamDesc(kv, cfg.dtype, kv_axes(kv), init="zeros"),
+             "v": ParamDesc(kv, cfg.dtype, kv_axes(kv), init="zeros"),
+             "xk": ParamDesc(xkv, cfg.dtype, cross, init="zeros"),
+             "xv": ParamDesc(xkv, cfg.dtype, cross, init="zeros")}
             for _ in range(cfg.num_layers)]
 
 

@@ -133,7 +133,8 @@ def test_wire_geometry_and_resolution(monkeypatch):
     monkeypatch.setenv(WIRE.ENV_VAR, "v2")
     assert WIRE.resolve() is WIRE.V2
     monkeypatch.setenv(WIRE.ENV_VAR, "v9")
-    with pytest.raises(ValueError, match="unknown wire format"):
+    with pytest.raises(ValueError, match="unknown value 'v9' from env var "
+                                         "REPRO_WIRE_FORMAT"):
         WIRE.resolve()
 
 

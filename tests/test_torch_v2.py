@@ -149,6 +149,7 @@ DESCRIBE_KEYS = sorted([
     "inference_head", "snapshot_every_periods", "snapshot_keep",
     "serve_offered_eps", "serve_budget_us", "serve_queue_events",
     "drop_policy", "fault_injection", "rehome_collision_policy",
+    "tuning_registry",
 ])
 TPU_ONLY = ("gather_variant", "ingest_variant", "ingest_vmem_bytes",
             "gather_vmem_bytes", "vmem_budget_bytes")
@@ -164,6 +165,7 @@ def test_describe_keys_and_tpu_only_keys_absent():
     assert d["serve_offered_eps"] == 1e6 and d["drop_policy"] == "oldest"
     assert d["serve_budget_us"] == cfg.monitoring_period_us
     assert d["fault_injection"] == "none"
+    assert d["tuning_registry"] == "none"
     assert d["ring_region_bytes"] == 4096 * 10 * 65
     assert d["event_tile"] == 64
     d2 = DFASystem(dataclasses.replace(REDUCED, serve_budget_us=5_000),
