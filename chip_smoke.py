@@ -21,13 +21,15 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    against one ``scaled_dot_product_attention`` call, each library call
    timed by CUDA events and by its device time; flash_attention's cases
    each run the variant ``kernel.variant`` names (``wgmma`` for bf16 with
-   (D, Dv) in {(64, 64), (128, 128), (192, 128)}, ``simt`` otherwise), and
-   the SIMT kernel is timed at the serving shape beside the tensor-core
-   one; flash_attention past head dim 128: deepseek-v3's MLA prefill shape
-   (B = 4 x 128 heads, 1024 tokens, D = 192, Dv = 128, group 1, causal) in
-   bf16 on the wgmma kernel and, at 64 heads, in f32 on the SIMT one, two
-   ragged bf16 MLA shapes (wgmma), and (80, 80), (160, 64), (256, 256)
-   (SIMT), each against its plain version, the MLA shape timed in turns
+   (D, Dv) in {(64, 64), (80, 80), (128, 128), (192, 128)}, ``simt``
+   otherwise), and the SIMT kernel is timed at the serving shape beside
+   the tensor-core one; flash_attention past head dim 64: deepseek-v3's
+   MLA prefill shape (B = 4 x 128 heads, 1024 tokens, D = 192, Dv = 128,
+   group 1, causal) in bf16 on the wgmma kernel and, at 64 heads, in f32
+   on the SIMT one, two ragged bf16 MLA shapes (wgmma), (80, 80) ragged
+   in bf16 (wgmma, the SIMT kernel forced beside it) and in f32 (SIMT),
+   and (160, 64), (256, 256) (SIMT), each against its plain version, the
+   MLA shape timed in turns
    with its device time, its bound, the SIMT kernel forced onto the same
    inputs and one scaled_dot_product_attention call (or the reason SDPA
    refuses Dv != D); gather_enrich (on
@@ -55,10 +57,15 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    kernels, by their device time (split by kernel), beside the bound and
    SDPA's backward (or the reason it refuses Dv != D); K6 and K7 at
    zamba2-2.7b's attention shape (B = 4 x 32 heads of 80, MHA, 1024
-   tokens, causal) on their SIMT kernels, in bf16 and f32, under the same
-   rules, each timed in turns with its plain version and by its device
-   time beside its bound and SDPA's (the forward; forward + backward minus
-   forward); K6 and K7 without a mask at whisper-tiny's encoder shapes
+   tokens, causal) on their wgmma kernels' (80, 80) instances in bf16 and
+   SIMT in f32, under the same rules, each timed in turns with its plain
+   version and by its device time beside its bound and SDPA's (the
+   forward; forward + backward minus forward); there the bf16 SIMT kernels
+   are forced onto the same inputs, held against the plain versions (K6
+   within 2e-2, K7 by the x1.5 rule) and the wgmma kernels (K6 within
+   2e-2), the wgmma kernels repeat bit for bit, and the SIMT kernels are
+   timed in turns with them and by their device time; K6 and K7 without a
+   mask at whisper-tiny's encoder shapes
    (K6: B = 4 x 6 heads over its 1500 frames, head dim 64, group 1; K7: B
    = 8 x 6 heads) on their wgmma kernels in bf16 and SIMT in f32, under
    the same rules and timed the same way; K6 and K7 causal at
@@ -73,8 +80,9 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    the same periods on the plain versions (backend="ref"), which must
    give the same integer state bit for bit and the same features;
 4a. [tune] — K1 at E = 2^20 on the main path's sorted stream at event
-   tiles 64, 128 and 256, timed by its device time (a window that saw one
-   launch per call) beside its bound, all three recorded in a
+   tiles 64, 128 and 256, timed by its device time per launch (from a
+   window that saw every launch, else at least half; one launch per call
+   by the wrapper's count) beside its bound, all three recorded in a
    ``kernels.tuning.TuningRegistry`` (the fastest kept) saved to
    build/repro_torch_tuning.json; one main-path period with
    ``REPRO_TUNING_REGISTRY`` at that file and one at a registry forcing
@@ -176,7 +184,8 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
 18. [serve zamba2-2.7b] — zamba2-2.7b whole (54 Mamba2 layers, d 2560, in
    9 segments each closed by one of 2 shared attention + FFN blocks of 32
    heads of 80; untied 32,000-row vocabulary; 2,527,532,960 parameters,
-   bf16) as 16, K6 once per segment (9 per prefill) on its SIMT kernel;
+   bf16) as 16, K6 once per segment (9 per prefill), all on its wgmma
+   kernel's (80, 80) instance (a SIMT launch fails the phase);
    checks (a)-(c) on 12 layers (2 segments, both shared blocks), (c)
    holding the decode step, which carries the Mamba2 and conv states,
    against a forward over P + 1 tokens;
@@ -223,7 +232,8 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    launches per step, all wgmma (D = 128, group 5), and the share of
    pairs capacity drops;
 22. [train zamba2-2.7b] — as 20 for zamba2-2.7b whole (remat, f32
-   moments): 18 K6 and 9 K7 launches per step, all SIMT (head dim 80);
+   moments): 18 K6 and 9 K7 launches per step, all wgmma (head dim 80:
+   the (80, 80) instances; a SIMT launch fails the phase);
    the Mamba2 projections, the SSD scan's products,
    the shared blocks once per segment and the unembedding;
 22a. [train rwkv6-3b] — as 20 for rwkv6-3b whole (remat, f32 moments):
@@ -251,7 +261,8 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    whole must not;
 23. [train check] — one step's loss and gradients at full width of
    granite-3-2b with 4 layers, of deepseek-v3's 3 dense layers and of
-   zamba2-2.7b with 12 layers: bf16 with the kernels, bf16 plain, f32
+   zamba2-2.7b with 12 layers: bf16 with the kernels (zamba2's K6 and K7
+   all on their wgmma kernels' (80, 80) instances), bf16 plain, f32
    plain on the same weights and batch; the relative error of every
    gradient leaf against f32, the kernel run's worst no more than 1.5 x
    the plain run's; and deepseek-v3 at REDUCED width (MoE layers, MLA,
@@ -911,11 +922,13 @@ def attention_inputs(gen, dev, BH, Sq, Sk, D, Dv, group, dtype):
 
 
 def check_flash_attention_wide(dev):
-    """K6 past head dim 128: at MLA's prefill shape in bf16 on the wgmma
+    """K6 past head dim 64: at MLA's prefill shape in bf16 on the wgmma
     kernel's (192, 128) instance and in f32 at 64 heads on the SIMT one,
-    two ragged bf16 MLA shapes (wgmma), and (80, 80), (160, 64) and (256,
-    256) (SIMT), each on the variant ``kernel.variant`` names and against
-    its plain version (:func:`hold_k6_against_plain`); at the MLA shape
+    two ragged bf16 MLA shapes (wgmma), zamba2's (80, 80) (wgmma in bf16,
+    with the SIMT kernel forced onto the same inputs and held against the
+    plain version too; SIMT in f32), and (160, 64) and (256, 256) (SIMT),
+    each on the variant ``kernel.variant`` names and against its plain
+    version (:func:`hold_k6_against_plain`); at the MLA shape
     the kernel and the plain version timed in turns, K6's device time, its
     bound, the SIMT kernel forced onto the same inputs (timed, and held
     against the wgmma kernel within ATT_TOL), and one
@@ -958,8 +971,22 @@ def check_flash_attention_wide(dev):
                                                   ran[name])
         if ratio is not None:
             ratios[name] = ratio
+        if name == "D=80 group 2 ragged bf16":
+            # zamba2's head dim: the SIMT kernel forced beside the wgmma one
+            simt = K.flash_attention_cuda(q, k, v, group=g, causal=causal,
+                                          force_variant="simt")
+            want = ops.flash_attention(q, k, v, group=g, causal=causal,
+                                       backend="ref").float()
+            diff = (simt.float() - want).abs()
+            tol = ATT_TOL["bfloat16"]
+            require(float((diff - tol * want.abs()).max()) <= tol,
+                    f"flash_attention ({name}, simt forced) differs from "
+                    f"its plain version")
+            errs[f"{name}, simt forced"] = float(diff.max())
+            ran[f"{name}, simt forced"] = "simt"
+            del simt, want, diff
         del q, k, v
-    log(f"[kernel] flash_attention past head dim 128, max abs err vs plain "
+    log(f"[kernel] flash_attention past head dim 64, max abs err vs plain "
         f"(variant): { {k: f'{v:.3e} ({ran[k]})' for k, v in errs.items()} }"
         f"; bf16 distance to the f32 plain run, kernel / plain (held <= "
         f"{B_RATIO:g}): { {k: f'{v:.3f}' for k, v in ratios.items()} }")
@@ -1419,17 +1446,18 @@ def check_flash_attention_bwd_mla(dev):
 
 
 # K6 at zamba2-2.7b's prefill shape and K7 at its training shape: B = 4 x 32
-# heads of 80, MHA (group 1), 1024 tokens, causal; 80 runs the SIMT kernels
+# heads of 80, MHA (group 1), 1024 tokens, causal; 80 runs the wgmma kernels
 ZAMBA_HEADS, ZAMBA_D = 32, 80
 
 
 def check_flash_attention_zamba2(dev):
     """K6 and K7 at zamba2-2.7b's attention shape (q, k, v, o, do (128,
-    1024, 80), group 1, causal), bf16 on the SIMT kernels, by
+    1024, 80), group 1, causal), bf16 on the wgmma kernels' (80, 80)
+    instances, with the SIMT kernels forced beside them, by
     :func:`check_attention_at`. Returns (K6's entry, K7's entry)."""
     return check_attention_at(dev, "zamba2", SERVE_B * ZAMBA_HEADS,
                               SERVE_B * ZAMBA_HEADS, SERVE_PROMPT, ZAMBA_D,
-                              True, "simt", 31)
+                              True, "wgmma", 31, simt_beside=True)
 
 
 # K6 at whisper-tiny's encoder prefill shape (B = 4 x 6 heads over its 1500
@@ -1469,7 +1497,7 @@ def check_flash_attention_llava(dev):
 
 
 def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
-                       group=1):
+                       group=1, simt_beside=False):
     """K6 at (bh6, S, D) and K7 at (bh7, S, D) (q, o, do; k, v with
     ``group`` query heads each; ``causal``), bf16 on ``variant``'s
     kernels. K6 held against its plain
@@ -1480,7 +1508,11 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
     bf16 plain gradient is, x B_RATIO. Each timed in turns with its plain
     version and by its device time, beside its bound and SDPA's time on
     the same inputs (the forward; the forward + backward minus the
-    forward). Returns (K6's entry, K7's entry)."""
+    forward). With ``simt_beside`` (``variant`` "wgmma") the bf16 SIMT
+    kernels are forced onto the same inputs: :func:`simt_beside_wgmma`
+    holds them, and the wgmma kernels' repeat, and each kernel's entry
+    gets the SIMT kernel's time in turns with the wgmma one and its
+    device time. Returns (K6's entry, K7's entry)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
@@ -1553,6 +1585,10 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
         require(err_k <= B_RATIO * err_p,
                 f"flash_attention_bwd ({tag}, bf16) is further from the f32 "
                 "gradient than the plain bf16 gradient is")
+        if simt_beside:
+            simt_errs = simt_beside_wgmma(
+                tag, (q6, k6, v6), (q, k, v, o, lse, do), got, f32, err_p,
+                group, causal)
         del f32, got, want, want_lse
     torch.cuda.empty_cache()
     log(f"[kernel] {tag}'s attention, K6 {shape6}, K7 {shape7}: K6 max abs "
@@ -1596,6 +1632,12 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
     q6, k6, v6 = q[:bh6], k[:bh6 // group], v[:bh6 // group]
 
     entries = []
+    simt_calls = (
+        lambda: K.flash_attention_cuda(q6, k6, v6, group=group,
+                                       causal=causal, force_variant="simt"),
+        lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=group,
+                                            causal=causal,
+                                            force_variant="simt"))
     for name, kernel, shape, call, plain, n_ops, n_bytes, lib in (
             ("flash_attention", K.KERNEL, shape6,
              lambda: ops.flash_attention(q6, k6, v6, group=group,
@@ -1635,9 +1677,77 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
             f" % of the bound; library {lib[0]:.5f} ms, device "
             f"{lib[1]:.3f} us: the kernel takes {dev_time / lib[1]:.2f}x "
             f"its time ({lib[2]})")
+        if simt_beside:
+            simt = simt_calls[kernel is BK.KERNEL]
+            wgmma_ms, simt_ms = in_turns(simt, call, 2)
+            simt_us = device_us(kernel, simt, 2)
+            entries[-1].update(
+                simt_ms=simt_ms, simt_device_us=simt_us,
+                simt_note=f"the SIMT kernel(s) forced onto the same inputs, "
+                          f"in turns with the wgmma one(s) ({wgmma_ms:.5f} "
+                          f"ms); {simt_errs[name]}")
+            log(f"[kernel] {name} at {tag}'s shape: simt kernel "
+                f"{simt_ms:.5f} ms, device {simt_us:.3f} us "
+                f"({simt_us / dev_time:.2f}x the wgmma kernel's device "
+                f"time; in turns, wgmma {wgmma_ms:.5f} ms)")
     del q, k, v, q6, k6, v6, o, lse, do
     torch.cuda.empty_cache()
     return entries
+
+
+def simt_beside_wgmma(tag, qkv6, inputs7, grads, f32, err_p, group,
+                      causal):
+    """The bf16 wgmma kernels' outputs at ``tag``'s shape held against the
+    SIMT kernels forced onto the same inputs: K6 on ``qkv6`` (its wgmma
+    output the same bits on two calls; the SIMT one within ATT_TOL of the
+    plain version, the wgmma one within ATT_TOL of the SIMT one, abs +
+    rel); K7 on ``inputs7`` (q, k, v, o, lse, do), whose wgmma gradients
+    ``grads`` must come back the same bits on a second call and whose
+    SIMT gradients must be no further from the f32 plain gradients
+    ``f32`` than the bf16 plain ones are (``err_p``), x B_RATIO.
+    Returns {kernel name: a note of the two kernels' differences}."""
+    import torch
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as REF
+
+    tol = ATT_TOL["bfloat16"]
+    q6, k6, v6 = qkv6
+    kw = dict(group=group, causal=causal)
+    o6 = K.flash_attention_cuda(q6, k6, v6, **kw)
+    again6 = K.flash_attention_cuda(q6, k6, v6, **kw)
+    s6 = K.flash_attention_cuda(q6, k6, v6, force_variant="simt", **kw)
+    want6 = REF.flash_attention_ref(q6, k6, v6, **kw).float()
+    torch.cuda.synchronize()
+    require(torch.equal(o6, again6),
+            f"flash_attention ({tag}, wgmma) differs between two calls")
+    for got, ref, what in ((s6, want6, "the SIMT kernel vs plain"),
+                           (o6, s6.float(), "the wgmma vs the SIMT kernel")):
+        excess = float(((got.float() - ref).abs() - tol * ref.abs()).max())
+        require(excess <= tol, f"flash_attention ({tag}): {what} differ "
+                               f"past {tol:g} abs + rel")
+    err6 = float((o6.float() - s6.float()).abs().max())
+    again7 = BK.flash_attention_bwd_cuda(*inputs7, **kw)
+    s7 = BK.flash_attention_bwd_cuda(*inputs7, force_variant="simt", **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(grads, again7)),
+            f"flash_attention_bwd ({tag}, wgmma) differs between two calls")
+    err_s = grad_err(s7, f32)
+    require(err_s <= B_RATIO * err_p,
+            f"flash_attention_bwd ({tag}, bf16, simt) is further from the "
+            f"f32 gradient than the plain bf16 gradient is")
+    err7 = grad_err(grads, s7)
+    log(f"[kernel] {tag}'s attention, wgmma beside the forced SIMT kernels: "
+        f"K6 max abs diff {err6:.3e} (each within {tol:g} abs + rel), wgmma "
+        f"repeats bit for bit; K7 of max |grad| {err7:.3e}, the SIMT "
+        f"gradients {err_s:.3e} from f32 (plain bf16 {err_p:.3e}), wgmma "
+        f"repeats bit for bit")
+    return {"flash_attention": f"max abs diff to the wgmma kernel "
+                               f"{err6:.3e}",
+            "flash_attention_bwd": f"of max |grad|, wgmma vs SIMT "
+                                   f"{err7:.3e}; the SIMT gradients "
+                                   f"{err_s:.3e} from f32 (plain bf16 "
+                                   f"{err_p:.3e})"}
 
 
 # -- the unfused path ----------------------------------------------------------
@@ -3402,11 +3512,11 @@ def serve_qwen_phase(dev):
 def serve_zamba2_phase(dev):
     """zamba2-2.7b whole (54 Mamba2 layers in 9 segments, each closed by
     one of the 2 shared attention + FFN blocks): K6 once per segment on
-    its SIMT kernel (head dim 80); checks on 12 layers (2 segments, both
-    shared blocks)."""
+    its wgmma kernel's (80, 80) instance (head dim 80); checks on 12
+    layers (2 segments, both shared blocks)."""
     from repro_torch.configs import get_config
     cfg = get_config("zamba2-2.7b")
-    return serve_arch_phase(dev, "[serve zamba2-2.7b]", cfg, "simt",
+    return serve_arch_phase(dev, "[serve zamba2-2.7b]", cfg, "wgmma",
                             cfg.replace(num_layers=2 * cfg.hybrid.attn_every))
 
 
@@ -3960,13 +4070,13 @@ def train_zamba2_phase(dev):
     """zamba2-2.7b training at full width, not cut (54 Mamba2 layers, the 2
     shared blocks called 9 times, untied vocabulary): remat, f32 moments,
     K6 (2 x 9: the forward and its remat) and K7 (9) per step on their
-    SIMT kernels (head dim 80)."""
+    wgmma kernels' (80, 80) instances (head dim 80)."""
     from repro_torch.configs import get_config
     cfg = get_config("zamba2-2.7b")
     require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
             "[train zamba2-2.7b] zamba2-2.7b should train under "
             "remat='full' with f32 moments")
-    return train_run(dev, "[train zamba2-2.7b]", cfg, "simt",
+    return train_run(dev, "[train zamba2-2.7b]", cfg, "wgmma",
                      TRAIN_MOE_STEPS)
 
 
@@ -4043,16 +4153,19 @@ def leaf_errs(grads, ref):
                                adamw.leaves(ref)) if b.numel()}
 
 
-def bf16_step_check(dev, cfg, batch=TRAIN_B, seq=TRAIN_S):
+def bf16_step_check(dev, cfg, batch=TRAIN_B, seq=TRAIN_S, variant=None):
     """One step's loss and gradients of the bf16 ``cfg`` at full width on
     ``batch`` x ``seq`` tokens: with the kernels, plain (backend="ref"),
     and an f32 copy on the plain versions, on the same weights and batch;
     each bf16 run's gradients are held against the f32 ones as soon as
     they exist, so at most one bf16 gradient tree lives beside the f32
     one. The kernel run must be no further from f32 than the plain run is
-    (x1.5), over the gradient leaves' worst relative error."""
+    (x1.5), over the gradient leaves' worst relative error; given a
+    ``variant``, its K6 and K7 launches must all be on it."""
     import torch
     from repro_torch.data import tokens as DATA
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.launch import steps as ST
     from repro_torch.models.registry import Model
     from repro_torch.optim import adamw
@@ -4071,8 +4184,17 @@ def bf16_step_check(dev, cfg, batch=TRAIN_B, seq=TRAIN_S):
     torch.cuda.empty_cache()
     errs = {}
     for run, backend in (("kernels", None), ("plain", "ref")):
+        before = [dict(k.launches_by_variant) for k in (K.KERNEL, BK.KERNEL)]
         loss[run], grads = ST.loss_and_grads(
             Model(cfg, device=dev, backend=backend), params, batch)
+        if variant and backend is None:
+            for kern, was in zip((K.KERNEL, BK.KERNEL), before):
+                delta = {v: n - was[v]
+                         for v, n in kern.launches_by_variant.items()}
+                require(delta[variant] > 0
+                        and sum(delta.values()) == delta[variant],
+                        f"[train check] {cfg.name}: {kern.name} launched "
+                        f"{delta}, expected {variant} only")
         errs[run] = leaf_errs(grads, ref)
         del grads
         torch.cuda.empty_cache()
@@ -4184,12 +4306,13 @@ def moe_step_check(dev):
 
 def zamba2_step_checks(dev):
     """zamba2-2.7b at full width cut to 12 layers (2 segments, both shared
-    blocks): in bf16 by :func:`bf16_step_check`, and in f32, remat on,
-    kernels against plain per gradient leaf by :func:`f32_step_check`."""
+    blocks): in bf16 by :func:`bf16_step_check`, K6 and K7 all on their
+    wgmma kernels' (80, 80) instances; and in f32, remat on, kernels
+    against plain per gradient leaf by :func:`f32_step_check`."""
     from repro_torch.configs import get_config
     zamba = get_config("zamba2-2.7b")
     zamba = zamba.replace(num_layers=2 * zamba.hybrid.attn_every)
-    bf16_step_check(dev, zamba)
+    bf16_step_check(dev, zamba, variant="wgmma")
     f32_step_check(dev, zamba.replace(dtype="float32",
                                       param_dtype="float32"), 5,
                    "hybrid, remat, head dim 80")
@@ -4488,6 +4611,7 @@ def phase(tag: str, fn, *args):
 TUNE_TILES = (64, 128, 256)
 TUNING_FILE = ROOT / "build" / "repro_torch_tuning.json"
 TUNE_FORCED = 64                     # a registry that forces this tile
+TUNE_ITERS = 20                      # calls in a profiler window
 
 
 def one_period(system, events, nows, t: int = 0):
@@ -4517,8 +4641,9 @@ def require_outputs_identical(a, b, tag):
 
 def tune_phase(dev, system, events, nows):
     """K1 at E = 2^20 on the main path's sorted stream (``check_ingest``'s)
-    at event tiles 64, 128 and 256, timed by its device time in a
-    profiler window that saw one K1 launch per call, each beside its
+    at event tiles 64, 128 and 256, timed by its device time per launch
+    in a profiler window that saw every launch, or else at least half of
+    them (the wrapper counting one launch per call), each beside its
     bound; all three recorded in a ``TuningRegistry`` (which keeps the
     fastest) saved to build/repro_torch_tuning.json. Then one main-path
     period with ``REPRO_TUNING_REGISTRY`` at that file, and one at a
@@ -4556,26 +4681,35 @@ def tune_phase(dev, system, events, nows):
         want = ops.segment_sums(*args, **kw, backend="ref")
         require(torch.equal(got, want), f"[tune] K1 at tile {tile} differs "
                                         f"from its plain version")
-        # a profiler window can lose device events (ROADMAP §3): keep only
-        # a window that saw K1 once per call, or the registry would record
-        # a time from a fraction of the launches
+        # a profiler window can lose device events (ROADMAP §3): the
+        # wrapper's count must show one K1 launch per call, and the time
+        # recorded is the device time per launch the window saw, from a
+        # window that saw every launch (up to 3 tries) or else the one
+        # that saw the most, at least half of them
+        windows = []
         for attempt in range(3):
-            us, n = device_profile(K.KERNEL,
-                                   lambda: ops.segment_sums(*args, **kw))
+            launched = K.KERNEL.launches
+            per_call, n = device_profile(
+                K.KERNEL, lambda: ops.segment_sums(*args, **kw), TUNE_ITERS)
+            require(K.KERNEL.launches - launched == TUNE_ITERS + 1,
+                    f"[tune] K1 at tile {tile} did not launch once per call")
+            windows.append((n, per_call / max(n, 1e-9)))
             if n == 1:
                 break
             log(f"[tune] attempt {attempt + 1} at tile {tile}: the profiler "
                 f"saw {n:g} device launches per call; profiling again")
-        require(n == 1, f"[tune] no profiler window saw K1 once per call at "
-                        f"tile {tile}")
+        n, us = max(windows)
+        require(n >= 0.5, f"[tune] no profiler window saw half of K1's "
+                          f"launches at tile {tile}")
         Ep = s.s_slot.shape[0]
         b_ms, b_by = bound(Ep * (5 * 4 + 8 * 4) + 2 * n_lut * 4,
                            Ep * (4 * 30 + 7 * max(1, tile.bit_length() - 1)))
         stored = reg.record(knob, "cuda", (EVENTS,), tile, us,
                             source="chip_smoke [tune]")
-        log(f"[tune] K1 at E={EVENTS}, tile {tile}: device {us:.3f} us "
-            f"({n:g} device launches per call), bound {b_ms * 1e3:.2f} us "
-            f"({b_by}), {100 * b_ms * 1e3 / us:.1f} % of the bound; "
+        log(f"[tune] K1 at E={EVENTS}, tile {tile}: device {us:.3f} us a "
+            f"launch ({n:g} of its launches per call seen), bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}), {100 * b_ms * 1e3 / us:.1f} % "
+            f"of the bound; "
             f"{'the fastest so far' if stored else 'slower'}")
     TUNING_FILE.parent.mkdir(parents=True, exist_ok=True)
     reg.save(str(TUNING_FILE))

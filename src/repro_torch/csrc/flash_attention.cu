@@ -17,9 +17,10 @@
 //
 // Two kernels, one C entry. The caller names the variant; the entry
 // checks it against the same rule as kernels/flash_attention/kernel.py
-// variant(): "wgmma" for bf16 with (D, Dv) in {(64, 64), (128, 128),
-// (192, 128)} (MLA's), "simt" for everything else (f32, whose 2e-5
-// contract TF32 tensor cores would break, and bf16 at other head dims).
+// variant(): "wgmma" for bf16 with (D, Dv) in {(64, 64), (80, 80)
+// (zamba2's), (128, 128), (192, 128)} (MLA's), "simt" for everything else
+// (f32, whose 2e-5 contract TF32 tensor cores would break, and bf16 at
+// other head dims).
 //
 // wgmma (flash_attention_wgmma_kernel): persistent blocks of three
 // warpgroups, one block per SM (its 384 threads x 168 registers fill the
@@ -43,6 +44,14 @@
 //     with the 128-byte swizzle (a row of 64 bf16 is exactly 128 bytes;
 //     D = 128 is two such column blocks, 192 three: 12 k16 steps). The
 //     tensor maps and the wgmma descriptors name the same swizzle.
+//   * D = 80 (zamba2) is two column blocks too: the tensor map keeps the
+//     true width, so the box at column 64 reads 16 columns and zero-fills
+//     the other 48 (as it zero-fills rows past S). S = Q K^T takes 5 k16
+//     steps (none over the zeros), and O += P V, N = 80, is an n64 product
+//     over V's first block plus an n16 over its second (hopper.cuh's
+//     wgmma_rs for 40 accumulator registers): each stays inside one
+//     swizzle atom. o is 40 registers, the stores and lse cover the 80
+//     real columns.
 //   * The online softmax runs on the f32 accumulator fragment in
 //     registers: each thread holds 2 rows x 32 scores, and a row's max is
 //     reduced over the 4 threads that share it with __shfl_xor_sync.
@@ -332,8 +341,8 @@ int launch_simt_dv(const void* q, const void* k, const void* v, void* out,
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant (bf16, (D, Dv) in {(64, 64), (128, 128), (192,
-// 128)})
+// The tensor-core variant (bf16, (D, Dv) in {(64, 64), (80, 80), (128,
+// 128), (192, 128)})
 
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -347,8 +356,8 @@ constexpr int kWgThreads = 128 * (kConsumers + 1);
 template <int D, int Dv>
 struct WgLayout {
   static constexpr int kBQ = 64 * kConsumers;         // query rows
-  static constexpr int kBlocks = D / 64;              // 64-column blocks
-  static constexpr int kVBlocks = Dv / 64;            // of V
+  static constexpr int kBlocks = (D + 63) / 64;       // 64-column blocks
+  static constexpr int kVBlocks = (Dv + 63) / 64;     // of V
   static constexpr int kQBlock = kBQ * kRowBytes;     // one block of Q
   static constexpr int kKBlock = kWgBK * kRowBytes;   // one of K or V
   static constexpr int kQBytes = kQBlock * kBlocks;   // one Q buffer
@@ -688,9 +697,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // backward (flash_attention_bwd.cu) recomputes p from.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). variant: 0 =
 // simt (any dtype and head dims up to 256), 1 = wgmma (bf16 with (D, Dv)
-// in {(64, 64), (128, 128), (192, 128)} only: the rule of kernel.py
-// variant(), which names the variant). Returns 0, a cudaError_t, or
-// -CUresult when a tensor map cannot be made.
+// in {(64, 64), (80, 80), (128, 128), (192, 128)} only: the rule of
+// kernel.py variant(), which names the variant). Returns 0, a
+// cudaError_t, or -CUresult when a tensor map cannot be made.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* lse_ptr, int BH, int group,
                                int Sq, int Sk, int D, int Dv, float scale,
@@ -705,12 +714,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   float* const lse = static_cast<float*>(lse_ptr);
   // the rule of kernel.py variant() (tests/test_torch_flash.py reads it)
   const bool tensor_cores =
-      dtype == 1 && ((D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
-                     (D == 192 && Dv == 128));
+      dtype == 1 && ((D == 64 && Dv == 64) || (D == 80 && Dv == 80) ||
+                     (D == 128 && Dv == 128) || (D == 192 && Dv == 128));
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
     if (D == 64)
       return launch_wgmma<64, 64>(q, k, v, out, lse, BH, group, Sq, Sk,
+                                  scale, causal, s);
+    if (D == 80)
+      return launch_wgmma<80, 80>(q, k, v, out, lse, BH, group, Sq, Sk,
                                   scale, causal, s);
     if (D == 128)
       return launch_wgmma<128, 128>(q, k, v, out, lse, BH, group, Sq, Sk,

@@ -20,9 +20,9 @@
 //
 // Two variants behind one C entry, chosen by the caller under the rule of
 // K6 (kernels/flash_attention/kernel.py variant()): "wgmma" for bf16 with
-// (D, Dv) in {(64, 64), (128, 128), (192, 128)} (MLA's), "simt" for
-// everything else (f32, whose 2e-5 contract TF32 tensor cores would
-// break, and bf16 at other head dims).
+// (D, Dv) in {(64, 64), (80, 80) (zamba2's), (128, 128), (192, 128)}
+// (MLA's), "simt" for everything else (f32, whose 2e-5 contract TF32
+// tensor cores would break, and bf16 at other head dims).
 // The entry refuses a wgmma launch that breaks the rule. Neither uses
 // float atomics: every output element is summed by one thread in a fixed
 // order, so a run repeats bit for bit.
@@ -54,8 +54,13 @@
 // K6), three kernels per call, templated on (D, Dv). Widths D and Dv are
 // 64-column swizzled blocks (D = 192: three), so a product over D or Dv
 // is D / 16 or Dv / 16 k16 steps, and dK (dQ) at D = 192 is one m64n192
-// product per step.
-//   (a) attn_bwd_prep_kernel: Dv / 8 lanes (16-byte loads) per query row
+// product per step. D = 80 (zamba2) is two blocks, as in K6: the tensor
+// maps zero-fill columns 80..127 of the second, a product over D takes 5
+// k16 steps, and dV, dK and dQ (N = 80) are each an n64 product over the
+// first block plus an n16 over the second (hopper.cuh), so a consumer's
+// dK and dV take 40 + 40 registers.
+//   (a) attn_bwd_prep_kernel: Dv / 8 lanes (16-byte loads) per query row,
+//       rounded up to a power of two (16 at Dv = 80, six of them idle),
 //       of a head padded to kRowPad rows: Dsum = sum do * o (0 past Sq) and
 //       lse * log2 e (+inf past Sq, so p = 0 there) into one scratch (2,
 //       BH, Sp), whose 64-row slices a TMA bulk copy can fetch whole.
@@ -570,8 +575,8 @@ int launch_dims(const void* q, const void* k, const void* v, const void* o,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant (bf16, (D, Dv) in {(64, 64), (128, 128), (192,
-// 128)})
+// The tensor-core variant (bf16, (D, Dv) in {(64, 64), (80, 80), (128,
+// 128), (192, 128)})
 
 constexpr int kRowPad = 128;      // the prep scratch's rows per head: Sq up
                                   // to a multiple of this (kernels/flash_
@@ -590,17 +595,26 @@ constexpr int kDqBK = 128;        // keys per dQ ring tile
 constexpr int kDqBKWide = 64;     // the same at D = 192 (DqLayout)
 constexpr float kMasked = -1e30f; // a masked raw score: p = 2^(-huge) = 0
 
+// (a)'s lanes per row: Dv / 8 (16 bytes each) rounded up to a power of
+// two, so a row's lanes reduce by shuffles inside one warp
+template <int Dv>
+__host__ __device__ constexpr int prep_lanes() {
+  int n = 1;
+  while (n < Dv / 8) n *= 2;
+  return n;
+}
+
 // (a) Dsum and lse * log2 e of every query row, each head padded to Sp rows
-// (Dsum 0 and lse * log2 e = +inf past Sq): Dv / 8 lanes per row, each
-// loading 16 bytes of o and of do. Sp is a multiple of kRowPad, so every
-// warp is whole.
+// (Dsum 0 and lse * log2 e = +inf past Sq): prep_lanes lanes per row, each
+// of the first Dv / 8 loading 16 bytes of o and of do. Sp is a multiple of
+// kRowPad, so every warp is whole.
 template <int Dv>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
                      const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, float* __restrict__ lse2,
                      float* __restrict__ dsum, int BH, int Sq, int Sp) {
-  constexpr int kLanes = Dv / 8;
+  constexpr int kLanes = prep_lanes<Dv>();
   const long long row =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
   const int part = threadIdx.x % kLanes;
@@ -609,7 +623,7 @@ attn_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
   const int i = static_cast<int>(row - static_cast<long long>(bh) * Sp);
   const long long r = static_cast<long long>(bh) * Sq + i;
   float acc = 0.f;
-  if (i < Sq) {
+  if (i < Sq && part < Dv / 8) {
     const uint4 a = reinterpret_cast<const uint4*>(o + r * Dv)[part];
     const uint4 b = reinterpret_cast<const uint4*>(dout + r * Dv)[part];
     const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -721,8 +735,8 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 template <int D, int Dv>
 struct DkdvLayout {
   static constexpr int kBQ = D > 128 ? kDkdvBQWide : kDkdvBQ;
-  static constexpr int kBlocks = D / 64;                // 64-column blocks
-  static constexpr int kVBlocks = Dv / 64;              // of V and dO
+  static constexpr int kBlocks = (D + 63) / 64;         // 64-column blocks
+  static constexpr int kVBlocks = (Dv + 63) / 64;       // of V and dO
   static constexpr int kKBlock = kDkdvBK * kRowBytes;   // one block of K, V
   static constexpr int kKBytes = kKBlock * kBlocks;
   static constexpr int kVBytes = kKBlock * kVBlocks;
@@ -963,8 +977,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D, int Dv>
 struct DqLayout {
   static constexpr int kBK = D > 128 ? kDqBKWide : kDqBK;
-  static constexpr int kBlocks = D / 64;                // 64-column blocks
-  static constexpr int kVBlocks = Dv / 64;              // of V and dO
+  static constexpr int kBlocks = (D + 63) / 64;         // 64-column blocks
+  static constexpr int kVBlocks = (Dv + 63) / 64;       // of V and dO
   static constexpr int kQBlock = kDqBQ * kRowBytes;     // one block of Q, dO
   static constexpr int kQBytes = kQBlock * kBlocks;
   static constexpr int kDoBytes = kQBlock * kVBlocks;
@@ -1197,8 +1211,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   const int Sp = (Sq + kRowPad - 1) / kRowPad * kRowPad;
   float* const lse2 = scratch;
   float* const dsum = scratch + static_cast<long long>(BH) * Sp;
-  // Dv / 8 lanes per padded row
-  const long long lanes = static_cast<long long>(BH) * Sp * (Dv / 8);
+  // prep_lanes per padded row
+  const long long lanes = static_cast<long long>(BH) * Sp * prep_lanes<Dv>();
   attn_bwd_prep_kernel<Dv><<<static_cast<unsigned>(lanes / kThreads),
                              kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
@@ -1259,9 +1273,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
 // simt (Dsum); (2, BH, Sp) for wgmma (lse * log2 e and Dsum), Sp = Sq
 // rounded up to a multiple of kRowPad. dtype: 0 = float32, 1 = bfloat16
 // (every tensor but lse and scratch). variant: 0 = simt (any dtype and
-// head dims up to 256), 1 = wgmma (bf16 with (D, Dv) in {(64, 64), (128,
-// 128), (192, 128)} only: the rule of kernel.py variant(), which names the
-// variant). Launches (a), (b), (c) in order on `stream`;
+// head dims up to 256), 1 = wgmma (bf16 with (D, Dv) in {(64, 64), (80,
+// 80), (128, 128), (192, 128)} only: the rule of kernel.py variant(),
+// which names the variant). Launches (a), (b), (c) in order on `stream`;
 // returns 0, the first cudaError_t (cudaErrorInvalidKernelImage when a
 // wgmma kernel was not built with the 168 registers its setmaxnreg
 // regrouping needs), or -CUresult when a tensor map cannot be made.
@@ -1288,12 +1302,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   float* ds = static_cast<float*>(scratch);
   // the rule of kernel.py variant() (tests/test_torch_flash.py reads it)
   const bool tensor_cores =
-      dtype == 1 && ((D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
-                     (D == 192 && Dv == 128));
+      dtype == 1 && ((D == 64 && Dv == 64) || (D == 80 && Dv == 80) ||
+                     (D == 128 && Dv == 128) || (D == 192 && Dv == 128));
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
     if (D == 64)
       return launch_wgmma<64, 64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
+                                  group, Sq, Sk, scale, causal, s);
+    if (D == 80)
+      return launch_wgmma<80, 80>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
                                   group, Sq, Sk, scale, causal, s);
     if (D == 128)
       return launch_wgmma<128, 128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,

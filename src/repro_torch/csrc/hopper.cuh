@@ -6,8 +6,10 @@
 // Layout conventions, shared by both kernels:
 //   * A bf16 tile in shared memory is stored as 64-column blocks of
 //     128-byte rows (64 bf16), 128-byte swizzled, each block on a 1024-byte
-//     boundary; D = 128 is two blocks, D = 192 three. The tensor maps
-//     (encode) and the wgmma descriptors (make_desc) name the same swizzle.
+//     boundary; D = 128 is two blocks, D = 192 three, and D = 80 two, the
+//     second holding 16 real columns and 48 the tensor map zero-fills. The
+//     tensor maps (encode) and the wgmma descriptors (make_desc) name the
+//     same swizzle.
 //   * The f32 accumulator of a wgmma m64nNk16 gives thread (warp w, lane
 //     4g + t) of the warpgroup rows 16w + g and 16w + g + 8, columns
 //     8j + 2t and 8j + 2t + 1 for j < N / 8: register 4j + e is row
@@ -259,6 +261,22 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 16, f32) += A (64 x 16, registers) * B (16 x 16, smem, MN-major):
+// the first 16 columns of one 64-column block
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
                                                 const uint32_t (&a)[4],
@@ -344,7 +362,7 @@ __device__ __forceinline__ void wgmma_rs_m64n192(float (&d)[96],
 }
 
 // The products by accumulator size: N = 32, 64 or 128 (from shared memory),
-// 64, 128 or 192 (A from registers)
+// 64, 80, 128 or 192 (A from registers)
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
                                          uint64_t db, int scale_d) {
   wgmma_ss_m64n32(d, da, db, scale_d);
@@ -361,6 +379,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   wgmma_rs_m64n64(d, a, db);
+}
+// N = 80 (zamba2's head dim) over two 64-column blocks: an n64 product
+// over the first and an n16 over the second, each inside one swizzle atom
+// (no product crosses the atom's edge, and none is spent on the 48
+// zero-filled columns). The second block lies the descriptor's lbo (the
+// MN-major stride between blocks) past the first. Accumulator registers
+// 0..31 are columns 0..63 and 32..39 columns 64..79: the layout (above) of
+// one m64n80 accumulator.
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_m64n64(*reinterpret_cast<float(*)[32]>(&d[0]), a, db);
+  wgmma_rs_m64n16(*reinterpret_cast<float(*)[8]>(&d[32]), a,
+                  db + ((db >> 16) & 0x3FFF));
 }
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
@@ -411,7 +443,9 @@ int get_encoder(EncodeTiled* fn) {
 }
 
 // A (n, S, D) bf16 tensor as a 3-D map (D, S, n), boxes of 64 columns x
-// `rows` rows x 1, 128-byte swizzle; rows past S read as zeros.
+// `rows` rows x 1, 128-byte swizzle; rows past S, and columns past D (the
+// box at column 64 of D = 80), read as zeros and count in the box's bytes.
+// D * 2 bytes, the row stride, must be a multiple of 16.
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int n,
                 int S, int D, int rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),

@@ -3,9 +3,9 @@
 
 The C entry holds two sets of kernels under K6's rule
 (:func:`kernel.variant`): ``"wgmma"`` (tensor cores, bf16 with (D, Dv) in
-``WGMMA_HEAD_DIMS``: (64, 64), (128, 128) and MLA's (192, 128)) and
-``"simt"`` (f32 FMAs, every other input); the entry refuses a
-``"wgmma"`` launch that breaks the rule.
+``WGMMA_HEAD_DIMS``: (64, 64), zamba2's (80, 80), (128, 128) and MLA's
+(192, 128)) and ``"simt"`` (f32 FMAs, every other input); the entry
+refuses a ``"wgmma"`` launch that breaks the rule.
 """
 from __future__ import annotations
 

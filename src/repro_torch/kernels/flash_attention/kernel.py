@@ -17,9 +17,10 @@ from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "wgmma": 1}
-# (D, Dv) of the tensor-core instances in bf16: granite's, the larger
-# families' and MLA's (the C entries' tensor_cores test holds the same)
-WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# (D, Dv) of the tensor-core instances in bf16: granite's, zamba2's, the
+# larger families' and MLA's (the C entries' tensor_cores test holds the
+# same)
+WGMMA_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
 # the kinds ``KERNEL.launches_by_kind`` counts (K7's counter too): a
 # causal (top-left) mask or none
 MASK_KINDS = ("causal", "full")
@@ -40,10 +41,10 @@ KERNEL = CudaKernel(
 
 def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
     """The kernel that runs for these inputs: ``"wgmma"`` (tensor cores)
-    for bf16 with (D, Dv) in :data:`WGMMA_HEAD_DIMS` (MLA's D = 192, Dv =
-    128 among them); ``"simt"`` for every other bf16 head dim and for f32,
-    whose 2e-5 contract TF32 would break. Raises ValueError for another
-    dtype or a head dim outside 1..MAX_HEAD_DIM."""
+    for bf16 with (D, Dv) in :data:`WGMMA_HEAD_DIMS` (zamba2's 80 and
+    MLA's D = 192, Dv = 128 among them); ``"simt"`` for every other bf16
+    head dim and for f32, whose 2e-5 contract TF32 would break. Raises
+    ValueError for another dtype or a head dim outside 1..MAX_HEAD_DIM."""
     if dtype not in DTYPES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
                          f"{dtype}")

@@ -495,7 +495,8 @@ def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
 def test_flash_attention_wgmma_matches_plain(cuda, BH, Sq, Sk, D, group,
                                              causal):
     """K6's tensor-core variant (bf16, (D, Dv) in {(64, 64), (128, 128),
-    (192, 128)}) against the plain version at 2e-2 (MLA's with its scale
+    (192, 128)}; (80, 80) in test_flash_attention_head_dim_80_both_variants)
+    against the plain version at 2e-2 (MLA's with its scale
     192 ** -0.5, the default); the launch is counted under "wgmma" and no
     other variant runs."""
     Dv = 128 if D == 192 else D
@@ -546,17 +547,52 @@ def test_flash_attention_simt_variant_forced(cuda):
 ])
 def test_flash_attention_wide_head_dims(cuda, dtype, causal, D, Dv, Sq, Sk,
                                         group):
-    """Head dims past 128 (D != Dv) against the plain version: bf16 at
-    MLA's (192, 128) on the wgmma kernel, every other case on the SIMT
-    kernel."""
-    want = ("wgmma" if dtype == torch.bfloat16 and (D, Dv) == (192, 128)
-            else "simt")
+    """Head dims past 64 (D != Dv) against the plain version: bf16 at
+    MLA's (192, 128) and zamba2's (80, 80) on the wgmma kernel, every
+    other case on the SIMT kernel."""
+    want = ("wgmma" if dtype == torch.bfloat16
+            and (D, Dv) in AK.WGMMA_HEAD_DIMS else "simt")
     assert AK.variant(dtype, D, Dv) == want
     before = dict(AK.KERNEL.launches_by_variant)
     _attention_case(cuda, 2 * group, Sq, Sk, D, Dv, group, dtype, causal,
                     D + Dv + Sq)
     assert AK.KERNEL.launches_by_variant == {**before,
                                              want: before[want] + 1}
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "simt"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,Sq,Sk,group", [
+    (128, 1024, 1024, 1),               # zamba2's prefill shape
+    (8, 333, 333, 1), (12, 257, 129, 4), (8, 330, 200, 2)])
+def test_flash_attention_head_dim_80_both_variants(cuda, variant, causal,
+                                                   BH, Sq, Sk, group):
+    """zamba2's head dim 80 in bf16 on K6's wgmma kernel (its own
+    variant) and forced onto the SIMT one, each against the plain version
+    at 2e-2, counted under the variant that ran; ragged Sq and Sk both
+    ways, groups 1, 2 and 4. The wgmma kernel repeats bit for bit and
+    agrees with the SIMT kernel at 2e-2."""
+    assert AK.variant(torch.bfloat16, 80, 80) == "wgmma"
+    q, k, v = _qkv(cuda, BH, Sq, Sk, 80, 80, group, torch.bfloat16,
+                   BH + Sq + Sk + causal)
+    forced = None if variant == "wgmma" else variant
+    before = dict(AK.KERNEL.launches_by_variant)
+    got = AK.flash_attention_cuda(q, k, v, group=group, causal=causal,
+                                  force_variant=forced)
+    assert AK.KERNEL.launches_by_variant == {
+        **before, variant: before[variant] + 1}
+    want = FR.flash_attention_ref(q, k, v, group=group, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (BH, Sq, 80)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    if variant == "wgmma":
+        again = AK.flash_attention_cuda(q, k, v, group=group, causal=causal)
+        simt = AK.flash_attention_cuda(q, k, v, group=group, causal=causal,
+                                       force_variant="simt")
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), simt.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 @pytest.mark.parametrize("D,Dv", [(257, 64), (64, 257), (320, 320)])
@@ -647,13 +683,13 @@ def _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype, seed):
 
 
 @pytest.mark.parametrize("variant,D", [("simt", 64), ("simt", 16),
-                                       ("wgmma", 64), ("wgmma", 128),
-                                       ("wgmma", 192)])
+                                       ("wgmma", 64), ("wgmma", 80),
+                                       ("wgmma", 128), ("wgmma", 192)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_lse_matches_plain(cuda, variant, D, causal):
     """K6's logsumexp output (both variants) against the plain
     logsumexp; f32 for the simt cases, bf16 for wgmma (D = 192 with MLA's
-    Dv = 128); 1e-4 absolute (lse is O(10): a few f32 ulps plus wgmma's
+    Dv = 128, D = 80 zamba2's); 1e-4 absolute (lse is O(10): a few f32 ulps plus wgmma's
     ex2.approx)."""
     dtype = torch.bfloat16 if variant == "wgmma" else torch.float32
     Dv = 128 if D == 192 else D
@@ -708,15 +744,16 @@ _BWD_SHAPES = [
     (8, 333, 333, 192, 128, 1), (12, 257, 129, 192, 128, 4),
     (6, 130, 257, 256, 256, 2),
     (6, 200, 71, 160, 200, 3), (4, 65, 65, 136, 24, 1),
-    # zamba2's head dim 80 (SIMT): MHA, and ragged with group 4
+    # zamba2's head dim 80 (wgmma in bf16): MHA, and ragged both ways
+    # with group 4
     (8, 333, 333, 80, 80, 1), (12, 257, 129, 80, 80, 4),
+    (8, 330, 200, 80, 80, 4),
     # whisper-tiny's encoder over its 1500 frames (non-causal on its path)
     (24, 1500, 1500, 64, 64, 1),
     # llava's 3904 positions (2880 patches + 1024 tokens), group 4
     (8, 3904, 3904, 128, 128, 4)]
 # every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
-# ((D, Dv) in {(64, 64), (128, 128), (192, 128)}) runs on wgmma and once
-# more forced to simt
+# ((D, Dv) in WGMMA_HEAD_DIMS) runs on wgmma and once more forced to simt
 _BWD_CASES = [
     (dtype, causal, *shape, variant)
     for dtype in (torch.float32, torch.bfloat16)
@@ -762,11 +799,12 @@ def test_flash_bwd_matches_plain(cuda, dtype, causal, BH, Sq, Sk, D, Dv,
         assert _grad_err(got, f32) <= 1.5 * _grad_err(want, f32)
 
 
+@pytest.mark.parametrize("D", [64, 80])         # granite's, zamba2's
 @pytest.mark.parametrize("variant", ["simt", "wgmma"])
-def test_flash_bwd_is_deterministic(cuda, variant):
+def test_flash_bwd_is_deterministic(cuda, variant, D):
     """No float atomics: two runs give the same bits, on either
     variant."""
-    q, k, v, o, lse, do = _bwd_inputs(cuda, 32, 300, 300, 64, 64, 4,
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 32, 300, 300, D, D, 4,
                                       torch.bfloat16, True, 9)
     before = dict(BK.KERNEL.launches_by_variant)
     a = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=4,

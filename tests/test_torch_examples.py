@@ -5,8 +5,9 @@ Each reference example's loop is rebuilt here from the reference's own
 API, as its ``main`` runs it, and held against the port example's
 ``run``: the quickstart's per-period counts and means; the serving
 example's accounting, verdicts, stage-2 rows and generated tokens, with
-the reference's head and LM weights carried across as numpy (JAX's LM
-init is salted per process, so it cannot be regenerated); the flow
+the reference's head weights and one numpy draw of its LM weights
+(``torch_cross.cross``: JAX's LM init is salted per process, so its
+draws change from run to run) carried across as numpy; the flow
 classifier's features and labels, its first 5 AdamW steps from the
 reference's initial weights on the same data, and its held-out accuracy;
 the LM example's falling loss. Tolerances: f32 means 1e-5 relative,
@@ -24,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jax_config
 from repro.configs import get_dfa_config
 from repro.configs.base import TrainConfig as JTrainConfig
 from repro.core.pipeline import DFASystem as JSystem
@@ -32,12 +32,12 @@ from repro.data import packets as JPK
 from repro.launch.serve import serve as jax_serve
 from repro.launch.serving import ServingLoop as JLoop
 from repro.launch.serving import build_source as jax_build_source
-from repro.models.registry import get_model as jax_model
 from repro.optim import adamw as JADAMW
 from repro.optim.schedule import lr_at as jax_lr_at
 from repro_torch.configs import REDUCED
 from repro_torch.core.pipeline import DFASystem
 from test_gather_enrich_equiv import assert_feature_close
+from torch_cross import cross
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -88,8 +88,8 @@ def test_quickstart_matches_the_reference(mesh):
 
 
 def test_serving_example_matches_the_reference(mesh):
-    """The reference example's loop on its own weights; the port's run
-    on the same weights: the same accounting (balanced, with drops), the
+    """The reference example's loop on its head's weights and a numpy
+    draw of its LM's; the port's run on the same weights: the same accounting (balanced, with drops), the
     same verdicts over the final period's flows, the same stage-2 rows
     and flow ids, the same generated tokens."""
     base = get_dfa_config(reduced=True)
@@ -106,8 +106,7 @@ def test_serving_example_matches_the_reference(mesh):
     system = JSystem(cfg, mesh)
     events, nows = JPK.period_batches(system.n_shards, 4, cfg.event_block,
                                       n_flows=24, flow_seed=3)
-    jm = jax_model(jax_config("granite-3-2b", reduced=True), mesh)
-    jp = jm.init(jax.random.key(0))
+    jm, jp, _, _ = cross("granite-3-2b", "bfloat16", mesh)
     with mesh:
         report = JLoop(system, jax_build_source(system, events, nows)).run(
             SERVING.PERIODS)

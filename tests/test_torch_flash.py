@@ -159,6 +159,8 @@ VARIANT_CASES = [
     # dtype, D, Dv, variant
     (torch.bfloat16, 64, 64, "wgmma"),       # granite-3-2b's head dim
     (torch.bfloat16, 128, 128, "wgmma"),     # the larger families'
+    (torch.bfloat16, 80, 80, "wgmma"),       # zamba2-2.7b's head dim
+    (torch.float32, 80, 80, "simt"),
     (torch.bfloat16, 64, 128, "simt"),       # Dv != D
     (torch.bfloat16, 128, 64, "simt"),
     (torch.bfloat16, 16, 16, "simt"),        # the REDUCED config
@@ -175,7 +177,6 @@ VARIANT_CASES = [
     (torch.bfloat16, 192, 192, "simt"),
     (torch.bfloat16, 128, 192, "simt"),
     (torch.bfloat16, 160, 64, "simt"),
-    (torch.bfloat16, 80, 80, "simt"),        # zamba2's head dim
     (torch.bfloat16, 129, 129, "simt"),
     (torch.bfloat16, 256, 256, "simt"),
     (torch.bfloat16, 64, 160, "simt"),
@@ -186,6 +187,25 @@ VARIANT_CASES = [
 @pytest.mark.parametrize("dtype,D,Dv,want", VARIANT_CASES)
 def test_variant_rule(dtype, D, Dv, want):
     assert FK.variant(dtype, D, Dv) == want
+
+
+@pytest.mark.parametrize("dtype,D,Dv", [(torch.bfloat16, 96, 96),
+                                        (torch.float32, 80, 80),
+                                        (torch.bfloat16, 80, 64)])
+def test_forced_wgmma_refuses_what_the_rule_does_not_take(dtype, D, Dv):
+    """K6 forced onto "wgmma" outside the rule raises before anything is
+    built or launched; zamba2's bf16 (80, 80) passes the rule and stops
+    only at the CPU tensors."""
+    q, k = torch.zeros(4, 8, D, dtype=dtype), torch.zeros(2, 8, D,
+                                                           dtype=dtype)
+    v = torch.zeros(2, 8, Dv, dtype=dtype)
+    with pytest.raises(ValueError, match="wgmma kernel takes bf16"):
+        FK.flash_attention_cuda(q, k, v, group=2, force_variant="wgmma")
+    q, k = torch.zeros(4, 8, 80, dtype=torch.bfloat16), torch.zeros(
+        2, 8, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_attention_cuda(q, k, k, group=2, force_variant="wgmma")
+    assert FK.KERNEL._fn is None and FK.KERNEL.launches == 0
 
 
 @pytest.mark.parametrize("source", ["flash_attention.cu",

@@ -169,12 +169,13 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
     (torch.bfloat16, 16, 16, "simt"), (torch.bfloat16, 96, 96, "simt"),
     (torch.bfloat16, 32, 32, "simt"), (torch.float32, 64, 64, "simt"),
     (torch.float32, 128, 128, "simt"), (torch.float32, 16, 8, "simt"),
-    (torch.float32, 192, 128, "simt"), (torch.bfloat16, 80, 80, "simt"),
+    (torch.float32, 192, 128, "simt"), (torch.bfloat16, 80, 80, "wgmma"),
+    (torch.float32, 80, 80, "simt"),
     (torch.bfloat16, 192, 64, "simt"), (torch.bfloat16, 160, 64, "simt"),
     (torch.bfloat16, 256, 256, "simt")])
 def test_bwd_variant_choice(dtype, D, Dv, want):
     """K7 takes K6's rule: ``wgmma`` for bf16 with (D, Dv) in {(64, 64),
-    (128, 128), (192, 128)}, ``simt`` otherwise. A forced ``"wgmma"`` on
+    (80, 80), (128, 128), (192, 128)}, ``simt`` otherwise. A forced ``"wgmma"`` on
     inputs that do not
     qualify raises before anything is built; on inputs that do, the
     wrapper goes on to its checks (and refuses CPU tensors). The scratch

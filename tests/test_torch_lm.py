@@ -1,10 +1,10 @@
 """The port's granite-3-2b serving path against the JAX package on the CPU,
 at REDUCED width (2 layers, d 64, 4/2 heads, head_dim 16, vocab 256).
 
-The reference's parameters are materialised once by JAX and carried
-across as numpy (``convert.lm_params_from_numpy``): JAX's init folds a
-per-process salted ``hash`` of each path into its key, so it cannot be
-regenerated. Tokens are drawn with numpy. Tolerances: layers 1e-6 and
+Both packages get one numpy draw of the reference's parameter tree
+(``torch_cross.cross``: the reference's own init salts its keys with a
+per-process ``hash``, so its draws change from run to run). Tokens are
+drawn with numpy. Tolerances: layers 1e-6 and
 the model 1e-5 in f32 (the same arithmetic summed in another order);
 2e-2 in bf16 (the two frameworks round at other places).
 """
@@ -14,12 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jax_config
 from repro.launch.serve import build_cache as jax_build_cache
 from repro.launch.serve import serve as jax_serve
 from repro.models import layers as JL
 from repro.models.lm import lm_hidden as jax_lm_hidden
-from repro.models.registry import get_model as jax_model
 from repro_torch.configs import ModelConfig, get_config, list_archs
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels.flash_attention import kernel as FK
@@ -28,9 +26,9 @@ from repro_torch.models import layers as TL
 from repro_torch.models.lm import lm_hidden
 from repro_torch.models.param import count_params
 from repro_torch.models.registry import Model
+from torch_cross import cross
 
 ARCH = "granite-3-2b"
-F32 = dict(dtype="float32", param_dtype="float32")
 P, GEN, CACHE = 12, 6, 24
 
 
@@ -52,15 +50,8 @@ def _t(a):
 def models(mesh):
     """dtype -> (JAX model, its params, the port's Model, the same params
     carried across)."""
-    out = {}
-    for name, kw in (("float32", F32), ("bfloat16", {})):
-        jm = jax_model(jax_config(ARCH, reduced=True).replace(**kw), mesh)
-        jp = jm.init(jax.random.key(0))
-        cfg = get_config(ARCH, reduced=True).replace(**kw)
-        tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
-                                  device="cpu")
-        out[name] = (jm, jp, Model(cfg, device="cpu"), tp)
-    return out
+    return {name: cross(ARCH, name, mesh) for name in ("float32",
+                                                       "bfloat16")}
 
 
 def _tokens(B, S, seed=1):

@@ -1,8 +1,9 @@
 """The port's training path against the JAX package on the CPU, at REDUCED
 granite width (2 layers, d 64, 4/2 heads of 16, vocab 256) in f32.
 
-The reference's parameters are materialised once by JAX and carried
-across as numpy (``convert.lm_params_from_numpy``); the batches are the
+Both packages get one numpy draw of the reference's parameter tree
+(``torch_cross.cross``, crossed by ``convert.lm_params_from_numpy``); the
+batches are the
 reference's ``data.tokens`` batches, fed to both (the port's own token
 draws come from a ``torch.Generator``). Tolerances, f32: the loss 1e-5
 and every gradient leaf 1e-4 of its largest element (the same arithmetic
@@ -15,12 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jax_config
 from repro.configs.base import TrainConfig as JTrainConfig
 from repro.data import tokens as JDATA
 from repro.launch import steps as JST
 from repro.models.lm import lm_loss as jax_lm_loss
-from repro.models.registry import get_model as jax_model
 from repro.optim import adamw as JADAMW
 from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs import TrainConfig, get_config
@@ -32,9 +31,9 @@ from repro_torch.launch import train as TR
 from repro_torch.models import lm as LM
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw
+from torch_cross import cross
 
 ARCH = "granite-3-2b"
-F32 = dict(dtype="float32", param_dtype="float32")
 B, S = 4, 32
 
 
@@ -71,12 +70,7 @@ def _assert_tree_close(got, want, tol, scale=None, what=""):
 @pytest.fixture(scope="module")
 def ref(mesh):
     """(JAX model, its f32 params, the port's Model, the same params)."""
-    jm = jax_model(jax_config(ARCH, reduced=True).replace(**F32), mesh)
-    jp = jm.init(jax.random.key(0))
-    cfg = get_config(ARCH, reduced=True).replace(**F32)
-    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
-                              device="cpu")
-    return jm, jp, Model(cfg, device="cpu"), tp
+    return cross(ARCH, "float32", mesh)
 
 
 def _batch(cfg, step=0, b=B, s=S):

@@ -1,16 +1,16 @@
 """Language-model parameters carried from the JAX package to the port, for
 the differential tests of the model families.
 
-The reference materialises its parameters once (its init folds a
-per-process salted ``hash`` of each path into its key, so it cannot be
-regenerated); they cross as numpy (``convert.lm_params_from_numpy``).
-Leaves the reference initialises to all zeros or all ones (the
-``qkv_bias`` biases, the rms-norm scales, the sigmoid router's ``bias``)
-would hide a port that drops or misplaces them, so :func:`perturbed`
-moves each by N(0, 0.1^2) noise from one numpy seed before both packages
-get the same arrays. :func:`numpy_params` draws a family's tree with
-numpy from the reference's descriptors instead, and
-:func:`reference_inits` runs the reference's own init under several
+The reference's own init folds a per-process salted ``hash`` of each
+path into its key, so its draws change from process to process; the
+tests therefore draw the tree with numpy from the reference's
+descriptors (:func:`numpy_params`, one fixed seed) and hand both packages
+the same arrays (``convert.lm_params_from_numpy``). Leaves the reference
+initialises to all zeros or all ones (the ``qkv_bias`` biases, the
+rms-norm scales, the sigmoid router's ``bias``) would hide a port that
+drops or misplaces them, so the draw moves each by N(0, 0.1^2) noise;
+:func:`perturbed` does the same to a tree of the reference's own init,
+and :func:`reference_inits` runs that init under several
 ``PYTHONHASHSEED`` salts, one process each (the hybrid, ssm and encdec
 tests).
 """
@@ -73,15 +73,26 @@ def configs(arch: str, dtype: str, moe=None, **changes):
     return tuple(out)
 
 
+def shapes(tree):
+    """{path: (shape, dtype)} of a nested tree of arrays or shape
+    structs."""
+    return {p: (tuple(v.shape), str(v.dtype)) for p, v in leaves(tree).items()}
+
+
 def cross(arch: str, dtype: str, mesh, moe=None, **changes):
     """(JAX model, its params, the port's Model on the CPU, the same
     params carried across) for ``arch`` at REDUCED width in ``dtype``,
     with ``changes`` (and ``moe``, see :func:`configs`) applied to both
-    configurations and the unit leaves perturbed."""
+    configurations: the numpy draw :func:`numpy_params` of the
+    reference's descriptors (the unit leaves perturbed), each leaf in its
+    descriptor's dtype, so every process gets the same weights. The tree
+    has the shapes and dtypes of the reference's own init."""
     jcfg, cfg = configs(arch, dtype, moe, **changes)
     jm = jax_model(jcfg, mesh)
-    tree = perturbed(jax.tree.map(np.asarray, jm.init(jax.random.key(0))))
-    return (jm, jax.tree.map(jnp.asarray, tree), Model(cfg, device="cpu"),
+    tree = numpy_params(jm.param_descs())
+    jp = jax_params(jm, tree)
+    assert shapes(jax.eval_shape(jm.init, jax.random.key(0))) == shapes(jp)
+    return (jm, jp, Model(cfg, device="cpu"),
             lm_params_from_numpy(tree, cfg, device="cpu"))
 
 

@@ -6,8 +6,9 @@
 
 Each kernel runs the variant the tree's ``kernel.variant`` names, at the
 model paths' shapes (bf16, causal, 1024 tokens, B = 4): granite-3-2b's
-(32 / 8 heads of 64), qwen3-14b's and llama4-scout's (40 / 8 heads of
-128) and deepseek-v3's MLA (128 heads, D = 192, Dv = 128, group 1). It
+(32 / 8 heads of 64), zamba2-2.7b's (32 / 32 heads of 80), qwen3-14b's
+and llama4-scout's (40 / 8 heads of 128) and deepseek-v3's MLA (128
+heads, D = 192, Dv = 128, group 1). It
 prints one JSON line: the card and its power limit, the tag and tree,
 and per shape the variant and the device µs per call (torch.profiler's
 device events in the kernel's own functions, as chip_smoke.py's
@@ -26,8 +27,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 # name: (heads, kv heads, D, Dv)
-SHAPES = {"granite": (32, 8, 64, 64), "qwen/llama4": (40, 8, 128, 128),
-          "mla": (128, 128, 192, 128)}
+SHAPES = {"granite": (32, 8, 64, 64), "zamba2": (32, 32, 80, 80),
+          "qwen/llama4": (40, 8, 128, 128), "mla": (128, 128, 192, 128)}
 B, S = 4, 1024
 
 
