@@ -42,14 +42,17 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    per call (must be 1) and the device time of an empty kernel of the
    same launch shape (its floor); flash_attention_bwd (K7) at the
    training shape (B = 4 x 32 heads, 1024 tokens, head_dim 64, group 4)
-   in bf16 on both variants (``wgmma``, and ``simt`` forced) and in f32
-   (``simt``) against its plain version (f32 2e-5 of max |grad|, bf16 no
-   further from the f32 plain gradient than plain bf16, x1.5; the wgmma
-   kernels twice, bit for bit), with o and lse from K6's lse output,
-   itself held against the plain logsumexp (1e-4); the wgmma and the
-   SIMT kernels timed in turns and by their device time, SDPA's backward
-   (forward + backward minus forward) as the library yardstick, and the
-   wgmma kernels' share of the bound and factor against SDPA logged;
+   and llama4-scout's (B = 4 x 40 heads of 128, group 5) in bf16 on its
+   three designs (``fused``, the rule's; the three-kernel ``wgmma`` and
+   ``simt`` forced) and in f32 (``simt``) against its plain version (f32
+   2e-5 of max |grad|, bf16 no further from the f32 plain gradient than
+   plain bf16, x1.5; the fused and three-kernel designs twice, bit for
+   bit), with o and lse from K6's lse output, itself held against the
+   plain logsumexp (1e-4); at granite's shape the three designs timed in
+   turns with the fused one and by their device time, the two
+   tensor-core designs split by kernel, SDPA's backward (forward +
+   backward minus forward) as the library yardstick, and the fused
+   kernels' share of the bound and factor against SDPA logged;
    flash_attention_bwd at MLA's training shape (B = 4 x 128 heads, 1024
    tokens, D = 192, Dv = 128, group 1, causal) in f32 (simt) and bf16
    (wgmma, twice bit for bit, and simt forced) under the same rules, the
@@ -67,12 +70,16 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    timed in turns with them and by their device time; K6 and K7 without a
    mask at whisper-tiny's encoder shapes
    (K6: B = 4 x 6 heads over its 1500 frames, head dim 64, group 1; K7: B
-   = 8 x 6 heads) on their wgmma kernels in bf16 and SIMT in f32, under
-   the same rules and timed the same way; K6 and K7 causal at
-   llava-next-mistral-7b's shapes (B = 4 x 32 heads of 128, group 4, over
-   2880 patches + 1024 tokens = 3904 positions, ragged last tiles) on their
-   wgmma kernels in bf16 and SIMT in f32, the same way, SDPA with
-   enable_gqa;
+   = 8 x 6 heads) on K6's wgmma kernel and K7's fused kernels in bf16 and
+   SIMT in f32, under the same rules and timed the same way; K6 and K7
+   causal at llava-next-mistral-7b's shapes (B = 4 x 32 heads of 128,
+   group 4, over 2880 patches + 1024 tokens = 3904 positions, ragged last
+   tiles), the same way, SDPA with enable_gqa; at both, K7's three-kernel
+   and SIMT designs are forced onto the fused design's bf16 inputs (each
+   held by the x1.5 rule, the three-kernel gradients within 2^-7 of max
+   |grad| of the fused ones, the fused ones bit for bit twice), timed in
+   turns with the fused call and by their device time, the tensor-core
+   designs split by kernel;
 4. main path at the paper's size — DFASystem on the PAPER config
    (2^17 flows, 10-entry ring, 4096 reports/period) with an mlp head,
    2^20 packet events per 20 ms period from a 131,072-flow trace: one
@@ -219,7 +226,7 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    from 0: the loss, gnorm and lr per step, step ms, tokens/s, model
    flops over step time as a share of 989 TFLOP/s, max_memory_allocated,
    flash_attention (2 x 40: the forward and its remat) and
-   flash_attention_bwd (40, all on its wgmma kernels) launches per step,
+   flash_attention_bwd (40, all on its fused kernels) launches per step,
    no plain attention call, and a 1-step profile;
 20. [train deepseek-v3] — as 19 for deepseek-v3 at full width cut to its
    3 dense layers (MLA + the 18432-wide FFN; one MoE layer alone holds
@@ -229,8 +236,8 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
 21. [train llama4-scout] — as 20 for llama4-scout cut to 1 of 48 layers
    (16 experts whole, the shared expert, the 202,048-row untied
    vocabulary, f32 moments; C = 320 slots per expert): 2 K6 and 1 K7
-   launches per step, all wgmma (D = 128, group 5), and the share of
-   pairs capacity drops;
+   launches per step, K6 wgmma and K7 fused (D = 128, group 5), and the
+   share of pairs capacity drops;
 22. [train zamba2-2.7b] — as 20 for zamba2-2.7b whole (remat, f32
    moments): 18 K6 and 9 K7 launches per step, all wgmma (head dim 80:
    the (80, 80) instances; a SIMT launch fails the phase);
@@ -242,12 +249,12 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
 22b. [train whisper-tiny] — as 20 for whisper-tiny whole, B = 8 x 448
    tokens with 1500 stub frames each (remat on the decoder, f32 moments):
    K6 4 times without a mask (the encoder, not rematerialised) and 8
-   times causal, K7 4 + 4, all wgmma, per step by mask;
+   times causal, K7 4 + 4, K6 wgmma and K7 fused, per step by mask;
 22c. [train llava-next-mistral-7b] — as 20 for llava-next-mistral-7b at
    full width cut to 12 of 32 layers (f32 moments, remat), B = 4 x 1024
    text tokens, each after its 2880 stub patches: 24 K6 and 12 K7
-   launches per step, causal, all wgmma; the model flops count all 3904
-   positions, the unembedding the text only;
+   launches per step, causal, K6 wgmma and K7 fused; the model flops
+   count all 3904 positions, the unembedding the text only;
 22d. [dryrun] — ``launch.dryrun`` on meta tensors, in a process of its
    own that sees no card, started after 14 and read here: granite-3-2b
    train_4k on 16 x 16, deepseek-v3 decode_32k on 2 x 16 x 16 and
@@ -1070,22 +1077,24 @@ def hold_k7_against_plain(gen, dev, tag, BH, G, S, D):
     against its plain version on the same inputs, o and lse from K6 with
     its lse output, which is held against the plain logsumexp within
     LSE_TOL: f32 on the SIMT kernels within BWD_TOL of max |grad|; bf16 on
-    the variant ``kernel.variant`` names (the wgmma kernels, which repeat
-    bit for bit) and forced onto the SIMT ones, each no further from the
-    f32 plain gradient than the bf16 plain gradient is, x B_RATIO. Returns
+    the design ``bwd_kernel.variant`` names (the fused kernels, which
+    repeat bit for bit), forced onto the three-kernel wgmma design (which
+    repeats too) and onto the SIMT kernels, each no further from the f32
+    plain gradient than the bf16 plain gradient is, x B_RATIO. Returns
     (errs, abs_errs, lse_errs, the bf16 (q, k, v, o, lse, do))."""
     import torch
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as REF
 
-    require(K.variant(torch.bfloat16, D, D) == "wgmma",
-            f"K7 at {tag}'s shape does not reach the wgmma kernels")
+    require(BK.variant(torch.bfloat16, D, D) == "fused",
+            f"K7 at {tag}'s shape does not reach the fused kernels")
     errs, abs_errs, lse_errs = {}, {}, {}
-    runs = (("float32", "simt"), ("bfloat16", "wgmma"), ("bfloat16", "simt"))
+    runs = (("float32", "simt"), ("bfloat16", "fused"), ("bfloat16", "wgmma"),
+            ("bfloat16", "simt"))
     for dt, variant in runs:
         dtype = getattr(torch, dt)
-        if variant == "wgmma" or dt == "float32":     # new inputs per dtype
+        if variant == "fused" or dt == "float32":     # new inputs per dtype
             q = torch.randn(BH, S, D, generator=gen, device=dev).to(dtype)
             k = torch.randn(BH // G, S, D, generator=gen,
                             device=dev).to(dtype)
@@ -1101,7 +1110,7 @@ def hold_k7_against_plain(gen, dev, tag, BH, G, S, D):
             want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
                                                group=G)
         name = f"{dt} {variant}"
-        forced = None if variant == K.variant(dtype, D, D) else variant
+        forced = None if variant == BK.variant(dtype, D, D) else variant
         before = dict(BK.KERNEL.launches_by_variant)
         got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G,
                                           force_variant=forced)
@@ -1134,11 +1143,12 @@ def hold_k7_against_plain(gen, dev, tag, BH, G, S, D):
         require(err_k <= B_RATIO * err_p,
                 f"flash_attention_bwd ({tag}, bf16, {variant}) is further "
                 f"from the f32 gradient than the plain bf16 gradient is")
-        if variant == "wgmma":
-            again = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
+        if variant != "simt":
+            again = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G,
+                                                force_variant=forced)
             require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                    f"flash_attention_bwd ({tag}, wgmma) differs between "
-                    f"two runs")
+                    f"flash_attention_bwd ({tag}, {variant}) differs "
+                    f"between two runs")
             del again
         del f32
     log(f"[kernel] flash_attention_bwd at {tag}'s shape q/o/do ({BH}, {S}, "
@@ -1174,12 +1184,11 @@ def check_flash_attention_bwd(dev):
 
     # q, k, v, o, do, lse of the bf16 case are timed
     call = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G)
-    simt = lambda: BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=G,
-                                               force_variant="simt")
     plain = lambda: REF.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 group=G)
     ms, plain_ms = in_turns(plain, call, 5)
-    wgmma_ms, simt_ms = in_turns(simt, call, 5)
+    designs = k7_designs("granite-3-2b", (q, k, v, o, lse, do), G, True, 5)
+    fused_ms, simt_ms = designs["simt"]["fused_ms"], designs["simt"]["ms"]
     q4, k4, v4, do4 = (t.view(TRAIN_B, -1, S, D) for t in (q, k, v, do))
     leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
 
@@ -1202,15 +1211,17 @@ def check_flash_attention_bwd(dev):
     n_ops = 2 * (3 * D + 2 * D) * pairs
     # q, o, do read and dq written; k, v read and dk, dv written; lse read
     n_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
-    dev_us_ = device_us(BK.KERNEL, call, 5)
-    simt_dev_us = device_us(BK.KERNEL, simt, 5)
+    dev_us_ = designs["fused"]["device_us"]
+    simt_dev_us = designs["simt"]["device_us"]
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-    log(f"[kernel] flash_attention_bwd wgmma at the training shape: "
-        f"{dev_us_:.2f} us device ({wgmma_ms * 1e3:.2f} us by events, "
-        f"in turns with simt {simt_ms * 1e3:.2f}), simt {simt_dev_us:.2f} "
-        f"us device ({simt_dev_us / dev_us_:.2f}x); bound {b_ms * 1e3:.2f} "
-        f"us by {b_by}: {100 * b_ms * 1e3 / dev_us_:.1f} % of it; SDPA's "
-        f"backward {lib_dev:.2f} us device: the kernels take "
+    log(f"[kernel] flash_attention_bwd fused at the training shape: "
+        f"{dev_us_:.2f} us device ({fused_ms * 1e3:.2f} us by events, "
+        f"in turns with simt {simt_ms * 1e3:.2f}), three-kernel wgmma "
+        f"{designs['wgmma']['device_us']:.2f} us device, simt "
+        f"{simt_dev_us:.2f} us device ({simt_dev_us / dev_us_:.2f}x); "
+        f"bound {b_ms * 1e3:.2f} us by {b_by}: "
+        f"{100 * b_ms * 1e3 / dev_us_:.1f} % of it; SDPA's backward "
+        f"{lib_dev:.2f} us device: the kernels take "
         f"{dev_us_ / lib_dev:.2f}x its time")
     return {"kernel": BK.KERNEL, "max_abs_err": abs_errs["bfloat16 wgmma"],
             "ms": ms, "plain_ms": plain_ms, "n_bytes": n_bytes,
@@ -1221,19 +1232,21 @@ def check_flash_attention_bwd(dev):
                             "enable_gqa) forward + backward minus its "
                             "forward, on the same inputs",
             "device_us": dev_us_,
-            "variant": "wgmma",
+            "variant": "fused",
+            "designs": designs,
             "simt_device_us": simt_dev_us,
             "simt_ms": simt_ms,
             "simt_note": f"the SIMT kernels on the same inputs, in turns "
-                         f"with the wgmma ones ({wgmma_ms:.5f} ms); max "
+                         f"with the fused ones ({fused_ms:.5f} ms); max "
                          f"abs err to the plain version "
                          f"{abs_errs['bfloat16 simt']:.3e}",
             "shape": f"q/o/do ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), "
                      f"group {G}, causal, bf16 (f32 checked too; and "
                      f"llama4-scout's (160, {S}, 128) group 5)",
-            "check": f"f32 {BWD_TOL:g} of max |grad|; bf16 (wgmma and simt) "
-                     f"no further from the f32 plain gradient than plain "
-                     f"bf16, x{B_RATIO:g}; wgmma bit for bit twice; K6 lse "
+            "check": f"f32 {BWD_TOL:g} of max |grad|; bf16 (fused, the "
+                     f"three-kernel wgmma and simt) no further from the "
+                     f"f32 plain gradient than plain bf16, x{B_RATIO:g}; "
+                     f"fused and wgmma bit for bit twice; K6 lse "
                      f"{LSE_TOL:g} absolute",
             "errs": errs, "abs_errs": abs_errs, "lse_errs": lse_errs,
             "llama4": {"errs": l_errs, "abs_errs": l_abs,
@@ -1271,6 +1284,83 @@ def device_split(fn, iters: int, names) -> dict:
             f"{iters} calls")
     raise AssertionError(f"the profiler did not see each of {names} once "
                          f"per call in any of 3 windows")
+
+
+# the __global__ functions one K7 call launches, by tensor-core design
+K7_SPLIT = {"fused": ("attn_bwd_prep_kernel", "attn_bwd_fused_wgmma_kernel",
+                      "attn_bwd_dq_convert_kernel"),
+            "wgmma": ("attn_bwd_prep_kernel", "attn_bwd_dkdv_wgmma_kernel",
+                      "attn_bwd_dq_wgmma_kernel")}
+
+
+def k7_designs(tag, inputs, group, causal, iters=3, held=None) -> dict:
+    """K7's designs on the same bf16 ``inputs`` (q, k, v, o, lse, do) at a
+    head dim the rule gives the fused kernels: the fused call (the
+    rule's), then the three-kernel wgmma design and the SIMT kernels,
+    each forced and timed in turns with the fused call (CUDA events) and
+    by its device µs per call; the fused and three-kernel designs also
+    split by kernel (:func:`device_split`). ``held`` = (the fused
+    gradients, the f32 plain ones, the bf16 plain ones' distance from
+    them): the fused call must repeat them bit for bit, the forced
+    designs stay within B_RATIO of that distance, and the three-kernel
+    gradients within 2^-7 of max |grad| of the fused ones (they differ
+    only in f32 summation orders). Returns {design: {"ms", "fused_ms" (the
+    fused call in those turns), "device_us", "split", "err"}}."""
+    import torch
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+
+    def call(force):
+        return lambda: BK.flash_attention_bwd_cuda(
+            *inputs, group=group, causal=causal, force_variant=force)
+    fused = call(None)
+    errs = {}
+    if held is not None:
+        got, f32, err_p = held
+        again = fused()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash_attention_bwd ({tag}, fused) differs between two "
+                f"runs")
+        del again
+        for force in ("wgmma", "simt"):
+            other = call(force)()
+            torch.cuda.synchronize()
+            errs[force] = {"vs_f32": grad_err(other, f32),
+                           "vs_fused": grad_err(other, got)}
+            require(errs[force]["vs_f32"] <= B_RATIO * err_p,
+                    f"flash_attention_bwd ({tag}, bf16, {force}) is further "
+                    f"from the f32 gradient than the plain bf16 gradient is")
+            del other
+        require(errs["wgmma"]["vs_fused"] <= 2.0 ** -7,
+                f"flash_attention_bwd ({tag}): the fused and three-kernel "
+                f"designs differ by {errs['wgmma']['vs_fused']:.3e} of max "
+                f"|grad|")
+        log(f"[kernel] flash_attention_bwd at {tag}'s shape: the fused "
+            f"design repeats bit for bit; of max |grad|, forced designs vs "
+            f"f32 and vs fused {errs} (plain bf16 vs f32 {err_p:.3e})")
+    out = {"fused": {"device_us": device_us(BK.KERNEL, fused, iters),
+                     "split": device_split(fused, iters, K7_SPLIT["fused"])}}
+    for force in ("wgmma", "simt"):
+        fused_ms, ms = in_turns(call(force), fused, 2 if force == "simt"
+                                else iters)
+        row = {"ms": ms, "fused_ms": fused_ms,
+               "device_us": device_us(BK.KERNEL, call(force),
+                                      2 if force == "simt" else iters)}
+        if force in K7_SPLIT:
+            row["split"] = device_split(call(force), iters, K7_SPLIT[force])
+        if force in errs:
+            row["err"] = errs[force]
+        out[force] = row
+    f_us = out["fused"]["device_us"]
+    log(f"[kernel] flash_attention_bwd designs at {tag}'s shape (device us "
+        f"a call): fused {f_us:.2f} {out['fused']['split']}; three-kernel "
+        f"wgmma {out['wgmma']['device_us']:.2f} {out['wgmma']['split']} "
+        f"({out['wgmma']['device_us'] / f_us:.3f}x the fused); simt "
+        f"{out['simt']['device_us']:.2f} ({out['simt']['device_us'] / f_us:.2f}"
+        f"x); by events in turns with the fused call: wgmma "
+        f"{out['wgmma']['ms']:.5f} vs {out['wgmma']['fused_ms']:.5f} ms, "
+        f"simt {out['simt']['ms']:.5f} vs {out['simt']['fused_ms']:.5f} ms")
+    return out
 
 
 def check_flash_attention_bwd_mla(dev):
@@ -1531,10 +1621,11 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
               f"group {group}, {mask}, bf16 (f32 too)")
     pairs = attention_pairs(S, S, causal)
     # the bf16 case is timed; the f32 one is only held
-    errs6, ratios6, errs7, lse_errs = {}, {}, {}, {}
+    errs6, ratios6, errs7, lse_errs, designs = {}, {}, {}, {}, None
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         want_v = variant if dt == "bfloat16" else "simt"
+        want7 = BK.variant(dtype, D, D)        # K7's design: fused at 64, 128
         q, k, v = attention_inputs(gen, dev, bh7, S, S, D, D, group, dtype)
         do = torch.randn(bh7, S, D, generator=gen, device=dev).to(dtype)
         q6, k6, v6 = q[:bh6], k[:bh6 // group], v[:bh6 // group]
@@ -1554,9 +1645,9 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
         got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=group,
                                           causal=causal)
         require(BK.KERNEL.launches_by_variant
-                == {**before, want_v: before[want_v] + 1},
+                == {**before, want7: before[want7] + 1},
                 f"flash_attention_bwd ({tag}, {dt}) did not count one "
-                f"{want_v} launch")
+                f"{want7} launch")
         want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do,
                                            group=group, causal=causal)
         torch.cuda.synchronize()
@@ -1579,7 +1670,7 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
         abs7 = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(got, want))
         log(f"[kernel] flash_attention_bwd at {tag}'s shape, bf16 "
-            f"({variant}) vs the f32 plain gradient: kernel {err_k:.3e}, "
+            f"({want7}) vs the f32 plain gradient: kernel {err_k:.3e}, "
             f"plain bf16 {err_p:.3e} (held: kernel <= {B_RATIO:g} x "
             f"plain); kernel vs plain bf16 {errs7[dt]:.3e}")
         require(err_k <= B_RATIO * err_p,
@@ -1589,6 +1680,9 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
             simt_errs = simt_beside_wgmma(
                 tag, (q6, k6, v6), (q, k, v, o, lse, do), got, f32, err_p,
                 group, causal)
+        if want7 == "fused":
+            designs = k7_designs(tag, (q, k, v, o, lse, do), group, causal,
+                                 held=(got, f32, err_p))
         del f32, got, want, want_lse
     torch.cuda.empty_cache()
     log(f"[kernel] {tag}'s attention, K6 {shape6}, K7 {shape7}: K6 max abs "
@@ -1661,8 +1755,9 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
         ms, plain_ms = in_turns(plain, call, 3)
         dev_time = device_us(kernel, call, 5)
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        ran = want7 if kernel is BK.KERNEL else variant
         entries.append({
-            "shape": shape, "variant": variant, "ms": ms,
+            "shape": shape, "variant": ran, "ms": ms,
             "plain_ms": plain_ms, "device_us": dev_time, "bound_ms": b_ms,
             "bound_by": b_by, "n_bytes": n_bytes, "n_ops": n_ops,
             "bound_share": b_ms * 1e3 / dev_time, "library_ms": lib[0],
@@ -1670,13 +1765,21 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
             "max_abs_err": (errs6["bfloat16"] if kernel is K.KERNEL
                             else abs7),
             "errs": errs6 if kernel is K.KERNEL else errs7})
-        log(f"[kernel] {name} at {tag}'s shape {shape}: {variant} kernel "
+        log(f"[kernel] {name} at {tag}'s shape {shape}: {ran} kernel "
             f"{ms:.5f} ms, device {dev_time:.3f} us, plain {plain_ms:.5f} "
             f"ms, bound {b_ms * 1e3:.3f} us by {b_by} ({n_bytes / 1e6:.1f} "
             f"MB, {n_ops:.4g} operations), {100 * b_ms * 1e3 / dev_time:.2f}"
             f" % of the bound; library {lib[0]:.5f} ms, device "
             f"{lib[1]:.3f} us: the kernel takes {dev_time / lib[1]:.2f}x "
             f"its time ({lib[2]})")
+        if kernel is BK.KERNEL and designs:
+            entries[-1].update(
+                variant="fused", designs=designs,
+                simt_ms=designs["simt"]["ms"],
+                simt_device_us=designs["simt"]["device_us"],
+                simt_note=f"the SIMT kernels forced onto the same inputs, in "
+                          f"turns with the fused ones "
+                          f"({designs['simt']['fused_ms']:.5f} ms)")
         if simt_beside:
             simt = simt_calls[kernel is BK.KERNEL]
             wgmma_ms, simt_ms = in_turns(simt, call, 2)
@@ -3914,6 +4017,23 @@ class PlainCalls:
             setattr(self.ref, n, fn)
 
 
+def k7_variant(cfg, variant):
+    """The design K7 runs in a training step of ``cfg`` whose K6 launches
+    run ``variant`` (None: no attention): ``bwd_kernel.variant`` at the
+    config's attention head dims (MLA's qk_nope + qk_rope and v_head_dim),
+    "fused" at (64, 64) and (128, 128)."""
+    if variant is None:
+        return None
+    import torch
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    if cfg.mla is not None:
+        D = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        Dv = cfg.mla.v_head_dim
+    else:
+        D = Dv = cfg.resolved_head_dim
+    return BK.variant(getattr(torch, cfg.dtype), D, Dv)
+
+
 def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
               seq=TRAIN_S):
     """``cfg`` trained at full width with seeded random weights: AdamW with
@@ -3925,8 +4045,9 @@ def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
     step time as a share of 989 TFLOP/s, max_memory_allocated, and a
     1-step profile. Each step must launch K6 for every attention block's
     forward (:func:`attention_blocks`) and again for its remat, K7 once
-    per block, all on ``variant`` (None for a model without attention),
-    by mask as :func:`want_kinds` says, and no plain attention.
+    per block, K6 all on ``variant`` (None for a model without attention)
+    and K7 all on :func:`k7_variant`'s design (fused at head dims 64 and
+    128), by mask as :func:`want_kinds` says, and no plain attention.
     ``drops``: also the share of pairs each MoE layer drops by capacity.
     Returns the launch counts over the timed steps, K7's by variant, K6's
     and K7's by mask, and the measured step (mean ms, max_memory_allocated
@@ -3955,7 +4076,9 @@ def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
         f"s; {torch.cuda.memory_allocated()} B allocated")
     step = ST.make_train_step(model, tcfg)
     B, S = batch, seq
-    on_variant = lambda k: k.launches_by_variant[variant] if variant else 0
+    variant7 = k7_variant(cfg, variant)
+    on_variant = lambda k: k.launches_by_variant[
+        variant7 if k is K7 else variant] if variant else 0
     batches = [DATA.add_modality_stub(DATA.batch_at(i, cfg, B, S,
                                                     device=dev), cfg, i)
                for i in range(TRAIN_WARMUP + steps + 1)]
@@ -4004,7 +4127,7 @@ def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
         log(f"{tag} step {TRAIN_WARMUP + i}: loss {loss:.5f} gnorm "
             f"{gnorm:.5f} lr {lr:.3e}, {dt * 1e3:.3f} ms, flash_attention "
             f"{n6} launches ({w6} {variant}; by mask {k6}), "
-            f"flash_attention_bwd {n7} ({w7} {variant}; by mask {k7})")
+            f"flash_attention_bwd {n7} ({w7} {variant7}; by mask {k7})")
         require(np.isfinite(loss) and np.isfinite(gnorm),
                 f"{tag} non-finite loss or gradient norm")
         require(n6 == want6 and n7 == want7,
@@ -4015,7 +4138,7 @@ def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
         require(variant is None or (w6 == n6 and w7 == n7),
                 f"{tag} {n6 - w6} of a step's {n6} flash_attention and "
                 f"{n7 - w7} of its {n7} flash_attention_bwd launches did "
-                f"not run the {variant} kernels")
+                f"not run the {variant} and {variant7} kernels")
         require(k6 == kinds6 and k7 == kinds7,
                 f"{tag} a step launched flash_attention {k6} and "
                 f"flash_attention_bwd {k7} by mask, expected {kinds6} and "
@@ -4161,7 +4284,8 @@ def bf16_step_check(dev, cfg, batch=TRAIN_B, seq=TRAIN_S, variant=None):
     they exist, so at most one bf16 gradient tree lives beside the f32
     one. The kernel run must be no further from f32 than the plain run is
     (x1.5), over the gradient leaves' worst relative error; given a
-    ``variant``, its K6 and K7 launches must all be on it."""
+    ``variant``, its K6 launches must all be on it and its K7 launches on
+    :func:`k7_variant`'s design."""
     import torch
     from repro_torch.data import tokens as DATA
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
@@ -4188,13 +4312,14 @@ def bf16_step_check(dev, cfg, batch=TRAIN_B, seq=TRAIN_S, variant=None):
         loss[run], grads = ST.loss_and_grads(
             Model(cfg, device=dev, backend=backend), params, batch)
         if variant and backend is None:
-            for kern, was in zip((K.KERNEL, BK.KERNEL), before):
+            for kern, was, want in zip((K.KERNEL, BK.KERNEL), before,
+                                       (variant, k7_variant(cfg, variant))):
                 delta = {v: n - was[v]
                          for v, n in kern.launches_by_variant.items()}
-                require(delta[variant] > 0
-                        and sum(delta.values()) == delta[variant],
+                require(delta[want] > 0
+                        and sum(delta.values()) == delta[want],
                         f"[train check] {cfg.name}: {kern.name} launched "
-                        f"{delta}, expected {variant} only")
+                        f"{delta}, expected {want} only")
         errs[run] = leaf_errs(grads, ref)
         del grads
         torch.cuda.empty_cache()
@@ -5216,7 +5341,7 @@ def kernel_rows(checks, by_path, by_variant):
                          "device_launches_per_call",
                          "floor_us",
                          "distinct_device_us", "distinct_row_scaled_err",
-                         "variants", "simt_device_us", "simt_ms",
+                         "variants", "simt_device_us", "simt_ms", "designs",
                          "simt_note", "abs_errs", "lse_errs", "mla",
                          "zamba2", "whisper", "llava", "variants_by_path",
                          "kinds_by_path")

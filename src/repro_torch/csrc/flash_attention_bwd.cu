@@ -18,13 +18,14 @@
 // is 4.29e10 flops, 43.4 us at the bf16 tensor-core rate; at MLA's (BH =
 // 512, Sq = Sk = 1024, D = 192, Dv = 128) 4.47e11 flops, 452 us.
 //
-// Two variants behind one C entry, chosen by the caller under the rule of
-// K6 (kernels/flash_attention/kernel.py variant()): "wgmma" for bf16 with
-// (D, Dv) in {(64, 64), (80, 80) (zamba2's), (128, 128), (192, 128)}
+// Three designs behind one C entry, chosen by the caller
+// (kernels/flash_attention/bwd_kernel.py variant(), on K6's rule,
+// kernel.py variant()): "fused" for bf16 with (D, Dv) in {(64, 64),
+// (128, 128)}, "wgmma" for bf16 at (80, 80) (zamba2's) and (192, 128)
 // (MLA's), "simt" for everything else (f32, whose 2e-5 contract TF32
-// tensor cores would break, and bf16 at other head dims).
-// The entry refuses a wgmma launch that breaks the rule. Neither uses
-// float atomics: every output element is summed by one thread in a fixed
+// tensor cores would break, and bf16 at other head dims). The entry
+// refuses a tensor-core launch that breaks the rule. None uses float
+// atomics in a free order: every output element is summed in a fixed
 // order, so a run repeats bit for bit.
 //
 // simt: all arithmetic in f32 FMAs on the CUDA cores (67 TFLOP/s at
@@ -82,40 +83,100 @@
 //       runs S^T = K Q^T and dP^T = V dO^T (both operands from shared
 //       memory, K-major), then p and ds in registers in one pass, then
 //       dV += P^T dO (P^T from registers, dO MN-major through the
-//       transpose bit) and dK += dS^T Q, each as two products, hi then lo. The same shared tile of Q
-//       (of dO) is the K-major B of S^T (dP^T) and the MN-major B of dK
-//       (dV), through two descriptors. The accumulator of S^T has keys as
-//       rows and queries as columns, so lse and Dsum are read from shared
-//       memory per fragment column. dK and dV stay in registers across the
-//       whole walk and are stored once, in bf16. A consumer skips a query
-//       tile that lies wholly before its keys (it only releases it); only
-//       tiles that cross the diagonal or the end of Sq or Sk are masked.
+//       transpose bit) and dK += dS^T Q, each as two products, hi then lo.
+//       The same shared tile of Q (of dO) is the K-major B of S^T (dP^T)
+//       and the MN-major B of dK (dV), through two descriptors. The
+//       accumulator of S^T has keys as rows and queries as columns, so lse
+//       and Dsum are read from shared memory per fragment column. dK and
+//       dV stay in registers across the whole walk and are stored once, in
+//       bf16. A consumer skips a query tile that lies wholly before its
+//       keys (it only releases it); only tiles that cross the diagonal or
+//       the end of Sq or Sk are masked.
 //   (c) attn_bwd_dq_wgmma_kernel: one block per (q head, 128-row query
 //       tile), heaviest first: K6's warpgroups with the Q and dO tiles
 //       loaded once and a 2-stage ring of K and V tiles (128 rows; 64 at
 //       D = 192, where 128-row tiles would take 241 KB of shared memory)
-//       up to the diagonal. Each consumer owns 64 query rows and runs S = Q K^T and
-//       dP = dO V^T (both from shared memory) and dQ += dS K (dS from
-//       registers, K MN-major), dS again as hi then lo. S and dP are
+//       up to the diagonal. Each consumer owns 64 query rows and runs S =
+//       Q K^T and dP = dO V^T (both from shared memory) and dQ += dS K (dS
+//       from registers, K MN-major), dS again as hi then lo. S and dP are
 //       committed apart, so p is computed while dP runs.
-//   Rounding points: S and dP accumulate in f32 from bf16 inputs; p =
-//   2^(s * scale * log2 e - lse * log2 e) in f32 with ex2.approx.ftz as in
-//   K6; ds = p * (dp - Dsum) * scale in f32; p (as dV's A operand) and ds
-//   (as dK's and dQ's) are each entered as a pair hi = bf16(x), lo =
-//   bf16(x - hi), so their products see 16 of x's mantissa bits; dk, dv and
-//   dq are rounded to bf16 once. A single bf16 rounding is not enough:
-//   rounded once, ds can put dq, and p can put dv, more than 1.5x further
-//   from the f32 gradient than the plain bf16 gradient (dv when one p
-//   dominates a key's sum, as in the full softmax with group 1);
-//   tests/test_torch_flash_bwd.py models the roundings.
 //   Operation count: 10 products against the 5 the bound counts: (b) runs
-//   4 + 2 (dV's and dK's lo), (c) 3 + 1 (dQ's lo). The lo products are the
-//   price of holding the x1.5 rule; recomputing S and dP in (c) is the
-//   price of determinism: summing dq inside (b) with float atomics (FA2's
-//   and FA3's way) would make runs differ in their last bits.
-//   Ragged Sq and Sk: the 3-D tensor maps (D, S, BH) zero-fill rows past S,
-//   and keys >= Sk and rows >= Sq are masked to p = 0. A barrier wait that
-//   exceeds ~2^34 cycles traps instead of hanging the card.
+//   4 + 2 (dV's and dK's lo), (c) 3 + 1 (dQ's lo), and (c) reloads Q, dO,
+//   K and V to recompute S and dP.
+//
+// fused: (a), then (d) and (e) in place of (b) and (c), at (D, Dv) = (64,
+// 64) and (128, 128), the head dims of granite, whisper, llama4-scout and
+// llava. (80, 80) keeps the three kernels, its products already split n64
+// + n16, and so does (192, 128), whose consumers' dK and dV take 160 of
+// their 240 registers.
+//   (d) attn_bwd_fused_wgmma_kernel: (b)'s block, warpgroups, ring and
+//       products, with dQ summed inside. Per query tile (64 rows) each
+//       consumer also writes its dS^T fragments (hi and lo) to its 64 key
+//       rows of a shared tile, 128-byte swizzled, and after a barrier of
+//       its own four warps (the two consumers keep their own pace, so one
+//       computes p and ds while the other's products run) computes the
+//       tile's dQ partial over its 64 keys: dS (MN-major A from shared
+//       memory) times its rows of the K tile the block holds (MN-major B
+//       through a second descriptor), hi then lo, 4 k16 steps each of N =
+//       64 per 64-column block of K, once dV and dK have freed their
+//       registers (a third 64-register accumulator beside theirs spilled
+//       at D = 128 and ran 2.5x slower; two of 32, committed apart, let
+//       block 0 be staged while block 1's product runs). The partial (64 x
+//       D f32) goes to a staging tile in shared memory in the registers'
+//       order; lane 0 of producer warp 1 + cw adds it into the f32
+//       accumulator acc (one 64 D-float tile per (q head, 64-row query
+//       tile)) with one bulk copy of the TMA engine, while the consumer
+//       goes on to the next tile. An earlier build split dQ's columns
+//       between the consumers over all 128 keys (half the adds), but the
+//       barrier between the two consumers each step held them in step,
+//       and it ran slower than (b) + (c) (PERF.md §6).
+//       Operation count: 8 products against the bound's 5 (dV's, dK's and
+//       dQ's lo), and Q, dO, K and V are read once.
+//   Determinism: the f32 additions into each acc tile happen in a fixed
+//       order, turn kConsumers * kt + cw for consumer cw of the block of
+//       key tile kt, from 0 up (both masks). One int32 counter per acc
+//       tile, zeroed by (a), orders them: a reducer spins (ld.acquire)
+//       until the counter reads its turn, stores its partial (turn 0, so
+//       acc needs no memset) or adds it (cp.reduce.async.bulk.add.f32),
+//       waits for the bulk operation to complete, and adds one to the
+//       counter (red.release); a consumer whose keys all lie past the
+//       tile (causal) has no partial and only takes its turn. Each spin
+//       traps after ~2^34 cycles, as the barrier waits do. dK and dV sum
+//       over query tiles in the walk's fixed order.
+//   No deadlock: a block takes its work item from a ticket (atomicAdd on a
+//       counter that (a) zeroes) in the order blocks actually start, not
+//       from blockIdx: ticket = kt * BHkv + kvh, lowest key tiles (the
+//       causally heaviest) first. A reducer waits only for the one before
+//       it in its tile's order: consumer 0 of its own block, or consumer 1
+//       of key tile kt - 1 of its kv head, whose ticket is lower. Either
+//       started before it and is running or done, and the lowest-ticket
+//       running block never waits on another block. No residency or
+//       launch order is assumed.
+//   The walk: query tiles from the last down to the first that reaches
+//       the block's keys, the group's heads inside each, so every block of
+//       a kv head meets query tile i of head g at the same step (nq - 1 -
+//       i) group + g. Under the causal mask a key tile's block only walks
+//       fewer steps; block kt meets each tile when block kt - 1 does and
+//       adds right after it, not a walk later (blocks in later waves of the
+//       grid start later and find their turn come). The same walk without
+//       the mask: a rotated walk would make a block wait on a later ticket.
+//   (e) attn_bwd_dq_convert_kernel: acc to bf16 dq, rounded once.
+//   Shared memory at (128, 128): 225 KB of tiles (FusedLayout).
+//
+// Rounding points (wgmma and fused): S and dP accumulate in f32 from bf16
+// inputs; p = 2^(s * scale * log2 e - lse * log2 e) in f32 with
+// ex2.approx.ftz as in K6; ds = p * (dp - Dsum) * scale in f32; p (as dV's
+// A operand) and ds (as dK's and dQ's) are each entered as a pair hi =
+// bf16(x), lo = bf16(x - hi), so their products see 16 of x's mantissa
+// bits; dk, dv and dq are rounded to bf16 once (fused: dq after the f32
+// sum over key tiles). A single bf16 rounding is not enough: rounded once,
+// ds can put dq, and p can put dv, more than 1.5x further from the f32
+// gradient than the plain bf16 gradient (dv when one p dominates a key's
+// sum, as in the full softmax with group 1); tests/test_torch_flash_bwd.py
+// models the roundings. The lo products are the price of holding the x1.5
+// rule. Ragged Sq and Sk: the 3-D tensor maps (D, S, BH) zero-fill rows
+// past S, and keys >= Sk and rows >= Sq are masked to p = 0. A barrier
+// wait that exceeds ~2^34 cycles traps instead of hanging the card.
 //
 // Masked (query, key) pairs (keys >= Sk, rows >= Sq, and keys past the
 // row under the top-left causal mask) get p = 0, as exp(-1e30 - lse) is in
@@ -607,16 +668,20 @@ __host__ __device__ constexpr int prep_lanes() {
 // (a) Dsum and lse * log2 e of every query row, each head padded to Sp rows
 // (Dsum 0 and lse * log2 e = +inf past Sq): prep_lanes lanes per row, each
 // of the first Dv / 8 loading 16 bytes of o and of do. Sp is a multiple of
-// kRowPad, so every warp is whole.
+// kRowPad, so every warp is whole. The first `nzero` threads also zero
+// zero[] (the fused design's counters and ticket; none for the others).
 template <int Dv>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
                      const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, float* __restrict__ lse2,
-                     float* __restrict__ dsum, int BH, int Sq, int Sp) {
+                     float* __restrict__ dsum, int* __restrict__ zero,
+                     int nzero, int BH, int Sq, int Sp) {
   constexpr int kLanes = prep_lanes<Dv>();
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (gid < nzero) zero[gid] = 0;
+  const long long row = gid / kLanes;
   const int part = threadIdx.x % kLanes;
   if (row >= static_cast<long long>(BH) * Sp) return;  // whole warps
   const int bh = static_cast<int>(row / Sp);
@@ -1186,6 +1251,390 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// Shared memory of (d), the fused design at (D, D) = (64, 64) and (128,
+// 128): (b)'s K, V and 2-stage rings of 64-row Q and dO tiles, then dS^T of
+// the block's 128 keys x 64 queries as bf16 hi and lo (keys as rows,
+// 128-byte swizzled: the MN-major A of dQ; each consumer its 64 rows), one
+// f32 staging tile per consumer (its 64 x D dQ partial, in its registers'
+// order), the (lse2, Dsum) ring, the mbarriers full_kv, full[], empty[],
+// dq_full[], dq_empty[] and the block's ticket; plus 1024 bytes of
+// alignment. At D = 128: 225 KB of tiles, of the 227 KB a block may have.
+template <int D>
+struct FusedLayout {
+  static_assert(D == 64 || D == 128, "the fused design takes D = 64, 128");
+  static constexpr int kBQ = kDkdvBQ;                   // query rows a step
+  static constexpr int kBlocks = D / 64;                // 64-column blocks
+  static constexpr int kKBlock = kDkdvBK * kRowBytes;   // one block of K, V
+  static constexpr int kKBytes = kKBlock * kBlocks;
+  static constexpr int kQBlock = kBQ * kRowBytes;       // one of Q or dO
+  static constexpr int kQBytes = kQBlock * kBlocks;     // one stage
+  static constexpr int kDsBytes = kDkdvBK * kRowBytes;  // dS^T hi (or lo)
+  static constexpr int kStageBytes = kBQ * D * 4;      // a consumer's dQ
+  static constexpr int kVecBytes = kBQ * 4;
+  static constexpr int kQOff = 2 * kKBytes;
+  static constexpr int kDoOff = kQOff + kStages * kQBytes;
+  static constexpr int kDsOff = kDoOff + kStages * kQBytes;
+  static constexpr int kStageOff = kDsOff + 2 * kDsBytes;
+  static constexpr int kVecOff = kStageOff + kConsumers * kStageBytes;
+  static constexpr int kBarOffset = kVecOff + kStages * 2 * kVecBytes;
+  static constexpr int kBars = 1 + 2 * kStages + 2 * kConsumers;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * kBars + 16;
+  static_assert(kSmem <= kMaxSmem, "K7 (d)'s tiles exceed shared memory");
+  static_assert(kRowPad % kBQ == 0, "a tile's lse2 / Dsum leave the head");
+};
+
+// (d) dK, dV and dQ: one block per (kv head, 128-row key tile), (b)'s
+// warpgroups and tiles, with each consumer's dQ partial over its 64 keys
+// summed into acc in a fixed order (the design note at the top of this
+// file)
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attn_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse2,
+                            const float* __restrict__ dsum,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv,
+                            float* __restrict__ acc, int* __restrict__ count,
+                            int* __restrict__ ticket, int BHkv, int group,
+                            int Sq, int Sk, int Sp, float scale,
+                            float scale_log2, int causal) {
+  using L = FusedLayout<D>;
+  constexpr int BQ = L::kBQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sk = aligned_smem(smem_raw);
+  uint8_t* const sv = sk + L::kKBytes;
+  uint8_t* const sq = sk + L::kQOff;                   // [kStages][kQBytes]
+  uint8_t* const sdo = sk + L::kDoOff;                 // [kStages][kQBytes]
+  uint8_t* const sds = sk + L::kDsOff;                 // hi, lo
+  uint8_t* const sstage = sk + L::kStageOff;           // [kConsumers]
+  float* const svec =                                  // [kStages][2][BQ]
+      reinterpret_cast<float*>(sk + L::kVecOff);
+  uint64_t* const full_kv = reinterpret_cast<uint64_t*>(sk + L::kBarOffset);
+  uint64_t* const full = full_kv + 1;
+  uint64_t* const empty = full + kStages;
+  uint64_t* const dq_full = empty + kStages;
+  uint64_t* const dq_empty = dq_full + kConsumers;
+  int* const sticket = reinterpret_cast<int*>(dq_empty + kConsumers);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kConsumers);   // lane 0 of each consumer warp
+    }
+#pragma unroll
+    for (int c = 0; c < kConsumers; ++c) {
+      mbar_init(dq_full + c, 4);              // lane 0 of the consumer's warps
+      mbar_init(dq_empty + c, 1);             // its reducer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the work item in the order blocks start: lowest key tiles (under
+    // the causal mask the heaviest) first
+    *sticket = atomicAdd(ticket, 1);
+  }
+  __syncthreads();
+
+  const int item = *sticket;
+  const int kvh = item % BHkv;
+  const int kt = item / BHkv;                 // the key tile, and this
+  const int k0 = kt * kDkdvBK;                // block's place in dQ's order
+  const int nq = (Sq + BQ - 1) / BQ;
+  // query tiles from the last down to the first that reaches the block's
+  // keys (causal) or to 0, the group's heads inside each: step it is query
+  // tile nq - 1 - it / group of head kvh * group + it % group, the same
+  // step in every block of the kv head
+  const int qt0 = causal ? min(k0 / BQ, nq) : 0;
+  const int n_tiles = (nq - qt0) * group;
+  const int nq_acc = Sp / BQ;                 // acc's query tiles per head
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: thread 0 loads, lane 0 of warps 1 and 2 add the
+    // two consumers' dQ partials into acc
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_kv, 2 * L::kKBytes);
+#pragma unroll
+      for (int b = 0; b < L::kBlocks; ++b) {
+        tma_load(sk + b * L::kKBlock, &tk, full_kv, 64 * b, k0, kvh);
+        tma_load(sv + b * L::kKBlock, &tv, full_kv, 64 * b, k0, kvh);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int bh = kvh * group + it % group;
+        const int q0 = (nq - 1 - it / group) * BQ;
+        const int s = it % kStages;
+        mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * L::kQBytes + 2 * L::kVecBytes);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b) {
+          tma_load(sq + s * L::kQBytes + b * L::kQBlock, &tq, full + s,
+                   64 * b, q0, bh);
+          tma_load(sdo + s * L::kQBytes + b * L::kQBlock, &tdo, full + s,
+                   64 * b, q0, bh);
+        }
+        const long long row = static_cast<long long>(bh) * Sp + q0;
+        bulk_load(svec + s * 2 * BQ, lse2 + row, L::kVecBytes, full + s);
+        bulk_load(svec + s * 2 * BQ + BQ, dsum + row, L::kVecBytes,
+                  full + s);
+      }
+    } else if ((threadIdx.x & 31) == 0 && threadIdx.x < 32 * (1 + kConsumers)) {
+      // consumer cw's partial of each step goes to acc tile (bh, query
+      // tile) in its turn, kConsumers * kt + cw, once the (key tile,
+      // consumer) pairs before it have added theirs: the first stores it,
+      // the others add it; a consumer whose keys all lie past the tile
+      // (causal) has no partial and only takes its turn
+      const int cw = threadIdx.x / 32 - 1;
+      const int turn = kConsumers * kt + cw;
+      const uint8_t* const stage = sstage + cw * L::kStageBytes;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int qt = nq - 1 - it / group;
+        const long long tile =
+            static_cast<long long>(kvh * group + it % group) * nq_acc + qt;
+        mbar_wait(dq_full + cw, it & 1);
+        wait_count(count + tile, turn);
+        if (!(causal && (qt + 1) * BQ <= k0 + 64 * cw)) {
+          fence_async_global();
+          float* const dst = acc + tile * (L::kStageBytes / 4);
+          if (turn == 0)
+            bulk_store(dst, stage, L::kStageBytes);
+          else
+            bulk_add_f32(dst, stage, L::kStageBytes);
+          bulk_commit();
+          bulk_wait_read();
+          mbar_arrive(dq_empty + cw);         // the stage may be refilled
+          bulk_wait();
+          fence_async_global();
+        } else {
+          mbar_arrive(dq_empty + cw);
+        }
+        release_count(count + tile);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  // consumer warpgroups: cw owns keys kb .. kb + 63
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb = k0 + 64 * cw;
+  const int key0 = kb + 16 * warp + g, key1 = key0 + 8;  // this thread's keys
+  const uint64_t dka = make_desc(sk + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t dva = make_desc(sv + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t dqk = make_desc(sq, 16, 1024);
+  const uint64_t dok = make_desc(sdo, 16, 1024);
+  const uint64_t dqm = make_desc(sq, L::kQBlock, 1024);
+  const uint64_t dom = make_desc(sdo, L::kQBlock, 1024);
+  // dQ's partial = dS K over this warpgroup's keys: its rows of dS^T
+  // (keys as rows) as the MN-major A, its rows of the K tile as the
+  // MN-major B (64 columns at a time)
+  const uint64_t dsa = make_desc(sds + cw * 64 * kRowBytes, L::kDsBytes,
+                                 1024);
+  const uint64_t dkq = make_desc(sk + cw * 64 * kRowBytes, L::kKBlock, 1024);
+  // this thread's two key rows of dS^T (local rows r and r + 8, r & 7 = g)
+  uint8_t* const ds_row = sds + (64 * cw + 16 * warp + g) * kRowBytes;
+  float2* const stage =
+      reinterpret_cast<float2*>(sstage + cw * L::kStageBytes) + tid;
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float adk[D / 2], adv[D / 2], adq[L::kBlocks][32], st[BQ / 2],
+      dpt[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t ph[BQ / 16][4], pl[BQ / 16][4];
+  uint32_t dh[BQ / 16][4], dl[BQ / 16][4];
+
+  mbar_wait(full_kv, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (nq - 1 - it / group) * BQ;
+    const int s = it % kStages;
+    mbar_wait(full + s, (it / kStages) & 1);
+    // causal: a tile wholly before this warpgroup's keys adds nothing
+    const bool mine = !(causal && q0 + BQ <= kb);
+    if (mine) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_row = (kk % 4) * 32;
+        const uint32_t oa = (kk / 4) * L::kKBlock + in_row;
+        const uint32_t ob = s * L::kQBytes + (kk / 4) * L::kQBlock + in_row;
+        wgmma_ss(st, dka + (oa >> 4), dqk + (ob >> 4), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_row = (kk % 4) * 32;
+        const uint32_t oa = (kk / 4) * L::kKBlock + in_row;
+        const uint32_t ob = s * L::kQBytes + (kk / 4) * L::kQBlock + in_row;
+        wgmma_ss(dpt, dva + (oa >> 4), dok + (ob >> 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(st);
+      keep(dpt);
+      const float* const vec = svec + s * 2 * BQ;
+      const bool edge =
+          (causal && q0 < kb + 63) || kb + 64 > Sk || q0 + BQ > Sq;
+      p_ds_tile(
+          st, dpt, ph, pl, dh, dl, edge,
+          [&](int j, int e) {
+            const int key = e < 2 ? key0 : key1;
+            const int qp = q0 + 8 * j + 2 * t + (e & 1);
+            return key >= Sk || qp >= Sq || (causal && key > qp);
+          },
+          [&](int j, int e) { return -vec[8 * j + 2 * t + (e & 1)]; },
+          [&](int j, int e) { return vec[BQ + 8 * j + 2 * t + (e & 1)]; },
+          scale_log2, scale);
+      // dS^T rows key0 (fragment registers 0, 2) and key1 (1, 3); queries
+      // 16kk + 2t (0, 1) and + 8 (2, 3): a 4-byte word in 16-byte chunk c
+      // of the 128-byte swizzled row, at chunk c ^ (row & 7) = c ^ g. The
+      // last step's dQ product, which read these rows, is done.
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int off = (r & 1) * 8 * kRowBytes +
+                          (((2 * kk + (r >> 1)) ^ g) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(ds_row + off) = dh[kk][r];
+          *reinterpret_cast<uint32_t*>(ds_row + L::kDsBytes + off) =
+              dl[kk][r];
+        }
+      fence_async_smem();
+      // dV += P^T dO, dK += dS^T Q (each hi, then lo), as in (b)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(adv, ph[kk],
+                 dom + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(adv, pl[kk],
+                 dom + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(adk, dh[kk],
+                 dqm + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(adk, dl[kk],
+                 dqm + ((s * L::kQBytes + kk * 16 * kRowBytes) >> 4));
+      wgmma_commit();
+      // this warpgroup's dS^T rows are written (its own barrier: the
+      // other consumer goes its own pace)
+      named_sync(1 + cw, 128);
+      wgmma_wait<0>();
+      keep(adv);
+      keep(adk);
+      keep(ph);
+      keep(pl);
+      keep(dh);
+      keep(dl);
+    }
+    release(empty + s);                       // Q, dO, lse2, Dsum read
+    // dQ's partial = dS K over this warpgroup's 64 keys (4 k16 steps), hi
+    // then lo, once dV and dK have freed their registers: one N = 64
+    // product per 64-column block of K, each into its own 32 registers and
+    // committed apart (at D = 128 one 64-register accumulator beside dK's
+    // and dV's spilled), so block 0 is staged while block 1's runs. The
+    // staging tile holds pair i of thread tid at i * 128 + tid (the layout
+    // of one m64nD accumulator) and is refilled once the reducer has read
+    // the last partial; then it is handed over (a tile before this
+    // warpgroup's keys hands over nothing).
+    mbar_wait(dq_empty + cw, (it & 1) ^ 1);
+    if (mine) {
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < L::kBlocks; ++b) {
+        const uint32_t ob = b * L::kKBlock;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_tt(adq[b], dsa + ((kk * 16 * kRowBytes) >> 4),
+                      dkq + ((ob + kk * 16 * kRowBytes) >> 4), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_tt(adq[b],
+                      dsa + ((L::kDsBytes + kk * 16 * kRowBytes) >> 4),
+                      dkq + ((ob + kk * 16 * kRowBytes) >> 4), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<L::kBlocks - 1>();
+      keep(adq[0]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        stage[i * 128] = make_float2(adq[0][2 * i], adq[0][2 * i + 1]);
+      if (L::kBlocks == 2) {
+        constexpr int b = L::kBlocks - 1;
+        wgmma_wait<0>();
+        keep(adq[b]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          stage[(16 * b + i) * 128] =
+              make_float2(adq[b][2 * i], adq[b][2 * i + 1]);
+      }
+      fence_async_smem();
+    }
+    release(dq_full + cw);
+  }
+
+  // dK and dV (D wide), rounded to bf16 once
+  const long long base = static_cast<long long>(kvh) * Sk;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (key0 < Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + (base + key0) * D + col) =
+          __floats2bfloat162_rn(adk[4 * j], adk[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + (base + key0) * D + col) =
+          __floats2bfloat162_rn(adv[4 * j], adv[4 * j + 1]);
+    }
+    if (key1 < Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + (base + key1) * D + col) =
+          __floats2bfloat162_rn(adk[4 * j + 2], adk[4 * j + 3]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + (base + key1) * D + col) =
+          __floats2bfloat162_rn(adv[4 * j + 2], adv[4 * j + 3]);
+    }
+  }
+}
+
+// (e) dq from acc, rounded to bf16 once: one thread per float pair of a
+// staged partial, whose place in the staging tile (pair i of consumer
+// thread tid) names its two elements: row 16 w + g + 8 (i & 1) of the
+// query tile and columns 8 (i >> 1) + 2t, + 1 (the accumulator layout of
+// hopper.cuh)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_convert_kernel(const float* __restrict__ acc,
+                           __nv_bfloat16* __restrict__ dq, int BH, int Sq,
+                           int nq, int nq_acc) {
+  constexpr int kPairs = D / 4;
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int tid = static_cast<int>(gid % 128);
+  long long rest = gid / 128;
+  const int i = static_cast<int>(rest % kPairs);
+  rest /= kPairs;
+  const int qt = static_cast<int>(rest % nq);
+  const long long bh = rest / nq;
+  const int w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const int row = qt * kDkdvBQ + 16 * w + g + 8 * (i & 1);
+  if (bh >= BH || row >= Sq) return;
+  const int col = 8 * (i >> 1) + 2 * t;
+  const long long tile = bh * nq_acc + qt;
+  const float2 x = reinterpret_cast<const float2*>(
+      acc + tile * (kDkdvBQ * D))[i * 128 + tid];
+  *reinterpret_cast<__nv_bfloat162*>(dq + (bh * Sq + row) * D + col) =
+      __floats2bfloat162_rn(x.x, x.y);
+}
+
 // The register count the kernel starts with must be the 168 setmaxnreg's
 // 24 / 240 / 240 regrouping assumes: with fewer, setmaxnreg.inc would wait
 // for registers that never come. Looked up once per kernel.
@@ -1216,7 +1665,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   attn_bwd_prep_kernel<Dv><<<static_cast<unsigned>(lanes / kThreads),
                              kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), lse, lse2, dsum, BH, Sq, Sp);
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2, dsum, nullptr, 0,
+      BH, Sq, Sp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -1266,19 +1716,83 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fused design at (D, D): (a) zeroing dQ's counters and the ticket,
+// (d), then (e). scratch: lse2 and Dsum (2, BH, Sp), acc (BH, Sp / 64,
+// 64 D) f32, count (BH, Sp / 64) int32, then the ticket.
+template <int D>
+int launch_fused(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* scratch,
+                 void* dq, void* dk, void* dv, int BH, int group, int Sq,
+                 int Sk, float scale, int causal, cudaStream_t stream) {
+  using F = FusedLayout<D>;
+  const int BHkv = BH / group;
+  const int Sp = (Sq + kRowPad - 1) / kRowPad * kRowPad;
+  const int nq_acc = Sp / kDkdvBQ;
+  float* const lse2 = scratch;
+  float* const dsum = scratch + static_cast<long long>(BH) * Sp;
+  float* const acc = scratch + 2LL * BH * Sp;
+  int* const count = reinterpret_cast<int*>(acc + static_cast<long long>(BH) *
+                                                      Sp * D);
+  const int n_count = BH * nq_acc;
+  int* const ticket = count + n_count;
+  const long long lanes = static_cast<long long>(BH) * Sp * prep_lanes<D>();
+  attn_bwd_prep_kernel<D><<<static_cast<unsigned>(lanes / kThreads),
+                            kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2, dsum, count,
+      n_count + 1, BH, Sq, Sp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  EncodeTiled enc;
+  const int rc = get_encoder(&enc);
+  if (rc != 0) return rc;
+  CUtensorMap mq, mdo, mk, mv;
+  CUresult r = encode(enc, &mq, q, BH, Sq, D, F::kBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &mdo, dout, BH, Sq, D, F::kBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &mk, k, BHkv, Sk, D, kDkdvBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &mv, v, BHkv, Sk, D, kDkdvBK);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+
+  static int regs = -1;
+  auto kernel = attn_bwd_fused_wgmma_kernel<D>;
+  e = check_regs(kernel, &regs);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nkt = (Sk + kDkdvBK - 1) / kDkdvBK;
+  kernel<<<nkt * BHkv, kWgThreads, F::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse2, dsum, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), acc, count, ticket, BHkv, group, Sq,
+      Sk, Sp, scale, scale * kLog2e, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nq = (Sq + kDkdvBQ - 1) / kDkdvBQ;
+  // BH * nq * (D / 4) * 128 float pairs, kThreads to a block
+  attn_bwd_dq_convert_kernel<D><<<BH * nq * (D / 8), kThreads, 0, stream>>>(
+      acc, static_cast<__nv_bfloat16*>(dq), BH, Sq, nq, nq_acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, dq: (BH, Sq, D); o, do: (BH, Sq, Dv); k, dk: (BH / group, Sk, D); v,
 // dv: (BH / group, Sk, Dv); lse (BH, Sq) f32. scratch: f32, (BH, Sq) for
 // simt (Dsum); (2, BH, Sp) for wgmma (lse * log2 e and Dsum), Sp = Sq
-// rounded up to a multiple of kRowPad. dtype: 0 = float32, 1 = bfloat16
-// (every tensor but lse and scratch). variant: 0 = simt (any dtype and
-// head dims up to 256), 1 = wgmma (bf16 with (D, Dv) in {(64, 64), (80,
-// 80), (128, 128), (192, 128)} only: the rule of kernel.py variant(),
-// which names the variant). Launches (a), (b), (c) in order on `stream`;
-// returns 0, the first cudaError_t (cudaErrorInvalidKernelImage when a
-// wgmma kernel was not built with the 168 registers its setmaxnreg
-// regrouping needs), or -CUresult when a tensor map cannot be made.
+// rounded up to a multiple of kRowPad; for fused that, then dQ's f32
+// accumulator (BH, Sp, D) and BH * Sp / kDkdvBQ + 1 int32 (bwd_kernel.py
+// scratch_numel). dtype: 0 = float32, 1 = bfloat16 (every
+// tensor but lse and scratch). variant: 0 = simt (any dtype and head dims
+// up to 256), 1 = wgmma (the three kernels; bf16 with (D, Dv) in {(64,
+// 64), (80, 80), (128, 128), (192, 128)} only: the rule of kernel.py
+// variant()), 2 = fused (bf16 with (D, Dv) in {(64, 64), (128, 128)}
+// only: bwd_kernel.py variant(), which names the variant). Launches (a),
+// (b), (c), or (a), (d), (e), in order on `stream`; returns 0, the first
+// cudaError_t (cudaErrorInvalidKernelImage when a wgmma kernel was not
+// built with the 168 registers its setmaxnreg regrouping needs), or
+// -CUresult when a tensor map cannot be made.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
@@ -1304,6 +1818,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const bool tensor_cores =
       dtype == 1 && ((D == 64 && Dv == 64) || (D == 80 && Dv == 80) ||
                      (D == 128 && Dv == 128) || (D == 192 && Dv == 128));
+  if (variant == 2) {
+    // the rule of bwd_kernel.py variant()
+    const bool fused = tensor_cores && D == Dv && (D == 64 || D == 128);
+    if (!fused) return static_cast<int>(cudaErrorInvalidValue);
+    if (D == 64)
+      return launch_fused<64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH, group,
+                              Sq, Sk, scale, causal, s);
+    return launch_fused<128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH, group,
+                             Sq, Sk, scale, causal, s);
+  }
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
     if (D == 64)

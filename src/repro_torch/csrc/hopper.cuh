@@ -405,6 +405,103 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[96],
   wgmma_rs_m64n192(d, a, db);
 }
 
+// d (64 x N, f32) (+)= A (64 x 16, smem) * B (16 x N, smem), both MN-major
+// (A's rows and B's columns contiguous): N = 64; d is overwritten instead
+// when scale_d is 0
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// generic-proxy writes to shared memory before an async-proxy reader
+// (wgmma, a bulk copy out) that a barrier then releases
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// order global accesses between the generic and the async proxy
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// `bytes` of shared memory into device memory by the TMA engine, stored
+// or added (f32) there; both addresses 16-byte aligned, bytes a multiple of
+// 16. The operation joins the thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_add_f32(float* dst, const void* src,
+                                             uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until the thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// wait until the thread's bulk groups are complete (their writes done)
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// `threads` threads (whole warps) meet at named barrier `id` (1..15)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// spin until the int at `p` (device memory) reads `want` (acquire, GPU
+// scope); trap after ~2^34 cycles, as mbar_wait does
+__device__ __forceinline__ void wait_count(const int* p, int want) {
+  long long t0 = 0;
+  while (true) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(reinterpret_cast<uint64_t>(p))
+                 : "memory");
+    if (v == want) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > kWaitLimit) {
+      __trap();
+    }
+  }
+}
+// add one to the int at `p` (release, GPU scope)
+__device__ __forceinline__ void release_count(int* p) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(p)),
+               "r"(1)
+               : "memory");
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));

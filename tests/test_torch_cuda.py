@@ -752,16 +752,18 @@ _BWD_SHAPES = [
     (24, 1500, 1500, 64, 64, 1),
     # llava's 3904 positions (2880 patches + 1024 tokens), group 4
     (8, 3904, 3904, 128, 128, 4)]
-# every shape in f32 (simt) and bf16; a bf16 shape the wgmma kernels take
-# ((D, Dv) in WGMMA_HEAD_DIMS) runs on wgmma and once more forced to simt
+# every shape in f32 (simt) and bf16; a bf16 shape the tensor cores take
+# ((D, Dv) in WGMMA_HEAD_DIMS) runs on its design (fused at
+# FUSED_HEAD_DIMS, else the three-kernel wgmma one), then forced onto the
+# three-kernel design (where the rule names fused) and onto simt
+_BWD_DESIGNS = {"fused": ("fused", "wgmma", "simt"),
+                "wgmma": ("wgmma", "simt"), "simt": ("simt",)}
 _BWD_CASES = [
     (dtype, causal, *shape, variant)
     for dtype in (torch.float32, torch.bfloat16)
     for causal in (True, False)
     for shape in _BWD_SHAPES
-    for variant in (("wgmma", "simt")
-                    if AK.variant(dtype, shape[3], shape[4]) == "wgmma"
-                    else ("simt",))]
+    for variant in _BWD_DESIGNS[BK.variant(dtype, shape[3], shape[4])]]
 
 
 @pytest.mark.parametrize("dtype,causal,BH,Sq,Sk,D,Dv,group,variant",
@@ -779,7 +781,7 @@ def test_flash_bwd_matches_plain(cuda, dtype, causal, BH, Sq, Sk, D, Dv,
     q, k, v, o, lse, do = _bwd_inputs(cuda, BH, Sq, Sk, D, Dv, group, dtype,
                                       causal, BH * Sq + Sk + D)
     before = dict(BK.KERNEL.launches_by_variant)
-    forced = None if variant == AK.variant(dtype, D, Dv) else variant
+    forced = None if variant == BK.variant(dtype, D, Dv) else variant
     got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, group=group,
                                       causal=causal, force_variant=forced)
     assert BK.KERNEL.launches_by_variant == {
@@ -816,6 +818,46 @@ def test_flash_bwd_is_deterministic(cuda, variant, D):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("BH,S,D,group,causal", [
+    (12, 1500, 64, 1, False),     # whisper's encoder, 2 x 6 heads
+    (16, 3904, 128, 4, True),     # llava's 3904 positions, 4 q heads a kv
+    (32, 1024, 64, 4, True),      # granite's training shape, 8 x 4 heads
+    (8, 333, 128, 4, False), (12, 200, 64, 1, True)])
+def test_flash_bwd_fused_matches_the_other_designs(cuda, BH, S, D, group,
+                                                   causal):
+    """The fused design (dQ summed inside the dK, dV kernel in key-tile
+    order) at whisper's and llava's shapes with fewer heads: launched and
+    counted as "fused", no further from the f32 plain gradient than the
+    bf16 plain gradient is (x1.5), as are the forced three-kernel and SIMT
+    designs on the same inputs; the fused and three-kernel gradients
+    differ only in f32 summation orders, so within 2^-7 of max |grad| (two
+    bf16 steps at the largest element); and two fused runs give the same
+    bits."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, BH, S, S, D, D, group,
+                                      torch.bfloat16, causal, BH + S + D)
+    assert BK.variant(q.dtype, D, D) == "fused"
+    kw = dict(group=group, causal=causal)
+    runs = {}
+    for name in ("fused", "wgmma", "simt"):
+        before = dict(BK.KERNEL.launches_by_variant)
+        runs[name] = BK.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, force_variant=None if name == "fused"
+            else name, **kw)
+        assert BK.KERNEL.launches_by_variant == {
+            **before, name: before[name] + 1}
+    again = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = FR.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    f32 = FR.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)),
+                                     lse, do.float(), **kw)
+    torch.cuda.synchronize()
+    err_p = _grad_err(want, f32)
+    for name, got in runs.items():
+        assert all(bool(torch.isfinite(g.float()).all()) for g in got), name
+        assert _grad_err(got, f32) <= 1.5 * err_p, name
+    assert _grad_err(runs["fused"], runs["wgmma"]) <= 2.0 ** -7
+    assert all(torch.equal(a, b) for a, b in zip(runs["fused"], again))
+
+
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
                                      (torch.bfloat16, 16)])
 def test_flash_bwd_forced_wgmma_refuses(cuda, dtype, D):
@@ -834,8 +876,8 @@ def test_flash_bwd_forced_wgmma_refuses(cuda, dtype, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_function_on_card(cuda, dtype):
     """``flash_attention`` with inputs that require grad runs K6 (with
-    lse) forward and K7 backward (bf16 on K7's wgmma kernels, f32 on its
-    simt ones), and its gradients equal autograd through the plain
+    lse) forward and K7 backward (bf16 on K7's fused tensor-core kernels
+    at head dim 64, f32 on its simt ones), and its gradients equal autograd through the plain
     version (f32 2e-5 of max |grad|; bf16 by the x1.5 rule against the
     f32 gradient)."""
     q, k, v = _qkv(cuda, 16, 257, 257, 64, 64, 4, dtype, 21)
@@ -853,7 +895,8 @@ def test_flash_attention_function_on_card(cuda, dtype):
     by_variant = dict(BK.KERNEL.launches_by_variant)
     out, got = grads(None)
     assert (AK.KERNEL.launches, BK.KERNEL.launches) == (b6 + 1, b7 + 1)
-    ran = "wgmma" if dtype == torch.bfloat16 else "simt"
+    ran = "fused" if dtype == torch.bfloat16 else "simt"
+    assert BK.variant(dtype, 64, 64) == ran
     assert BK.KERNEL.launches_by_variant == {
         **by_variant, ran: by_variant[ran] + 1}
     ref_out, want = grads("ref")

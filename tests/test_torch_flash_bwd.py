@@ -289,14 +289,17 @@ def _pair(x, split):
 
 
 def wgmma_model(q, k, v, o, lse, do, *, group, causal, split_p=True,
-                split_ds=True):
+                split_ds=True, dq_tile=None):
     """The wgmma kernels' arithmetic in plain torch (f32 on bf16 inputs), at
     any head dims D (q, k) and Dv (v, o, do), scale D ** -0.5:
     S and dP from bf16 operands in f32; p = 2^(s scale log2 e - lse log2
     e); ds = p (dp - Dsum) scale; p enters dV = P^T dO and ds enters
     dK = dS^T Q and dQ = dS K as bf16 hi and lo pairs (a single bf16
     rounding with ``split_p`` / ``split_ds`` False); dk, dv summed over
-    the group, outputs rounded to bf16 once."""
+    the group, outputs rounded to bf16 once. With ``dq_tile`` (the fused
+    design's keys per consumer), dq is the f32 sum of per-tile partials
+    (dS_hi + dS_lo) K, taken in the fused kernel's order: the first
+    tile's stored, the later ones added one by one, then rounded once."""
     BH, Sq, D = q.shape
     BHkv, Sk, Dv = v.shape
     scale = D ** -0.5
@@ -312,7 +315,15 @@ def wgmma_model(q, k, v, o, lse, do, *, group, causal, split_p=True,
     dp = torch.einsum("bqe,bke->bqk", dd, vv)
     ds = p * (dp - dsum[..., None]) * scale
     parts = _pair(ds, split_ds)
-    dq = sum(torch.einsum("bqk,bkd->bqd", a, kk) for a in parts)
+    if dq_tile is None:
+        dq = sum(torch.einsum("bqk,bkd->bqd", a, kk) for a in parts)
+    else:
+        dq = None
+        for k0 in range(0, Sk, dq_tile):
+            cut = slice(k0, k0 + dq_tile)
+            part = sum(torch.einsum("bqk,bkd->bqd", a[..., cut], kk[:, cut])
+                       for a in parts)
+            dq = part if dq is None else dq + part
     dk = sum(torch.einsum("bqk,bqd->bkd", a, qq) for a in parts)
     dk = dk.reshape(BHkv, group, Sk, D).sum(1)
     dv = dv.reshape(BHkv, group, Sk, Dv).sum(1)
@@ -377,6 +388,219 @@ def test_wgmma_rounding_model_holds_the_bf16_rule_at_mla_head_dims(causal,
             assert a.shape == b.shape and a.dtype == torch.bfloat16
         assert got[2].shape[-1] == 128 and got[0].shape[-1] == 192
         assert _grad_err(got, f32) <= 1.5 * _grad_err(plain, f32), seed
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("D,S", [(64, 45), (64, 300), (128, 150)])
+def test_fused_dq_model_holds_the_bf16_rule(D, S, group, causal):
+    """Over seeds 0-3 at BH 8, ragged S (one to five 64-key halves of the
+    128-key tiles), D 64 and 128: the fused design's dq, f32 partials per
+    consumer (64 keys) summed in its order and rounded once, keeps the
+    gradient no further from the f32 gradient than the plain bf16 gradient
+    is, x1.5."""
+    c = _consts()
+    tile = int(c["kDkdvBK"]) // int(c["kConsumers"])
+    for seed in range(4):
+        args, plain, f32 = _bf16_case(seed, 8, S, D, group, causal)
+        got = wgmma_model(*args, group=group, causal=causal, dq_tile=tile)
+        assert got[0].shape == plain[0].shape
+        assert _grad_err(got, f32) <= 1.5 * _grad_err(plain, f32), seed
+
+
+# -- the fused design's order of dQ's additions ---------------------------------
+
+def _consts():
+    return dict(re.findall(r"constexpr int (k\w+) = (\d+);", open(SRC).read()))
+
+
+def fused_schedule(BHkv, group, Sq, Sk, causal):
+    """A mirror of attn_bwd_fused_wgmma_kernel's order, from the source's
+    tiles: {ticket: (kvh, kt, [(q head, query tile, {consumer: turn})
+    per step])}, the ticket kt * BHkv + kvh, the walk from the last query
+    tile down to the first that reaches the block's keys (causal) or to
+    0, heads inside. Consumer cw (keys 128 kt + 64 cw ..) adds its dQ
+    partial of a step to acc tile (q head, query tile) once that tile's
+    counter reads its turn, kConsumers kt + cw; under the causal mask a
+    consumer whose keys all lie past the tile only takes its turn, with
+    no partial (turn None here)."""
+    c = _consts()
+    BQ, BKT, NC = int(c["kDkdvBQ"]), int(c["kDkdvBK"]), int(c["kConsumers"])
+    half = BKT // NC
+    nq, nk = -(-Sq // BQ), -(-Sk // BKT)
+    blocks = {}
+    for ticket in range(nk * BHkv):
+        kvh, kt = ticket % BHkv, ticket // BHkv
+        qt0 = min(kt * BKT // BQ, nq) if causal else 0
+        steps = []
+        for it in range((nq - qt0) * group):
+            qt = nq - 1 - it // group
+            turns = {cw: (None if causal and (qt + 1) * BQ <= kt * BKT
+                          + half * cw else NC * kt + cw)
+                     for cw in range(NC)}
+            steps.append((kvh * group + it % group, qt, turns))
+        blocks[ticket] = (kvh, kt, steps)
+    return blocks
+
+
+_ORDER_SHAPES = [(2, 2, 300, 300), (1, 4, 200, 71), (3, 1, 71, 200),
+                 (2, 1, 1500, 1500), (1, 4, 3904, 3904), (2, 2, 64, 129),
+                 (1, 1, 200, 60)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BHkv,group,Sq,Sk", _ORDER_SHAPES)
+def test_fused_order_is_the_masks_key_tiles(BHkv, group, Sq, Sk, causal):
+    """Per acc tile (q head, 64-row query tile), the counter values its
+    contributors wait for are 0, 1, ... in turn (the first stores, so acc
+    needs no memset); those with a partial are, among the 64-key halves
+    of the key tiles that hold a key < Sk, exactly the halves the mask
+    keeps for the tile (a pair key <= query, both in range, for the causal
+    mask); each turn but the first waits for consumer 0 of its own block
+    or for consumer 1 of key tile kt - 1 of its kv head, a lower ticket;
+    and every block of a kv head meets a tile at the same step."""
+    c = _consts()
+    BQ, BKT, NC = int(c["kDkdvBQ"]), int(c["kDkdvBK"]), int(c["kConsumers"])
+    half = BKT // NC
+    blocks = fused_schedule(BHkv, group, Sq, Sk, causal)
+    ticket = {(kvh, kt): t for t, (kvh, kt, _) in blocks.items()}
+    turns, parts, step_of = {}, {}, {}
+    for t, (kvh, kt, steps) in blocks.items():
+        for i, (bh, qt, by_cw) in enumerate(steps):
+            for cw, turn in by_cw.items():
+                turns.setdefault((bh, qt), []).append(NC * kt + cw)
+                if turn is not None:
+                    parts.setdefault((bh, qt), set()).add((kt, cw))
+            step_of.setdefault((bh, qt), set()).add(i)
+    qpos, kpos = np.arange(Sq), np.arange(Sk)
+    keep = (kpos[None, :] <= qpos[:, None]) if causal else np.ones(
+        (Sq, Sk), bool)
+    nq, nk = -(-Sq // BQ), -(-Sk // BKT)
+    for bh in range(BHkv * group):
+        for qt in range(nq):
+            rows = keep[qt * BQ:(qt + 1) * BQ]
+            kept = {(kt, cw) for kt in range(nk) for cw in range(NC)
+                    if rows[:, kt * BKT + half * cw:
+                            kt * BKT + half * (cw + 1)].any()}
+            in_range = {(kt, cw) for kt in range(nk) for cw in range(NC)
+                        if kt * BKT + half * cw < Sk}
+            got = turns.get((bh, qt), [])
+            assert sorted(got) == list(range(len(got))) and got
+            assert parts[(bh, qt)] & in_range == kept
+            assert (0, 0) in parts[(bh, qt)]
+            kvh = bh // group
+            for turn in (n for n in got if n > 0):
+                kt, cw = divmod(turn, NC)
+                if cw == 0:
+                    assert ticket[(kvh, kt - 1)] < ticket[(kvh, kt)]
+            assert len(step_of[(bh, qt)]) == 1
+
+
+@pytest.mark.parametrize("slots", [1, 3, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BHkv,group,Sq,Sk", _ORDER_SHAPES[:3])
+def test_fused_order_cannot_deadlock(BHkv, group, Sq, Sk, causal, slots):
+    """The mirror's blocks run on ``slots`` resident places, started in
+    ticket order as places free up; each block's two reducers add their
+    steps in walk order when the tile's counter reads their turn, neither
+    more than kStages + 1 steps ahead of the other (the ring and the
+    staging tile): every block finishes, however few places there are."""
+    ahead = int(_consts()["kStages"]) + 1
+    blocks = fused_schedule(BHkv, group, Sq, Sk, causal)
+    count, queue, running = {}, sorted(blocks), {}
+    while queue or running:
+        while queue and len(running) < slots:
+            running[queue.pop(0)] = [0, 0]
+        moved = False
+        for t in list(running):
+            _, kt, steps = blocks[t]
+            pos = running[t]
+            if pos == [len(steps)] * 2:
+                del running[t]
+                moved = True
+                continue
+            for cw in (0, 1):
+                i = pos[cw]
+                if i == len(steps) or i - pos[1 - cw] >= ahead:
+                    continue
+                bh, qt, _ = steps[i]
+                if count.get((bh, qt), 0) == 2 * kt + cw:
+                    count[(bh, qt)] = 2 * kt + cw + 1
+                    pos[cw] += 1
+                    moved = True
+        assert moved, f"no block can move: {running}"
+
+
+def test_fused_scratch_matches_the_source():
+    """scratch_numel's fused layout is launch_fused's: lse2 and Dsum (2,
+    BH, Sp), acc (BH, Sp, D) f32 (a 64 D-float tile per (head, 64-row
+    query tile): FusedLayout's staging tile), one counter per tile and
+    the ticket; the query tile is the source's and divides the row
+    pad."""
+    c = _consts()
+    src = open(SRC).read()
+    assert int(c["kDkdvBQ"]) == BK.FUSED_Q_TILE
+    assert BK.ROW_PAD % BK.FUSED_Q_TILE == 0
+    assert "kStageBytes = kBQ * D * 4" in src
+    assert "const int n_count = BH * nq_acc;" in src
+    assert re.search(r"acc \+ static_cast<long long>\(BH\) \*\s+Sp \* D",
+                     src)
+    assert "n_count + 1, BH, Sq, Sp)" in src
+    for BH, Sq, D in ((4, 9, 64), (3, 257, 128), (128, 3904, 128),
+                      (48, 1500, 64)):
+        Sp = -(-Sq // BK.ROW_PAD) * BK.ROW_PAD
+        tiles = BH * (Sp // BK.FUSED_Q_TILE)
+        stage = BK.FUSED_Q_TILE * D
+        assert BK.scratch_numel("fused", BH, Sq, D) == (
+            BK.scratch_numel("wgmma", BH, Sq) + tiles * stage + tiles + 1)
+        assert tiles * stage == BH * Sp * D
+
+
+def test_c_entry_holds_the_fused_rule():
+    """The C entry's fused test, its bf16-only condition (through
+    ``tensor_cores``) and the instances it dispatches to are
+    ``bwd_kernel.variant``'s: "fused" exactly where K6's rule names its
+    tensor cores and (D, Dv) is in FUSED_HEAD_DIMS, K6's variant
+    elsewhere."""
+    src = open(SRC).read()
+    test = re.search(r"const bool fused =(.*?);", src, re.S).group(1)
+    assert re.match(r"\s*tensor_cores && D == Dv && \(", test)
+    dims = {(int(d), int(d)) for d in re.findall(r"D == (\d+)", test)}
+    assert dims == set(BK.FUSED_HEAD_DIMS)
+    launched = {(int(d), int(d))
+                for d in re.findall(r"return launch_fused<(\d+)>", src)}
+    assert launched == dims
+    assert BK.VARIANTS == {"simt": 0, "wgmma": 1, "fused": 2}
+    for D in range(1, BK.MAX_HEAD_DIM + 1):
+        for Dv in (D, 64, 128):
+            k6 = AK.variant(torch.bfloat16, D, Dv)
+            want = "fused" if (D, Dv) in dims else k6
+            assert BK.variant(torch.bfloat16, D, Dv) == want
+            assert BK.variant(torch.float32, D, Dv) == "simt"
+
+
+@pytest.mark.parametrize("D,Dv,dtype,force,msg", [
+    (64, 64, torch.bfloat16, "fused", "on the card"),
+    (64, 64, torch.bfloat16, "wgmma", "on the card"),
+    (128, 128, torch.bfloat16, "wgmma", "on the card"),
+    (80, 80, torch.bfloat16, "fused", "fused kernels take bf16"),
+    (192, 128, torch.bfloat16, "fused", "fused kernels take bf16"),
+    (64, 64, torch.float32, "fused", "fused kernels take bf16"),
+    (64, 64, torch.float32, "wgmma", "wgmma kernels take bf16")])
+def test_bwd_forced_designs(D, Dv, dtype, force, msg):
+    """A forced ``"fused"`` runs only where the rule names it; a forced
+    ``"wgmma"`` (the three-kernel design) runs at every tensor-core head
+    dim, (64, 64) and (128, 128) too; a refusal comes before anything is
+    built or launched, and an accepted one reaches the device checks."""
+    q = torch.zeros(4, 9, D, dtype=dtype)
+    k = torch.zeros(2, 9, D, dtype=dtype)
+    v = torch.zeros(2, 9, Dv, dtype=dtype)
+    o = torch.zeros(4, 9, Dv, dtype=dtype)
+    before = dict(BK.KERNEL.launches_by_variant)
+    with pytest.raises(ValueError, match=msg):
+        BK.flash_attention_bwd_cuda(q, k, v, o, torch.zeros(4, 9), o,
+                                    group=2, force_variant=force)
+    assert BK.KERNEL.launches_by_variant == before
 
 
 @pytest.mark.parametrize("split_p,split_ds,seed,causal,group", [
