@@ -20,10 +20,12 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    flow_moments also against one ``index_add_`` call, flash_attention
    against one ``scaled_dot_product_attention`` call, each library call
    timed by CUDA events and by its device time; flash_attention's cases
-   each run the variant ``kernel.variant`` names (``wgmma`` for bf16 with
-   (D, Dv) in {(64, 64), (80, 80), (128, 128), (192, 128)}, ``simt``
-   otherwise), and the SIMT kernel is timed at the serving shape beside
-   the tensor-core one; flash_attention past head dim 64: deepseek-v3's
+   each run the variant ``kernel.variant`` names (``pingpong`` for bf16
+   with (D, Dv) in {(64, 64), (128, 128)}, ``wgmma`` for bf16 at (80, 80)
+   and (192, 128), ``simt`` otherwise), and at the serving shape the
+   forced one-schedule ``wgmma`` kernel and the SIMT kernel are held
+   against the ping-pong one and timed in turns with it and by their
+   device time; flash_attention past head dim 64: deepseek-v3's
    MLA prefill shape (B = 4 x 128 heads, 1024 tokens, D = 192, Dv = 128,
    group 1, causal) in bf16 on the wgmma kernel and, at 64 heads, in f32
    on the SIMT one, two ragged bf16 MLA shapes (wgmma), (80, 80) ragged
@@ -70,8 +72,9 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    timed in turns with them and by their device time; K6 and K7 without a
    mask at whisper-tiny's encoder shapes
    (K6: B = 4 x 6 heads over its 1500 frames, head dim 64, group 1; K7: B
-   = 8 x 6 heads) on K6's wgmma kernel and K7's fused kernels in bf16 and
-   SIMT in f32, under the same rules and timed the same way; K6 and K7
+   = 8 x 6 heads) on K6's ping-pong kernel and K7's fused kernels in bf16
+   and SIMT in f32, under the same rules and timed the same way, K6's
+   forced wgmma and SIMT kernels beside it as at the serving shape; K6 and K7
    causal at llava-next-mistral-7b's shapes (B = 4 x 32 heads of 128,
    group 4, over 2880 patches + 1024 tokens = 3904 positions, ragged last
    tiles), the same way, SDPA with enable_gqa; at both, K7's three-kernel
@@ -165,16 +168,16 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
 15. serving at full width — granite-3-2b (40 layers, d 2048, 32/8 heads,
    bf16, seeded random weights): 4 requests of 1024-token prompts, 32
    greedy tokens each, one warm-up request and 3 timed, every prefill
-   launching flash_attention once per layer, all on the wgmma variant (the
-   f32 runs below on the simt variant); then the plain run, and the
+   launching flash_attention once per layer, all on the pingpong variant
+   (the f32 runs below on the simt variant); then the plain run, and the
    checks, on the f32 kernel run's tokens: (a) the same model in f32,
    kernel run against plain run, prefill and teacher-forced decode
    logits within 1e-3 of the largest logit; (b) bf16, the kernel run no
    further from the f32 run than the plain run is (x1.5), with the
    kernel-vs-plain gap printed; (c) the decode step at position P against
    a full forward over P + 1 tokens. Before (a)-(c), each layer's q, k, v
-   of one bf16 prefill run again through the wgmma and the SIMT kernel:
-   max |o_wgmma - o_simt| / max |o_simt| per layer, held to 2e-2;
+   of one bf16 prefill run again through the pingpong and the SIMT kernel:
+   max |o_pingpong - o_simt| / max |o_simt| per layer, held to 2e-2;
 16. [serve deepseek-v3] — deepseek-v3 cut to 5 layers (3 dense + 2 MoE, all
    256 experts whole, top-8 sigmoid routing with its bias, full
    vocabulary, MTP block left out; bf16, seeded random weights): the
@@ -186,8 +189,8 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    then, with those weights freed, 15's checks (a)-(c) on the 3 dense
    layers (MLA + FFN) with fresh seeded weights;
 17. [serve qwen3-14b] — qwen3-14b whole (40 layers, 40/8 heads of 128,
-   qk-norm, untied 151,936-row vocabulary, bf16) as 16, K6 on its wgmma
-   variant; checks (a)-(c) on 8 of its layers;
+   qk-norm, untied 151,936-row vocabulary, bf16) as 16, K6 on its
+   pingpong variant; checks (a)-(c) on 8 of its layers;
 18. [serve zamba2-2.7b] — zamba2-2.7b whole (54 Mamba2 layers, d 2560, in
    9 segments each closed by one of 2 shared attention + FFN blocks of 32
    heads of 80; untied 32,000-row vocabulary; 2,527,532,960 parameters,
@@ -210,14 +213,14 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    layers, d 384, 6 heads of 64, 1500 stub frames, 58,528,512 parameters,
    bf16) as 16 with B = 4 x 416-token prompts and 32 greedy tokens (its
    448-token text context): each prefill launches K6 4 times without a
-   mask (the encoder) and 4 times causal, all wgmma; the encoder's time
+   mask (the encoder) and 4 times causal, all pingpong; the encoder's time
    alone; checks (a)-(c) on the whole model;
 18c. [serve llava-next-mistral-7b] — llava-next-mistral-7b whole (32
    layers, d 4096, 32/8 heads of 128, untied 32,000-row vocabulary;
    7,241,732,096 parameters, bf16) as 16 with 2880 stub patches
    (``add_modality_stub``) before each 1024-token prompt and decoding from
    position 3904 into a 3936-row cache: each prefill launches K6 32 times,
-   causal, all wgmma; no plain attention call; checks (a)-(c) on 4 of its
+   causal, all pingpong; no plain attention call; checks (a)-(c) on 4 of its
    layers with the same prefix ((c) against a forward over 3905
    positions);
 19. [train] — granite-3-2b training at full width (40 layers, bf16,
@@ -225,8 +228,9 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
    1024 tokens of data/tokens, 1 warm-up and 4 timed steps, launch counts
    from 0: the loss, gnorm and lr per step, step ms, tokens/s, model
    flops over step time as a share of 989 TFLOP/s, max_memory_allocated,
-   flash_attention (2 x 40: the forward and its remat) and
-   flash_attention_bwd (40, all on its fused kernels) launches per step,
+   flash_attention (2 x 40: the forward and its remat, all on its
+   pingpong kernel) and flash_attention_bwd (40, all on its fused
+   kernels) launches per step,
    no plain attention call, and a 1-step profile;
 20. [train deepseek-v3] — as 19 for deepseek-v3 at full width cut to its
    3 dense layers (MLA + the 18432-wide FFN; one MoE layer alone holds
@@ -236,7 +240,7 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
 21. [train llama4-scout] — as 20 for llama4-scout cut to 1 of 48 layers
    (16 experts whole, the shared expert, the 202,048-row untied
    vocabulary, f32 moments; C = 320 slots per expert): 2 K6 and 1 K7
-   launches per step, K6 wgmma and K7 fused (D = 128, group 5), and the
+   launches per step, K6 pingpong and K7 fused (D = 128, group 5), and the
    share of pairs capacity drops;
 22. [train zamba2-2.7b] — as 20 for zamba2-2.7b whole (remat, f32
    moments): 18 K6 and 9 K7 launches per step, all wgmma (head dim 80:
@@ -249,11 +253,11 @@ clocks, power draw and temperature as ``nvidia-smi`` reads them:
 22b. [train whisper-tiny] — as 20 for whisper-tiny whole, B = 8 x 448
    tokens with 1500 stub frames each (remat on the decoder, f32 moments):
    K6 4 times without a mask (the encoder, not rematerialised) and 8
-   times causal, K7 4 + 4, K6 wgmma and K7 fused, per step by mask;
+   times causal, K7 4 + 4, K6 pingpong and K7 fused, per step by mask;
 22c. [train llava-next-mistral-7b] — as 20 for llava-next-mistral-7b at
    full width cut to 12 of 32 layers (f32 moments, remat), B = 4 x 1024
    text tokens, each after its 2880 stub patches: 24 K6 and 12 K7
-   launches per step, causal, K6 wgmma and K7 fused; the model flops
+   launches per step, causal, K6 pingpong and K7 fused; the model flops
    count all 3904 positions, the unembedding the text only;
 22d. [dryrun] — ``launch.dryrun`` on meta tensors, in a process of its
    own that sees no card, started after 14 and read here: granite-3-2b
@@ -375,16 +379,23 @@ def device_profile(kernel, fn, iters: int = 20):
     ``__global__`` functions (``kernel.device_fns``), summed from
     torch.profiler's device events over ``iters`` calls — the kernel's
     time without the Python wrapper around it. ``kernel=None`` sums every
-    device event (a library call's device time)."""
+    device event (a library call's device time).
+
+    torch.profiler has come back without any device event for a kernel
+    that ran and passed its check (K5, on an H100), and with only some of
+    a window's launches (K7's split; K6 at whisper's encoder read 37.23
+    against 45.85 us in one call of tools/attention_ab.py, 8 of 10
+    launches seen, and PR 27's run read 38.14 against 63.86, which fits 6
+    of 10): a window counts only when each function it saw ran a whole
+    number of times per call. Up to 3 windows; then, if the last saw any
+    device time, each function's mean per launch times its launches per
+    call (rounded), logged; else fail."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     names = kernel.device_fns if kernel else ("",)
     who = kernel.name if kernel else "a library call"
-    # torch.profiler has come back without any device event for a kernel
-    # that ran and passed its check (K5, on an H100): profile up to 3
-    # times, and fail if none of them saw the kernel's device time
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -395,13 +406,18 @@ def device_profile(kernel, fn, iters: int = 20):
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and any(n in e.key for n in names)]
         total = sum(dev_us(e) for e in rows)
-        if total > 0:
-            break
-        log(f"[profile] attempt {attempt + 1}: no device events in {who}'s "
-            f"functions {names}")
+        if total > 0 and all(e.count % iters == 0 for e in rows):
+            return total / iters, sum(e.count for e in rows) / iters
+        log(f"[profile] attempt {attempt + 1}: device launches "
+            f"{ {e.key[:60]: e.count for e in rows} } of {who}'s functions "
+            f"in {iters} calls")
     require(total > 0, f"the profiler saw no device time in {who}'s "
                        f"functions {names}")
-    return total / iters, sum(e.count for e in rows) / iters
+    per_call = [max(1, round(e.count / iters)) for e in rows]
+    us = sum(dev_us(e) / e.count * n for e, n in zip(rows, per_call))
+    log(f"[profile] {who}: no whole window; {us:.3f} us per call from the "
+        f"mean per launch")
+    return us, sum(per_call)
 
 
 def device_us(kernel, fn, iters: int = 20) -> float:
@@ -813,8 +829,9 @@ def hold_k6_against_plain(name, q, k, v, group, causal, expect):
 
 def check_flash_attention(dev):
     """K6 at the serving path's shape (B = 4 requests x 32 heads, 1024
-    tokens, head_dim 64, 8 kv heads, causal, bf16: the wgmma variant)
-    against its plain version, the SIMT variant at the same shape, and one
+    tokens, head_dim 64, 8 kv heads, causal, bf16: the pingpong variant)
+    against its plain version, the forced wgmma and SIMT variants at the
+    same shape (:func:`k6_beside_pingpong`), and one
     scaled_dot_product_attention call as the library yardstick; plus an
     f32 run at the same shape, ragged lengths, Sq != Sk both ways, D = 128,
     groups 1 and 8, Dv != D, D = 16, the non-causal softmax and qwen3-14b's
@@ -870,8 +887,8 @@ def check_flash_attention(dev):
         f"{B_RATIO:g}): { {k: f'{v:.3f}' for k, v in ratios.items()} }")
 
     q, k, v = inputs(BH, S, S, D, D, G, torch.bfloat16)
-    require(K.variant(q.dtype, D, D) == "wgmma",
-            "the serving shape does not reach the wgmma variant")
+    require(K.variant(q.dtype, D, D) == "pingpong",
+            "the serving shape does not reach the pingpong variant")
     call = lambda: ops.flash_attention(q, k, v, group=G)
     simt = lambda: K.flash_attention_cuda(q, k, v, group=G,
                                           force_variant="simt")
@@ -884,10 +901,10 @@ def check_flash_attention(dev):
                                                  enable_gqa=True)
     lib_err = float((lib().reshape(BH, S, D).float()
                      - call().float()).abs().max())
-    simt_err = float((simt().float() - call().float()).abs().max())
     library_ms = time_ms(lib, 20)
     n_ops = 2 * (D + D) * attention_pairs(S, S, True) * BH
     n_bytes = (q.numel() + k.numel() + v.numel() + BH * S * D) * 2
+    dev_time = device_us(K.KERNEL, call)
     return {"kernel": K.KERNEL, "max_abs_err": errs["serve bf16"],
             "ms": ms, "plain_ms": plain_ms, "n_bytes": n_bytes,
             "n_ops": n_ops, "ops_per_s": BF16_OPS_PER_S,
@@ -896,12 +913,10 @@ def check_flash_attention(dev):
             "library_note": "one scaled_dot_product_attention(is_causal, "
                             f"enable_gqa) call; max abs diff to K6 "
                             f"{lib_err:.3e}",
-            "device_us": device_us(K.KERNEL, call),
-            "variant": "wgmma",
-            "simt_device_us": device_us(K.KERNEL, simt),
-            "simt_ms": time_ms(simt, 5),
-            "simt_note": f"the SIMT variant on the same inputs; max abs diff "
-                         f"to the wgmma variant {simt_err:.3e}",
+            "device_us": dev_time,
+            "variant": "pingpong",
+            **k6_beside_pingpong("granite", call, simt, q, k, v, G, True,
+                                 dev_time),
             "shape": f"q ({BH}, {S}, {D}), k/v ({BH // G}, {S}, {D}), group "
                      f"{G}, causal, bf16 (f32, ragged, Sq != Sk both ways, "
                      "D = 128, groups 1 and 8, Dv != D, D = 16, "
@@ -1559,12 +1574,13 @@ WHISPER_TRAIN_B = 8
 
 def check_flash_attention_whisper(dev):
     """K6 and K7 non-causal at whisper-tiny's encoder shapes (K6: q, k, v
-    (24, 1500, 64); K7: (48, 1500, 64); group 1), bf16 on the wgmma
-    kernels, by :func:`check_attention_at`. Returns (K6's entry, K7's
-    entry)."""
+    (24, 1500, 64); K7: (48, 1500, 64); group 1), bf16 on K6's ping-pong
+    kernel and K7's fused one, by :func:`check_attention_at`. Returns
+    (K6's entry, K7's entry)."""
     return check_attention_at(dev, "whisper", SERVE_B * WHISPER_HEADS,
                               WHISPER_TRAIN_B * WHISPER_HEADS,
-                              WHISPER_FRAMES, WHISPER_D, False, "wgmma", 37)
+                              WHISPER_FRAMES, WHISPER_D, False, "pingpong",
+                              37)
 
 
 # K6 at llava-next-mistral-7b's prefill shape and K7 at its training shape:
@@ -1578,12 +1594,47 @@ LLAVA_S = LLAVA_PATCHES + SERVE_PROMPT
 def check_flash_attention_llava(dev):
     """K6 and K7 causal at llava-next-mistral-7b's shapes (q, o, do (128,
     3904, 128), k, v (32, 3904, 128), group 4; 3904 = 30.5 tiles of 128,
-    so the last query and key tiles are ragged), bf16 on the wgmma
-    kernels, by :func:`check_attention_at`. Returns (K6's entry, K7's
-    entry)."""
+    so the last query and key tiles are ragged), bf16 on K6's ping-pong
+    kernel and K7's fused one, by :func:`check_attention_at`. Returns
+    (K6's entry, K7's entry)."""
     return check_attention_at(dev, "llava", SERVE_B * LLAVA_HEADS,
                               TRAIN_B * LLAVA_HEADS, LLAVA_S, LLAVA_D, True,
-                              "wgmma", 41, group=LLAVA_GROUP)
+                              "pingpong", 41, group=LLAVA_GROUP)
+
+
+def k6_beside_pingpong(tag, call, simt, q, k, v, group, causal, dev_time):
+    """K6's one-schedule wgmma kernel and its SIMT kernel forced onto the
+    inputs ``call`` (the ping-pong kernel) takes: each held against it
+    within ATT_TOL (abs + rel), timed in turns with it and by its device
+    time. Returns the entry keys ``wgmma_*`` and ``simt_*``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+    wgmma = lambda: K.flash_attention_cuda(q, k, v, group=group,
+                                           causal=causal,
+                                           force_variant="wgmma")
+    got = call().float()
+    tol = ATT_TOL["bfloat16"]
+    out, errs = {}, {}
+    for name, fn, iters in (("wgmma", wgmma, 3), ("simt", simt, 2)):
+        other = fn().float()
+        torch.cuda.synchronize()
+        errs[name] = float((other - got).abs().max())
+        require(float(((other - got).abs() - tol * got.abs()).max()) <= tol,
+                f"flash_attention at {tag}'s shape: the forced {name} "
+                f"kernel differs from the pingpong one by {errs[name]:.3e}")
+        pp_ms, ms = in_turns(fn, call, iters)
+        us = device_us(K.KERNEL, fn, iters)
+        out.update({f"{name}_ms": ms, f"{name}_device_us": us,
+                    f"{name}_note": f"the {name} kernel forced onto the same "
+                                    f"inputs, in turns with the pingpong one "
+                                    f"({pp_ms:.5f} ms); max abs diff to it "
+                                    f"{errs[name]:.3e}"})
+        log(f"[kernel] flash_attention at {tag}'s shape: forced {name} "
+            f"kernel {ms:.5f} ms, device {us:.3f} us ({us / dev_time:.2f}x "
+            f"the pingpong kernel's device time; in turns, pingpong "
+            f"{pp_ms:.5f} ms); max abs diff {errs[name]:.3e}")
+    del got
+    return out
 
 
 def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
@@ -1602,7 +1653,11 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
     kernels are forced onto the same inputs: :func:`simt_beside_wgmma`
     holds them, and the wgmma kernels' repeat, and each kernel's entry
     gets the SIMT kernel's time in turns with the wgmma one and its
-    device time. Returns (K6's entry, K7's entry)."""
+    device time. With ``variant`` "pingpong", K6's one-schedule wgmma
+    kernel and its SIMT kernel are forced onto the same bf16 inputs, held
+    against the ping-pong kernel within ATT_TOL, and timed in turns with
+    it and by their device time beside it (K6's entry: ``wgmma_*``,
+    ``simt_*``). Returns (K6's entry, K7's entry)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
@@ -1780,6 +1835,10 @@ def check_attention_at(dev, tag, bh6, bh7, S, D, causal, variant, seed,
                 simt_note=f"the SIMT kernels forced onto the same inputs, in "
                           f"turns with the fused ones "
                           f"({designs['simt']['fused_ms']:.5f} ms)")
+        if kernel is K.KERNEL and variant == "pingpong":
+            entries[-1].update(k6_beside_pingpong(tag, call, simt_calls[0],
+                                                  q6, k6, v6, group, causal,
+                                                  dev_time))
         if simt_beside:
             simt = simt_calls[kernel is BK.KERNEL]
             wgmma_ms, simt_ms = in_turns(simt, call, 2)
@@ -3257,9 +3316,10 @@ def logit_ratio(got, want) -> float:
 
 def wgmma_per_layer(model, params, prompt):
     """Each layer's attention inside one bf16 prefill, run again on the
-    wgmma kernel and on the SIMT kernel (``force_variant="simt"``) with
-    the same bf16 q, k, v: max |o_wgmma - o_simt| / max |o_simt| per
-    layer, held to the per-call tests' 2e-2."""
+    tensor-core kernel the rule names (the ping-pong one at granite's head
+    dim 64) and on the SIMT kernel (``force_variant="simt"``) with the
+    same bf16 q, k, v: max |o_tc - o_simt| / max |o_simt| per layer, held
+    to the per-call tests' 2e-2."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.models import attention as A
 
@@ -3279,20 +3339,21 @@ def wgmma_per_layer(model, params, prompt):
             f"{model.cfg.num_layers}-layer prefill")
     ratios = []
     for q, k, v, g in captured:
-        require(K.variant(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma",
-                "[serve] a bf16 prefill layer is not a wgmma shape")
+        require(K.variant(q.dtype, q.shape[-1], v.shape[-1]) != "simt",
+                "[serve] a bf16 prefill layer is not a tensor-core shape")
         w = K.flash_attention_cuda(q, k, v, group=g)
         s = K.flash_attention_cuda(q, k, v, group=g, force_variant="simt")
         ratios.append(float((w.float() - s.float()).abs().max())
                       / float(s.float().abs().max()))
     del captured
     tol = ATT_TOL["bfloat16"]
-    log(f"[serve] wgmma vs simt K6 per layer of a bf16 prefill, max |do| / "
+    log(f"[serve] {K.variant(q.dtype, q.shape[-1], v.shape[-1])} vs simt K6 "
+        f"per layer of a bf16 prefill, max |do| / "
         f"max |o|: {[float(f'{r:.3e}') for r in ratios]}; worst "
         f"{max(ratios):.3e} at layer {int(np.argmax(ratios))} (held: <= "
         f"{tol:g})")
-    require(max(ratios) <= tol, "[serve] the wgmma kernel disagrees with "
-                                "the SIMT kernel inside the prefill")
+    require(max(ratios) <= tol, "[serve] the tensor-core kernel disagrees "
+                                "with the SIMT kernel inside the prefill")
     return ratios
 
 
@@ -3502,7 +3563,7 @@ def serve_phase(dev):
 
     cfg = get_config("granite-3-2b")
     model, params, prompts, runs, launches, variants = serve_requests(
-        "[serve]", cfg, dev, 3, "wgmma")
+        "[serve]", cfg, dev, 3, k6_variant(cfg))
     plain = Model(cfg, device=dev, backend="ref")
     args = (SERVE_PROMPT, SERVE_GEN, SERVE_CACHE)
 
@@ -3600,7 +3661,7 @@ def serve_deepseek_phase(dev):
     reference too), so (c) would not hold."""
     from repro_torch.configs import get_config
     cfg = get_config("deepseek-v3-671b").replace(num_layers=5, mtp_depth=0)
-    return serve_arch_phase(dev, "[serve deepseek-v3]", cfg, "wgmma",
+    return serve_arch_phase(dev, "[serve deepseek-v3]", cfg, k6_variant(cfg),
                             cfg.replace(num_layers=cfg.moe.first_moe_layer))
 
 
@@ -3608,7 +3669,7 @@ def serve_qwen_phase(dev):
     """qwen3-14b whole; checks on 8 of its layers."""
     from repro_torch.configs import get_config
     cfg = get_config("qwen3-14b")
-    return serve_arch_phase(dev, "[serve qwen3-14b]", cfg, "wgmma",
+    return serve_arch_phase(dev, "[serve qwen3-14b]", cfg, k6_variant(cfg),
                             cfg.replace(num_layers=8))
 
 
@@ -3619,7 +3680,7 @@ def serve_zamba2_phase(dev):
     layers (2 segments, both shared blocks)."""
     from repro_torch.configs import get_config
     cfg = get_config("zamba2-2.7b")
-    return serve_arch_phase(dev, "[serve zamba2-2.7b]", cfg, "wgmma",
+    return serve_arch_phase(dev, "[serve zamba2-2.7b]", cfg, k6_variant(cfg),
                             cfg.replace(num_layers=2 * cfg.hybrid.attn_every))
 
 
@@ -3750,7 +3811,7 @@ def serve_whisper_phase(dev):
     served as :func:`serve_requests` does, B = SERVE_B, 416-token prompts
     and 32 greedy tokens into its 448-token text context, 2 timed
     requests: each prefill launches K6 4 times without a mask (the
-    encoder) and 4 times causal (the decoder), all wgmma; no plain
+    encoder) and 4 times causal (the decoder), all pingpong; no plain
     attention call; the encoder's time alone; then checks (a)-(c) on the
     whole model. Returns the launch counts over the timed requests,
     flash_attention's by variant and by mask."""
@@ -3762,7 +3823,8 @@ def serve_whisper_phase(dev):
     cfg = get_config("whisper-tiny")
     with PlainCalls() as plain:
         model, params, prompts, runs, launches, variants = serve_requests(
-            tag, cfg, dev, 2, "wgmma", WHISPER_PROMPT, WHISPER_CACHE)
+            tag, cfg, dev, 2, k6_variant(cfg), WHISPER_PROMPT,
+            WHISPER_CACHE)
     kinds = dict(K6.launches_by_kind)
     require(plain.calls == 0, f"{tag} {plain.calls} plain attention calls")
     batch = request_batch(cfg, prompts[1], 1)
@@ -3793,7 +3855,7 @@ def serve_llava_phase(dev):
     untied 32,000-row vocabulary; 7,241,732,096 parameters, bf16) served as
     :func:`serve_requests` does, B = SERVE_B x (2880 stub patches + a
     1024-token prompt), 32 greedy tokens from position 3904, 2 timed
-    requests: each prefill launches K6 32 times, causal, all wgmma, over
+    requests: each prefill launches K6 32 times, causal, all pingpong, over
     3904 positions; no plain attention call; the bf16 plain run's logit
     gap to the kernel run on its tokens; then checks (a)-(c) on 4 of its
     layers with fresh seeded weights and the same prefix ((c) at position
@@ -3810,7 +3872,7 @@ def serve_llava_phase(dev):
             f"{tag} expected {LLAVA_PATCHES} stub patches")
     with PlainCalls() as plain:
         model, params, prompts, runs, launches, variants = serve_requests(
-            tag, cfg, dev, 2, "wgmma", SERVE_PROMPT, LLAVA_CACHE)
+            tag, cfg, dev, 2, k6_variant(cfg), SERVE_PROMPT, LLAVA_CACHE)
     kinds = dict(K6.launches_by_kind)
     require(plain.calls == 0, f"{tag} {plain.calls} plain attention calls")
     extra = {"patches": request_batch(cfg, prompts[1], 1)["patches"]}
@@ -4017,6 +4079,21 @@ class PlainCalls:
             setattr(self.ref, n, fn)
 
 
+def k6_variant(cfg):
+    """The variant K6 runs in ``cfg``'s prefill and training forward:
+    ``kernel.variant`` at the config's dtype and attention head dims
+    (MLA's qk_nope + qk_rope and v_head_dim): "pingpong" at bf16 (64, 64)
+    and (128, 128), "wgmma" at (80, 80) and (192, 128)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+    if cfg.mla is not None:
+        D = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        Dv = cfg.mla.v_head_dim
+    else:
+        D = Dv = cfg.resolved_head_dim
+    return K.variant(getattr(torch, cfg.dtype), D, Dv)
+
+
 def k7_variant(cfg, variant):
     """The design K7 runs in a training step of ``cfg`` whose K6 launches
     run ``variant`` (None: no attention): ``bwd_kernel.variant`` at the
@@ -4165,13 +4242,14 @@ def train_run(dev, tag, cfg, variant, steps, drops=False, batch=TRAIN_B,
 
 def train_phase(dev):
     """granite-3-2b training at full width (see the module docstring):
-    remat, f32 moments, every attention on the wgmma kernels."""
+    remat, f32 moments, every attention on the tensor-core kernels (K6's
+    pingpong, K7's fused)."""
     from repro_torch.configs import get_config
     cfg = get_config("granite-3-2b")
     require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
             "[train] granite-3-2b should train under remat='full' with f32 "
             "moments")
-    return train_run(dev, "[train]", cfg, "wgmma", TRAIN_STEPS)
+    return train_run(dev, "[train]", cfg, k6_variant(cfg), TRAIN_STEPS)
 
 
 def train_deepseek_phase(dev):
@@ -4185,7 +4263,7 @@ def train_deepseek_phase(dev):
             "[train deepseek-v3] deepseek-v3 should train under "
             "remat='full' with bf16 moments")
     cfg = cfg.replace(num_layers=cfg.moe.first_moe_layer, mtp_depth=0)
-    return train_run(dev, "[train deepseek-v3]", cfg, "wgmma",
+    return train_run(dev, "[train deepseek-v3]", cfg, k6_variant(cfg),
                      TRAIN_MOE_STEPS)
 
 
@@ -4199,7 +4277,7 @@ def train_zamba2_phase(dev):
     require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
             "[train zamba2-2.7b] zamba2-2.7b should train under "
             "remat='full' with f32 moments")
-    return train_run(dev, "[train zamba2-2.7b]", cfg, "wgmma",
+    return train_run(dev, "[train zamba2-2.7b]", cfg, k6_variant(cfg),
                      TRAIN_MOE_STEPS)
 
 
@@ -4220,7 +4298,8 @@ def train_whisper_phase(dev):
     """whisper-tiny training at full width, not cut: B = 8 x 448 tokens
     with 1500 stub frames each, remat on the decoder, f32 moments: K6 4
     times without a mask (the encoder, not rematerialised) and 2 x 4
-    causal (the decoder's forward and its remat), K7 4 + 4, all wgmma.
+    causal (the decoder's forward and its remat), K7 4 + 4, K6 all
+    pingpong and K7 all fused.
     Returns the launch counts, K7's by variant and K6's and K7's by
     mask."""
     from repro_torch.configs import get_config
@@ -4228,7 +4307,7 @@ def train_whisper_phase(dev):
     require(cfg.remat == "full" and cfg.opt_state_dtype == "float32",
             "[train whisper-tiny] whisper-tiny should train under "
             "remat='full' with f32 moments")
-    return train_run(dev, "[train whisper-tiny]", cfg, "wgmma",
+    return train_run(dev, "[train whisper-tiny]", cfg, k6_variant(cfg),
                      TRAIN_MOE_STEPS, batch=WHISPER_TRAIN_B,
                      seq=WHISPER_CACHE)
 
@@ -4251,8 +4330,8 @@ def train_llava_phase(dev):
             "[train llava-next-mistral-7b] llava should train under "
             "remat='full' with f32 moments")
     return train_run(dev, "[train llava-next-mistral-7b]",
-                     cfg.replace(num_layers=LLAVA_TRAIN_LAYERS), "wgmma",
-                     TRAIN_MOE_STEPS)
+                     cfg.replace(num_layers=LLAVA_TRAIN_LAYERS),
+                     k6_variant(cfg), TRAIN_MOE_STEPS)
 
 
 def train_llama4_phase(dev):
@@ -4262,7 +4341,7 @@ def train_llama4_phase(dev):
     kernels; the share of pairs capacity drops."""
     from repro_torch.configs import get_config
     cfg = get_config("llama4-scout-17b-a16e").replace(num_layers=1)
-    return train_run(dev, "[train llama4-scout]", cfg, "wgmma",
+    return train_run(dev, "[train llama4-scout]", cfg, k6_variant(cfg),
                      TRAIN_MOE_STEPS, drops=True)
 
 
@@ -4437,7 +4516,7 @@ def zamba2_step_checks(dev):
     from repro_torch.configs import get_config
     zamba = get_config("zamba2-2.7b")
     zamba = zamba.replace(num_layers=2 * zamba.hybrid.attn_every)
-    bf16_step_check(dev, zamba, variant="wgmma")
+    bf16_step_check(dev, zamba, variant=k6_variant(zamba))
     f32_step_check(dev, zamba.replace(dtype="float32",
                                       param_dtype="float32"), 5,
                    "hybrid, remat, head dim 80")
@@ -4571,7 +4650,8 @@ def pipeline_check(dev, cfg):
     blocks per stage. The output equals the 4 blocks applied in order to
     each microbatch, bit for bit, and to the whole batch at once within
     2e-2 of its largest element; K6 launches 2 data shards x 2
-    microbatches x 2 stages x 2 blocks = 16 times, all wgmma."""
+    microbatches x 2 stages x 2 blocks = 16 times, all on
+    :func:`k6_variant`'s kernel."""
     import torch
     from repro_torch.distributed.pipeline import pipeline_apply
     from repro_torch.kernels.flash_attention.kernel import KERNEL as K6
@@ -4606,14 +4686,15 @@ def pipeline_check(dev, cfg):
 
     with torch.no_grad():
         x = L.embed(params["embed"], tokens)
-        n6, w6 = K6.launches, K6.launches_by_variant["wgmma"]
+        v6 = k6_variant(cfg)
+        n6, w6 = K6.launches, K6.launches_by_variant[v6]
         with PlainCalls() as plain:
             t0 = time.perf_counter()
             got = pipeline_apply(stage_fn, staged, x, mesh, axis="pod",
                                  num_micro=PIPE_MICRO)
             torch.cuda.synchronize()
             pipe_ms = (time.perf_counter() - t0) * 1e3
-        launched = (K6.launches - n6, K6.launches_by_variant["wgmma"] - w6)
+        launched = (K6.launches - n6, K6.launches_by_variant[v6] - w6)
         micro = PIPE_B // shards // PIPE_MICRO
         each = torch.cat([blocks(m) for m in x.split(micro)])
         whole = blocks(x)
@@ -4626,13 +4707,13 @@ def pipeline_check(dev, cfg):
         f"bf16: {pipe_ms:.1f} ms; == the blocks per microbatch bit for bit "
         f"{torch.equal(got, each)}; vs the whole batch at once "
         f"{gap:.3e} of its max (held <= 2e-2); K6 launches {launched[0]} "
-        f"({launched[1]} wgmma; expected {want}), plain attention calls "
+        f"({launched[1]} {v6}; expected {want}), plain attention calls "
         f"{plain.calls}")
     require(torch.equal(got, each), f"{tag}: the pipeline differs from the "
                                     "blocks applied per microbatch")
     require(gap <= 2e-2, f"{tag}: the pipeline differs from the whole batch")
     require(launched == (want, want) and plain.calls == 0,
-            f"{tag}: K6 launched {launched} (all, wgmma), expected {want}")
+            f"{tag}: K6 launched {launched} (all, {v6}), expected {want}")
     del params, stack, staged, x, got, each, whole
     torch.cuda.empty_cache()
 
@@ -5342,7 +5423,8 @@ def kernel_rows(checks, by_path, by_variant):
                          "floor_us",
                          "distinct_device_us", "distinct_row_scaled_err",
                          "variants", "simt_device_us", "simt_ms", "designs",
-                         "simt_note", "abs_errs", "lse_errs", "mla",
+                         "simt_note", "wgmma_device_us", "wgmma_ms",
+                         "wgmma_note", "abs_errs", "lse_errs", "mla",
                          "zamba2", "whisper", "llava", "variants_by_path",
                          "kinds_by_path")
                         if key in c}})

@@ -15,12 +15,80 @@
 // GFLOP, 174 us, against 671 MB, 200 us: bytes there. Only wgmma reaches
 // either.
 //
-// Two kernels, one C entry. The caller names the variant; the entry
+// Three kernels, one C entry. The caller names the variant; the entry
 // checks it against the same rule as kernels/flash_attention/kernel.py
-// variant(): "wgmma" for bf16 with (D, Dv) in {(64, 64), (80, 80)
-// (zamba2's), (128, 128), (192, 128)} (MLA's), "simt" for everything else
-// (f32, whose 2e-5 contract TF32 tensor cores would break, and bf16 at
-// other head dims).
+// variant(): "pingpong" for bf16 with (D, Dv) in {(64, 64), (128, 128)}
+// (granite's, whisper's; the qwen, llama4 and llava configs), "wgmma" for
+// bf16 at (80, 80) (zamba2's) and (192, 128) (MLA's), "simt" for
+// everything else (f32, whose 2e-5 contract TF32 tensor cores would break,
+// and bf16 at other head dims). The wgmma kernel takes (64, 64) and (128,
+// 128) too when the caller forces it, to be timed beside the ping-pong one.
+//
+// pingpong (flash_attention_pingpong_kernel): the wgmma kernel's block of
+// three warpgroups, one per SM, its tiles, tensor maps, products and
+// softmax arithmetic (below), rebuilt around what held it back: each
+// consumer ran S = Q K^T, waited, ran its softmax, then P V and waited
+// again, and nothing ordered the two consumers, so the softmax (as long as
+// the products at D = 64, half as long at D = 128) stalled the tensor
+// cores; and whole (head, query tile) items dealt round robin left whisper's
+// 288 equal items on 132 SMs at 36 key-tile steps for the longest block
+// against a mean of 26.2.
+//   * Registers 24 / 240 / 240: the producer lowers its registers with
+//     setmaxnreg.dec, the consumers raise theirs with setmaxnreg.inc, from
+//     the 168 of __launch_bounds__(384, 1); the entry refuses a build that
+//     does not start at 168 (check_regs: setmaxnreg.inc would wait forever).
+//   * Turns (FA3's ping-pong): a consumer issues its products between
+//     named_sync(its barrier) and named_arrive(the other's), so the two
+//     alternate on the tensor cores and one's softmax runs under the
+//     other's products. Inside a consumer, turn j issues S_j and
+//     P_{j-1} V_{j-1}; S_j's softmax runs while P_{j-1} V_{j-1} does, its
+//     p stays in the score registers in f32 until that product is done,
+//     then rescales o and is packed to bf16 (o 64 + scores 64 + P 32 at
+//     D = 128, no spills). A part takes nt + 1 turns (the first only S,
+//     the last only P V). Issuing S_{j+1} under tile j's softmax instead
+//     (a second score fragment) spilled 192 bytes at D = 128 and ran
+//     18-45 % slower at both head dims; without the turns the kernel runs
+//     2-7 % slower (tools/k6_variants.py).
+//   * K and V in rings of their own, V loaded a tile behind K: K_j's slot
+//     is freed once S_j has landed, V_j's once P_j V_j has, so the next
+//     tile's K loads under this tile's work (a shared slot freed after
+//     the late P V left llava's tiles waiting: 1,190 against the wgmma
+//     kernel's 1,039 us, tools/attention_ab.py). The consumers wait for
+//     their tiles by polling (hopper.cuh mbar_poll): the tiles have
+//     nearly always landed.
+//   * The output: o / l in bf16 goes to a swizzled shared tile per
+//     consumer and out by one TMA store (rows past Sq clipped by the map),
+//     the tile rewritten only after the store has read it; the quotient
+//     is one reciprocal a row and one Markstein step an element, the
+//     correctly rounded a / b of the TPU kernel's division, bit for bit
+//     the wgmma kernel's output. Scattered 4-byte stores and IEEE
+//     divisions had cost 1,750 cycles a part at granite's shape
+//     (tools/k6_trace.py).
+//   * The plan (kernel.py plan(), made on the host, cached per shape and
+//     card, passed as int32: each part (bh, q0, kt0, kt1, part, parts,
+//     first partial, counter), then each block's first part): whole items,
+//     heaviest first, each to the block with the least work (key tiles +
+//     a part's cost), which balances the causal shapes within 1 % (llava
+//     481 steps against a mean of 481.0; round robin gave 496); where equal
+//     items leave a tail (whisper), the whole rounds go round robin and
+//     the last round is laid end to end over the blocks in pieces of at
+//     least MIN_PIECE key tiles, cutting an item where a block's share
+//     ends (whisper: 28 against 26.2, items in 3 parts).
+//   * A cut item: each part stores its unnormalised f32 o, its m and its
+//     threads' l (the registers' order, float4 per thread) to scratch,
+//     then one thread counts the part in with an acq_rel atomicAdd on the
+//     item's counter (zeroed by the caller each call); the block that
+//     counts the last part in merges the parts in part order, each
+//     rescaled once by 2^((m_i - m) scale log2 e), and finishes the item as
+//     a whole one. Nothing waits on another block: a part is counted in
+//     and its block goes on, so no residency or launch order matters; the
+//     merge order is fixed, so runs repeat bit for bit.
+//   * Barrier counts: both consumers walk the same parts and tiles, so
+//     they take the same turns, meet the cut-item barrier the same times
+//     and each output barrier is its own; consumer 1 arrives once more
+//     than consumer 0 waits (the first turn), which consumer 0 takes at
+//     the end. A consumer whose rows all lie past Sq (llava's last tile)
+//     still runs its products on the zero-filled rows and stores nothing.
 //
 // wgmma (flash_attention_wgmma_kernel): persistent blocks of three
 // warpgroups, one block per SM (its 384 threads x 168 registers fill the
@@ -86,8 +154,7 @@
 //     order, from the fmaf + ex2 softmax, the 128-row tiles and the
 //     persistent blocks. A third consumer warpgroup (192-row tiles at 128
 //     registers), a deeper ring, and issuing the next tile's S before this
-//     tile's P V (FA3's intra-warpgroup overlap, which needs a second
-//     score fragment) gained little or lost time.
+//     tile's P V at 168 registers gained little or lost time.
 //
 // simt (flash_attention_kernel): one block of 256 threads per (bh,
 // 64-row query tile). The query tile and each 64-row K and V tile are
@@ -109,11 +176,11 @@
 // under the 227 KB a block may opt into, so at those widths one block
 // fits on an SM.
 //
-// Both: query head bh reads kv row bh / group; the causal mask is
-// top-left. Given a non-null lse pointer (the training forward), both
+// All three: query head bh reads kv row bh / group; the causal mask is
+// top-left. Given a non-null lse pointer (the training forward), they
 // also store each query row's logsumexp m + log l in natural-log units
-// (the wgmma kernel's max is a raw score, converted by scale * log2 e *
-// ln 2); with null they store nothing and run as before.
+// (the tensor-core kernels' max is a raw score, converted by scale *
+// log2 e * ln 2); with null they store nothing and run as before.
 #include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -647,6 +714,482 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The ping-pong variant (bf16, (D, Dv) in {(64, 64), (128, 128)}): the
+// wgmma kernel's block, layout and products, its consumers at 240
+// registers taking turns on the tensor cores, each tile's softmax under
+// the previous tile's P V, and a work plan made on the host.
+
+constexpr int kPartFields = 8;  // int32 per part of a plan (kernel.py
+                                // PART_FIELDS)
+constexpr int kTurnBar = 1;     // named barriers 1 + cw: consumer cw's turn
+constexpr int kEpiBar = 3;      // both consumers: a cut item's epilogue
+constexpr int kOutBar = 4;      // 4 + cw: consumer cw's output tile
+constexpr int kConsumerThreads = 128 * kConsumers;
+
+// one part's partial: the consumers' unnormalised o (Dv / 8 float4 per
+// thread, in the registers' order) and each thread's (m0, m1, l0, l1)
+// (kernel.py partial_numel)
+template <int Dv>
+constexpr int kPartialFloats = 128 * Dv + kConsumerThreads * 4;
+
+// One ping-pong block: WgLayout's tiles, with K and V in rings of their
+// own (V is freed a turn after K), Q buffers (three at D = 64, so the next
+// part's Q loads while this part's first tiles do; two at D = 128, where
+// a third measured ~2 % slower, tools/k6_variants.py, and the output
+// tiles take its room) and
+// each consumer's output tile. 129 KB at D = 64, 225 KB at D = 128.
+template <int D, int Dv>
+struct PpLayout {
+  using W = WgLayout<D, Dv>;
+  static constexpr int kQBufs = D == 64 ? 3 : 2;
+  static constexpr int kKStages = 2;
+  static constexpr int kVStages = 2;
+  // the Q buffers, the K ring, the V ring, the output tiles (each
+  // consumer's 64 rows in bf16: 64-column blocks of 64 128-byte rows,
+  // swizzled as the output's tensor map), then the mbarriers full_q[],
+  // empty_q[], full_k[], empty_k[], full_v[], empty_v[] and the int that
+  // broadcasts a cut item's ticket; plus 1024 bytes of alignment
+  static constexpr int kKRing = kQBufs * W::kQBytes;
+  static constexpr int kVRing = kKRing + kKStages * W::kKBytes;
+  static constexpr int kOBlock = 64 * kRowBytes;
+  static constexpr int kORing = kVRing + kVStages * W::kVBytes;
+  static constexpr int kBarOffset =
+      kORing + kConsumers * W::kVBlocks * kOBlock;
+  static constexpr int kSmem =
+      1024 + kBarOffset + 8 * (2 * kQBufs + 2 * kKStages + 2 * kVStages) +
+      16;
+  static_assert(kSmem <= kMaxSmem,
+                "K6's ping-pong tiles exceed shared memory");
+};
+
+struct Part {
+  int bh, q0, kt0, kt1, part, nparts, first, counter;
+};
+
+__device__ __forceinline__ Part load_part(const int* plan, int i) {
+  const int4* const p = reinterpret_cast<const int4*>(plan) + 2 * i;
+  const int4 a = __ldg(p), b = __ldg(p + 1);
+  return {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+}
+// the fields the producer needs: (bh, q0, kt0, kt1)
+__device__ __forceinline__ int4 load_tiles(const int* plan, int i) {
+  return __ldg(reinterpret_cast<const int4*>(plan) + 2 * i);
+}
+
+// softmax_tile without the packing: p stays in sc in f32, since the A
+// fragment still feeds the previous tile's P V; pack_p rounds it after
+template <int N>
+__device__ __forceinline__ void softmax_exp(
+    float (&sc)[N], float& m0, float& m1, float& l0, float& l1, float& c0,
+    float& c1, bool edge, int k0, int Sk, int causal, int r0, int r1, int t,
+    float scale_log2) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        if (kp >= Sk || (causal && kp > (e < 2 ? r0 : r1)))
+          sc[4 * j + e] = kNegInf;
+      }
+  }
+  float a0 = sc[0], b0 = sc[1], a1 = sc[2], b1 = sc[3];
+#pragma unroll
+  for (int j = 1; j < N / 4; ++j) {
+    a0 = fmaxf(a0, sc[4 * j]);
+    b0 = fmaxf(b0, sc[4 * j + 1]);
+    a1 = fmaxf(a1, sc[4 * j + 2]);
+    b1 = fmaxf(b1, sc[4 * j + 3]);
+  }
+  const float mx0 = fmaxf(m0, quad_max(fmaxf(a0, b0)));
+  const float mx1 = fmaxf(m1, quad_max(fmaxf(a1, b1)));
+  c0 = ex2((m0 - mx0) * scale_log2);
+  c1 = ex2((m1 - mx1) * scale_log2);
+  m0 = mx0;
+  m1 = mx1;
+  const float n0 = -mx0 * scale_log2, n1 = -mx1 * scale_log2;
+  float s0a = 0.f, s0b = 0.f, s1a = 0.f, s1b = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, n0));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, n0));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, n1));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, n1));
+    s0a += sc[4 * j];
+    s0b += sc[4 * j + 1];
+    s1a += sc[4 * j + 2];
+    s1b += sc[4 * j + 3];
+  }
+  l0 = l0 * c0 + (s0a + s0b);
+  l1 = l1 * c1 + (s1a + s1b);
+}
+
+// add one to the int at `p` (device memory) and return what it held:
+// acq_rel at GPU scope, so the adder's earlier stores (and those its block
+// ordered before it) are visible to whoever reads the count after, and
+// the stores of those who added before are visible to it
+__device__ __forceinline__ int count_in(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(reinterpret_cast<uint64_t>(p))
+               : "memory");
+  return old;
+}
+
+// a / b rounded to nearest, from y = 1 / b rounded to nearest (b > 0):
+// q = a y, then one step with the exact remainder a - b q (Markstein), the
+// correctly rounded quotient wherever a / b is a normal float or 0: the
+// division of the TPU kernel's finish at one reciprocal a row
+__device__ __forceinline__ float div_rn(float a, float b, float y) {
+  const float q = a * y;
+  return fmaf(fmaf(-b, q, a), y, q);
+}
+
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sc)[N],
+                                       uint32_t (&pa)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    pa[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int D, int Dv>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_pingpong_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap to,
+                                float* __restrict__ lse,
+                                const int* __restrict__ plan, int n_parts,
+                                float* __restrict__ partials,
+                                int* __restrict__ counters, int group,
+                                int Sq, int Sk, float scale_log2,
+                                int causal) {
+  using L = WgLayout<D, Dv>;
+  using P = PpLayout<D, Dv>;
+  constexpr int QB = P::kQBufs, KS = P::kKStages, VS = P::kVStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sq =                               // [QB][kQBytes]
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const sk = sq + P::kKRing;               // [KS][kKBytes]
+  uint8_t* const sv = sq + P::kVRing;               // [VS][kVBytes]
+  uint64_t* const full_q = reinterpret_cast<uint64_t*>(sq + P::kBarOffset);
+  uint64_t* const empty_q = full_q + QB;
+  uint64_t* const full_k = empty_q + QB;
+  uint64_t* const empty_k = full_k + KS;
+  uint64_t* const full_v = empty_k + KS;
+  uint64_t* const empty_v = full_v + VS;
+  volatile int* const ticket = reinterpret_cast<int*>(empty_v + VS);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < QB; ++b) {
+      mbar_init(full_q + b, 1);
+      mbar_init(empty_q + b, 4 * kConsumers);
+    }
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(empty_k + s, 4 * kConsumers);
+    }
+#pragma unroll
+    for (int s = 0; s < VS; ++s) {
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_v + s, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's parts: plan[p_begin .. p_end), in order
+  const int* const offsets = plan + kPartFields * n_parts;
+  const int p_begin = offsets[blockIdx.x], p_end = offsets[blockIdx.x + 1];
+  if (p_begin >= p_end) return;         // no part (the planner makes none)
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: 24 registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      // ring tile t: K slot t % KS, V slot t % VS
+      auto load_k = [&](int t, int kt, int kvh) {
+        const int s = t % KS;
+        mbar_wait(empty_k + s, ((t / KS) & 1) ^ 1);
+        mbar_expect_tx(full_k + s, L::kKBytes);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b)
+          tma_load(sk + s * L::kKBytes + b * L::kKBlock, &tk, full_k + s,
+                   64 * b, kt * kWgBK, kvh);
+      };
+      auto load_v = [&](int t, int kt, int kvh) {
+        const int s = t % VS;
+        mbar_wait(empty_v + s, ((t / VS) & 1) ^ 1);
+        mbar_expect_tx(full_v + s, L::kVBytes);
+#pragma unroll
+        for (int b = 0; b < L::kVBlocks; ++b)
+          tma_load(sv + s * L::kVBytes + b * L::kKBlock, &tv, full_v + s,
+                   64 * b, kt * kWgBK, kvh);
+      };
+      // the block's n-th part's Q into buffer n % QB
+      auto load_q = [&](int n, int4 w) {  // (bh, q0, kt0, kt1)
+        const int qb = n % QB;
+        mbar_wait(empty_q + qb, ((n / QB) & 1) ^ 1);
+        mbar_expect_tx(full_q + qb, L::kQBytes);
+#pragma unroll
+        for (int b = 0; b < L::kBlocks; ++b)
+          tma_load(sq + qb * L::kQBytes + b * L::kQBlock, &tq, full_q + qb,
+                   64 * b, w.y, w.x);
+      };
+      int it = 0;                       // ring tiles issued so far
+      int4 w = load_tiles(plan, p_begin);
+      load_q(0, w);
+      for (int i = p_begin, n = 0; i < p_end; ++i, ++n) {
+        const bool more = i + 1 < p_end;
+        const int4 next = more ? load_tiles(plan, i + 1) : w;
+        const int kvh = w.x / group, nt = w.w - w.z;
+        // in the order the consumers' turns take them: K_j beside V_{j-1};
+        // the next part's Q right after this part's first K
+        load_k(it, w.z, kvh);
+        if (more) load_q(n + 1, next);
+        for (int j = 1; j < nt; ++j) {
+          load_k(it + j, w.z + j, kvh);
+          load_v(it + j - 1, w.z + j - 1, kvh);
+        }
+        load_v(it + nt - 1, w.w - 1, kvh);
+        it += nt;
+        w = next;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  // consumer warpgroups: cw owns query rows q0 + 64 cw .. + 63 of a part
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t dq = make_desc(sq + cw * 64 * kRowBytes, 16, 1024);
+  const uint64_t dk = make_desc(sk, 16, 1024);
+  const uint64_t dv = make_desc(sv, L::kKBlock, 1024);
+  uint8_t* const so = sq + P::kORing + cw * L::kVBlocks * P::kOBlock;
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Turns: consumer cw issues its products between named_sync(its own
+  // barrier) and named_arrive(the other's), so the two alternate on the
+  // tensor cores; consumer 0 takes the first turn. Both walk the same
+  // parts and the same tiles, so they take the same number of turns.
+  const int my_turn = kTurnBar + cw, other_turn = kTurnBar + 1 - cw;
+  if (cw == 1) named_arrive(kTurnBar, kConsumerThreads);
+
+  float o[Dv / 2], sc[kWgBK / 2];
+  uint32_t pa[kWgBK / 16][4];
+  float m0, m1, l0, l1, c0, c1;
+  int it = 0;                           // ring tiles consumed so far
+  Part w = load_part(plan, p_begin), next = w;
+  for (int i = p_begin, n = 0; i < p_end; ++i, ++n, w = next) {
+    if (i + 1 < p_end) next = load_part(plan, i + 1);  // ahead of its use
+    const int qb = n % QB;
+    const int row_a = w.q0 + 64 * cw;
+    const int r0 = row_a + 16 * warp + g, r1 = r0 + 8;  // this thread's rows
+    const int nt = w.kt1 - w.kt0;
+    const uint64_t dqb = dq + ((qb * L::kQBytes) >> 4);
+    auto issue_s = [&](int j) {         // S_j = Q K_j^T, into sc
+      const int s = (it + j) % KS;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_row = (kk % 4) * 32;
+        const uint32_t oq = (kk / 4) * L::kQBlock + in_row;
+        const uint32_t ok = s * L::kKBytes + (kk / 4) * L::kKBlock + in_row;
+        wgmma_ss_m64n128(sc, dqb + (oq >> 4), dk + (ok >> 4), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int j) {        // O += P_j V_j, P_j from pa
+      const int s = (it + j) % VS;
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_rs(o, pa[kk],
+                 dv + ((s * L::kVBytes + kk * 16 * kRowBytes) >> 4));
+      wgmma_commit();
+    };
+    auto wait_k = [&](int j) {
+      mbar_poll(full_k + (it + j) % KS, ((it + j) / KS) & 1);
+    };
+    auto wait_v = [&](int j) {
+      mbar_poll(full_v + (it + j) % VS, ((it + j) / VS) & 1);
+    };
+    auto softmax = [&](int j) {
+      const int k0 = (w.kt0 + j) * kWgBK;
+      const bool edge =
+          k0 + kWgBK > Sk || (causal && k0 + kWgBK - 1 > row_a);
+      softmax_exp(sc, m0, m1, l0, l1, c0, c1, edge, k0, Sk, causal, r0, r1,
+                  t, scale_log2);
+    };
+
+#pragma unroll
+    for (int x = 0; x < Dv / 2; ++x) o[x] = 0.f;
+    m0 = m1 = kNegInf;
+    l0 = l1 = 0.f;
+    mbar_wait(full_q + qb, (n / QB) & 1);
+
+    // turn 0: S_0 alone
+    wait_k(0);
+    named_sync(my_turn, kConsumerThreads);
+    wgmma_fence();
+    issue_s(0);
+    named_arrive(other_turn, kConsumerThreads);
+    wgmma_wait<0>();
+    keep(sc);
+    release(empty_k + it % KS);
+    if (nt == 1) release(empty_q + qb);  // the part's last S has read Q
+    softmax(0);                         // o is 0: nothing to rescale
+    pack_p(sc, pa);
+    // turn j: S_j and P_{j-1} V_{j-1}; tile j's softmax runs while
+    // P_{j-1} V_{j-1} does, and the other consumer's products after both
+    for (int j = 1; j < nt; ++j) {
+      wait_k(j);
+      wait_v(j - 1);
+      named_sync(my_turn, kConsumerThreads);
+      wgmma_fence();
+      issue_s(j);
+      issue_pv(j - 1);
+      named_arrive(other_turn, kConsumerThreads);
+      wgmma_wait<1>();                  // S_j (committed first) is done
+      keep(sc);
+      release(empty_k + (it + j) % KS);
+      if (j == nt - 1) release(empty_q + qb);
+      softmax(j);
+      wgmma_wait<0>();
+      keep(o);
+      keep(pa);
+      release(empty_v + (it + j - 1) % VS);
+      rescale(o, c0, c1);
+      pack_p(sc, pa);
+    }
+    // the last turn: P V of the last tile
+    wait_v(nt - 1);
+    named_sync(my_turn, kConsumerThreads);
+    wgmma_fence();
+    issue_pv(nt - 1);
+    named_arrive(other_turn, kConsumerThreads);
+    wgmma_wait<0>();
+    keep(o);
+    keep(pa);
+    release(empty_v + (it + nt - 1) % VS);
+    it += nt;
+
+    if (w.nparts > 1) {
+      // a cut item: store this part's partial (f32 o, m, and this
+      // thread's columns' l), then count the part in; the block that
+      // counts the last part in merges all of them in part order
+      float* const pp =
+          partials + static_cast<long long>(w.first + w.part) *
+                         kPartialFloats<Dv>;
+      float4* const po =
+          reinterpret_cast<float4*>(pp) + cw * (Dv / 8) * 128 + tid;
+#pragma unroll
+      for (int x = 0; x < Dv / 8; ++x)
+        __stcg(po + x * 128, make_float4(o[4 * x], o[4 * x + 1],
+                                         o[4 * x + 2], o[4 * x + 3]));
+      __stcg(reinterpret_cast<float4*>(pp + 128 * Dv) + cw * 128 + tid,
+             make_float4(m0, m1, l0, l1));
+      // one thread counts the part in for both consumers: its acq_rel
+      // add releases their stores (ordered before it by the barrier) and,
+      // for the last part, acquires the other parts' stores, which the
+      // second barrier orders before every thread's loads below
+      named_sync(kEpiBar, kConsumerThreads);
+      if (cw == 0 && tid == 0) *ticket = count_in(counters + w.counter);
+      named_sync(kEpiBar, kConsumerThreads);
+      if (*ticket != w.nparts - 1) continue;
+      const float* const first =
+          partials + static_cast<long long>(w.first) * kPartialFloats<Dv>;
+      auto ml_of = [&](int p) {
+        return __ldcg(reinterpret_cast<const float4*>(
+                          first + static_cast<long long>(p) *
+                                      kPartialFloats<Dv> + 128 * Dv) +
+                      cw * 128 + tid);
+      };
+      float mm0 = kNegInf, mm1 = kNegInf;
+#pragma unroll 4
+      for (int p = 0; p < w.nparts; ++p) {
+        const float4 ml = ml_of(p);
+        mm0 = fmaxf(mm0, ml.x);
+        mm1 = fmaxf(mm1, ml.y);
+      }
+#pragma unroll
+      for (int x = 0; x < Dv / 2; ++x) o[x] = 0.f;
+      l0 = l1 = 0.f;
+#pragma unroll 2
+      for (int p = 0; p < w.nparts; ++p) {
+        const float4 ml = ml_of(p);
+        const float e0 = ex2((ml.x - mm0) * scale_log2);
+        const float e1 = ex2((ml.y - mm1) * scale_log2);
+        l0 += ml.z * e0;
+        l1 += ml.w * e1;
+        const float4* const src =
+            reinterpret_cast<const float4*>(
+                first + static_cast<long long>(p) * kPartialFloats<Dv>) +
+            cw * (Dv / 8) * 128 + tid;
+#pragma unroll
+        for (int x = 0; x < Dv / 8; ++x) {
+          const float4 y = __ldcg(src + x * 128);
+          o[4 * x] += y.x * e0;
+          o[4 * x + 1] += y.y * e0;
+          o[4 * x + 2] += y.z * e1;
+          o[4 * x + 3] += y.w * e1;
+        }
+      }
+      m0 = mm0;
+      m1 = mm1;
+    }
+
+    // each thread summed its own columns of a row
+    const float den0 = fmaxf(quad_sum(l0), 1e-30f);
+    const float den1 = fmaxf(quad_sum(l1), 1e-30f);
+    if (lse != nullptr && t == 0) {
+      float* const lb = lse + static_cast<long long>(w.bh) * Sq;
+      if (r0 < Sq) lb[r0] = m0 * scale_log2 * kLn2 + logf(den0);
+      if (r1 < Sq) lb[r1] = m1 * scale_log2 * kLn2 + logf(den1);
+    }
+    const float y0 = __frcp_rn(den0), y1 = __frcp_rn(den1);
+    // o / den in bf16 into this consumer's output tile, then one TMA store
+    // of its rows (the map clips rows past Sq); the tile is rewritten only
+    // after the last store has read it
+    if (tid == 0) bulk_wait_read();
+    named_sync(kOutBar + cw, 128);
+    const int rl = 16 * warp + g;       // r0's row in the tile; r1 is rl + 8
+#pragma unroll
+    for (int x = 0; x < Dv / 8; ++x) {
+      uint8_t* const blk = so + (x / 8) * P::kOBlock + 4 * t;
+      *reinterpret_cast<uint32_t*>(blk + rl * kRowBytes +
+                                   (((x % 8) ^ (rl % 8)) << 4)) =
+          pack_bf16(div_rn(o[4 * x], den0, y0),
+                    div_rn(o[4 * x + 1], den0, y0));
+      *reinterpret_cast<uint32_t*>(blk + (rl + 8) * kRowBytes +
+                                   (((x % 8) ^ (rl % 8)) << 4)) =
+          pack_bf16(div_rn(o[4 * x + 2], den1, y1),
+                    div_rn(o[4 * x + 3], den1, y1));
+    }
+    fence_async_smem();
+    named_sync(kOutBar + cw, 128);
+    if (tid == 0 && row_a < Sq) {
+#pragma unroll
+      for (int b = 0; b < L::kVBlocks; ++b)
+        tma_store(&to, so + b * P::kOBlock, 64 * b, row_a, w.bh);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait();            // the tile is read before exit
+  // consumer 1 arrived once more than consumer 0 waited (the first turn)
+  if (cw == 0) named_sync(kTurnBar, kConsumerThreads);
+}
+
 // SMs of the current device, looked up once
 cudaError_t num_sms(int* n) {
   static int cached = 0;
@@ -690,6 +1233,38 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int Dv>
+int launch_pingpong(const void* q, const void* k, const void* v, void* out,
+                    float* lse, const int* plan, int n_parts, int n_blocks,
+                    float* partials, int* counters, int BH, int group, int Sq,
+                    int Sk, float scale, int causal, cudaStream_t stream) {
+  using L = WgLayout<D, Dv>;
+  EncodeTiled enc;
+  const int rc = get_encoder(&enc);
+  if (rc != 0) return rc;
+  CUtensorMap tq, tk, tv, to;
+  CUresult r = encode(enc, &tq, q, BH, Sq, D, L::kBQ);
+  if (r == CUDA_SUCCESS) r = encode(enc, &tk, k, BH / group, Sk, D, kWgBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &tv, v, BH / group, Sk, Dv, kWgBK);
+  if (r == CUDA_SUCCESS) r = encode(enc, &to, out, BH, Sq, Dv, 64);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  static int regs = -1;
+  constexpr int smem = PpLayout<D, Dv>::kSmem;
+  auto kernel = flash_attention_pingpong_kernel<D, Dv>;
+  cudaError_t e = check_regs(kernel, &regs);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // one block per SM at most (registers allow no more), each walking the
+  // plan's parts for it
+  kernel<<<n_blocks, kWgThreads, smem, stream>>>(
+      tq, tk, tv, to, lse, plan, n_parts,
+      partials, counters, group, Sq, Sk, scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // lse: null, or a (BH, Sq) f32 buffer that receives each query row's
@@ -697,13 +1272,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // backward (flash_attention_bwd.cu) recomputes p from.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). variant: 0 =
 // simt (any dtype and head dims up to 256), 1 = wgmma (bf16 with (D, Dv)
-// in {(64, 64), (80, 80), (128, 128), (192, 128)} only: the rule of
-// kernel.py variant(), which names the variant). Returns 0, a
-// cudaError_t, or -CUresult when a tensor map cannot be made.
+// in {(64, 64), (80, 80), (128, 128), (192, 128)} only), 2 = pingpong
+// (bf16 with (D, Dv) in {(64, 64), (128, 128)} only): the rule of
+// kernel.py variant(), which names the variant. pingpong only: plan, the
+// n_parts parts (kPartFields int32 each) of n_blocks blocks and the
+// blocks' n_blocks + 1 offsets (kernel.py plan_array); partials and
+// counters, the cut items' scratch (kPartialFloats<Dv> f32 per part)
+// and their counters, zeroed (both null when the plan cuts no item).
+// Returns 0, a cudaError_t (cudaErrorInvalidKernelImage when the
+// pingpong kernel was not built with the 168 registers its setmaxnreg
+// regrouping needs), or -CUresult when a tensor map cannot be made.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* lse_ptr, int BH, int group,
                                int Sq, int Sk, int D, int Dv, float scale,
                                int causal, int dtype, int variant,
+                               const void* plan, int n_parts, int n_blocks,
+                               void* partials, void* counters,
                                void* stream) {
   if (BH < 1 || group < 1 || BH % group || Sq < 1 || Sk < 1 || D < 1 ||
       D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim ||
@@ -716,6 +1300,22 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const bool tensor_cores =
       dtype == 1 && ((D == 64 && Dv == 64) || (D == 80 && Dv == 80) ||
                      (D == 128 && Dv == 128) || (D == 192 && Dv == 128));
+  const bool pingpong =
+      dtype == 1 && ((D == 64 && Dv == 64) || (D == 128 && Dv == 128));
+  if (variant == 2) {
+    if (!pingpong || plan == nullptr || n_blocks < 1 || n_parts < n_blocks)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int* const p = static_cast<const int*>(plan);
+    float* const part = static_cast<float*>(partials);
+    int* const cnt = static_cast<int*>(counters);
+    if (D == 64)
+      return launch_pingpong<64, 64>(q, k, v, out, lse, p, n_parts,
+                                     n_blocks, part, cnt, BH, group, Sq, Sk,
+                                     scale, causal, s);
+    return launch_pingpong<128, 128>(q, k, v, out, lse, p, n_parts,
+                                     n_blocks, part, cnt, BH, group, Sq, Sk,
+                                     scale, causal, s);
+  }
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
     if (D == 64)

@@ -645,9 +645,6 @@ constexpr int kRowPad = 128;      // the prep scratch's rows per head: Sq up
 constexpr int kConsumers = 2;     // consumer warpgroups of 64 rows each
 constexpr int kStages = 2;        // ring depth
 constexpr int kWgThreads = 128 * (kConsumers + 1);
-// __launch_bounds__(384, 1) gives every thread 168 registers; setmaxnreg
-// regroups them as 24 (producer) + 2 x 240 (consumers) = 3 x 168
-constexpr int kLaunchRegs = 168;
 constexpr int kDkdvBK = 128;      // keys per dK, dV block (64 per consumer)
 constexpr int kDkdvBQ = 64;       // query rows per dK, dV ring tile
 constexpr int kDkdvBQWide = 32;   // the same at D = 192 (DkdvLayout)
@@ -1633,20 +1630,6 @@ attn_bwd_dq_convert_kernel(const float* __restrict__ acc,
       acc + tile * (kDkdvBQ * D))[i * 128 + tid];
   *reinterpret_cast<__nv_bfloat162*>(dq + (bh * Sq + row) * D + col) =
       __floats2bfloat162_rn(x.x, x.y);
-}
-
-// The register count the kernel starts with must be the 168 setmaxnreg's
-// 24 / 240 / 240 regrouping assumes: with fewer, setmaxnreg.inc would wait
-// for registers that never come. Looked up once per kernel.
-template <typename Kernel>
-cudaError_t check_regs(Kernel kernel, int* cached) {
-  if (*cached < 0) {
-    cudaFuncAttributes a;
-    const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-    if (e != cudaSuccess) return e;
-    *cached = a.numRegs;
-  }
-  return *cached == kLaunchRegs ? cudaSuccess : cudaErrorInvalidKernelImage;
 }
 
 template <int D, int Dv>

@@ -81,6 +81,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// mbar_wait by polling mbarrier.test_wait, which never suspends the
+// thread: cheaper than try_wait where the phase has nearly always
+// completed already (K6's ping-pong consumers wait so for their K and V
+// tiles: 1-4 % faster, tools/k6_variants.py); traps as mbar_wait does
+__device__ __forceinline__ void mbar_poll(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > kWaitLimit) {
+      __trap();
+    }
+  }
+}
+
 // one TMA box of a 3-D tensor map (coordinates innermost first) into
 // shared memory, completing `bytes` on `bar`
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -91,6 +116,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one TMA box of shared memory (swizzled as the map says) into a 3-D
+// tensor map's box at (c0, c1, c2), innermost first; rows past the map's
+// bounds are not written. The store joins the thread's current bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -506,6 +544,31 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// __launch_bounds__(384, 1) gives every thread 168 registers; setmaxnreg
+// regroups them as 24 (producer) + 2 x 240 (consumers) = 3 x 168
+constexpr int kLaunchRegs = 168;
+
+// The register count a regrouping kernel starts with must be the 168
+// setmaxnreg's 24 / 240 / 240 assumes: with fewer, setmaxnreg.inc would
+// wait for registers that never come. Looked up once per kernel; returns
+// cudaErrorInvalidKernelImage for a build that starts elsewhere.
+template <typename Kernel>
+cudaError_t check_regs(Kernel kernel, int* cached) {
+  if (*cached < 0) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return e;
+    *cached = a.numRegs;
+  }
+  return *cached == kLaunchRegs ? cudaSuccess : cudaErrorInvalidKernelImage;
+}
+
+// `threads` threads (whole warps) arrive at named barrier `id` (1..15)
+// without waiting for it: the other side of a named_sync
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // cuTensorMapEncodeTiled's signature (cuda.h), called through a pointer

@@ -55,12 +55,12 @@ KERNEL = CudaKernel(
 def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
     """The design that runs for these inputs: ``"fused"`` where K6's rule
     (:func:`kernel.variant`) names its tensor cores and (D, Dv) is in
-    :data:`FUSED_HEAD_DIMS`, else K6's variant (``"wgmma"``: the
-    three-kernel design, or ``"simt"``). Raises as K6's rule does."""
-    chosen = K6.variant(dtype, D, Dv)
-    if chosen == "wgmma" and (D, Dv) in FUSED_HEAD_DIMS:
-        return "fused"
-    return chosen
+    :data:`FUSED_HEAD_DIMS`, ``"wgmma"`` (the three-kernel design) at
+    K6's other tensor-core head dims, else ``"simt"``. Raises as K6's
+    rule does."""
+    if K6.variant(dtype, D, Dv) == "simt":
+        return "simt"
+    return "fused" if (D, Dv) in FUSED_HEAD_DIMS else "wgmma"
 
 
 def scratch_numel(chosen: str, BH: int, Sq: int, D: int = 0) -> int:

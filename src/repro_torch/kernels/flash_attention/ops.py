@@ -5,12 +5,14 @@ K6 (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``flash_attention_pallas`` (src/repro/kernels/flash_attention/kernel.py).
 It is bound by operations: 4·BH·Sq·Sk·D/2 multiply-adds for causal
 attention against a few tens of MB of q/k/v/o, so it belongs on the
-tensor cores. bf16 with (D, Dv) in {(64, 64), (80, 80) (zamba2's), (128,
-128), (192, 128) (MLA's)} runs the ``wgmma`` kernel (TMA-fed K/V ring,
-both products on the tensor cores, the online softmax in registers); f32
-and other head dims
-run the SIMT kernel (f32 FMAs), far above the bound. ``kernel.variant`` names the one that runs, and
-``kernel.KERNEL.launches_by_variant`` counts them. Both keep the (Sq, Sk)
+tensor cores. bf16 with (D, Dv) in {(64, 64), (128, 128)} runs the
+``pingpong`` kernel (two consumer warpgroups taking turns on the tensor
+cores, a work plan balanced on the host), bf16 at (80, 80) (zamba2's)
+and (192, 128) (MLA's) the ``wgmma`` kernel (TMA-fed K/V ring, both
+products on the tensor cores, the online softmax in registers); f32 and
+other head dims run the SIMT kernel (f32 FMAs), far above the bound.
+``kernel.variant`` names the one that runs, and
+``kernel.KERNEL.launches_by_variant`` counts them. All keep the (Sq, Sk)
 scores out of device memory.
 
 The gradient: when an input requires grad, :func:`flash_attention` runs

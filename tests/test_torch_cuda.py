@@ -494,22 +494,24 @@ def test_flash_attention_ragged_and_noncausal(cuda, dtype, Sq, Sk, D, Dv,
 ])
 def test_flash_attention_wgmma_matches_plain(cuda, BH, Sq, Sk, D, group,
                                              causal):
-    """K6's tensor-core variant (bf16, (D, Dv) in {(64, 64), (128, 128),
-    (192, 128)}; (80, 80) in test_flash_attention_head_dim_80_both_variants)
-    against the plain version at 2e-2 (MLA's with its scale
-    192 ** -0.5, the default); the launch is counted under "wgmma" and no
-    other variant runs."""
+    """K6's tensor-core variants (bf16, (D, Dv) in {(64, 64), (128, 128)}
+    on "pingpong", (192, 128) on "wgmma"; (80, 80) in
+    test_flash_attention_head_dim_80_both_variants) against the plain
+    version at 2e-2 (MLA's with its scale 192 ** -0.5, the default); the
+    launch is counted under the variant the rule names and no other
+    variant runs."""
     Dv = 128 if D == 192 else D
     g = torch.Generator().manual_seed(BH * Sq + Sk + D)
     q = torch.randn(BH, Sq, D, generator=g).to(cuda, torch.bfloat16)
     k = torch.randn(BH // group, Sk, D, generator=g).to(cuda, torch.bfloat16)
     v = torch.randn(BH // group, Sk, Dv, generator=g).to(cuda,
                                                          torch.bfloat16)
-    assert AK.variant(q.dtype, D, Dv) == "wgmma"
+    want_v = "wgmma" if D == 192 else "pingpong"
+    assert AK.variant(q.dtype, D, Dv) == want_v
     before = dict(AK.KERNEL.launches_by_variant)
     got = FA.flash_attention(q, k, v, group=group, causal=causal)
     assert AK.KERNEL.launches_by_variant == {**before,
-                                             "wgmma": before["wgmma"] + 1}
+                                             want_v: before[want_v] + 1}
     want = FA.flash_attention(q, k, v, group=group, causal=causal,
                               backend="ref")
     torch.cuda.synchronize()
@@ -520,18 +522,20 @@ def test_flash_attention_wgmma_matches_plain(cuda, BH, Sq, Sk, D, group,
 
 def test_flash_attention_simt_variant_forced(cuda):
     """The SIMT kernel, forced onto the serving shape's bf16 inputs,
-    agrees with the wgmma kernel and the plain version at 2e-2."""
+    agrees with the ping-pong kernel (the rule's) and the plain version at
+    2e-2."""
     g = torch.Generator().manual_seed(11)
     q = torch.randn(16, 300, 64, generator=g).to(cuda, torch.bfloat16)
     k = torch.randn(4, 300, 64, generator=g).to(cuda, torch.bfloat16)
     v = torch.randn(4, 300, 64, generator=g).to(cuda, torch.bfloat16)
     before = dict(AK.KERNEL.launches_by_variant)
     simt = AK.flash_attention_cuda(q, k, v, group=4, force_variant="simt")
-    wgmma = AK.flash_attention_cuda(q, k, v, group=4)
+    pingpong = AK.flash_attention_cuda(q, k, v, group=4)
     assert AK.KERNEL.launches_by_variant == {
-        "simt": before["simt"] + 1, "wgmma": before["wgmma"] + 1}
+        **before, "simt": before["simt"] + 1,
+        "pingpong": before["pingpong"] + 1}
     want = FA.flash_attention(q, k, v, group=4, backend="ref")
-    for got in (simt, wgmma):
+    for got in (simt, pingpong):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
 
@@ -593,6 +597,52 @@ def test_flash_attention_head_dim_80_both_variants(cuda, variant, causal,
         assert torch.equal(got, again)
         torch.testing.assert_close(got.float(), simt.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.parametrize("BH,S,group,causal", [
+    (24, 1500, 1, False),               # whisper's encoder: items cut
+    (16, 3904, 4, True),                # llava's 3904 rows, 16 heads
+    (4, 3904, 4, True),                 # the same at 4 heads: cut
+    (128, 1024, 4, True),               # granite's: whole items
+    (8, 1000, 4, True),                 # items cut in up to 4 parts
+    (24, 1000, 3, False)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_pingpong_matches_the_other_variants(cuda, BH, S,
+                                                             group, causal,
+                                                             D):
+    """K6's ping-pong kernel (the rule's at bf16 (64, 64) and (128, 128))
+    against the plain version, the forced one-schedule wgmma kernel and
+    the SIMT kernel at 2e-2, its lse within 1e-4 of the plain logsumexp;
+    output and lse repeat bit for bit over two runs; each launch counted
+    under the variant that ran. The shapes cover the plan's whole items
+    and items cut along the key axis (2 or 3 parts), causal and full,
+    ragged last tiles."""
+    assert AK.variant(torch.bfloat16, D, D) == "pingpong"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = AK.plan(BH, S, S, causal, sms)
+    q, k, v = _qkv(cuda, BH, S, S, D, D, group, torch.bfloat16,
+                   BH + S + D + causal)
+    before = dict(AK.KERNEL.launches_by_variant)
+    got, lse = AK.flash_attention_cuda(q, k, v, group=group, causal=causal,
+                                       with_lse=True)
+    again, lse2 = AK.flash_attention_cuda(q, k, v, group=group,
+                                          causal=causal, with_lse=True)
+    others = {n: AK.flash_attention_cuda(q, k, v, group=group, causal=causal,
+                                         force_variant=n)
+              for n in ("wgmma", "simt")}
+    assert AK.KERNEL.launches_by_variant == {
+        **before, "pingpong": before["pingpong"] + 2,
+        "wgmma": before["wgmma"] + 1, "simt": before["simt"] + 1}
+    want_o, want = FR.flash_attention_lse_ref(q, k, v, group=group,
+                                              causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+    for other in (want_o, *others.values()):
+        torch.testing.assert_close(got.float(), other.float(), rtol=2e-2,
+                                   atol=2e-2)
+    cut = (BH, S) in ((24, 1500), (4, 3904), (8, 1000), (24, 1000))
+    assert (plan.n_counters > 0) == cut
 
 
 @pytest.mark.parametrize("D,Dv", [(257, 64), (64, 257), (320, 320)])
@@ -684,14 +734,15 @@ def _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype, seed):
 
 @pytest.mark.parametrize("variant,D", [("simt", 64), ("simt", 16),
                                        ("wgmma", 64), ("wgmma", 80),
-                                       ("wgmma", 128), ("wgmma", 192)])
+                                       ("wgmma", 128), ("wgmma", 192),
+                                       ("pingpong", 64), ("pingpong", 128)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_lse_matches_plain(cuda, variant, D, causal):
-    """K6's logsumexp output (both variants) against the plain
-    logsumexp; f32 for the simt cases, bf16 for wgmma (D = 192 with MLA's
-    Dv = 128, D = 80 zamba2's); 1e-4 absolute (lse is O(10): a few f32 ulps plus wgmma's
-    ex2.approx)."""
-    dtype = torch.bfloat16 if variant == "wgmma" else torch.float32
+    """K6's logsumexp output (every variant) against the plain
+    logsumexp; f32 for the simt cases, bf16 for the tensor-core ones (D =
+    192 with MLA's Dv = 128, D = 80 zamba2's); 1e-4 absolute (lse is
+    O(10): a few f32 ulps plus the tensor-core kernels' ex2.approx)."""
+    dtype = torch.float32 if variant == "simt" else torch.bfloat16
     Dv = 128 if D == 192 else D
     q, k, v = _qkv(cuda, 16, 333, 333, D, Dv, 4, dtype, D + causal)
     out, lse = AK.flash_attention_cuda(q, k, v, group=4, causal=causal,

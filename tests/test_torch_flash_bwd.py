@@ -163,7 +163,8 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
 
 
 @pytest.mark.parametrize("dtype,D,Dv,want", [
-    (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 64, 64, "pingpong"),
+    (torch.bfloat16, 128, 128, "pingpong"),
     (torch.bfloat16, 192, 128, "wgmma"),
     (torch.bfloat16, 64, 128, "simt"), (torch.bfloat16, 128, 64, "simt"),
     (torch.bfloat16, 16, 16, "simt"), (torch.bfloat16, 96, 96, "simt"),
@@ -174,9 +175,10 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
     (torch.bfloat16, 192, 64, "simt"), (torch.bfloat16, 160, 64, "simt"),
     (torch.bfloat16, 256, 256, "simt")])
 def test_bwd_variant_choice(dtype, D, Dv, want):
-    """K7 takes K6's rule: ``wgmma`` for bf16 with (D, Dv) in {(64, 64),
-    (80, 80), (128, 128), (192, 128)}, ``simt`` otherwise. A forced ``"wgmma"`` on
-    inputs that do not
+    """K7 takes K6's rule: its tensor cores for bf16 with (D, Dv) in
+    {(64, 64), (80, 80), (128, 128), (192, 128)} (K6's ``pingpong`` at 64
+    and 128, ``wgmma`` at the others), ``simt`` otherwise. A forced
+    ``"wgmma"`` on inputs that do not
     qualify raises before anything is built; on inputs that do, the
     wrapper goes on to its checks (and refuses CPU tensors). The scratch
     is Dsum for simt, lse and Dsum over rows padded to ROW_PAD for
@@ -187,7 +189,7 @@ def test_bwd_variant_choice(dtype, D, Dv, want):
     v = torch.zeros(2, 9, Dv, dtype=dtype)
     o = torch.zeros(4, 9, Dv, dtype=dtype)
     lse = torch.zeros(4, 9)
-    if want == "wgmma":
+    if want != "simt":
         with pytest.raises(ValueError, match="on the card"):
             BK.flash_attention_bwd_cuda(q, kv, v, o, lse, o, group=2,
                                         force_variant="wgmma")

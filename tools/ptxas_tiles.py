@@ -10,7 +10,11 @@ whose register budgets are tight, from nvcc's ptxas report:
   (``flash_attention_wgmma_kernel<80, 80>``, csrc/flash_attention.cu) and
   of K7 (its prep, dK, dV and dQ kernels), built from the shipped sources.
   K7's dK, dV and dQ kernels must start at the 168 registers their
-  setmaxnreg regrouping (24 / 240 / 240) assumes.
+  setmaxnreg regrouping (24 / 240 / 240) assumes;
+* K6's ping-pong instances at (64, 64) and (128, 128)
+  (``flash_attention_pingpong_kernel``), which regroup the same way and
+  must start at 168 registers too, with no spills (their consumers hold o,
+  one tile's scores and P: 160 registers at D = 128).
 
 Each build goes under build/ptxas_tiles/.
 
@@ -38,6 +42,9 @@ HEAD_DIM_80 = (
     ("flash_attention_bwd.cu", r"prep_kernelILi80E", "K7 prep"),
     ("flash_attention_bwd.cu", r"dkdv_wgmma_kernelILi80ELi80E", "K7 dK, dV"),
     ("flash_attention_bwd.cu", r"dq_wgmma_kernelILi80ELi80E", "K7 dQ"))
+# K6's ping-pong instances: (pattern, label)
+PINGPONG = ((r"pingpong_kernelILi64ELi64E", "K6 pingpong (64, 64)"),
+            (r"pingpong_kernelILi128ELi128E", "K6 pingpong (128, 128)"))
 
 
 def ptxas(out: Path, source: str, text: str) -> str:
@@ -74,6 +81,10 @@ def main() -> int:
         for fn, line in ptxas_lines(reports[src]):
             if re.search(pattern, fn):
                 print(f"[ptxas tiles] {label} (80, 80): {line}", flush=True)
+    for pattern, label in PINGPONG:
+        for fn, line in ptxas_lines(reports["flash_attention.cu"]):
+            if re.search(pattern, fn):
+                print(f"[ptxas tiles] {label}: {line}", flush=True)
     return 0
 
 
