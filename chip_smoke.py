@@ -788,26 +788,28 @@ def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
     return n * (n + 1) // 2 + max(0, Sq - Sk) * Sk
 
 
-def hold_k6_against_plain(name, q, k, v, group, causal, expect):
-    """One K6 call against its plain version on the same inputs: it must
-    launch the ``expect`` variant once and nothing else, and agree within
-    ATT_TOL (abs + rel). In bf16 the kernel must also be no further from
-    the f32 plain run on the same inputs than the bf16 plain run is, within
-    B_RATIO (max abs distances). Returns (max abs err vs plain, that
-    distance ratio or None in f32)."""
+def hold_k6_against_plain(name, q, k, v, group, causal, expect,
+                          q_offset=0):
+    """One K6 call against its plain version on the same inputs (query
+    offset ``q_offset``): it must launch the ``expect`` variant once and
+    nothing else, and agree within ATT_TOL (abs + rel). In bf16 the kernel
+    must also be no further from the f32 plain run on the same inputs than
+    the bf16 plain run is, within B_RATIO (max abs distances). Returns
+    (max abs err vs plain, that distance ratio or None in f32)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops
 
     before = dict(K.KERNEL.launches_by_variant)
-    got = ops.flash_attention(q, k, v, group=group, causal=causal)
+    got = ops.flash_attention(q, k, v, group=group, causal=causal,
+                              q_offset=q_offset)
     torch.cuda.synchronize()
     delta = {n: K.KERNEL.launches_by_variant[n] - before[n] for n in before}
     require(delta == {n: int(n == expect) for n in delta},
             f"flash_attention ({name}) launched {delta}, expected one "
             f"{expect} launch")
     want = ops.flash_attention(q, k, v, group=group, causal=causal,
-                               backend="ref").float()
+                               backend="ref", q_offset=q_offset).float()
     diff = (got.float() - want).abs()
     tol = ATT_TOL[str(q.dtype).removeprefix("torch.")]
     err = float(diff.max())
@@ -818,7 +820,8 @@ def hold_k6_against_plain(name, q, k, v, group, causal, expect):
     if q.dtype == torch.float32:
         return err, None
     want32 = ops.flash_attention(q.float(), k.float(), v.float(),
-                                 group=group, causal=causal, backend="ref")
+                                 group=group, causal=causal, backend="ref",
+                                 q_offset=q_offset)
     err_k = float((got.float() - want32).abs().max())
     err_p = float((want - want32).abs().max())
     require(err_k <= B_RATIO * err_p,
@@ -1910,6 +1913,218 @@ def simt_beside_wgmma(tag, qkv6, inputs7, grads, f32, err_p, group,
                                    f"{err7:.3e}; the SIMT gradients "
                                    f"{err_s:.3e} from f32 (plain bf16 "
                                    f"{err_p:.3e})"}
+
+
+# -- [offset]: K6 and K7 with a query offset ----------------------------------
+
+# (tag, BH, Sq, Sk, D, Dv, group, dtype, offsets): every K6 variant and
+# every K7 design at the model paths' head dims, causal; the variant is
+# the rule's (kernel.variant / bwd_kernel.variant)
+OFFSET_CASES = (
+    ("granite", SERVE_B * 32, 1024, 1024, 64, 64, 4, "bfloat16", (37, 128)),
+    ("granite Sq<Sk", SERVE_B * 32, 512, 1024, 64, 64, 4, "bfloat16",
+     (37, 128, 512)),
+    ("llava", 32, 3904, 3904, 128, 128, 4, "bfloat16", (37, 128)),
+    # 4 heads (124 items) and 8 x 1000 rows: the ping-pong plan cuts items
+    ("llava cut", 4, 3904, 3904, 128, 128, 4, "bfloat16", (37, 128)),
+    ("granite cut", 8, 1000, 1000, 64, 64, 4, "bfloat16", (37, 128)),
+    ("zamba2", SERVE_B * 32, 1024, 1024, 80, 80, 1, "bfloat16", (37, 128)),
+    ("mla", 128, 1024, 1024, 192, 128, 1, "bfloat16", (37, 128)),
+    ("granite f32", SERVE_B * 32, 1024, 1024, 64, 64, 4, "float32",
+     (37, 128)),
+)
+OFFSET_BLOCK = 512          # granite-3-2b's block_train query offset
+
+
+def hold_offset(tag, BH, Sq, Sk, D, Dv, group, dtype, off, gen, dev):
+    """K6 and K7 at query offset ``off`` (query row i keeps keys 0..off +
+    i) against their plain versions on the same inputs: K6 by
+    :func:`hold_k6_against_plain` on the rule's variant, its tensor-core
+    output the same bits on a second call; K6's lse within LSE_TOL of the
+    plain logsumexp; K7 from K6's o and lse on the rule's design, in f32
+    within BWD_TOL of max |grad|, in bf16 no further from the f32 plain
+    gradient than the bf16 plain gradient is (x B_RATIO) and the same bits
+    on a second call. Returns {"k6", "k7": error, "ratio6", "ratio7"}."""
+    import torch
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as REF
+
+    dt = getattr(torch, dtype)
+    v6, v7 = K.variant(dt, D, Dv), BK.variant(dt, D, Dv)
+    name = f"{tag} {dtype} q_offset {off}"
+    q, k, v = attention_inputs(gen, dev, BH, Sq, Sk, D, Dv, group, dt)
+    do = torch.randn(BH, Sq, Dv, generator=gen, device=dev).to(dt)
+    kw = dict(group=group, causal=True, q_offset=off)
+    err6, ratio6 = hold_k6_against_plain(name, q, k, v, group, True, v6,
+                                         q_offset=off)
+    o, lse = K.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    if v6 != "simt":
+        again = K.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+                f"flash_attention ({name}, {v6}) differs between two calls")
+        del again
+    _, want_lse = REF.flash_attention_lse_ref(q, k, v, **kw)
+    lse_err = float((lse - want_lse).abs().max())
+    require(lse_err <= LSE_TOL, f"flash_attention's lse ({name}) differs "
+                                f"from the plain logsumexp by {lse_err:.3e}")
+    before = dict(BK.KERNEL.launches_by_variant)
+    got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    require(BK.KERNEL.launches_by_variant == {**before,
+                                              v7: before[v7] + 1},
+            f"flash_attention_bwd ({name}) did not count one {v7} launch")
+    want = REF.flash_attention_bwd_ref(q, k, v, o, want_lse, do, **kw)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(g.float()).all()) for g in got),
+            f"flash_attention_bwd ({name}) gave non-finite gradients")
+    err7, ratio7 = grad_err(got, want), None
+    if dt == torch.float32:
+        require(err7 <= BWD_TOL, f"flash_attention_bwd ({name}) differs from "
+                                 f"its plain version: {err7:.3e} of max "
+                                 f"|grad| > {BWD_TOL:g}")
+    else:
+        f32 = REF.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), want_lse, do.float(), **kw)
+        err_k, err_p = grad_err(got, f32), grad_err(want, f32)
+        ratio7 = err_k / err_p
+        require(err_k <= B_RATIO * err_p,
+                f"flash_attention_bwd ({name}, {v7}) is {err_k:.3e} from the "
+                f"f32 gradient, more than {B_RATIO:g} x the plain bf16 "
+                f"gradient's {err_p:.3e}")
+        again = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash_attention_bwd ({name}, {v7}) differs between two "
+                f"calls")
+        del f32, again
+    del q, k, v, do, o, lse, want_lse, got, want
+    torch.cuda.empty_cache()
+    log(f"[offset] {name}: K6 {v6} max abs err vs plain {err6:.3e}"
+        + ("" if ratio6 is None else f" (bf16 distance ratio {ratio6:.3f})")
+        + f", lse {lse_err:.3e}; K7 {v7} {err7:.3e} of max |grad| vs plain"
+        + ("" if ratio7 is None else f" (bf16 distance ratio {ratio7:.3f})"))
+    return {"k6": err6, "k7": err7, "ratio6": ratio6, "ratio7": ratio7,
+            "lse": lse_err, "variants": (v6, v7)}
+
+
+def offset_block_check(dev):
+    """granite-3-2b's ``block_train`` at full width (d 2048, 32 / 8 heads
+    of 64, its 8192-wide FFN; seeded random weights) over positions
+    OFFSET_BLOCK.. of TRAIN_B x TRAIN_S tokens, forward and backward
+    (the gradients of x and of every parameter, one seeded cotangent):
+    bf16 with the kernels, the path whose launches the counts read (K6
+    once on its pingpong kernel, K7 once on its fused kernels), bf16
+    plain, and f32 with the kernels (SIMT) and plain on the same weights
+    and input. f32: the output within A_TOL of its largest element, the
+    gradients within MOE_GRAD_TOL of each one's; bf16: the kernel run's
+    output and worst gradient no further from the f32 plain run than the
+    plain bf16 run's, x B_RATIO. Returns the bf16 path's launches
+    {kernel: {variant: n}}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.models import lm as LM
+    from repro_torch.models.param import materialize
+    from repro_torch.optim import adamw
+
+    cfg = get_config("granite-3-2b")
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params = materialize(LM.block_descs(cfg, "dense"),
+                         torch.Generator(device=dev).manual_seed(43), dev)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    x = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, generator=gen,
+                    device=dev)
+    dy = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, generator=gen,
+                     device=dev)
+
+    def run(c, backend):
+        dt = getattr(torch, c.dtype)
+        p = adamw.tree_map(lambda t: t.to(dt).detach().requires_grad_(),
+                           params)
+        xin = x.to(dt).requires_grad_()
+        y = LM.block_train(p, xin, c, backend=backend,
+                           q_offset=OFFSET_BLOCK)
+        grads = torch.autograd.grad(y, [xin] + adamw.leaves(p), dy.to(dt))
+        return y.detach().float(), [g.float() for g in grads]
+
+    runs = {}
+    for what, c, backend in (("f32 plain", cfg32, "ref"),
+                             ("f32 kernels", cfg32, None),
+                             ("bf16 plain", cfg, "ref")):
+        runs[what] = run(c, backend)
+    K.KERNEL.reset_counts()
+    BK.KERNEL.reset_counts()
+    with PlainCalls() as plain:
+        runs["bf16 kernels"] = run(cfg, None)
+    torch.cuda.synchronize()
+    launched = {kern.name: {n: c for n, c in
+                            kern.launches_by_variant.items() if c}
+                for kern in (K.KERNEL, BK.KERNEL)}
+    require(launched == {K.KERNEL.name: {"pingpong": 1},
+                         BK.KERNEL.name: {"fused": 1}}
+            and plain.calls == 0,
+            f"[offset] granite-3-2b block_train launched {launched} with "
+            f"{plain.calls} plain attention calls, expected one pingpong K6 "
+            f"and one fused K7 launch and none")
+    (y32, g32), (yk, gk) = runs["f32 plain"], runs["f32 kernels"]
+    out32 = float((yk - y32).abs().max()) / float(y32.abs().max())
+    grad32 = grad_err(gk, g32)
+    require(out32 <= A_TOL and grad32 <= MOE_GRAD_TOL,
+            f"[offset] granite-3-2b block_train in f32: the kernel run "
+            f"differs from the plain run by {out32:.3e} (output) and "
+            f"{grad32:.3e} (worst gradient) of their max")
+    dist = lambda r: (float((r[0] - y32).abs().max()),
+                      max(float((a - b).abs().max())
+                          / max(float(b.abs().max()), 1e-30)
+                          for a, b in zip(r[1], g32)))
+    (ok, gk16), (op, gp16) = dist(runs["bf16 kernels"]), dist(
+        runs["bf16 plain"])
+    log(f"[offset] granite-3-2b block_train at full width, B={TRAIN_B} x "
+        f"{TRAIN_S} over positions {OFFSET_BLOCK}..: f32 kernels vs plain "
+        f"{out32:.3e} (output, of max; held <= {A_TOL:g}), {grad32:.3e} "
+        f"(worst gradient; held <= {MOE_GRAD_TOL:g}); bf16 from the f32 "
+        f"plain run: output kernels {ok:.3e}, plain {op:.3e}; worst "
+        f"gradient kernels {gk16:.3e}, plain {gp16:.3e} (held: kernels <= "
+        f"{B_RATIO:g} x plain); launches {launched}")
+    require(ok <= B_RATIO * op and gk16 <= B_RATIO * gp16,
+            "[offset] granite-3-2b block_train in bf16: the kernel run is "
+            "further from f32 than the plain run is")
+    del runs, params, x, dy
+    torch.cuda.empty_cache()
+    return launched
+
+
+def offset_phase(dev):
+    """[offset]: K6 and K7 at query offsets on every variant, by
+    :func:`hold_offset` over OFFSET_CASES (their launches counted by
+    variant from 0, and every variant of each required), then
+    granite-3-2b's ``block_train`` with ``q_offset`` = OFFSET_BLOCK
+    (:func:`offset_block_check`, launch counts from 0). Returns (the
+    block path's launches {kernel: n}, the checks' launches {kernel:
+    {variant: n}}, the errors {case: ...})."""
+    import torch
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    gen = torch.Generator(device=dev).manual_seed(47)
+    K.KERNEL.reset_counts()
+    BK.KERNEL.reset_counts()
+    errs = {}
+    for tag, BH, Sq, Sk, D, Dv, group, dtype, offsets in OFFSET_CASES:
+        for off in offsets:
+            errs[f"{tag} {off}"] = hold_offset(tag, BH, Sq, Sk, D, Dv, group,
+                                               dtype, off, gen, dev)
+    checked = {kern.name: dict(kern.launches_by_variant)
+               for kern in (K.KERNEL, BK.KERNEL)}
+    for kern, names in ((K.KERNEL, ("pingpong", "wgmma", "simt")),
+                        (BK.KERNEL, ("fused", "wgmma", "simt"))):
+        require(all(checked[kern.name][n] > 0 for n in names),
+                f"[offset] {kern.name} did not launch every variant "
+                f"at an offset: {checked[kern.name]}")
+    log(f"[offset] the checks' launches by variant: {checked}")
+    launched = offset_block_check(dev)
+    return ({n: sum(by.values()) for n, by in launched.items()}, checked,
+            errs)
 
 
 # -- the unfused path ----------------------------------------------------------
@@ -4895,10 +5110,19 @@ def tune_phase(dev, system, events, nows):
         windows = []
         for attempt in range(3):
             launched = K.KERNEL.launches
-            per_call, n = device_profile(
-                K.KERNEL, lambda: ops.segment_sums(*args, **kw), TUNE_ITERS)
-            require(K.KERNEL.launches - launched == TUNE_ITERS + 1,
-                    f"[tune] K1 at tile {tile} did not launch once per call")
+            calls = [0]
+
+            def call():
+                calls[0] += 1
+                ops.segment_sums(*args, **kw)
+
+            # device_profile makes its own windows again when one loses
+            # device events, so the calls it made are counted, not assumed
+            per_call, n = device_profile(K.KERNEL, call, TUNE_ITERS)
+            require(K.KERNEL.launches - launched == calls[0],
+                    f"[tune] K1 at tile {tile} launched "
+                    f"{K.KERNEL.launches - launched} times in {calls[0]} "
+                    f"calls, not once per call")
             windows.append((n, per_call / max(n, 1e-9)))
             if n == 1:
                 break
@@ -5234,6 +5458,19 @@ def main() -> int:
 
     clocks("kernel", "end")
 
+    # 3b. K6 and K7 at query offsets on every variant, and granite-3-2b's
+    # block_train over positions 512.. (launch counts start at 0)
+    offset_launches, offset_checked, offset_errs = phase("offset",
+                                                         offset_phase, dev)
+    for c in checks:
+        if c["kernel"].name in offset_checked:
+            c["offset"] = {"launches_by_variant":
+                           offset_checked[c["kernel"].name],
+                           "block_train_launches":
+                           offset_launches[c["kernel"].name],
+                           "errs": {case: {"k6": e["k6"], "k7": e["k7"]}
+                                    for case, e in offset_errs.items()}}
+
     # 4. main path (launch counts start at 0 here)
     system, events, nows = paper_system(dev)
     main_launches, v1_anomalies = phase("main", main_path, system, events,
@@ -5371,7 +5608,8 @@ def main() -> int:
                  "train_zamba2": train_z_launches,
                  "train_rwkv": train_r_launches,
                  "train_whisper": train_w_launches,
-                 "train_llava": train_v_launches},
+                 "train_llava": train_v_launches,
+                 "offset": offset_launches},
         {"flash_attention": serve_variants,
          "flash_attention_bwd": train_variants})}))
     print(smi)
@@ -5426,7 +5664,7 @@ def kernel_rows(checks, by_path, by_variant):
                          "simt_note", "wgmma_device_us", "wgmma_ms",
                          "wgmma_note", "abs_errs", "lse_errs", "mla",
                          "zamba2", "whisper", "llava", "variants_by_path",
-                         "kinds_by_path")
+                         "kinds_by_path", "offset")
                         if key in c}})
     return rows
 

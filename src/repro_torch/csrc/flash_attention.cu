@@ -137,12 +137,12 @@
 //     their order) and p = 2^(s * scale * log2 e - m * scale * log2 e),
 //     one fmaf and one ex2.approx.ftz (what exp2f compiles to, without
 //     its denormal fix-up: a p below 2^-126 is 0).
-//   * Causal: KV tiles past the query tile's last row are not loaded; a
-//     warpgroup skips a tile that lies wholly above its own rows (it only
-//     releases it); only tiles that cross the diagonal or the end of Sk
-//     are masked. Ragged Sq and Sk: the 3-D tensor maps (D, S, BH)
-//     zero-fill rows past S, keys >= Sk are masked and rows >= Sq are not
-//     stored.
+//   * Causal: KV tiles past the query tile's last position are not
+//     loaded; a warpgroup skips a tile that lies wholly above its own
+//     rows' positions (it only releases it); only tiles that cross the
+//     diagonal (shifted by q_offset) or the end of Sk are masked. Ragged
+//     Sq and Sk: the 3-D tensor maps (D, S, BH) zero-fill rows past S,
+//     keys >= Sk are masked and rows >= Sq are not stored.
 //   * Tensor maps are encoded on the host per call with
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 //     -lcuda), and passed as __grid_constant__ kernel parameters. The
@@ -167,8 +167,8 @@
 // shuffles. p is rounded to the value type before p·v and l sums the
 // unrounded p, as the TPU kernel does. It runs f32 FMAs on the CUDA
 // cores (67 TFLOP/s at best), far above the bound. Under the causal mask
-// (top-left: query i sees keys 0..i) key tiles past the tile's last query
-// row are skipped, which is exact: their terms are exp(-1e30 - m) = 0.
+// key tiles past the tile's last query position are skipped, which is
+// exact: their terms are exp(-1e30 - m) = 0.
 // Ragged Sq and Sk are masked here, so any length is taken. Blocks run
 // the heaviest query tiles first. Head dims run to 256, D != Dv (MLA's
 // prefill is D = 192, Dv = 128): shared memory is (64 + 64)(D + 1) +
@@ -176,11 +176,19 @@
 // under the 227 KB a block may opt into, so at those widths one block
 // fits on an SM.
 //
-// All three: query head bh reads kv row bh / group; the causal mask is
-// top-left. Given a non-null lse pointer (the training forward), they
-// also store each query row's logsumexp m + log l in natural-log units
-// (the tensor-core kernels' max is a raw score, converted by scale *
-// log2 e * ln 2); with null they store nothing and run as before.
+// All three: query head bh reads kv row bh / group. The causal mask keeps
+// key j for query row i when j <= q_offset + i: query row i sits at
+// position q_offset + i of the keys' sequence (q_offset >= 0; 0 is the
+// top-left mask, and an offset >= Sk - 1 keeps every key). The offset
+// moves only the positions the masks, the tile counts and the skipped
+// tiles compare: each row still sees key 0, so a whole item's first tile
+// holds an unmasked key and m is finite from there on (a cut item's later
+// part may hold none of a row's keys: the ping-pong kernel stores that
+// row's partial as 0). Given a non-null lse pointer (the training
+// forward), they also store each query row's logsumexp m + log l in
+// natural-log units (the tensor-core kernels' max is a raw score,
+// converted by scale * log2 e * ln 2); with null they store nothing and
+// run as before.
 #include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -254,7 +262,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int BH,
                        int group, int Sq, int Sk, int D, int Dv, float scale,
-                       int causal, int nq) {
+                       int causal, int qoff, int nq) {
   extern __shared__ float smem[];
   const int ds = D + 1;
   float* qs = smem;                   // (kBQ, D + 1)
@@ -283,7 +291,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int last_q = min(q0 + kBQ, Sq) - 1;
   int nk = (Sk + kBK - 1) / kBK;
-  if (causal) nk = min(nk, last_q / kBK + 1);
+  if (causal) nk = min(nk, (last_q + qoff) / kBK + 1);
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kBK;
@@ -318,7 +326,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kCols; ++j) {
         const int kp = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (kp >= Sk || (causal && kp > qp)) x = kNegInf;
+        if (kp >= Sk || (causal && kp > qp + qoff)) x = kNegInf;
         s[i][j] = x;
         mt = fmaxf(mt, x);
       }
@@ -374,7 +382,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DVC>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
                 float* lse, int BH, int group, int Sq, int Sk, int D, int Dv,
-                float scale, int causal, cudaStream_t stream) {
+                float scale, int causal, int qoff, cudaStream_t stream) {
   const int nq = (Sq + kBQ - 1) / kBQ;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBQ + kBK) * (D + 1) +
@@ -386,7 +394,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, DVC><<<nq * BH, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, BH, group, Sq, Sk,
-      D, Dv, scale, causal, nq);
+      D, Dv, scale, causal, qoff, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,15 +403,16 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 int launch_simt_dv(const void* q, const void* k, const void* v, void* out,
                    float* lse, int BH, int group, int Sq, int Sk, int D,
-                   int Dv, float scale, int causal, cudaStream_t stream) {
+                   int Dv, float scale, int causal, int qoff,
+                   cudaStream_t stream) {
   if (Dv <= 64)
     return launch_simt<T, 4>(q, k, v, out, lse, BH, group, Sq, Sk, D, Dv,
-                             scale, causal, stream);
+                             scale, causal, qoff, stream);
   if (Dv <= 128)
     return launch_simt<T, 8>(q, k, v, out, lse, BH, group, Sq, Sk, D, Dv,
-                             scale, causal, stream);
+                             scale, causal, qoff, stream);
   return launch_simt<T, 16>(q, k, v, out, lse, BH, group, Sq, Sk, D, Dv,
-                            scale, causal, stream);
+                            scale, causal, qoff, stream);
 }
 
 
@@ -447,8 +456,9 @@ struct WgLayout {
 };
 
 // The online softmax of one tile's raw scores, in registers. sc[4j + e] is
-// row r0 (e < 2) or r1, key k0 + 8j + 2t + (e & 1); N = keys / 2.
-// Masks keys >= Sk and (causal) keys past the row to -1e30 when `edge`,
+// row r0 (e < 2) or r1, key k0 + 8j + 2t + (e & 1); N = keys / 2; the
+// caller passes each row's position (its index plus the query offset).
+// Masks keys >= Sk and (causal) keys past the position to -1e30 when `edge`,
 // updates the row max m (of the raw scores: scale > 0 keeps the order)
 // and the row sum l (of the unrounded p, partial: this thread's columns),
 // returns the factors c that rescale the accumulator, and rounds
@@ -525,7 +535,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              __nv_bfloat16* __restrict__ out,
                              float* __restrict__ lse, int BH,
                              int group, int Sq, int Sk, float scale_log2,
-                             int causal, int nq) {
+                             int causal, int qoff, int nq) {
   using L = WgLayout<D, Dv>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sq =                               // [kQBufs][kQBytes]
@@ -564,7 +574,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   };
   auto item_tiles = [&](int q0) {
     const int nk = (Sk + kWgBK - 1) / kWgBK;
-    return causal ? min(nk, (min(q0 + L::kBQ, Sq) - 1) / kWgBK + 1) : nk;
+    return causal ? min(nk, (min(q0 + L::kBQ, Sq) - 1 + qoff) / kWgBK + 1)
+                  : nk;
   };
 
   if (threadIdx.x < 128) {
@@ -626,7 +637,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = row_a + 16 * warp + g, r1 = r0 + 8;  // this thread's rows
     // tiles past nk_wg lie wholly above this warpgroup's rows (causal):
     // exp(-1e30 - m) = 0 for all their keys, so they are only released
-    const int nk_wg = causal ? min(nk, (row_a + 63) / kWgBK + 1) : nk;
+    const int nk_wg = causal ? min(nk, (row_a + 63 + qoff) / kWgBK + 1) : nk;
     const uint64_t dqb = dq + ((qb * L::kQBytes) >> 4);
 
     float o[Dv / 2], sc[kWgBK / 2];
@@ -664,9 +675,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       const bool edge =
-          k0 + kWgBK > Sk || (causal && k0 + kWgBK - 1 > row_a);
-      softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, edge, k0, Sk, causal, r0,
-                   r1, t, scale_log2);
+          k0 + kWgBK > Sk || (causal && k0 + kWgBK - 1 > row_a + qoff);
+      softmax_tile(sc, pa, m0, m1, l0, l1, c0, c1, edge, k0, Sk, causal,
+                   r0 + qoff, r1 + qoff, t, scale_log2);
       rescale(o, c0, c1);
 
       // O += P V: V is the MN-major B operand; a k16 step is 16 key rows
@@ -868,7 +879,7 @@ flash_attention_pingpong_kernel(const __grid_constant__ CUtensorMap tq,
                                 float* __restrict__ partials,
                                 int* __restrict__ counters, int group,
                                 int Sq, int Sk, float scale_log2,
-                                int causal) {
+                                int causal, int qoff) {
   using L = WgLayout<D, Dv>;
   using P = PpLayout<D, Dv>;
   constexpr int QB = P::kQBufs, KS = P::kKStages, VS = P::kVStages;
@@ -1027,9 +1038,9 @@ flash_attention_pingpong_kernel(const __grid_constant__ CUtensorMap tq,
     auto softmax = [&](int j) {
       const int k0 = (w.kt0 + j) * kWgBK;
       const bool edge =
-          k0 + kWgBK > Sk || (causal && k0 + kWgBK - 1 > row_a);
-      softmax_exp(sc, m0, m1, l0, l1, c0, c1, edge, k0, Sk, causal, r0, r1,
-                  t, scale_log2);
+          k0 + kWgBK > Sk || (causal && k0 + kWgBK - 1 > row_a + qoff);
+      softmax_exp(sc, m0, m1, l0, l1, c0, c1, edge, k0, Sk, causal,
+                  r0 + qoff, r1 + qoff, t, scale_log2);
     };
 
 #pragma unroll
@@ -1093,10 +1104,19 @@ flash_attention_pingpong_kernel(const __grid_constant__ CUtensorMap tq,
                          kPartialFloats<Dv>;
       float4* const po =
           reinterpret_cast<float4*>(pp) + cw * (Dv / 8) * 128 + tid;
+      // a row that keeps no key of this part (with a query offset,
+      // consumer 0's rows can end before the part's tiles) kept m = -1e30,
+      // and its p = 2^(fmaf(-1e30, sl, 1e30 sl rounded)) may be inf: it
+      // adds nothing to the item, so its o and l are stored as 0
+      const bool none0 = m0 == kNegInf, none1 = m1 == kNegInf;
+      if (none0) l0 = 0.f;
+      if (none1) l1 = 0.f;
 #pragma unroll
       for (int x = 0; x < Dv / 8; ++x)
-        __stcg(po + x * 128, make_float4(o[4 * x], o[4 * x + 1],
-                                         o[4 * x + 2], o[4 * x + 3]));
+        __stcg(po + x * 128,
+               make_float4(none0 ? 0.f : o[4 * x], none0 ? 0.f : o[4 * x + 1],
+                           none1 ? 0.f : o[4 * x + 2],
+                           none1 ? 0.f : o[4 * x + 3]));
       __stcg(reinterpret_cast<float4*>(pp + 128 * Dv) + cw * 128 + tid,
              make_float4(m0, m1, l0, l1));
       // one thread counts the part in for both consumers: its acq_rel
@@ -1207,7 +1227,7 @@ cudaError_t num_sms(int* n) {
 template <int D, int Dv>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int BH, int group, int Sq, int Sk, float scale,
-                 int causal, cudaStream_t stream) {
+                 int causal, int qoff, cudaStream_t stream) {
   using L = WgLayout<D, Dv>;
   EncodeTiled enc;
   const int rc = get_encoder(&enc);
@@ -1229,7 +1249,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   // one block per SM (registers allow no more), each walking its items
   kernel<<<min(nq * BH, sms), kWgThreads, L::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, BH, group, Sq, Sk,
-      scale * kLog2e, causal, nq);
+      scale * kLog2e, causal, qoff, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1237,7 +1257,8 @@ template <int D, int Dv>
 int launch_pingpong(const void* q, const void* k, const void* v, void* out,
                     float* lse, const int* plan, int n_parts, int n_blocks,
                     float* partials, int* counters, int BH, int group, int Sq,
-                    int Sk, float scale, int causal, cudaStream_t stream) {
+                    int Sk, float scale, int causal, int qoff,
+                    cudaStream_t stream) {
   using L = WgLayout<D, Dv>;
   EncodeTiled enc;
   const int rc = get_encoder(&enc);
@@ -1261,12 +1282,15 @@ int launch_pingpong(const void* q, const void* k, const void* v, void* out,
   // plan's parts for it
   kernel<<<n_blocks, kWgThreads, smem, stream>>>(
       tq, tk, tv, to, lse, plan, n_parts,
-      partials, counters, group, Sq, Sk, scale * kLog2e, causal);
+      partials, counters, group, Sq, Sk, scale * kLog2e, causal, qoff);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// q_offset: the position of query row 0 (0 <= q_offset <= Sk; any offset
+// >= Sk - 1 keeps every key): under the causal mask row i keeps keys j <=
+// q_offset + i, keys counting from 0, as the reference's chunked_attention.
 // lse: null, or a (BH, Sq) f32 buffer that receives each query row's
 // logsumexp of the scaled scores (natural log, m + log l), which the
 // backward (flash_attention_bwd.cu) recomputes p from.
@@ -1285,13 +1309,14 @@ int launch_pingpong(const void* q, const void* k, const void* v, void* out,
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* lse_ptr, int BH, int group,
                                int Sq, int Sk, int D, int Dv, float scale,
-                               int causal, int dtype, int variant,
-                               const void* plan, int n_parts, int n_blocks,
+                               int causal, int q_offset, int dtype,
+                               int variant, const void* plan, int n_parts,
+                               int n_blocks,
                                void* partials, void* counters,
                                void* stream) {
   if (BH < 1 || group < 1 || BH % group || Sq < 1 || Sk < 1 || D < 1 ||
-      D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim ||
-      (dtype != 0 && dtype != 1) ||
+      D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim || q_offset < 0 ||
+      q_offset > Sk || (dtype != 0 && dtype != 1) ||
       static_cast<long long>((Sq + kBQ - 1) / kBQ) * BH > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -1311,30 +1336,31 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     if (D == 64)
       return launch_pingpong<64, 64>(q, k, v, out, lse, p, n_parts,
                                      n_blocks, part, cnt, BH, group, Sq, Sk,
-                                     scale, causal, s);
+                                     scale, causal, q_offset, s);
     return launch_pingpong<128, 128>(q, k, v, out, lse, p, n_parts,
                                      n_blocks, part, cnt, BH, group, Sq, Sk,
-                                     scale, causal, s);
+                                     scale, causal, q_offset, s);
   }
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
     if (D == 64)
       return launch_wgmma<64, 64>(q, k, v, out, lse, BH, group, Sq, Sk,
-                                  scale, causal, s);
+                                  scale, causal, q_offset, s);
     if (D == 80)
       return launch_wgmma<80, 80>(q, k, v, out, lse, BH, group, Sq, Sk,
-                                  scale, causal, s);
+                                  scale, causal, q_offset, s);
     if (D == 128)
       return launch_wgmma<128, 128>(q, k, v, out, lse, BH, group, Sq, Sk,
-                                    scale, causal, s);
+                                    scale, causal, q_offset, s);
     return launch_wgmma<192, 128>(q, k, v, out, lse, BH, group, Sq, Sk,
-                                  scale, causal, s);
+                                  scale, causal, q_offset, s);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == 0 ? launch_simt_dv<float>(q, k, v, out, lse, BH, group, Sq,
-                                            Sk, D, Dv, scale, causal, s)
-                    : launch_simt_dv<__nv_bfloat16>(q, k, v, out, lse, BH,
-                                                    group, Sq, Sk, D, Dv,
-                                                    scale, causal, s);
+  return dtype == 0
+             ? launch_simt_dv<float>(q, k, v, out, lse, BH, group, Sq, Sk, D,
+                                     Dv, scale, causal, q_offset, s)
+             : launch_simt_dv<__nv_bfloat16>(q, k, v, out, lse, BH, group, Sq,
+                                             Sk, D, Dv, scale, causal,
+                                             q_offset, s);
 }
 

@@ -178,9 +178,20 @@
 // past S, and keys >= Sk and rows >= Sq are masked to p = 0. A barrier
 // wait that exceeds ~2^34 cycles traps instead of hanging the card.
 //
-// Masked (query, key) pairs (keys >= Sk, rows >= Sq, and keys past the
-// row under the top-left causal mask) get p = 0, as exp(-1e30 - lse) is in
-// the reference.
+// Masked (query, key) pairs (keys >= Sk, rows >= Sq, and under the causal
+// mask keys past the row's position q_offset + i, K6's mask) get p = 0, as
+// exp(-1e30 - lse) is in the reference. The offset moves only the
+// positions the masks, the tile ranges and the skipped tiles compare: the
+// first query tile a key tile reaches is the one holding row max(k0 -
+// q_offset, 0) (clamped before the division, so no quotient is
+// negative), and a query tile's last key tile the one holding key
+// q_offset + its last row. The tensor-core kernels are built twice
+// (template flag kOff): for q_offset = 0 the offset is a compile-time 0
+// and the skip tests keep their offset-free form, so these instances
+// compile to the offset-free kernels' SASS (held by `cuobjdump -sass`;
+// a helper function in their place changed the fused kernel's predicate
+// allocation and cost it 1.5 % at head dim 64); the SIMT kernels take the
+// offset at run time.
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -278,7 +289,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum, T* __restrict__ dk,
                      T* __restrict__ dv, int BHkv, int group, int Sq, int Sk,
-                     int D, int Dv, float scale, int causal) {
+                     int D, int Dv, float scale, int causal, int qoff) {
   constexpr int kBK = kTileRows, kBQ = 16 * NC;
   extern __shared__ float smem[];
   const int sd = D + 1, sv = Dv + 1, sp = kBQ + 1;
@@ -310,9 +321,9 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int nq = (Sq + kBQ - 1) / kBQ;
-  // causal: query tiles before k0's hold only rows < k0, which see none of
-  // this tile's keys
-  const int qt0 = causal ? k0 / kBQ : 0;
+  // causal: query tiles before row k0 - qoff's hold only positions < k0,
+  // which see none of this tile's keys
+  const int qt0 = causal ? max(k0 - qoff, 0) / kBQ : 0;
   for (int g = 0; g < group; ++g) {
     const long long bh = static_cast<long long>(kvh) * group + g;
     for (int qt = qt0; qt < nq; ++qt) {
@@ -366,7 +377,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       p_and_ds(s, dp, lr, dr, scale, [&](int i, int j) {
         const int kp = k0 + row0 + i, qp = q0 + tx + 16 * j;
-        return kp < Sk && qp < Sq && !(causal && kp > qp);
+        return kp < Sk && qp < Sq && !(causal && kp > qp + qoff);
       });
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -433,7 +444,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ lse,
                    const float* __restrict__ dsum, T* __restrict__ dq, int BH,
                    int group, int Sq, int Sk, int D, int Dv, float scale,
-                   int causal, int nq) {
+                   int causal, int qoff, int nq) {
   constexpr int kBQ = kTileRows, kBK = 16 * NC;
   extern __shared__ float smem[];
   const int sd = D + 1, sv = Dv + 1, sp = kBK + 1;
@@ -467,7 +478,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int last_q = min(q0 + kBQ, Sq) - 1;
   int nk = (Sk + kBK - 1) / kBK;
-  if (causal) nk = min(nk, last_q / kBK + 1);
+  if (causal) nk = min(nk, (last_q + qoff) / kBK + 1);
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kBK;
@@ -516,7 +527,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     p_and_ds(s, dp, lr, dr, scale, [&](int i, int j) {
       const int qp = q0 + row0 + i, kp = k0 + tx + 16 * j;
-      return kp < Sk && qp < Sq && !(causal && kp > qp);
+      return kp < Sk && qp < Sq && !(causal && kp > qp + qoff);
     });
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
@@ -576,7 +587,7 @@ template <typename T, int DC, int DVC, int NC>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int BH, int group, int Sq, int Sk, int D,
-           int Dv, float scale, int causal, cudaStream_t stream) {
+           int Dv, float scale, int causal, int qoff, cudaStream_t stream) {
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
@@ -599,7 +610,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
   attn_bwd_dkdv_kernel<T, DC, DVC, NC><<<nk * BHkv, kThreads, s1, stream>>>(
       tq, tk, tv, tdo, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
-      BHkv, group, Sq, Sk, D, Dv, scale, causal);
+      BHkv, group, Sq, Sk, D, Dv, scale, causal, qoff);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -610,7 +621,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
   attn_bwd_dq_kernel<T, DC, NC><<<nq * BH, kThreads, s2, stream>>>(
       tq, tk, tv, tdo, lse, dsum, static_cast<T*>(dq), BH, group, Sq, Sk, D,
-      Dv, scale, causal, nq);
+      Dv, scale, causal, qoff, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -622,10 +633,10 @@ template <typename T>
 int launch_dims(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* dsum, void* dq,
                 void* dk, void* dv, int BH, int group, int Sq, int Sk, int D,
-                int Dv, float scale, int causal, cudaStream_t s) {
+                int Dv, float scale, int causal, int qoff, cudaStream_t s) {
 #define K7_LAUNCH(DC, DVC, NC)                                               \
   return launch<T, DC, DVC, NC>(q, k, v, o, dout, lse, dsum, dq, dk, dv, BH, \
-                                group, Sq, Sk, D, Dv, scale, causal, s)
+                                group, Sq, Sk, D, Dv, scale, causal, qoff, s)
   if (D <= 64 && Dv <= 64) K7_LAUNCH(4, 4, 4);
   if (D <= 64 && Dv <= 128) K7_LAUNCH(4, 8, 4);
   if (D <= 128 && Dv <= 64) K7_LAUNCH(8, 4, 4);
@@ -818,7 +829,7 @@ struct DkdvLayout {
 };
 
 // (b) dK, dV: one block per (kv head, 128-row key tile)
-template <int D, int Dv>
+template <int D, int Dv, bool kOff>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -829,8 +840,9 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int BHkv,
                            int group, int Sq, int Sk, int Sp, float scale,
-                           float scale_log2, int causal) {
+                           float scale_log2, int causal, int q_offset) {
   using L = DkdvLayout<D, Dv>;
+  const int qoff = kOff ? q_offset : 0;
   constexpr int BQ = L::kBQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sk = aligned_smem(smem_raw);
@@ -859,9 +871,14 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int kvh = blockIdx.x % BHkv;
   const int k0 = static_cast<int>(blockIdx.x / BHkv) * kDkdvBK;
   const int nq = (Sq + BQ - 1) / BQ;
-  // causal: query tiles before k0's hold only rows < k0, which see none of
-  // the block's keys; tiles are walked head by head, the ring running on
-  const int qt0 = causal ? min(k0 / BQ, nq) : 0;
+  // causal: query tiles before row k0 - qoff's hold only positions < k0,
+  // which see none of the block's keys; tiles are walked head by head, the
+  // ring running on
+  int qt0;
+  if constexpr (kOff)
+    qt0 = causal ? min(max(k0 - qoff, 0) / BQ, nq) : 0;
+  else
+    qt0 = causal ? min(k0 / BQ, nq) : 0;
   const int per_head = nq - qt0;
   const int n_tiles = group * per_head;
 
@@ -937,8 +954,15 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int q0 = (qt0 + it % per_head) * BQ;
     const int s = it % kStages;
     mbar_wait(full + s, (it / kStages) & 1);
-    // causal: a tile wholly before this warpgroup's keys adds nothing
-    if (!(causal && q0 + BQ <= kb)) {
+    // causal: a tile whose rows (those < Sq) all lie before this
+    // warpgroup's keys adds nothing (with no offset its rows' end and the
+    // keys' start are multiples of 32, so its rows past Sq need no test)
+    bool skip;
+    if constexpr (kOff)
+      skip = causal && min(q0 + BQ, Sq) + qoff <= kb;
+    else
+      skip = causal && q0 + BQ <= kb;
+    if (!skip) {
       // S^T = K Q^T (D/16 steps of k16) and dP^T = V dO^T (Dv/16): a step
       // advances 32 bytes inside a 128-byte swizzled row, or moves to the
       // next 64-column block
@@ -965,13 +989,13 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // rows are keys, columns queries: lse and Dsum per column
       const float* const vec = svec + s * 2 * BQ;
       const bool edge =
-          (causal && q0 < kb + 63) || kb + 64 > Sk || q0 + BQ > Sq;
+          (causal && q0 + qoff < kb + 63) || kb + 64 > Sk || q0 + BQ > Sq;
       p_ds_tile(
           st, dpt, ph, pl, dh, dl, edge,
           [&](int j, int e) {
             const int key = e < 2 ? key0 : key1;
             const int qp = q0 + 8 * j + 2 * t + (e & 1);
-            return key >= Sk || qp >= Sq || (causal && key > qp);
+            return key >= Sk || qp >= Sq || (causal && key > qp + qoff);
           },
           [&](int j, int e) { return -vec[8 * j + 2 * t + (e & 1)]; },
           [&](int j, int e) { return vec[BQ + 8 * j + 2 * t + (e & 1)]; },
@@ -1057,7 +1081,7 @@ struct DqLayout {
 };
 
 // (c) dQ: one block per (q head, 128-row query tile)
-template <int D, int Dv>
+template <int D, int Dv, bool kOff>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -1067,8 +1091,10 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ dsum,
                          __nv_bfloat16* __restrict__ dq, int BH, int group,
                          int Sq, int Sk, int Sp, float scale,
-                         float scale_log2, int causal, int nq) {
+                         float scale_log2, int causal, int nq,
+                         int q_offset) {
   using L = DqLayout<D, Dv>;
+  const int qoff = kOff ? q_offset : 0;
   constexpr int BK = L::kBK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sq = aligned_smem(smem_raw);
@@ -1096,7 +1122,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x % BH;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kDqBQ;
   int nk = (Sk + BK - 1) / BK;
-  if (causal) nk = min(nk, (min(q0 + kDqBQ, Sq) - 1) / BK + 1);
+  if (causal) nk = min(nk, (min(q0 + kDqBQ, Sq) - 1 + qoff) / BK + 1);
 
   if (threadIdx.x < 128) {
     // producer warpgroup
@@ -1138,7 +1164,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = ra + 16 * warp + g, r1 = r0 + 8;    // this thread's rows
   // tiles past nk_wg lie wholly above this warpgroup's rows (causal): they
   // are only released
-  const int nk_wg = causal ? min(nk, (ra + 63) / BK + 1) : nk;
+  const int nk_wg = causal ? min(nk, (ra + 63 + qoff) / BK + 1) : nk;
   // the padded scratch holds rows up to Sp >= q0 + 128
   const long long srow = static_cast<long long>(bh) * Sp;
   const float nl0 = -lse2[srow + r0], nl1 = -lse2[srow + r1];
@@ -1191,7 +1217,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     // rows are queries, columns keys: lse and Dsum per row
     const bool edge =
-        k0 + BK > Sk || (causal && k0 + BK - 1 > ra) || ra + 64 > Sq;
+        k0 + BK > Sk || (causal && k0 + BK - 1 > ra + qoff) || ra + 64 > Sq;
     wgmma_wait<1>();
     keep(sc);
     p_tile(
@@ -1199,7 +1225,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         [&](int j, int e) {
           const int kp = k0 + 8 * j + 2 * t + (e & 1);
           const int row = e < 2 ? r0 : r1;
-          return kp >= Sk || row >= Sq || (causal && kp > row);
+          return kp >= Sk || row >= Sq || (causal && kp > row + qoff);
         },
         [&](int, int e) { return e < 2 ? nl0 : nl1; }, scale_log2);
     wgmma_wait<0>();
@@ -1284,7 +1310,7 @@ struct FusedLayout {
 // warpgroups and tiles, with each consumer's dQ partial over its 64 keys
 // summed into acc in a fixed order (the design note at the top of this
 // file)
-template <int D>
+template <int D, bool kOff>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -1297,8 +1323,9 @@ attn_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             float* __restrict__ acc, int* __restrict__ count,
                             int* __restrict__ ticket, int BHkv, int group,
                             int Sq, int Sk, int Sp, float scale,
-                            float scale_log2, int causal) {
+                            float scale_log2, int causal, int q_offset) {
   using L = FusedLayout<D>;
+  const int qoff = kOff ? q_offset : 0;
   constexpr int BQ = L::kBQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sk = aligned_smem(smem_raw);
@@ -1343,8 +1370,15 @@ attn_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // query tiles from the last down to the first that reaches the block's
   // keys (causal) or to 0, the group's heads inside each: step it is query
   // tile nq - 1 - it / group of head kvh * group + it % group, the same
-  // step in every block of the kv head
-  const int qt0 = causal ? min(k0 / BQ, nq) : 0;
+  // step in every block of the kv head. Key tile 0 reaches every query
+  // tile (key 0 is every row's), and qt0 does not fall as kt grows, so
+  // the blocks that reach a tile are key tiles 0, 1, ..., and its turns
+  // 0, 1, ... are all taken, whatever the offset
+  int qt0;
+  if constexpr (kOff)
+    qt0 = causal ? min(max(k0 - qoff, 0) / BQ, nq) : 0;
+  else
+    qt0 = causal ? min(k0 / BQ, nq) : 0;
   const int n_tiles = (nq - qt0) * group;
   const int nq_acc = Sp / BQ;                 // acc's query tiles per head
 
@@ -1392,7 +1426,12 @@ attn_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             static_cast<long long>(kvh * group + it % group) * nq_acc + qt;
         mbar_wait(dq_full + cw, it & 1);
         wait_count(count + tile, turn);
-        if (!(causal && (qt + 1) * BQ <= k0 + 64 * cw)) {
+        bool none;
+        if constexpr (kOff)
+          none = causal && min((qt + 1) * BQ, Sq) + qoff <= k0 + 64 * cw;
+        else
+          none = causal && (qt + 1) * BQ <= k0 + 64 * cw;
+        if (!none) {
           fence_async_global();
           float* const dst = acc + tile * (L::kStageBytes / 4);
           if (turn == 0)
@@ -1456,8 +1495,13 @@ attn_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int q0 = (nq - 1 - it / group) * BQ;
     const int s = it % kStages;
     mbar_wait(full + s, (it / kStages) & 1);
-    // causal: a tile wholly before this warpgroup's keys adds nothing
-    const bool mine = !(causal && q0 + BQ <= kb);
+    // causal: a tile whose rows (those < Sq) all lie before this
+    // warpgroup's keys adds nothing (the reducer's test above)
+    bool mine;
+    if constexpr (kOff)
+      mine = !(causal && min(q0 + BQ, Sq) + qoff <= kb);
+    else
+      mine = !(causal && q0 + BQ <= kb);
     if (mine) {
       wgmma_fence();
 #pragma unroll
@@ -1480,13 +1524,13 @@ attn_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       keep(dpt);
       const float* const vec = svec + s * 2 * BQ;
       const bool edge =
-          (causal && q0 < kb + 63) || kb + 64 > Sk || q0 + BQ > Sq;
+          (causal && q0 + qoff < kb + 63) || kb + 64 > Sk || q0 + BQ > Sq;
       p_ds_tile(
           st, dpt, ph, pl, dh, dl, edge,
           [&](int j, int e) {
             const int key = e < 2 ? key0 : key1;
             const int qp = q0 + 8 * j + 2 * t + (e & 1);
-            return key >= Sk || qp >= Sq || (causal && key > qp);
+            return key >= Sk || qp >= Sq || (causal && key > qp + qoff);
           },
           [&](int j, int e) { return -vec[8 * j + 2 * t + (e & 1)]; },
           [&](int j, int e) { return vec[BQ + 8 * j + 2 * t + (e & 1)]; },
@@ -1632,11 +1676,12 @@ attn_bwd_dq_convert_kernel(const float* __restrict__ acc,
       __floats2bfloat162_rn(x.x, x.y);
 }
 
-template <int D, int Dv>
-int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, float* scratch,
-                 void* dq, void* dk, void* dv, int BH, int group, int Sq,
-                 int Sk, float scale, int causal, cudaStream_t stream) {
+template <int D, int Dv, bool kOff>
+int launch_wgmma_inst(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* scratch, void* dq, void* dk, void* dv, int BH,
+                      int group, int Sq, int Sk, float scale, int causal,
+                      int qoff, cudaStream_t stream) {
   using A = DkdvLayout<D, Dv>;
   using C = DqLayout<D, Dv>;
   const int BHkv = BH / group;
@@ -1670,8 +1715,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
 
   static int regs_dkdv = -1, regs_dq = -1;
-  auto dkdv_kernel = attn_bwd_dkdv_wgmma_kernel<D, Dv>;
-  auto dq_kernel = attn_bwd_dq_wgmma_kernel<D, Dv>;
+  auto dkdv_kernel = attn_bwd_dkdv_wgmma_kernel<D, Dv, kOff>;
+  auto dq_kernel = attn_bwd_dq_wgmma_kernel<D, Dv, kOff>;
   e = check_regs(dkdv_kernel, &regs_dkdv);
   if (e == cudaSuccess) e = check_regs(dq_kernel, &regs_dq);
   if (e == cudaSuccess)
@@ -1689,24 +1734,25 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   dkdv_kernel<<<nkt * BHkv, kWgThreads, A::kSmem, stream>>>(
       q_b, k_b, v_b, do_b, lse2, dsum, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), BHkv, group, Sq, Sk, Sp, scale,
-      scale_log2, causal);
+      scale_log2, causal, qoff);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nq = (Sq + kDqBQ - 1) / kDqBQ;
   dq_kernel<<<nq * BH, kWgThreads, C::kSmem, stream>>>(
       q_c, k_c, v_c, do_c, lse2, dsum, static_cast<__nv_bfloat16*>(dq),
-      BH, group, Sq, Sk, Sp, scale, scale_log2, causal, nq);
+      BH, group, Sq, Sk, Sp, scale, scale_log2, causal, nq, qoff);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The fused design at (D, D): (a) zeroing dQ's counters and the ticket,
 // (d), then (e). scratch: lse2 and Dsum (2, BH, Sp), acc (BH, Sp / 64,
 // 64 D) f32, count (BH, Sp / 64) int32, then the ticket.
-template <int D>
-int launch_fused(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, float* scratch,
-                 void* dq, void* dk, void* dv, int BH, int group, int Sq,
-                 int Sk, float scale, int causal, cudaStream_t stream) {
+template <int D, bool kOff>
+int launch_fused_inst(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* scratch, void* dq, void* dk, void* dv, int BH,
+                      int group, int Sq, int Sk, float scale, int causal,
+                      int qoff, cudaStream_t stream) {
   using F = FusedLayout<D>;
   const int BHkv = BH / group;
   const int Sp = (Sq + kRowPad - 1) / kRowPad * kRowPad;
@@ -1738,7 +1784,7 @@ int launch_fused(const void* q, const void* k, const void* v, const void* o,
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
 
   static int regs = -1;
-  auto kernel = attn_bwd_fused_wgmma_kernel<D>;
+  auto kernel = attn_bwd_fused_wgmma_kernel<D, kOff>;
   e = check_regs(kernel, &regs);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel,
@@ -1749,7 +1795,7 @@ int launch_fused(const void* q, const void* k, const void* v, const void* o,
   kernel<<<nkt * BHkv, kWgThreads, F::kSmem, stream>>>(
       mq, mk, mv, mdo, lse2, dsum, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), acc, count, ticket, BHkv, group, Sq,
-      Sk, Sp, scale, scale * kLog2e, causal);
+      Sk, Sp, scale, scale * kLog2e, causal, qoff);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nq = (Sq + kDkdvBQ - 1) / kDkdvBQ;
@@ -1759,8 +1805,39 @@ int launch_fused(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch_wgmma_inst's and launch_fused_inst's instance for the offset:
+// kOff = false at q_offset = 0
+template <int D, int Dv>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* scratch,
+                 void* dq, void* dk, void* dv, int BH, int group, int Sq,
+                 int Sk, float scale, int causal, int qoff,
+                 cudaStream_t stream) {
+  return qoff > 0 ? launch_wgmma_inst<D, Dv, true>(
+                        q, k, v, o, dout, lse, scratch, dq, dk, dv, BH, group,
+                        Sq, Sk, scale, causal, qoff, stream)
+                  : launch_wgmma_inst<D, Dv, false>(
+                        q, k, v, o, dout, lse, scratch, dq, dk, dv, BH, group,
+                        Sq, Sk, scale, causal, qoff, stream);
+}
+
+template <int D>
+int launch_fused(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* scratch,
+                 void* dq, void* dk, void* dv, int BH, int group, int Sq,
+                 int Sk, float scale, int causal, int qoff,
+                 cudaStream_t stream) {
+  return qoff > 0 ? launch_fused_inst<D, true>(
+                        q, k, v, o, dout, lse, scratch, dq, dk, dv, BH, group,
+                        Sq, Sk, scale, causal, qoff, stream)
+                  : launch_fused_inst<D, false>(
+                        q, k, v, o, dout, lse, scratch, dq, dk, dv, BH, group,
+                        Sq, Sk, scale, causal, qoff, stream);
+}
+
 }  // namespace
 
+// q_offset: K6's (0 <= q_offset <= Sk), the position of query row 0.
 // q, dq: (BH, Sq, D); o, do: (BH, Sq, Dv); k, dk: (BH / group, Sk, D); v,
 // dv: (BH / group, Sk, Dv); lse (BH, Sq) f32. scratch: f32, (BH, Sq) for
 // simt (Dsum); (2, BH, Sp) for wgmma (lse * log2 e and Dsum), Sp = Sq
@@ -1782,11 +1859,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* scratch, void* dq, void* dk,
                                    void* dv, int BH, int group, int Sq,
                                    int Sk, int D, int Dv, float scale,
-                                   int causal, int dtype, int variant,
-                                   void* stream) {
+                                   int causal, int q_offset, int dtype,
+                                   int variant, void* stream) {
   if (BH < 1 || group < 1 || BH % group || Sq < 1 || Sk < 1 || D < 1 ||
-      D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim ||
-      (dtype != 0 && dtype != 1) ||
+      D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim || q_offset < 0 ||
+      q_offset > Sk || (dtype != 0 && dtype != 1) ||
       static_cast<long long>((Sq + kTileRows - 1) / kTileRows) * BH >
           INT_MAX ||
       static_cast<long long>((Sk + kTileRows - 1) / kTileRows) *
@@ -1806,29 +1883,34 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     const bool fused = tensor_cores && D == Dv && (D == 64 || D == 128);
     if (!fused) return static_cast<int>(cudaErrorInvalidValue);
     if (D == 64)
-      return launch_fused<64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH, group,
-                              Sq, Sk, scale, causal, s);
-    return launch_fused<128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH, group,
-                             Sq, Sk, scale, causal, s);
+      return launch_fused<64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
+                                 group, Sq, Sk, scale, causal, q_offset, s);
+    return launch_fused<128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
+                                group, Sq, Sk, scale, causal, q_offset, s);
   }
   if (variant == 1) {
     if (!tensor_cores) return static_cast<int>(cudaErrorInvalidValue);
     if (D == 64)
-      return launch_wgmma<64, 64>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
-                                  group, Sq, Sk, scale, causal, s);
+      return launch_wgmma<64, 64>(q, k, v, o, dout, l, ds, dq, dk, dv,
+                                     BH, group, Sq, Sk, scale, causal,
+                                     q_offset, s);
     if (D == 80)
-      return launch_wgmma<80, 80>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
-                                  group, Sq, Sk, scale, causal, s);
+      return launch_wgmma<80, 80>(q, k, v, o, dout, l, ds, dq, dk, dv,
+                                     BH, group, Sq, Sk, scale, causal,
+                                     q_offset, s);
     if (D == 128)
-      return launch_wgmma<128, 128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
-                                    group, Sq, Sk, scale, causal, s);
-    return launch_wgmma<192, 128>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
-                                  group, Sq, Sk, scale, causal, s);
+      return launch_wgmma<128, 128>(q, k, v, o, dout, l, ds, dq, dk, dv,
+                                       BH, group, Sq, Sk, scale, causal,
+                                       q_offset, s);
+    return launch_wgmma<192, 128>(q, k, v, o, dout, l, ds, dq, dk, dv,
+                                     BH, group, Sq, Sk, scale, causal,
+                                     q_offset, s);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_dims<float>(q, k, v, o, dout, l, ds, dq, dk, dv, BH, group,
-                              Sq, Sk, D, Dv, scale, causal, s);
+                              Sq, Sk, D, Dv, scale, causal, q_offset, s);
   return launch_dims<__nv_bfloat16>(q, k, v, o, dout, l, ds, dq, dk, dv, BH,
-                                    group, Sq, Sk, D, Dv, scale, causal, s);
+                                    group, Sq, Sk, D, Dv, scale, causal,
+                                    q_offset, s);
 }

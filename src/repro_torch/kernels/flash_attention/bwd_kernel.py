@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import kernel as K6
 from repro_torch.kernels.flash_attention.kernel import (DTYPES, MASK_KINDS,
                                                         WGMMA_HEAD_DIMS,
                                                         mask_kind)
+from repro_torch.kernels.flash_attention.ref import check_q_offset
 
 # K7's head-dim limit (kMaxHeadDim in csrc/flash_attention_bwd.cu), K6's:
 # the SIMT kernels take D and Dv up to 256 (MLA's 192 / 128 among them)
@@ -43,7 +44,7 @@ FUSED_HEAD_DIMS = ((64, 64), (128, 128))
 KERNEL = CudaKernel(
     "flash_attention_bwd",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     replaces="src/repro/models/attention.py:146",
     device_fns=("attn_bwd_dsum_kernel", "attn_bwd_dkdv_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_prep_kernel",
@@ -80,11 +81,13 @@ def scratch_numel(chosen: str, BH: int, Sq: int, D: int = 0) -> int:
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
                              causal: bool = True, scale=None,
-                             force_variant=None):
+                             force_variant=None, q_offset: int = 0):
     """Same contract as ``ref.flash_attention_bwd_ref``: q, o, do (BH, Sq,
     D|Dv) and k, v (BH // group, Sk, D|Dv) in f32 or bf16, lse (BH, Sq)
     f32 from K6 -> (dq, dk, dv) in the inputs' dtype. Head dims up to
-    :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk. One call
+    :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk, and K6's
+    causal mask at query offset ``q_offset`` >= 0 (every design takes
+    it; a negative offset raises ValueError). One call
     launches the chosen design's three kernels: :func:`variant`'s, or
     under ``force_variant`` the SIMT ones (``"simt"``) or the three-kernel
     tensor-core ones (``"wgmma"``, also where the rule names ``"fused"``),
@@ -114,6 +117,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
                          f"{group}")
     if Sq < 1 or Sk < 1:
         raise ValueError(f"empty sequence: Sq={Sq}, Sk={Sk}")
+    q_offset = check_q_offset(q_offset)
+    q_offset = min(q_offset, Sk) if causal else 0
     dev = q.device
     dt = q.dtype
     check_args(dev, (("q", q, dt, (BH, Sq, D)), ("k", k, dt, (BHkv, Sk, D)),
@@ -128,6 +133,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
     dv = torch.empty_like(v)
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
                   ptr(scratch), ptr(dq), ptr(dk), ptr(dv), BH, group, Sq, Sk,
-                  D, Dv, scale, int(causal), DTYPES[dt], VARIANTS[chosen],
-                  stream_ptr(dev), variant=chosen, kind=mask_kind(causal))
+                  D, Dv, scale, int(causal), q_offset, DTYPES[dt],
+                  VARIANTS[chosen], stream_ptr(dev), variant=chosen,
+                  kind=mask_kind(causal))
     return dq, dk, dv

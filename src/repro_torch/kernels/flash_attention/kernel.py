@@ -26,6 +26,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.build import CudaKernel, check_args, ptr, stream_ptr
+from repro_torch.kernels.flash_attention.ref import check_q_offset
 
 # D and Dv up to this (kMaxHeadDim in csrc/flash_attention.cu); the Pallas
 # function takes any head dim, and no config in the repo has one above it
@@ -40,7 +41,7 @@ WGMMA_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
 # granite's and whisper's 64, the qwen / llama4 / llava 128
 PINGPONG_HEAD_DIMS = ((64, 64), (128, 128))
 # the kinds ``KERNEL.launches_by_kind`` counts (K7's counter too): a
-# causal (top-left) mask or none
+# causal mask (at any query offset) or none
 MASK_KINDS = ("causal", "full")
 
 # the tensor-core kernels' query and key tile (kBQ = 2 x 64 and kWgBK in
@@ -77,7 +78,7 @@ def mask_kind(causal: bool) -> str:
 KERNEL = CudaKernel(
     "flash_attention",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
-    + [ctypes.c_int] * 3
+    + [ctypes.c_int] * 4
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
        ctypes.c_void_p] + [ctypes.c_void_p],
     replaces="src/repro/kernels/flash_attention/kernel.py:65",
@@ -122,26 +123,28 @@ class Plan(NamedTuple):
 
 
 def item_tiles(q0: int, Sq: int, Sk: int, causal: bool,
-               tile: int = TILE) -> int:
+               tile: int = TILE, q_offset: int = 0) -> int:
     """Key tiles the item at query row q0 needs: all of Sk, or under the
-    causal mask those up to the tile holding its last row's diagonal."""
+    causal mask those up to the tile holding key q_offset + its last row
+    (the last key its last row keeps)."""
     nk = -(-Sk // tile)
     if not causal:
         return nk
-    return min(nk, (min(q0 + tile, Sq) - 1) // tile + 1)
+    return min(nk, (min(q0 + tile, Sq) - 1 + q_offset) // tile + 1)
 
 
-def items(BH: int, Sq: int, Sk: int, causal: bool,
-          tile: int = TILE) -> List[Tuple[int, int, int]]:
+def items(BH: int, Sq: int, Sk: int, causal: bool, tile: int = TILE,
+          q_offset: int = 0) -> List[Tuple[int, int, int]]:
     """(bh, q0, key tiles) of every item, heaviest query tiles first."""
     nq = -(-Sq // tile)
-    return [(bh, qt * tile, item_tiles(qt * tile, Sq, Sk, causal, tile))
+    return [(bh, qt * tile,
+             item_tiles(qt * tile, Sq, Sk, causal, tile, q_offset))
             for qt in reversed(range(nq)) for bh in range(BH)]
 
 
 @functools.lru_cache(maxsize=256)
 def plan(BH: int, Sq: int, Sk: int, causal: bool, sms: int,
-         tile: int = TILE) -> Plan:
+         tile: int = TILE, q_offset: int = 0) -> Plan:
     """The ping-pong kernel's work plan for ``sms`` persistent blocks.
     Whole items, heaviest first, each to the block with the least work so
     far (work: key tiles plus :data:`PART_COST` a part; ties to the lowest
@@ -155,8 +158,10 @@ def plan(BH: int, Sq: int, Sk: int, causal: bool, sms: int,
     no whole round), block b taking its key-tile steps b T / g .. (b + 1)
     T / g - 1, an item cut where a block's share ends; this plan is taken
     where its longest block walks fewer key tiles than the whole items'
-    longest. Deterministic: the same shape gives the same plan."""
-    its = items(BH, Sq, Sk, causal, tile)
+    longest. Deterministic: the same shape gives the same plan. Under
+    the causal mask ``q_offset`` moves each item's last key tile (query
+    row i keeps keys up to q_offset + i)."""
+    its = items(BH, Sq, Sk, causal, tile, q_offset)
     G = min(len(its), sms)
     heap = [(0, b) for b in range(G)]
     blocks: List[List[Part]] = [[] for _ in range(G)]
@@ -226,18 +231,25 @@ def plan_array(p: Plan) -> List[int]:
 
 
 @functools.lru_cache(maxsize=64)
-def _device_plan(BH: int, Sq: int, Sk: int, causal: bool, dev: torch.device):
+def _device_plan(BH: int, Sq: int, Sk: int, causal: bool, q_offset: int,
+                 dev: torch.device):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    p = plan(BH, Sq, Sk, causal, sms)
+    p = plan(BH, Sq, Sk, causal, sms, q_offset=q_offset)
     arr = torch.tensor(plan_array(p), dtype=torch.int32).to(dev)
     n_parts = sum(len(b) for b in p.blocks)
     return arr, n_parts, len(p.blocks), p.n_partials, p.n_counters
 
 
 def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
-                         scale=None, force_variant=None, with_lse=False):
+                         scale=None, force_variant=None, with_lse=False,
+                         q_offset: int = 0):
     """Same contract as ``ref.flash_attention_ref``; f32 or bf16, head
-    dims up to :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk. The
+    dims up to :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk.
+    Under the causal mask query row i sits at position ``q_offset`` + i
+    and keeps keys 0..q_offset + i (``q_offset`` >= 0; 0 is the TPU
+    kernel's top-left mask; a negative offset raises ValueError); every
+    variant takes it, and an offset past Sk - 1 is passed as Sk, which
+    keeps every key as well. The
     kernel is :func:`variant`'s; ``force_variant="simt"`` runs the SIMT
     kernel on any inputs and ``"wgmma"`` the one-schedule tensor-core
     kernel at any of :data:`WGMMA_HEAD_DIMS` (beside ``"pingpong"`` at
@@ -267,6 +279,8 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
                          f"{group}")
     if Sq < 1 or Sk < 1:
         raise ValueError(f"empty sequence: Sq={Sq}, Sk={Sk}")
+    q_offset = check_q_offset(q_offset)
+    q_offset = min(q_offset, Sk) if causal else 0
     dev = q.device
     check_args(dev, (("q", q, q.dtype, (BH, Sq, D)),
                      ("k", k, q.dtype, (BHkv, Sk, D)),
@@ -279,7 +293,7 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     n_parts = n_blocks = 0
     if chosen == "pingpong":
         arr, n_parts, n_blocks, n_partials, n_counters = _device_plan(
-            BH, Sq, Sk, bool(causal), dev)
+            BH, Sq, Sk, bool(causal), q_offset, dev)
         if n_counters:
             partials = torch.empty(n_partials * partial_numel(Dv),
                                    dtype=torch.float32, device=dev)
@@ -287,7 +301,7 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
                                    device=dev)
     opt = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), opt(lse),
-                  BH, group, Sq, Sk, D, Dv, scale, int(causal),
+                  BH, group, Sq, Sk, D, Dv, scale, int(causal), q_offset,
                   DTYPES[q.dtype], VARIANTS[chosen], opt(arr), n_parts,
                   n_blocks, opt(partials), opt(counters), stream_ptr(dev),
                   variant=chosen, kind=mask_kind(causal))

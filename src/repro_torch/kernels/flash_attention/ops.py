@@ -38,42 +38,48 @@ class FlashAttention(torch.autograd.Function):
     ``backend="ref"``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, group, causal, scale, backend):
+    def forward(ctx, q, k, v, group, causal, scale, backend, q_offset):
         if dispatch.use_kernel(q, backend):
             o, lse = K.flash_attention_cuda(q, k, v, group=group,
                                             causal=causal, scale=scale,
-                                            with_lse=True)
+                                            with_lse=True, q_offset=q_offset)
         else:
             o, lse = REF.flash_attention_lse_ref(q, k, v, group=group,
-                                                 causal=causal, scale=scale)
+                                                 causal=causal, scale=scale,
+                                                 q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (group, causal, scale, backend)
+        ctx.args = (group, causal, scale, backend, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        group, causal, scale, backend = ctx.args
+        group, causal, scale, backend, q_offset = ctx.args
         fn = (BK.flash_attention_bwd_cuda
               if dispatch.use_kernel(q, backend)
               else REF.flash_attention_bwd_ref)
         dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), group=group,
-                        causal=causal, scale=scale)
-        return dq, dk, dv, None, None, None, None
+                        causal=causal, scale=scale, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, group: int = 1, causal: bool = True,
-                    scale=None, backend=None) -> torch.Tensor:
+                    scale=None, backend=None, q_offset: int = 0
+                    ) -> torch.Tensor:
     """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (BH, Sq, Dv); query
-    head ``bh`` reads kv head ``bh // group``. Kernel on CUDA tensors,
-    plain version on CPU tensors or under ``backend="ref"``; with a
-    gradient (:class:`FlashAttention`) when an input requires one."""
+    head ``bh`` reads kv head ``bh // group``; under the causal mask query
+    row i keeps keys 0..q_offset + i (a negative offset raises
+    ValueError). Kernel on CUDA tensors, plain version on CPU tensors or
+    under ``backend="ref"``; with a gradient (:class:`FlashAttention`)
+    when an input requires one."""
+    q_offset = REF.check_q_offset(q_offset)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, group, causal, scale, backend)
+        return FlashAttention.apply(q, k, v, group, causal, scale, backend,
+                                    q_offset)
     if dispatch.use_kernel(q, backend):
         return K.flash_attention_cuda(q, k, v, group=group, causal=causal,
-                                      scale=scale)
+                                      scale=scale, q_offset=q_offset)
     return REF.flash_attention_ref(q, k, v, group=group, causal=causal,
-                                   scale=scale)
+                                   scale=scale, q_offset=q_offset)

@@ -4,22 +4,42 @@ scores materialised (the port of ``repro.kernels.flash_attention.ref``),
 the forward with its per-row logsumexp, and the recomputing backward of
 the reference's ``_flash_core_bwd`` (``repro.models.attention``).
 
+The causal mask is the reference's ``chunked_attention``'s: query row i
+sits at position ``q_offset + i`` and keeps key j when j <= q_offset + i,
+keys counting from 0 (``q_offset`` = 0: the TPU kernel's top-left mask;
+an offset >= Sk - 1 keeps every key). A negative offset raises.
+
 Arithmetic is in f32 for f32 and bf16 inputs (in f64 for f64 inputs,
 which only the gradient checks use)."""
 from __future__ import annotations
+
+import operator
 
 import torch
 
 NEG_INF = -1e30
 
 
+def check_q_offset(q_offset) -> int:
+    """``q_offset`` as an int; ValueError if it is negative: the first
+    rows would keep no key, and the reference, whose -1e30 mask is
+    finite, gives each such row the plain mean of v, which neither the
+    plain versions nor the kernels compute."""
+    q_offset = operator.index(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset={q_offset}: the query offset must be "
+                         f">= 0")
+    return q_offset
+
+
 def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _scores(q, k, group: int, causal: bool, scale):
-    """f32 (BH, Sq, Sk) scaled scores, masked to -1e30 (top-left causal:
-    query i sees keys 0..i); the head dim's default scale."""
+def _scores(q, k, group: int, causal: bool, scale, q_offset: int = 0):
+    """f32 (BH, Sq, Sk) scaled scores, masked to -1e30 (causal: query i
+    sees keys 0..q_offset + i); the head dim's default scale."""
+    q_offset = check_q_offset(q_offset)
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     acc = _acc(q.dtype)
@@ -27,13 +47,14 @@ def _scores(q, k, group: int, causal: bool, scale):
     kk = k[torch.arange(BH, device=q.device) // group]     # (BH, Sk, D)
     s = torch.einsum("bqd,bkd->bqk", q.to(acc), kk.to(acc)) * scale
     if causal:
-        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        mask = torch.ones(Sq, Sk, dtype=torch.bool,
+                          device=q.device).tril(diagonal=q_offset)
         s = torch.where(mask[None], s, NEG_INF)
     return s, scale
 
 
 def flash_attention_lse_ref(q, k, v, *, group: int = 1, causal: bool = True,
-                            scale=None):
+                            scale=None, q_offset: int = 0):
     """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (out (BH, Sq, Dv)
     in q's dtype, lse (BH, Sq) f32: each row's logsumexp of the scaled
     scores, natural log). Scores and the p·v product accumulate in f32;
@@ -44,7 +65,7 @@ def flash_attention_lse_ref(q, k, v, *, group: int = 1, causal: bool = True,
     forward, then :func:`flash_attention_bwd_ref`) holds the x1.5 rule
     against the reference's bf16 forward and VJP
     (``tests/test_torch_flash_bwd.py``)."""
-    s, _ = _scores(q, k, group, causal, scale)
+    s, _ = _scores(q, k, group, causal, scale, q_offset)
     vv = v[torch.arange(q.shape[0], device=q.device) // group]
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
@@ -54,15 +75,16 @@ def flash_attention_lse_ref(q, k, v, *, group: int = 1, causal: bool = True,
 
 
 def flash_attention_ref(q, k, v, *, group: int = 1, causal: bool = True,
-                        scale=None):
+                        scale=None, q_offset: int = 0):
     """q: (BH, Sq, D); k/v: (BH // group, Sk, D|Dv) -> (BH, Sq, Dv) in
     q's dtype (see :func:`flash_attention_lse_ref`)."""
     return flash_attention_lse_ref(q, k, v, group=group, causal=causal,
-                                   scale=scale)[0]
+                                   scale=scale, q_offset=q_offset)[0]
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, group: int = 1,
-                            causal: bool = True, scale=None):
+                            causal: bool = True, scale=None,
+                            q_offset: int = 0):
     """The gradient of :func:`flash_attention_ref` given the forward's
     output ``o`` and logsumexp ``lse`` (BH, Sq) and the output's gradient
     ``do`` (BH, Sq, Dv) -> (dq, dk, dv) in the inputs' dtypes, computed in
@@ -75,7 +97,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, group: int = 1,
     with dk and dv summed over each kv head's ``group`` query heads."""
     BH, Sq, D = q.shape
     BHkv, Sk, Dv = v.shape
-    s, scale = _scores(q, k, group, causal, scale)
+    s, scale = _scores(q, k, group, causal, scale, q_offset)
     acc = s.dtype
     kv_idx = torch.arange(BH, device=q.device) // group
     do_, o_ = do.to(acc), o.to(acc)

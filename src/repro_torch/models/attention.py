@@ -51,12 +51,11 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     """Flash attention, causal or (``causal=False``) full. q: (B,Sq,H,D);
     k: (B,Sk,KH,D); v: (B,Sk,KH,Dv) -> (B,Sq,H,Dv). Query head h reads kv
     head h // (H // KH), as in the reference; ``scale`` defaults to
-    D ** -0.5. The kernel keeps the TPU kernel's top-left causal mask, so
-    a query offset is refused rather than added."""
-    if q_offset:
-        raise NotImplementedError(
-            "q_offset != 0: the flash kernel masks top-left (query i sees "
-            "keys 0..i), as the TPU kernel does")
+    D ** -0.5. Under the causal mask query row i sits at position
+    ``q_offset`` + i and keeps keys 0..q_offset + i, keys counting from 0
+    (``q_offset`` >= 0, the reference's rule; an offset >= Sk - 1 keeps
+    every key); a negative offset raises ValueError, where the reference
+    would give the first rows no key."""
     B, Sq, H, D = q.shape
     Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     # (B, S, H, D) -> (B*H, S, D): bh = b*H + kh*G + g, so bh // G is the
@@ -65,7 +64,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     kf = k.transpose(1, 2).reshape(B * KH, Sk, D)
     vf = v.transpose(1, 2).reshape(B * KH, Sk, Dv)
     o = flash_attention(qf, kf, vf, group=H // KH, causal=causal,
-                        scale=scale, backend=backend)
+                        scale=scale, backend=backend, q_offset=q_offset)
     return o.reshape(B, H, Sq, Dv).transpose(1, 2)
 
 
@@ -145,15 +144,18 @@ def project_qkv(params, x, cfg: ModelConfig, positions, rope: bool = True):
     return L.apply_rotary(q, cos, sin), L.apply_rotary(k, cos, sin), v
 
 
-def attn_train(params, x, cfg: ModelConfig, *, causal: bool = True,
-               rope: bool = True, return_kv: bool = False,
-               backend: Optional[str] = None):
-    """Self-attention over positions 0..S-1 of x: (B,S,d), causal or
-    (``causal=False``) full, with rope unless ``rope`` is False."""
+def attn_train(params, x, cfg: ModelConfig, *, q_offset: int = 0,
+               causal: bool = True, rope: bool = True,
+               return_kv: bool = False, backend: Optional[str] = None):
+    """Self-attention over positions q_offset..q_offset+S-1 of x: (B,S,d),
+    causal or (``causal=False``) full, with rope unless ``rope`` is
+    False: the rope positions are ``q_offset + arange(S)`` and query row
+    i keeps keys 0..q_offset + i (:func:`chunked_attention`)."""
     B, S, _ = x.shape
-    q, k, v = project_qkv(params, x, cfg, torch.arange(S, device=x.device),
-                          rope=rope)
-    o = chunked_attention(q, k, v, causal=causal, backend=backend)
+    positions = q_offset + torch.arange(S, device=x.device)
+    q, k, v = project_qkv(params, x, cfg, positions, rope=rope)
+    o = chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                          backend=backend)
     y = L.linear(params["o"], o.reshape(B, S, -1))
     if return_kv:
         return y, (k, v)
@@ -223,25 +225,28 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
 
 
-def mla_train(params, x, cfg: ModelConfig, *, return_kv: bool = False,
-              backend: Optional[str] = None):
-    """Training/prefill MLA over positions 0..S-1 of x: (B,S,d). The latent
-    is expanded to per-head K (nope, then the shared rope part) and V, and
-    attention runs through K6 at head dim nope + rope with Dv = v_head_dim
-    and scale (nope + rope) ** -0.5. ``return_kv``: also the latent cache
-    entries (c_kv (B,S,R), k_rope (B,S,rope))."""
+def mla_train(params, x, cfg: ModelConfig, *, q_offset: int = 0,
+              return_kv: bool = False, backend: Optional[str] = None):
+    """Training/prefill MLA over positions q_offset..q_offset+S-1 of x:
+    (B,S,d) (rope positions ``q_offset + arange(S)``, query row i keeping
+    keys 0..q_offset + i). The latent is expanded to per-head K (nope,
+    then the shared rope part) and V, and attention runs through K6 at
+    head dim nope + rope with Dv = v_head_dim and scale (nope + rope) **
+    -0.5. ``return_kv``: also the latent cache entries (c_kv (B,S,R),
+    k_rope (B,S,rope))."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(
-        params, x, cfg, torch.arange(S, device=x.device))
+        params, x, cfg, q_offset + torch.arange(S, device=x.device))
     k_nope = L.linear(params["k_up"], c_kv).reshape(B, S, H,
                                                     m.qk_nope_head_dim)
     v = L.linear(params["v_up"], c_kv).reshape(B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
-    o = chunked_attention(q, k, v, scale=_mla_scale(cfg), backend=backend)
+    o = chunked_attention(q, k, v, q_offset=q_offset, scale=_mla_scale(cfg),
+                          backend=backend)
     y = L.linear(params["o"], o.reshape(B, S, -1))
     if return_kv:
         return y, (c_kv, k_rope)

@@ -114,9 +114,10 @@ def unstack(stack: Tree, n: int) -> List[Tree]:
 # ------------------------------------------------------------- blocks ------
 
 def _attend(params, h, cfg: ModelConfig, return_kv: bool,
-            backend: Optional[str]):
+            backend: Optional[str], q_offset: int = 0):
     fn = A.mla_train if cfg.mla else A.attn_train
-    return fn(params["attn"], h, cfg, return_kv=return_kv, backend=backend)
+    return fn(params["attn"], h, cfg, q_offset=q_offset, return_kv=return_kv,
+              backend=backend)
 
 
 def _ffn(params, h, cfg: ModelConfig, kind: str):
@@ -126,9 +127,11 @@ def _ffn(params, h, cfg: ModelConfig, kind: str):
 
 
 def block_train(params, x, cfg: ModelConfig, backend: Optional[str] = None,
-                kind: str = "dense"):
+                kind: str = "dense", q_offset: int = 0):
+    """One block over positions q_offset..q_offset+S-1 of x: (B,S,d)
+    (attention's rope positions and causal mask, as the reference's)."""
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
-    x = x + _attend(params, h, cfg, False, backend)
+    x = x + _attend(params, h, cfg, False, backend, q_offset)
     h = L.rms_norm(params["ln2"], x, cfg.norm_eps)
     return x + _ffn(params, h, cfg, kind)
 

@@ -852,6 +852,63 @@ def test_flash_bwd_matches_plain(cuda, dtype, causal, BH, Sq, Sk, D, Dv,
         assert _grad_err(got, f32) <= 1.5 * _grad_err(want, f32)
 
 
+# (BH, Sq, Sk, group): ragged both ways, and llava's 3904 rows at 4
+# heads, where the ping-pong plan cuts items
+_OFFSET_SHAPES = [(8, 333, 333, 4), (12, 200, 457, 4), (8, 457, 200, 2),
+                  (4, 3904, 3904, 4)]
+_OFFSET_CASES = [
+    (dtype, D, Dv, variant)
+    for dtype in (torch.float32, torch.bfloat16)
+    for D, Dv in ((64, 64), (80, 80), (128, 128), (192, 128))
+    for variant in (("simt",) if dtype == torch.float32 else
+                    ("pingpong", "wgmma", "simt") if D == Dv != 80 else
+                    ("wgmma", "simt"))]
+
+
+@pytest.mark.parametrize("off", [37, 128, 1000])
+@pytest.mark.parametrize("BH,Sq,Sk,group", _OFFSET_SHAPES)
+@pytest.mark.parametrize("dtype,D,Dv,variant", _OFFSET_CASES)
+def test_flash_attention_offset_matches_plain(cuda, dtype, D, Dv, variant,
+                                              BH, Sq, Sk, group, off):
+    """K6 on each variant and K7 on each design its head dims take (the
+    rule's beside K6's rule, else the same one forced), at query offset
+    ``off`` (row i keeps keys 0..off + i), against the plain
+    versions at the same offset: K6 within 2e-5 (f32) or 2e-2 (bf16), its
+    lse within 1e-4; K7 from K6's o and lse, f32 within 2e-5 of max
+    |grad|, bf16 no further from the f32 plain gradient than the bf16
+    plain one, x1.5; the tensor-core kernels twice, bit for bit."""
+    q, k, v = _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype, BH + Sq + off)
+    do = torch.randn(BH, Sq, Dv, generator=torch.Generator().manual_seed(
+        off)).to(cuda, dtype)
+    kw = dict(group=group, causal=True, q_offset=off)
+    forced = None if variant == AK.variant(dtype, D, Dv) else variant
+    o, lse = AK.flash_attention_cuda(q, k, v, force_variant=forced,
+                                     with_lse=True, **kw)
+    want, want_lse = FR.flash_attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    # K7's design beside K6's variant: the rule's, or the forced one's
+    design = None if forced is None else variant
+    got = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                      force_variant=design, **kw)
+    grads = FR.flash_attention_bwd_ref(q, k, v, o, want_lse, do, **kw)
+    if dtype == torch.float32:
+        assert _grad_err(got, grads) <= 2e-5
+    else:
+        f32 = FR.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), want_lse, do.float(), **kw)
+        assert _grad_err(got, f32) <= 1.5 * _grad_err(grads, f32)
+    if variant != "simt":
+        again = AK.flash_attention_cuda(q, k, v, force_variant=forced,
+                                        with_lse=True, **kw)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        twice = BK.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                            force_variant=design, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, twice))
+
+
 @pytest.mark.parametrize("D", [64, 80])         # granite's, zamba2's
 @pytest.mark.parametrize("variant", ["simt", "wgmma"])
 def test_flash_bwd_is_deterministic(cuda, variant, D):

@@ -108,9 +108,13 @@ def test_chunked_attention_matches_jax(rng, B, S, H, KH):
 
 
 def test_chunked_attention_refuses_a_query_offset(rng):
+    """A negative query offset raises (the reference would give the first
+    rows no key); the offsets >= 0 are held against the reference in
+    tests/test_torch_attention_offset.py."""
     q = torch.zeros(1, 8, 2, 4)
-    with pytest.raises(NotImplementedError, match="top-left"):
-        TA.chunked_attention(q, q, q, q_offset=3)
+    for offset in (-1, -8):
+        with pytest.raises(ValueError, match="q_offset"):
+            TA.chunked_attention(q, q, q, q_offset=offset)
 
 
 def test_flash_decode_matches_jax(rng, mesh):

@@ -416,7 +416,7 @@ def _consts():
     return dict(re.findall(r"constexpr int (k\w+) = (\d+);", open(SRC).read()))
 
 
-def fused_schedule(BHkv, group, Sq, Sk, causal):
+def fused_schedule(BHkv, group, Sq, Sk, causal, q_offset=0):
     """A mirror of attn_bwd_fused_wgmma_kernel's order, from the source's
     tiles: {ticket: (kvh, kt, [(q head, query tile, {consumer: turn})
     per step])}, the ticket kt * BHkv + kvh, the walk from the last query
@@ -425,7 +425,8 @@ def fused_schedule(BHkv, group, Sq, Sk, causal):
     partial of a step to acc tile (q head, query tile) once that tile's
     counter reads its turn, kConsumers kt + cw; under the causal mask a
     consumer whose keys all lie past the tile only takes its turn, with
-    no partial (turn None here)."""
+    no partial (turn None here). ``q_offset``: the causal mask keeps key
+    j for query row i when j <= q_offset + i."""
     c = _consts()
     BQ, BKT, NC = int(c["kDkdvBQ"]), int(c["kDkdvBK"]), int(c["kConsumers"])
     half = BKT // NC
@@ -433,12 +434,13 @@ def fused_schedule(BHkv, group, Sq, Sk, causal):
     blocks = {}
     for ticket in range(nk * BHkv):
         kvh, kt = ticket % BHkv, ticket // BHkv
-        qt0 = min(kt * BKT // BQ, nq) if causal else 0
+        qt0 = min(max(kt * BKT - q_offset, 0) // BQ, nq) if causal else 0
         steps = []
         for it in range((nq - qt0) * group):
             qt = nq - 1 - it // group
-            turns = {cw: (None if causal and (qt + 1) * BQ <= kt * BKT
-                          + half * cw else NC * kt + cw)
+            turns = {cw: (None if causal and min((qt + 1) * BQ, Sq)
+                          + q_offset <= kt * BKT + half * cw
+                          else NC * kt + cw)
                      for cw in range(NC)}
             steps.append((kvh * group + it % group, qt, turns))
         blocks[ticket] = (kvh, kt, steps)
@@ -461,10 +463,17 @@ def test_fused_order_is_the_masks_key_tiles(BHkv, group, Sq, Sk, causal):
     mask); each turn but the first waits for consumer 0 of its own block
     or for consumer 1 of key tile kt - 1 of its kv head, a lower ticket;
     and every block of a kv head meets a tile at the same step."""
+    check_fused_order(BHkv, group, Sq, Sk, causal)
+
+
+def check_fused_order(BHkv, group, Sq, Sk, causal, q_offset=0):
+    """The checks of :func:`test_fused_order_is_the_masks_key_tiles` on
+    :func:`fused_schedule` at query offset ``q_offset`` (the causal mask
+    keeping key <= q_offset + query)."""
     c = _consts()
     BQ, BKT, NC = int(c["kDkdvBQ"]), int(c["kDkdvBK"]), int(c["kConsumers"])
     half = BKT // NC
-    blocks = fused_schedule(BHkv, group, Sq, Sk, causal)
+    blocks = fused_schedule(BHkv, group, Sq, Sk, causal, q_offset)
     ticket = {(kvh, kt): t for t, (kvh, kt, _) in blocks.items()}
     turns, parts, step_of = {}, {}, {}
     for t, (kvh, kt, steps) in blocks.items():
@@ -475,7 +484,7 @@ def test_fused_order_is_the_masks_key_tiles(BHkv, group, Sq, Sk, causal):
                     parts.setdefault((bh, qt), set()).add((kt, cw))
             step_of.setdefault((bh, qt), set()).add(i)
     qpos, kpos = np.arange(Sq), np.arange(Sk)
-    keep = (kpos[None, :] <= qpos[:, None]) if causal else np.ones(
+    keep = (kpos[None, :] <= qpos[:, None] + q_offset) if causal else np.ones(
         (Sq, Sk), bool)
     nq, nk = -(-Sq // BQ), -(-Sk // BKT)
     for bh in range(BHkv * group):
@@ -507,8 +516,13 @@ def test_fused_order_cannot_deadlock(BHkv, group, Sq, Sk, causal, slots):
     steps in walk order when the tile's counter reads their turn, neither
     more than kStages + 1 steps ahead of the other (the ring and the
     staging tile): every block finishes, however few places there are."""
+    run_fused_blocks(fused_schedule(BHkv, group, Sq, Sk, causal), slots)
+
+
+def run_fused_blocks(blocks, slots):
+    """:func:`test_fused_order_cannot_deadlock`'s run of the mirror's
+    ``blocks`` on ``slots`` resident places; fails if none can move."""
     ahead = int(_consts()["kStages"]) + 1
-    blocks = fused_schedule(BHkv, group, Sq, Sk, causal)
     count, queue, running = {}, sorted(blocks), {}
     while queue or running:
         while queue and len(running) < slots:

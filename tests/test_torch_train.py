@@ -9,7 +9,8 @@ draws come from a ``torch.Generator``). Tolerances, f32: the loss 1e-5
 and every gradient leaf 1e-4 of its largest element (the same arithmetic
 summed in another order; attention's backward recomputes p from lse);
 after a train step, parameters within 1e-3 of the learning rate and the
-moments within 1e-4 of their largest element.
+moments within 1e-4 of their largest element of the reference's AdamW
+applied to the port's own gradients (``torch_cross.hold_step``).
 """
 import jax
 import numpy as np
@@ -21,6 +22,7 @@ from repro.data import tokens as JDATA
 from repro.launch import steps as JST
 from repro.models.lm import lm_loss as jax_lm_loss
 from repro.optim import adamw as JADAMW
+from repro.optim.schedule import lr_at as jax_lr_at
 from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.convert import lm_params_from_numpy
@@ -31,16 +33,10 @@ from repro_torch.launch import train as TR
 from repro_torch.models import lm as LM
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw
-from torch_cross import cross
+from torch_cross import assert_tree_close, cross, hold_step, spy_on_apply
 
 ARCH = "granite-3-2b"
 B, S = 4, 32
-
-
-def _np(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().numpy()
-    return np.asarray(x, np.float32)
 
 
 def _flat(tree, prefix=()):
@@ -51,20 +47,6 @@ def _flat(tree, prefix=()):
             out.update(_flat(v, prefix + (k,)))
         return out
     return {prefix: tree}
-
-
-def _assert_tree_close(got, want, tol, scale=None, what=""):
-    """Every leaf within ``tol`` of ``scale`` (default: the leaf's largest
-    element, at least 1e-30)."""
-    g, w = _flat(got), _flat(want)
-    assert set(g) == set(w), what
-    for path in w:
-        a, b = _np(g[path]), _np(w[path])
-        assert a.shape == b.shape, (what, path)
-        s = scale if scale is not None else max(float(np.abs(b).max()),
-                                                1e-30)
-        err = float(np.abs(a - b).max())
-        assert err <= tol * s, f"{what} {'/'.join(path)}: {err} > {tol} * {s}"
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +72,7 @@ def test_lm_loss_and_grads_match_jax(ref, mesh):
     tl, tg = ST.loss_and_grads(tm, tp, tb)
     assert tl.dtype == torch.float32 and tl.shape == ()
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
-    _assert_tree_close(tg, jg, 1e-4, what="grad")
+    assert_tree_close(tg, jg, 1e-4, what="grad")
     assert float(tm.loss(tp, tb)) == pytest.approx(float(tl), rel=1e-7)
 
 
@@ -110,16 +92,34 @@ def test_remat_equals_no_remat(ref, remat):
 
 
 @pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_matches_jax(ref, mesh, accum):
+def test_train_step_matches_jax(ref, mesh, accum, monkeypatch):
     """Two train steps from the same weights and batches (warmup 1, so
     the first step's lr is 0 and the second's is the peak): loss, gnorm,
-    lr, every parameter, mu and nu against the reference's
-    ``make_train_step``."""
+    lr, mu and nu against the reference's ``make_train_step``; the
+    gradients the port's step used (the mean of ``accum`` micro-batches')
+    against the reference's at the same parameters, and every parameter,
+    mu and nu against the reference's AdamW on those gradients
+    (``torch_cross.hold_step``)."""
     jm, jp, tm, tp = ref
     kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10,
               grad_accum=accum)
     jstep = jax.jit(JST.make_train_step(jm, JTrainConfig(**kw)))
     tcfg = TrainConfig(**kw)
+    japply = jax.jit(lambda p, g, o: JADAMW.apply(
+        p, g, o, JTrainConfig(**kw), jax_lr_at(o.step, JTrainConfig(**kw))))
+    vg = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_lm_loss(p, b, jm.cfg, mesh, ())))
+
+    def ref_grads(p, jb):
+        """The reference step's gradient at p: the mean over the
+        micro-batches, summed in f32 as its scan sums them."""
+        n = B // accum
+        with mesh:
+            gs = [vg(p, {k: v[i * n:(i + 1) * n] for k, v in jb.items()})[1]
+                  for i in range(accum)]
+        return jax.tree.map(lambda *g: sum(g) / accum, *gs)
+
+    seen = spy_on_apply(monkeypatch)
     tstep = ST.make_train_step(tm, tcfg)
     jstate = {"params": jp, "opt": JADAMW.init(jp, JTrainConfig(**kw))}
     tstate = {"params": adamw.tree_map(torch.clone, tp),
@@ -135,11 +135,11 @@ def test_train_step_matches_jax(ref, mesh, accum):
                                    rtol=1e-4)
         assert float(tm_["lr"]) == pytest.approx(float(jm_["lr"]), rel=1e-6)
         assert int(tstate["opt"].step) == int(jstate["opt"].step) == step + 1
-        _assert_tree_close(tstate["params"], jstate["params"], 1e-3,
-                           scale=kw["learning_rate"], what="params")
-        _assert_tree_close(tstate["opt"].mu, jstate["opt"].mu, 1e-4,
+        hold_step(tstate, seen[-1], japply, lambda p: ref_grads(p, jb),
+                  1e-4, kw["learning_rate"], what=f"step {step}")
+        assert_tree_close(tstate["opt"].mu, jstate["opt"].mu, 1e-4,
                            what="mu")
-        _assert_tree_close(tstate["opt"].nu, jstate["opt"].nu, 1e-4,
+        assert_tree_close(tstate["opt"].nu, jstate["opt"].nu, 1e-4,
                            what="nu")
 
 

@@ -11,9 +11,10 @@ cache (its expert layer runs under ``shard_map``, which costs seconds a
 call eagerly). Tolerances, f32: the loss 1e-5 relative and every
 gradient leaf 1e-4 of its largest element (the same arithmetic summed in
 another order); after a train step, parameters within 1e-3 of the
-learning rate and the moments within 1e-4 of their largest element. The
-moe family is held in f32 only: a bf16 rounding moves tokens between
-experts.
+learning rate and the moments within 1e-4 of their largest element of
+the reference's AdamW applied to the port's own gradients
+(``torch_cross.hold_step``). The moe family is held in f32 only: a
+bf16 rounding moves tokens between experts.
 """
 import jax
 import numpy as np
@@ -25,13 +26,15 @@ from repro.data import tokens as JDATA
 from repro.launch import steps as JST
 from repro.models.lm import lm_loss as jax_lm_loss
 from repro.optim import adamw as JADAMW
+from repro.optim.schedule import lr_at as jax_lr_at
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.launch import steps as ST
 from repro_torch.launch import train as TR
 from repro_torch.models import moe as M
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw
-from torch_cross import cross, leaves
+from torch_cross import (assert_tree_close, cross, hold_step, leaves,
+                         spy_on_apply)
 
 B, S = 2, 24
 DEEPSEEK, LLAMA4 = "deepseek-v3-671b", "llama4-scout-17b-a16e"
@@ -69,26 +72,6 @@ def _batch(cfg, step=0):
     return jb, tb
 
 
-def _assert_tree_close(got, want, tol, scale=None, what="", global_for=()):
-    """Every leaf within ``tol`` of ``scale`` (default: the leaf's largest
-    element, at least 1e-30; for the paths in ``global_for``, the largest
-    element of the whole tree)."""
-    g, w = leaves(got), leaves(want)
-    assert set(g) == set(w), what
-    top = max(float(np.abs(np.asarray(x, np.float32)).max())
-              for x in w.values())
-    for path in w:
-        a = g[path].detach().float().numpy()
-        b = np.asarray(w[path], np.float32)
-        assert a.shape == b.shape, (what, path)
-        s = scale if scale is not None else max(float(np.abs(b).max()),
-                                                1e-30)
-        if path in global_for:
-            s = top
-        err = float(np.abs(a - b).max())
-        assert err <= tol * s, f"{what} {'/'.join(path)}: {err} > {tol} * {s}"
-
-
 @pytest.mark.parametrize("case", list(CASES))
 def test_loss_and_grads_match_jax(models, mesh, case):
     """The loss (with the MTP loss at 0.3 where the config has one) and
@@ -107,7 +90,7 @@ def test_loss_and_grads_match_jax(models, mesh, case):
     assert tl.dtype == torch.float32 and tl.shape == ()
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     top1 = tm.cfg.moe is not None and tm.cfg.moe.top_k == 1
-    _assert_tree_close(tg, jg, 1e-4, what=f"{case} grad", global_for=[
+    assert_tree_close(tg, jg, 1e-4, what=f"{case} grad", global_for=[
         p for p in leaves(tg) if top1 and p[-1] == "router"])
     assert ("mtp" in tg) == bool(tm.cfg.mtp_depth)
     for path, g in leaves(tg).items():
@@ -153,11 +136,14 @@ def test_only_the_router_bias_may_go_unreached():
         ST.loss_and_grads(Stub(), {**ok, "attn": {"bias": torch.ones(3)}}, x)
 
 
-def test_train_step_matches_jax(models, mesh):
+def test_train_step_matches_jax(models, mesh, monkeypatch):
     """Two deepseek-v3 train steps (MLA, MoE, MTP) from the same weights
     and batches (warmup 1, so the first step's lr is 0 and the second's
-    the peak): loss, gnorm, lr, every parameter, mu and nu against the
-    reference's ``make_train_step``. AdamW's eps is 1e-6: an expert that
+    the peak): loss, gnorm, lr, mu and nu against the reference's
+    ``make_train_step``; the gradients the port's step used against the
+    reference's at the same parameters, and every parameter, mu and nu
+    against the reference's AdamW on those gradients
+    (``torch_cross.hold_step``). AdamW's eps is 1e-6: an expert that
     few tokens reach has gradient elements near 1e-8, whose f32 rounding
     differs between the packages by about 1e-3 of themselves, and at
     eps = 1e-8 Adam scales each such element to a step of about lr, so
@@ -167,6 +153,11 @@ def test_train_step_matches_jax(models, mesh):
     kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10, eps=1e-6)
     jstep = jax.jit(JST.make_train_step(jm, JTrainConfig(**kw)))
     tcfg = TrainConfig(**kw)
+    japply = jax.jit(lambda p, g, o: JADAMW.apply(
+        p, g, o, JTrainConfig(**kw), jax_lr_at(o.step, JTrainConfig(**kw))))
+    vg = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_lm_loss(p, b, jm.cfg, mesh, ())))
+    seen = spy_on_apply(monkeypatch)
     tstep = ST.make_train_step(tm, tcfg)
     jstate = {"params": jp, "opt": JADAMW.init(jp, JTrainConfig(**kw))}
     tstate = {"params": adamw.tree_map(torch.clone, tp),
@@ -182,11 +173,12 @@ def test_train_step_matches_jax(models, mesh):
                                    float(jmet["gnorm"]), rtol=1e-4)
         assert float(tmet["lr"]) == pytest.approx(float(jmet["lr"]),
                                                   rel=1e-6)
-        _assert_tree_close(tstate["params"], jstate["params"], 1e-3,
-                           scale=kw["learning_rate"], what="params")
-        _assert_tree_close(tstate["opt"].mu, jstate["opt"].mu, 1e-4,
+        with mesh:
+            hold_step(tstate, seen[-1], japply, lambda p: vg(p, jb)[1],
+                      1e-4, kw["learning_rate"], what=f"step {step}")
+        assert_tree_close(tstate["opt"].mu, jstate["opt"].mu, 1e-4,
                            what="mu")
-        _assert_tree_close(tstate["opt"].nu, jstate["opt"].nu, 1e-4,
+        assert_tree_close(tstate["opt"].nu, jstate["opt"].nu, 1e-4,
                            what="nu")
 
 

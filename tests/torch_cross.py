@@ -13,6 +13,15 @@ drops or misplaces them, so the draw moves each by N(0, 0.1^2) noise;
 and :func:`reference_inits` runs that init under several
 ``PYTHONHASHSEED`` salts, one process each (the hybrid, ssm and encdec
 tests).
+
+The train-step tests hold the port's optimizer step with
+:func:`spy_on_apply` and :func:`hold_step`: the gradients the port's step
+used against the reference's at the same parameters, and the port's
+parameters and moments after the step against the reference's AdamW
+applied to those same gradients. Held against the reference's whole
+trajectory instead, an element whose gradient sits near AdamW's eps turns
+f32 rounding of its gradient into a parameter difference of ~1e-3 of the
+learning rate.
 """
 import dataclasses
 import os
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from repro.configs import get_config as jax_config
+from repro.optim import adamw as JADAMW
 from repro.models.param import tree_map_descs as jax_tree_map_descs
 from repro.models.registry import get_model as jax_model
 from repro_torch.configs import get_config
@@ -193,3 +203,61 @@ def reference_inits(arch: str, descs: str, out_dir, seeds):
                     node[last] = z[name]
         return trees
     return collect
+
+
+def assert_tree_close(got, want, tol, scale=None, what="", global_for=()):
+    """Every leaf of ``got`` within ``tol`` of ``scale`` of ``want``'s
+    (default: the leaf's largest element, at least 1e-30; for the paths
+    in ``global_for``, the largest element of the whole tree)."""
+    g, w = leaves(got), leaves(want)
+    assert set(g) == set(w), what
+    top = max(float(np.abs(to_np(x)).max(initial=0.0)) for x in w.values())
+    for path in w:
+        a, b = to_np(g[path]), to_np(w[path])
+        assert a.shape == b.shape, (what, path)
+        s = scale if scale is not None else max(float(np.abs(b).max(
+            initial=0.0)), 1e-30)
+        if path in global_for:
+            s = top
+        err = float(np.abs(a - b).max(initial=0.0))
+        assert err <= tol * s, f"{what} {'/'.join(path)}: {err} > {tol} * {s}"
+
+
+def spy_on_apply(monkeypatch):
+    """A list that receives, at each call of the port's ``adamw.apply``
+    (the optimizer step inside ``launch.steps.make_train_step``), copies
+    of its (params, grads, opt state)."""
+    seen = []
+    real = adamw.apply
+    copy = lambda tree: adamw.tree_map(lambda t: t.detach().clone(), tree)
+
+    def spy(params, grads, opt, cfg, lr, inplace=False):
+        seen.append((copy(params), copy(grads), adamw.OptState(
+            opt.step.clone(), copy(opt.mu), copy(opt.nu))))
+        return real(params, grads, opt, cfg, lr, inplace=inplace)
+    monkeypatch.setattr(adamw, "apply", spy)
+    return seen
+
+
+def hold_step(state, inputs, japply, ref_grads, grad_tol, lr, what="",
+              global_for=()):
+    """The port's f32 train step, element by element. ``inputs``: the
+    (params, grads, opt state) it passed to ``adamw.apply``
+    (:func:`spy_on_apply`); ``state``: the state it returned. The port's
+    gradients within ``grad_tol`` (of each leaf's largest element, or the
+    tree's for ``global_for``) of ``ref_grads(params)``, the reference's
+    gradients at the same parameters (as JAX arrays); the parameters
+    within 1e-3 of ``lr`` and mu and nu within 1e-4 of their largest
+    element of ``japply(params, grads, opt)``, the reference's AdamW step
+    (jitted, its ``lr_at`` of the step) on the port's own gradients."""
+    params, grads, opt = inputs
+    assert all(t.dtype == torch.float32 for t in adamw.leaves(params))
+    j = lambda tree: adamw.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
+    assert_tree_close(grads, ref_grads(j(params)), grad_tol,
+                      what=f"{what} grad", global_for=global_for)
+    want, wopt, _ = japply(j(params), j(grads), JADAMW.OptState(
+        jnp.asarray(opt.step.numpy()), j(opt.mu), j(opt.nu)))
+    assert_tree_close(state["params"], want, 1e-3, scale=lr,
+                      what=f"{what} params")
+    assert_tree_close(state["opt"].mu, wopt.mu, 1e-4, what=f"{what} mu")
+    assert_tree_close(state["opt"].nu, wopt.nu, 1e-4, what=f"{what} nu")

@@ -20,13 +20,18 @@ ping-pong kernel the forced one-schedule wgmma kernel's µs beside it
 (``k6_wgmma_us``), and, where it gives K7 the fused design, the forced
 three-kernel design's µs beside it; SDPA's
 forward and backward (forward + backward minus forward) at the shapes
-where D == Dv, as the yardstick. The kernels build into the tree's own
+where D == Dv, as the yardstick; and ``digest``, a SHA-256 of the bits of
+every output it made (K6's rule and forced-wgmma outputs, K7's gradients
+by the rule's design and the forced three-kernel one) on inputs drawn
+from one seed, so two trees' runs show whether their outputs are the
+same bits. The kernels build into the tree's own
 ``build/``. To compare two trees, run this for each in turns (A, B, B,
 A) inside one call on one card. Exits 1 without a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -87,7 +92,13 @@ def main() -> int:
                 q, k, v, o, lse, do, group=G, causal=causal,
                 force_variant=force)
         v7 = k7_rule(q.dtype, D, Dv)
+        outs = [fwd(), bwd()()]
+        if K.variant(q.dtype, D, Dv) == "pingpong":
+            outs.append(fwd_forced("wgmma")())
+        if v7 == "fused":
+            outs.append(bwd("wgmma")())
         row = {"variant": K.variant(q.dtype, D, Dv), "k7_variant": v7,
+               "digest": digest(outs),
                "k6_us": device_us(K.KERNEL, fwd, 10),
                "k7_us": device_us(BK.KERNEL, bwd(), 5)}
         if row["variant"] == "pingpong":
@@ -111,6 +122,16 @@ def main() -> int:
     print(json.dumps({"card": card, "tag": args.tag, "src": args.src,
                       "shapes": rows}), flush=True)
     return 0
+
+
+def digest(outs) -> str:
+    """SHA-256 of the bits of a list of tensors and tuples of tensors."""
+    h = hashlib.sha256()
+    for out in outs:
+        for t in (out if isinstance(out, tuple) else (out,)):
+            h.update(t.contiguous().view(torch.int16).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
 
 
 def split_or_none(device_split, fn, names):
