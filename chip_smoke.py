@@ -1933,7 +1933,13 @@ OFFSET_CASES = (
     ("granite f32", SERVE_B * 32, 1024, 1024, 64, 64, 4, "float32",
      (37, 128)),
 )
-OFFSET_BLOCK = 512          # granite-3-2b's block_train query offset
+OFFSET_BLOCK = 512          # granite-3-2b's block_train query offset (+/-)
+
+
+def negative_offsets(Sq):
+    """The negative offsets each OFFSET_CASES shape also runs: rows ..37
+    and ..128 keep no key, and at -Sq none keeps one."""
+    return (-37, -128, -Sq)
 
 
 def hold_offset(tag, BH, Sq, Sk, D, Dv, group, dtype, off, gen, dev):
@@ -2006,10 +2012,106 @@ def hold_offset(tag, BH, Sq, Sk, D, Dv, group, dtype, off, gen, dev):
             "lse": lse_err, "variants": (v6, v7)}
 
 
-def offset_block_check(dev):
+def hold_negative_offset(tag, BH, Sq, Sk, D, Dv, group, dtype, off, gen,
+                         dev):
+    """``ops.flash_attention`` at a negative query offset ``off``, forward
+    and backward by autograd (``FlashAttention``): rows ..n0 = min(-off,
+    Sq) keep no key and get the f32 mean of v over all Sk keys, rows n0..
+    are the offset-0 problem on K6 and K7 (the rules' variants). It must
+    launch K6 and K7 once each, or neither when n0 = Sq, and make no plain
+    call; the key-less rows are held against the f32 mean of v (f32: 1e-6
+    absolute; bf16: one bf16 rounding of it), and the output and dq, dk,
+    dv against the same call under ``backend="ref"``: f32 within ATT_TOL
+    and BWD_TOL of max |grad|; bf16 within ATT_TOL and no further from
+    the f32 plain run than the bf16 plain run is (x B_RATIO), output and
+    gradients. Returns {"k6", "k7": error, "ratio6", "ratio7", "n0",
+    "variants"}."""
+    import torch
+    from repro_torch.kernels.flash_attention import bwd_kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+
+    dt = getattr(torch, dtype)
+    v6, v7 = K.variant(dt, D, Dv), BK.variant(dt, D, Dv)
+    name = f"{tag} {dtype} q_offset {off}"
+    n0 = min(-off, Sq)
+    q, k, v = attention_inputs(gen, dev, BH, Sq, Sk, D, Dv, group, dt)
+    do = torch.randn(BH, Sq, Dv, generator=gen, device=dev).to(dt)
+
+    def run(backend, ins, dout):
+        ts = [t.detach().clone().requires_grad_() for t in ins]
+        o = ops.flash_attention(*ts, group=group, causal=True,
+                                backend=backend, q_offset=off)
+        return o.detach(), torch.autograd.grad(o, ts, dout)
+
+    before = [dict(kern.launches_by_variant) for kern in (K.KERNEL,
+                                                          BK.KERNEL)]
+    with PlainCalls() as plain:
+        o, got = run(None, (q, k, v), do)
+    torch.cuda.synchronize()
+    n = int(n0 < Sq)
+    require(K.KERNEL.launches_by_variant == {**before[0],
+                                             v6: before[0][v6] + n}
+            and BK.KERNEL.launches_by_variant == {**before[1],
+                                                  v7: before[1][v7] + n}
+            and plain.calls == 0,
+            f"flash_attention ({name}) launched K6 "
+            f"{K.KERNEL.launches_by_variant} and K7 "
+            f"{BK.KERNEL.launches_by_variant} from {before} with "
+            f"{plain.calls} plain calls, expected {n} {v6} and {n} {v7}")
+    require(bool(torch.isfinite(o.float()).all())
+            and all(bool(torch.isfinite(g.float()).all()) for g in got),
+            f"flash_attention ({name}) gave non-finite values")
+    mean = (v.float().sum(1) / Sk)[torch.arange(BH, device=dev) // group]
+    mean_err = float((o[:, :n0].float() - mean[:, None]).abs().max())
+    mean_tol = 1e-6 if dt == torch.float32 else 1e-6 + 2 ** -8 * float(
+        mean.abs().max())
+    require(mean_err <= mean_tol,
+            f"flash_attention ({name}): the {n0} key-less rows are "
+            f"{mean_err:.3e} from the f32 mean of v (tolerance {mean_tol:g})")
+    want_o, want = run("ref", (q, k, v), do)
+    diff = (o.float() - want_o.float()).abs()
+    tol = ATT_TOL[dtype]
+    err6 = float(diff.max())
+    require(float((diff - tol * want_o.float().abs()).max()) <= tol,
+            f"flash_attention ({name}) differs from its plain version: max "
+            f"abs err {err6:.3e}, tolerance {tol:g} abs + rel")
+    err7, ratio6, ratio7 = grad_err(got, want), None, None
+    if dt == torch.float32:
+        require(err7 <= BWD_TOL, f"flash_attention's gradient ({name}) "
+                                 f"differs from its plain version: "
+                                 f"{err7:.3e} of max |grad| > {BWD_TOL:g}")
+    else:
+        o32, g32 = run("ref", [t.float() for t in (q, k, v)], do.float())
+        out_k = float((o.float() - o32).abs().max())
+        out_p = float((want_o.float() - o32).abs().max())
+        err_k, err_p = grad_err(got, g32), grad_err(want, g32)
+        ratio6 = out_k / out_p if out_p else 1.0
+        ratio7 = err_k / err_p if err_p else 1.0
+        require(out_k <= B_RATIO * out_p and err_k <= B_RATIO * err_p,
+                f"flash_attention ({name}) is {out_k:.3e} (output) and "
+                f"{err_k:.3e} (of max |grad|) from the f32 plain run, more "
+                f"than {B_RATIO:g} x the bf16 plain run's {out_p:.3e} and "
+                f"{err_p:.3e}")
+        del o32, g32
+    del q, k, v, do, o, got, want_o, want
+    torch.cuda.empty_cache()
+    log(f"[offset] {name}: {n0} key-less rows ({mean_err:.3e} from the f32 "
+        f"mean of v); K6 {v6 if n else 'none'} max abs err vs plain "
+        f"{err6:.3e}"
+        + ("" if ratio6 is None else f" (bf16 distance ratio {ratio6:.3f})")
+        + f"; K7 {v7 if n else 'none'} {err7:.3e} of max |grad| vs plain"
+        + ("" if ratio7 is None else f" (bf16 distance ratio {ratio7:.3f})"))
+    return {"k6": err6, "k7": err7, "ratio6": ratio6, "ratio7": ratio7,
+            "n0": n0, "mean": mean_err, "variants": (v6, v7)}
+
+
+def offset_block_check(dev, q_offset=OFFSET_BLOCK):
     """granite-3-2b's ``block_train`` at full width (d 2048, 32 / 8 heads
     of 64, its 8192-wide FFN; seeded random weights) over positions
-    OFFSET_BLOCK.. of TRAIN_B x TRAIN_S tokens, forward and backward
+    ``q_offset``.. of TRAIN_B x TRAIN_S tokens (at -OFFSET_BLOCK the
+    first 512 rows keep no key, and K6 and K7 take the rest at offset 0),
+    forward and backward
     (the gradients of x and of every parameter, one seeded cotangent):
     bf16 with the kernels, the path whose launches the counts read (K6
     once on its pingpong kernel, K7 once on its fused kernels), bf16
@@ -2042,8 +2144,7 @@ def offset_block_check(dev):
         p = adamw.tree_map(lambda t: t.to(dt).detach().requires_grad_(),
                            params)
         xin = x.to(dt).requires_grad_()
-        y = LM.block_train(p, xin, c, backend=backend,
-                           q_offset=OFFSET_BLOCK)
+        y = LM.block_train(p, xin, c, backend=backend, q_offset=q_offset)
         grads = torch.autograd.grad(y, [xin] + adamw.leaves(p), dy.to(dt))
         return y.detach().float(), [g.float() for g in grads]
 
@@ -2080,7 +2181,7 @@ def offset_block_check(dev):
     (ok, gk16), (op, gp16) = dist(runs["bf16 kernels"]), dist(
         runs["bf16 plain"])
     log(f"[offset] granite-3-2b block_train at full width, B={TRAIN_B} x "
-        f"{TRAIN_S} over positions {OFFSET_BLOCK}..: f32 kernels vs plain "
+        f"{TRAIN_S} over positions {q_offset}..: f32 kernels vs plain "
         f"{out32:.3e} (output, of max; held <= {A_TOL:g}), {grad32:.3e} "
         f"(worst gradient; held <= {MOE_GRAD_TOL:g}); bf16 from the f32 "
         f"plain run: output kernels {ok:.3e}, plain {op:.3e}; worst "
@@ -2096,35 +2197,49 @@ def offset_block_check(dev):
 
 def offset_phase(dev):
     """[offset]: K6 and K7 at query offsets on every variant, by
-    :func:`hold_offset` over OFFSET_CASES (their launches counted by
-    variant from 0, and every variant of each required), then
-    granite-3-2b's ``block_train`` with ``q_offset`` = OFFSET_BLOCK
-    (:func:`offset_block_check`, launch counts from 0). Returns (the
-    block path's launches {kernel: n}, the checks' launches {kernel:
-    {variant: n}}, the errors {case: ...})."""
+    :func:`hold_offset` over OFFSET_CASES, then ``ops.flash_attention``
+    at each shape's :func:`negative_offsets` by
+    :func:`hold_negative_offset` (the launches of each set counted by
+    variant from 0, and every variant of each kernel required in both),
+    then granite-3-2b's ``block_train`` with ``q_offset`` = OFFSET_BLOCK
+    and -OFFSET_BLOCK (:func:`offset_block_check`, launch counts from 0
+    for each). Returns (the block paths' launches {kernel: n}, summed
+    over both offsets, and by offset, the checks' launches {kernel:
+    {variant: n}} at offsets >= 0 and at negative ones, the errors {case:
+    ...})."""
+    import time
+
     import torch
     from repro_torch.kernels.flash_attention import bwd_kernel as BK
     from repro_torch.kernels.flash_attention import kernel as K
 
     gen = torch.Generator(device=dev).manual_seed(47)
-    K.KERNEL.reset_counts()
-    BK.KERNEL.reset_counts()
-    errs = {}
-    for tag, BH, Sq, Sk, D, Dv, group, dtype, offsets in OFFSET_CASES:
-        for off in offsets:
-            errs[f"{tag} {off}"] = hold_offset(tag, BH, Sq, Sk, D, Dv, group,
-                                               dtype, off, gen, dev)
-    checked = {kern.name: dict(kern.launches_by_variant)
-               for kern in (K.KERNEL, BK.KERNEL)}
-    for kern, names in ((K.KERNEL, ("pingpong", "wgmma", "simt")),
-                        (BK.KERNEL, ("fused", "wgmma", "simt"))):
-        require(all(checked[kern.name][n] > 0 for n in names),
-                f"[offset] {kern.name} did not launch every variant "
-                f"at an offset: {checked[kern.name]}")
-    log(f"[offset] the checks' launches by variant: {checked}")
-    launched = offset_block_check(dev)
-    return ({n: sum(by.values()) for n, by in launched.items()}, checked,
-            errs)
+    errs, checked = {}, {}
+    for sign, hold in (("positive", hold_offset),
+                       ("negative", hold_negative_offset)):
+        t0 = time.perf_counter()
+        K.KERNEL.reset_counts()
+        BK.KERNEL.reset_counts()
+        for tag, BH, Sq, Sk, D, Dv, group, dtype, offs in OFFSET_CASES:
+            for off in (offs if sign == "positive" else negative_offsets(Sq)):
+                errs[f"{tag} {off}"] = hold(tag, BH, Sq, Sk, D, Dv, group,
+                                            dtype, off, gen, dev)
+        checked[sign] = {kern.name: dict(kern.launches_by_variant)
+                         for kern in (K.KERNEL, BK.KERNEL)}
+        for kern, names in ((K.KERNEL, ("pingpong", "wgmma", "simt")),
+                            (BK.KERNEL, ("fused", "wgmma", "simt"))):
+            require(all(checked[sign][kern.name][n] > 0 for n in names),
+                    f"[offset] {kern.name} did not launch every variant "
+                    f"at a {sign} offset: {checked[sign][kern.name]}")
+        log(f"[offset] the checks' launches by variant at {sign} offsets: "
+            f"{checked[sign]} ({time.perf_counter() - t0:.1f} s)")
+    by_offset = {}
+    for off in (OFFSET_BLOCK, -OFFSET_BLOCK):
+        launched = offset_block_check(dev, off)
+        by_offset[off] = {n: sum(by.values()) for n, by in launched.items()}
+    total = {n: sum(by[n] for by in by_offset.values())
+             for n in by_offset[OFFSET_BLOCK]}
+    return total, by_offset, checked, errs
 
 
 # -- the unfused path ----------------------------------------------------------
@@ -5458,16 +5573,22 @@ def main() -> int:
 
     clocks("kernel", "end")
 
-    # 3b. K6 and K7 at query offsets on every variant, and granite-3-2b's
-    # block_train over positions 512.. (launch counts start at 0)
-    offset_launches, offset_checked, offset_errs = phase("offset",
-                                                         offset_phase, dev)
+    # 3b. K6 and K7 at query offsets on every variant, ops.flash_attention
+    # at negative ones, and granite-3-2b's block_train over positions
+    # 512.. and -512.. (launch counts start at 0)
+    offset_launches, offset_by_offset, offset_checked, offset_errs = phase(
+        "offset", offset_phase, dev)
     for c in checks:
-        if c["kernel"].name in offset_checked:
+        kname = c["kernel"].name
+        if kname in offset_checked["positive"]:
             c["offset"] = {"launches_by_variant":
-                           offset_checked[c["kernel"].name],
-                           "block_train_launches":
-                           offset_launches[c["kernel"].name],
+                           offset_checked["positive"][kname],
+                           "negative_launches_by_variant":
+                           offset_checked["negative"][kname],
+                           "block_train_launches": offset_launches[kname],
+                           "block_train_launches_by_offset":
+                           {str(off): by[kname]
+                            for off, by in offset_by_offset.items()},
                            "errs": {case: {"k6": e["k6"], "k7": e["k7"]}
                                     for case, e in offset_errs.items()}}
 

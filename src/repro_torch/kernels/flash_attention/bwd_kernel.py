@@ -87,7 +87,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int = 1,
     f32 from K6 -> (dq, dk, dv) in the inputs' dtype. Head dims up to
     :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk, and K6's
     causal mask at query offset ``q_offset`` >= 0 (every design takes
-    it; a negative offset raises ValueError). One call
+    it; a negative offset raises ValueError: at a key-less row p = exp(s
+    - lse) is not the forward's softmax, as ``ref.check_q_offset`` says,
+    and ``ops.FlashAttention`` takes those rows' gradient itself). One call
     launches the chosen design's three kernels: :func:`variant`'s, or
     under ``force_variant`` the SIMT ones (``"simt"``) or the three-kernel
     tensor-core ones (``"wgmma"``, also where the rule names ``"fused"``),

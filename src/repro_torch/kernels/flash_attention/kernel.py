@@ -247,9 +247,11 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     dims up to :data:`MAX_HEAD_DIM` (D != Dv allowed), any Sq and Sk.
     Under the causal mask query row i sits at position ``q_offset`` + i
     and keeps keys 0..q_offset + i (``q_offset`` >= 0; 0 is the TPU
-    kernel's top-left mask; a negative offset raises ValueError); every
-    variant takes it, and an offset past Sk - 1 is passed as Sk, which
-    keeps every key as well. The
+    kernel's top-left mask; a negative offset raises ValueError, for the
+    reason ``ref.check_q_offset`` gives, and ``ops.flash_attention``
+    splits the rows it would leave key-less off before it calls this);
+    every variant takes it, and an offset past Sk - 1 is passed as Sk,
+    which keeps every key as well. The
     kernel is :func:`variant`'s; ``force_variant="simt"`` runs the SIMT
     kernel on any inputs and ``"wgmma"`` the one-schedule tensor-core
     kernel at any of :data:`WGMMA_HEAD_DIMS` (beside ``"pingpong"`` at

@@ -7,7 +7,9 @@ the reference's ``_flash_core_bwd`` (``repro.models.attention``).
 The causal mask is the reference's ``chunked_attention``'s: query row i
 sits at position ``q_offset + i`` and keeps key j when j <= q_offset + i,
 keys counting from 0 (``q_offset`` = 0: the TPU kernel's top-left mask;
-an offset >= Sk - 1 keeps every key). A negative offset raises.
+an offset >= Sk - 1 keeps every key). A negative offset raises here, as
+in K6 and K7: ``ops.flash_attention`` splits off the rows that would keep
+no key before it calls any of them.
 
 Arithmetic is in f32 for f32 and bf16 inputs (in f64 for f64 inputs,
 which only the gradient checks use)."""
@@ -21,10 +23,14 @@ NEG_INF = -1e30
 
 
 def check_q_offset(q_offset) -> int:
-    """``q_offset`` as an int; ValueError if it is negative: the first
-    rows would keep no key, and the reference, whose -1e30 mask is
-    finite, gives each such row the plain mean of v, which neither the
-    plain versions nor the kernels compute."""
+    """``q_offset`` as an int; ValueError if it is negative. The
+    kernel-level entries (K6, K7 and these plain versions) take offsets
+    >= 0 only: the TPU kernel ``flash_attention_pallas`` has no offset,
+    and at a row that keeps no key the lse is the mask's -1e30 (log Sk is
+    lost in f32), so the backward's p = exp(s - lse) would be 1 on every
+    key where the forward's is 1 / Sk: the reference's ``_flash_core_bwd``
+    makes that error, and this form would copy it. ``ops.flash_attention``
+    gives such rows the mean of v and its true gradient instead."""
     q_offset = operator.index(q_offset)
     if q_offset < 0:
         raise ValueError(f"q_offset={q_offset}: the query offset must be "

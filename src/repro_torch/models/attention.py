@@ -52,10 +52,12 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     k: (B,Sk,KH,D); v: (B,Sk,KH,Dv) -> (B,Sq,H,Dv). Query head h reads kv
     head h // (H // KH), as in the reference; ``scale`` defaults to
     D ** -0.5. Under the causal mask query row i sits at position
-    ``q_offset`` + i and keeps keys 0..q_offset + i, keys counting from 0
-    (``q_offset`` >= 0, the reference's rule; an offset >= Sk - 1 keeps
-    every key); a negative offset raises ValueError, where the reference
-    would give the first rows no key."""
+    ``q_offset`` + i and keeps keys 0..q_offset + i, keys counting from 0,
+    the reference's rule at any integer offset: one >= Sk - 1 keeps every
+    key, and under a negative one the first -q_offset rows keep none and
+    get the mean of v over all keys, as the reference's finite mask gives
+    them (``ops.flash_attention`` splits them off; their gradient is the
+    true one). Without the mask the offset is ignored."""
     B, Sq, H, D = q.shape
     Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     # (B, S, H, D) -> (B*H, S, D): bh = b*H + kh*G + g, so bh // G is the

@@ -865,23 +865,80 @@ _OFFSET_CASES = [
                     ("wgmma", "simt"))]
 
 
-@pytest.mark.parametrize("off", [37, 128, 1000])
+def _hold_negative_offset(monkeypatch, q, k, v, do, group, variant, forced,
+                          off):
+    """``ops.flash_attention`` at a negative offset, forward and backward
+    by autograd, with K6 on ``variant`` and K7 on its design beside it
+    (the rules, or ``forced`` through both rules): one launch of each, or
+    none when no row keeps a key; the output and gradients against the
+    same call under ``backend="ref"`` (f32 within 2e-5, of max |grad| for
+    the gradients; bf16 within 2e-2 and no further from the f32 plain
+    run than the bf16 plain run, x1.5); the key-less rows against the f32
+    mean of v."""
+    BH, Sq, _ = q.shape
+    Sk = k.shape[1]
+    n0 = min(-off, Sq)
+    design = BK.variant(q.dtype, q.shape[2], v.shape[2])
+    if forced is not None:
+        monkeypatch.setattr(AK, "variant", lambda *a: forced)
+        monkeypatch.setattr(BK, "variant", lambda *a: forced)
+        design = forced
+
+    def run(backend, ins, dout):
+        ts = [t.detach().clone().requires_grad_() for t in ins]
+        o = FA.flash_attention(*ts, group=group, q_offset=off,
+                               backend=backend)
+        return [o.detach()] + list(torch.autograd.grad(o, ts, dout))
+    b6 = dict(AK.KERNEL.launches_by_variant)
+    b7 = dict(BK.KERNEL.launches_by_variant)
+    got = run(None, (q, k, v), do)
+    torch.cuda.synchronize()
+    n = int(n0 < Sq)
+    assert AK.KERNEL.launches_by_variant == {**b6, variant: b6[variant] + n}
+    assert BK.KERNEL.launches_by_variant == {**b7, design: b7[design] + n}
+    want = run("ref", (q, k, v), do)
+    mean = v.float().sum(1) / Sk
+    mean = mean[torch.arange(BH, device=q.device) // group][:, None]
+    torch.testing.assert_close(
+        got[0][:, :n0].float(), mean.expand(-1, n0, -1), atol=1e-6,
+        rtol=0 if q.dtype == torch.float32 else 2 ** -8)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
+        assert _grad_err(got[1:], want[1:]) <= 2e-5
+        return
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2,
+                               atol=2e-2)
+    f32 = run("ref", [t.float() for t in (q, k, v)], do.float())
+    assert _grad_err(got[1:], f32[1:]) <= 1.5 * _grad_err(want[1:], f32[1:])
+
+
+@pytest.mark.parametrize("off", [37, 128, 1000, -37, -128, "-Sq"])
 @pytest.mark.parametrize("BH,Sq,Sk,group", _OFFSET_SHAPES)
 @pytest.mark.parametrize("dtype,D,Dv,variant", _OFFSET_CASES)
-def test_flash_attention_offset_matches_plain(cuda, dtype, D, Dv, variant,
-                                              BH, Sq, Sk, group, off):
+def test_flash_attention_offset_matches_plain(cuda, monkeypatch, dtype, D,
+                                              Dv, variant, BH, Sq, Sk, group,
+                                              off):
     """K6 on each variant and K7 on each design its head dims take (the
     rule's beside K6's rule, else the same one forced), at query offset
     ``off`` (row i keeps keys 0..off + i), against the plain
     versions at the same offset: K6 within 2e-5 (f32) or 2e-2 (bf16), its
     lse within 1e-4; K7 from K6's o and lse, f32 within 2e-5 of max
     |grad|, bf16 no further from the f32 plain gradient than the bf16
-    plain one, x1.5; the tensor-core kernels twice, bit for bit."""
-    q, k, v = _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype, BH + Sq + off)
+    plain one, x1.5; the tensor-core kernels twice, bit for bit. A
+    negative offset (-37, -128, -Sq) goes through ``ops.flash_attention``,
+    which splits off the rows that keep no key
+    (:func:`_hold_negative_offset`)."""
+    off = -Sq if off == "-Sq" else off
+    q, k, v = _qkv(cuda, BH, Sq, Sk, D, Dv, group, dtype,
+                   BH + Sq + abs(off))
     do = torch.randn(BH, Sq, Dv, generator=torch.Generator().manual_seed(
-        off)).to(cuda, dtype)
-    kw = dict(group=group, causal=True, q_offset=off)
+        abs(off))).to(cuda, dtype)
     forced = None if variant == AK.variant(dtype, D, Dv) else variant
+    if off < 0:
+        _hold_negative_offset(monkeypatch, q, k, v, do, group, variant,
+                              forced, off)
+        return
+    kw = dict(group=group, causal=True, q_offset=off)
     o, lse = AK.flash_attention_cuda(q, k, v, force_variant=forced,
                                      with_lse=True, **kw)
     want, want_lse = FR.flash_attention_lse_ref(q, k, v, **kw)

@@ -107,14 +107,22 @@ def test_chunked_attention_matches_jax(rng, B, S, H, KH):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
-def test_chunked_attention_refuses_a_query_offset(rng):
-    """A negative query offset raises (the reference would give the first
-    rows no key); the offsets >= 0 are held against the reference in
-    tests/test_torch_attention_offset.py."""
-    q = torch.zeros(1, 8, 2, 4)
+def test_chunked_attention_negative_offset_matches_jax(rng):
+    """At query offsets -1 and -8 (the first 1 and all 8 rows keep no key,
+    and get the mean of v over all keys from the reference's finite mask)
+    the model-side wrapper agrees with the reference's forward within
+    2e-5; the gradients are held in tests/test_torch_attention_offset.py."""
+    B, S, H, KH, D = 1, 8, 2, 1, 4
+    qj, qt = _both(rng.standard_normal((B, S, H, D)), "float32")
+    kj, kt = _both(rng.standard_normal((B, S, KH, D)), "float32")
+    vj, vt = _both(rng.standard_normal((B, S, KH, D)), "float32")
     for offset in (-1, -8):
-        with pytest.raises(ValueError, match="q_offset"):
-            TA.chunked_attention(q, q, q, q_offset=offset)
+        want = JA.chunked_attention(qj, kj, vj, q_offset=offset, q_chunk=4,
+                                    kv_chunk=4)
+        got = TA.chunked_attention(qt, kt, vt, q_offset=offset)
+        assert got.shape == (B, S, H, D)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5,
+                                   atol=2e-5)
 
 
 def test_flash_decode_matches_jax(rng, mesh):
